@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the wavefront path tracer for one NVIDIA H100,
+beside the JAX package it is tested against. The ray x sphere batteries are
+hand-written CUDA kernels (csrc/); everything else is PyTorch."""
+from .render.api import Renderer, render_image  # noqa: F401
+from .scene import builders  # noqa: F401
+from .utils.config import RendererPolicy  # noqa: F401
+
+__version__ = "0.1.0"

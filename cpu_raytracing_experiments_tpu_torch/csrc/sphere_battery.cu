@@ -1,0 +1,225 @@
+// Ray x sphere batteries of the PyTorch port, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of the JAX package:
+//   sphere_closest  <- ops/pallas/sphere_kernel.py:_closest_kernel
+//                      (driven by intersect_spheres_pallas)
+//   sphere_occluded <- ops/pallas/sphere_kernel.py:_occluded_kernel
+//                      (driven by occluded_spheres_pallas)
+//
+// What they compute. sphere_closest: per ray, the nearest sphere hit, taking
+// the near root b - sqrt(disc), else the far root b + sqrt(disc); tfar =
+// FLT_MAX and prim = -1 on a miss. Spheres are visited in index order with a
+// strict `<`, so the first occurrence wins a tie, across staging chunks too.
+// sphere_occluded: per ray, whether any sphere lies at t in [0, tfar), by the
+// sqrt-free predicate of ops/intersect.py::_sphere_occluded_pairs; a lane
+// with tfar <= 0 never occludes (the predicate is false there, so such lanes
+// skip the loop).
+//
+// Rounding contract: both kernels equal the plain PyTorch versions in
+// ops/kernels/sphere_battery.py bit for bit, on the card. PyTorch evaluates
+// each elementwise op as its own kernel, rounded once, in the order the
+// expression is written; the plain versions fuse the multiply-adds that XLA
+// fuses in the JAX package, through core/fp.py's fma, which is
+// float32(float64(a) * float64(b) + float64(c)). This file evaluates the
+// same operations in the same order: fma32 below for those, and
+// __fmul_rn/__fadd_rn/__fsub_rn, which nvcc never contracts, and IEEE
+// __fsqrt_rn for the rest. Build without --use_fast_math.
+//
+// Bound on an H100. Per ray, closest reads 6 floats and writes tfar + prim
+// (32 B); any-hit reads 7 floats and writes one byte (29 B). Per (ray, sphere)
+// pair, closest does 19 FLOP and one sqrt, any-hit 19 FLOP; the five (four)
+// multiply-adds among them run in double to keep the rounding contract,
+// which costs FP64 rate but moves no bytes. At the hero
+// scene's 9 spheres the battery is bound by memory bytes (2^19 rays x 32 B =
+// 16.8 MB, about 5 us at 3.35 TB/s); at 1000 spheres it is bound by FP32
+// operations (262144 x 1000 pairs x 20 ops = 5.2 GFLOP, about 78 us at
+// 67 TFLOP/s).
+//
+// The simple design: one thread per ray, its ray in registers, so each ray
+// byte is read once and each result written once, coalesced. Blocks stage
+// the sphere table (cx, cy, cz, rsq) through shared memory in chunks of 1024
+// spheres (16 KB) that every thread of the block then reads by broadcast;
+// the ragged last chunk is masked by index, never padded. Any-hit lanes stop
+// at their first occluder, and a block stops staging once all its lanes are
+// done. Warp-level broadcast and several rays per thread are later work.
+
+#include <cfloat>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 1024;  // spheres staged per pass: 1024 x 16 B = 16 KB
+
+struct Ray {
+  float px, py, pz, dx, dy, dz;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* px, const float* py,
+                                        const float* pz, const float* dx,
+                                        const float* dy, const float* dz,
+                                        int i) {
+  return Ray{px[i], py[i], pz[i], dx[i], dy[i], dz[i]};
+}
+
+// core/fp.py's fma: the product is exact in double, the sum rounds to
+// double and then to float.
+__device__ __forceinline__ float fma32(float a, float b, float c) {
+  return __double2float_rn(
+      __fma_rn(static_cast<double>(a), static_cast<double>(b),
+               static_cast<double>(c)));
+}
+
+// b = dx*tx + dy*ty + dz*tz and len2 = |t|^2 as XLA contracts a three-term
+// dot product: fma(z, z', fma(x, x', y*y')).
+struct PairTerms {
+  float b, rsq_minus_len2;
+};
+
+__device__ __forceinline__ PairTerms pair_terms(const Ray& r, float4 s) {
+  const float tx = __fsub_rn(s.x, r.px);
+  const float ty = __fsub_rn(s.y, r.py);
+  const float tz = __fsub_rn(s.z, r.pz);
+  const float b = fma32(r.dz, tz, fma32(r.dx, tx, __fmul_rn(r.dy, ty)));
+  const float len2 = fma32(tz, tz, fma32(tx, tx, __fmul_rn(ty, ty)));
+  return PairTerms{b, __fsub_rn(s.w, len2)};
+}
+
+// Stage spheres [start, start + n) into shared memory; returns n.
+__device__ __forceinline__ int stage(float4* tile, const float* cx,
+                                     const float* cy, const float* cz,
+                                     const float* rsq, int start,
+                                     int n_prims) {
+  const int n = min(kChunk, n_prims - start);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    tile[k] = make_float4(cx[start + k], cy[start + k], cz[start + k],
+                          rsq[start + k]);
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(kThreads)
+closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
+               const float* __restrict__ pz, const float* __restrict__ dx,
+               const float* __restrict__ dy, const float* __restrict__ dz,
+               const float* __restrict__ cx, const float* __restrict__ cy,
+               const float* __restrict__ cz, const float* __restrict__ rsq,
+               int n_rays, int n_prims, float* __restrict__ tfar_out,
+               int32_t* __restrict__ prim_out) {
+  __shared__ float4 tile[kChunk];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n_rays;
+  Ray r{};
+  if (live) r = load_ray(px, py, pz, dx, dy, dz, i);
+  float best = FLT_MAX;
+  int32_t best_id = -1;
+  for (int start = 0; start < n_prims; start += kChunk) {
+    __syncthreads();  // the previous chunk has been read by every thread
+    const int n = stage(tile, cx, cy, cz, rsq, start, n_prims);
+    __syncthreads();
+    if (!live) continue;
+    for (int j = 0; j < n; ++j) {
+      const PairTerms pt = pair_terms(r, tile[j]);
+      const float b = pt.b;
+      const float disc = fma32(b, b, pt.rsq_minus_len2);
+      const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
+      const float t_near = __fsub_rn(b, sq);
+      const float t = t_near < 0.0f ? __fadd_rn(b, sq) : t_near;
+      const float cand = (disc >= 0.0f && t >= 0.0f) ? t : FLT_MAX;
+      if (cand < best) {  // strict: the first occurrence keeps a tie
+        best = cand;
+        best_id = start + j;
+      }
+    }
+  }
+  if (live) {
+    tfar_out[i] = best;
+    prim_out[i] = best_id;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+occluded_kernel(const float* __restrict__ px, const float* __restrict__ py,
+                const float* __restrict__ pz, const float* __restrict__ dx,
+                const float* __restrict__ dy, const float* __restrict__ dz,
+                const float* __restrict__ tfar, const float* __restrict__ cx,
+                const float* __restrict__ cy, const float* __restrict__ cz,
+                const float* __restrict__ rsq, int n_rays, int n_prims,
+                uint8_t* __restrict__ occ_out) {
+  __shared__ float4 tile[kChunk];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n_rays;
+  Ray r{};
+  float tf = 0.0f;
+  if (live) {
+    r = load_ray(px, py, pz, dx, dy, dz, i);
+    tf = tfar[i];
+  }
+  // tfar <= 0 (or NaN) never occludes: the predicate is false there
+  bool todo = live && tf > 0.0f;
+  bool occ = false;
+  for (int start = 0; start < n_prims; start += kChunk) {
+    // also the barrier after the previous chunk's reads; a block whose
+    // lanes are all done stops staging
+    if (!__syncthreads_or(todo)) break;
+    const int n = stage(tile, cx, cy, cz, rsq, start, n_prims);
+    __syncthreads();
+    if (!todo) continue;
+    for (int j = 0; j < n; ++j) {
+      const PairTerms pt = pair_terms(r, tile[j]);
+      const float b = pt.b;
+      // b*b has three uses here, so it is not fused into disc
+      const float bb = __fmul_rn(b, b);
+      const float disc = __fadd_rn(pt.rsq_minus_len2, bb);
+      const float e = __fsub_rn(b, tf);
+      const float q = __fmul_rn(e, e);
+      const bool near_ge0 = (b >= 0.0f) && (bb >= disc);
+      const bool hit_near = (e < 0.0f) || (q < disc);
+      const bool far_ge0 = (b >= 0.0f) || (bb <= disc);
+      const bool hit_far = (e < 0.0f) && (disc < q);
+      if (disc >= 0.0f && (near_ge0 ? hit_near : (far_ge0 && hit_far))) {
+        occ = true;
+        todo = false;
+        break;
+      }
+    }
+  }
+  if (live) occ_out[i] = occ ? 1 : 0;
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. Each launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
+extern "C" int sphere_closest(const float* px, const float* py,
+                              const float* pz, const float* dx,
+                              const float* dy, const float* dz,
+                              const float* cx, const float* cy,
+                              const float* cz, const float* rsq, int n_rays,
+                              int n_prims, float* tfar_out, int32_t* prim_out,
+                              void* stream) {
+  if (n_rays > 0) {
+    const int blocks = (n_rays + kThreads - 1) / kThreads;
+    closest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        px, py, pz, dx, dy, dz, cx, cy, cz, rsq, n_rays, n_prims, tfar_out,
+        prim_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sphere_occluded(const float* px, const float* py,
+                               const float* pz, const float* dx,
+                               const float* dy, const float* dz,
+                               const float* tfar, const float* cx,
+                               const float* cy, const float* cz,
+                               const float* rsq, int n_rays, int n_prims,
+                               uint8_t* occ_out, void* stream) {
+  if (n_rays > 0) {
+    const int blocks = (n_rays + kThreads - 1) / kThreads;
+    occluded_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        px, py, pz, dx, dy, dz, tfar, cx, cy, cz, rsq, n_rays, n_prims,
+        occ_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,241 @@
+"""The two sphere batteries of the main path: closest hit and any hit of a
+ray batch against all spheres. Each has two forms in this module:
+
+* the plain PyTorch version (``intersect_spheres``, ``occluded_spheres``),
+  the port of ``ops/intersect.py``'s XLA batteries of the JAX package. It
+  runs for tensors on the CPU, and ``chip_smoke.py`` holds the kernels to it
+  on the card;
+* a hand-written CUDA kernel (``csrc/sphere_battery.cu``), the port of the
+  Pallas kernels ``_closest_kernel`` and ``_occluded_kernel`` of
+  ``ops/pallas/sphere_kernel.py``. ``closest_hit`` and ``any_hit`` launch it
+  for CUDA tensors, or raise; nothing falls back.
+
+The kernels are built with nvcc for sm_90a at first use, keyed by a hash of
+the source and flags, into ``_build/`` beside the package, and bound with
+ctypes. Each wrapper counts its launches in ``CLOSEST.launches`` and
+``OCCLUDED.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ...core import fp
+from ...core.fp import fma
+from ...core.vec import Vec3
+
+FLT_MAX = 3.4028234663852886e38  # float32 max, exactly representable
+PRIM_CHUNK = 512  # spheres per [R, C] block of the plain versions
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE = _PKG / "csrc" / "sphere_battery.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class LaunchCounter:
+    """Launches of one kernel, counted by its wrapper where it launches."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+CLOSEST = LaunchCounter("sphere_closest")
+OCCLUDED = LaunchCounter("sphere_occluded")
+
+
+def reset_counts():
+    CLOSEST.launches = 0
+    OCCLUDED.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (ops/intersect.py:109-228 of the JAX package)
+# ---------------------------------------------------------------------------
+def _closest_epilogue(t):
+    """(min t [R], first index achieving it [R] int32) of a [R, C] block."""
+    best = t.min(dim=1).values
+    iota = torch.arange(t.shape[1], dtype=torch.int32, device=t.device)
+    first = torch.where(t == best[:, None], iota, t.shape[1]).min(dim=1).values
+    return best, first
+
+
+def _sphere_candidates(p: Vec3, d: Vec3, cx, cy, cz, r_sq):
+    """[R, C] candidate distances, FLT_MAX where the ray misses. b and disc
+    fuse their multiply-adds as XLA does (core/fp.py)."""
+    tx = cx[None, :] - p.x[:, None]
+    ty = cy[None, :] - p.y[:, None]
+    tz = cz[None, :] - p.z[:, None]
+    b = fp.dot3(d.x[:, None], d.y[:, None], d.z[:, None], tx, ty, tz)
+    disc = fma(b, b, r_sq[None, :] - fp.dot3(tx, ty, tz, tx, ty, tz))
+    sq = fp.sqrt(torch.clamp_min(disc, 0.0))
+    t_near = b - sq
+    t = torch.where(t_near < 0.0, b + sq, t_near)
+    valid = (disc >= 0.0) & (t >= 0.0)
+    return torch.where(valid, t, FLT_MAX)
+
+
+def intersect_spheres(p: Vec3, d: Vec3, center: Vec3, radius_sq):
+    """Closest hit over all spheres: (tfar [R], prim_id [R] int32), FLT_MAX
+    and -1 for a miss. Prims are reduced in PRIM_CHUNK-wide chunks with a
+    strict `<` between chunks: the first occurrence wins."""
+    n = p.x.shape[0]
+    best_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=p.x.device)
+    best_id = torch.full((n,), -1, dtype=torch.int32, device=p.x.device)
+    for start in range(0, radius_sq.shape[0], PRIM_CHUNK):
+        end = min(start + PRIM_CHUNK, radius_sq.shape[0])
+        t = _sphere_candidates(p, d, center.x[start:end], center.y[start:end],
+                               center.z[start:end], radius_sq[start:end])
+        chunk_best, first = _closest_epilogue(t)
+        closer = chunk_best < best_t
+        best_id = torch.where(closer, first + start, best_id)
+        best_t = torch.where(closer, chunk_best, best_t)
+    return best_t, best_id
+
+
+def _sphere_occluded_pairs(p: Vec3, d: Vec3, tfar, cx, cy, cz, r_sq):
+    """[R, C] occlusion bits: the selected root lies in [0, tfar), tested
+    sqrt-free (sign tests and square comparisons, ops/intersect.py:178-205
+    of the JAX package). tfar <= 0 never occludes. b*b has three uses here,
+    so XLA leaves it unfused in disc."""
+    tx = cx[None, :] - p.x[:, None]
+    ty = cy[None, :] - p.y[:, None]
+    tz = cz[None, :] - p.z[:, None]
+    b = fp.dot3(d.x[:, None], d.y[:, None], d.z[:, None], tx, ty, tz)
+    bb = b * b
+    disc = r_sq[None, :] - fp.dot3(tx, ty, tz, tx, ty, tz) + bb
+    e = b - tfar[:, None]
+    q = e * e
+    near_ge0 = (b >= 0.0) & (bb >= disc)
+    hit_near = (e < 0.0) | (q < disc)
+    far_ge0 = (b >= 0.0) | (bb <= disc)
+    hit_far = (e < 0.0) & (disc < q)
+    return (disc >= 0.0) & torch.where(near_ge0, hit_near, far_ge0 & hit_far)
+
+
+def occluded_spheres(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
+    """Any-hit shadow test: True where a sphere lies at t in [0, tfar)."""
+    occ = torch.zeros(p.x.shape[0], dtype=torch.bool, device=p.x.device)
+    for start in range(0, radius_sq.shape[0], PRIM_CHUNK):
+        end = min(start + PRIM_CHUNK, radius_sq.shape[0])
+        pairs = _sphere_occluded_pairs(
+            p, d, tfar, center.x[start:end], center.y[start:end],
+            center.z[start:end], radius_sq[start:end])
+        occ = occ | pairs.any(dim=1)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# Kernel build and binding
+# ---------------------------------------------------------------------------
+_lib = None
+BUILD_LOG = ""  # nvcc's output of the build this process loaded
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the sphere-battery kernels are built "
+                       "from csrc/ on a machine with the CUDA toolkit")
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels' shared library."""
+    global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    key = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"sphere_battery_{key}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f".sphere_battery_{key}.{os.getpid()}.so"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(SOURCE)], capture_output=True, text=True)
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{BUILD_LOG}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sphere_closest.argtypes = [ptr] * 10 + [i32, i32] + [ptr] * 3
+    lib.sphere_closest.restype = i32
+    lib.sphere_occluded.argtypes = [ptr] * 11 + [i32, i32] + [ptr] * 2
+    lib.sphere_occluded.restype = i32
+    _lib = lib
+    return lib
+
+
+def _check_inputs(name, device, n, rays, prims):
+    if device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {device}, need cuda or cpu")
+    for what, arrays, length in (("ray", rays, n), ("sphere", prims, None)):
+        for a in arrays:
+            if (a.device != device or a.dtype != torch.float32 or a.dim() != 1
+                    or not a.is_contiguous()
+                    or (length is not None and a.shape[0] != length)):
+                raise ValueError(
+                    f"{name}: {what} arrays must be contiguous 1-D float32 on "
+                    f"{device} of one length; got {a.dtype} {tuple(a.shape)} "
+                    f"{a.device} contiguous={a.is_contiguous()}")
+    if len({a.shape[0] for a in prims}) != 1:
+        raise ValueError(f"{name}: sphere arrays differ in length")
+    if n >= 2 ** 31 or prims[0].shape[0] >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2^31 rays or spheres")
+
+
+def _launch(name, fn, device, args):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+
+
+def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq):
+    """Closest sphere hit per ray: (tfar [R] float32, prim [R] int32, -1 and
+    FLT_MAX for a miss). CPU tensors take the plain version; CUDA tensors
+    launch ``sphere_closest``."""
+    device = p.x.device
+    if device.type == "cpu":
+        return intersect_spheres(p, d, center, radius_sq)
+    n = p.x.shape[0]
+    prims = (center.x, center.y, center.z, radius_sq)
+    _check_inputs(CLOSEST.name, device, n, (*p, *d), prims)
+    lib = load_library()
+    tfar = torch.empty(n, dtype=torch.float32, device=device)
+    prim = torch.empty(n, dtype=torch.int32, device=device)
+    _launch(CLOSEST.name, lib.sphere_closest, device,
+            [a.data_ptr() for a in (*p, *d, *prims)]
+            + [n, radius_sq.shape[0], tfar.data_ptr(), prim.data_ptr()])
+    CLOSEST.launches += 1
+    return tfar, prim
+
+
+def any_hit(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
+    """Whether any sphere lies at t in [0, tfar) per ray ([R] bool). CPU
+    tensors take the plain version; CUDA tensors launch
+    ``sphere_occluded``."""
+    device = p.x.device
+    if device.type == "cpu":
+        return occluded_spheres(p, d, tfar, center, radius_sq)
+    n = p.x.shape[0]
+    prims = (center.x, center.y, center.z, radius_sq)
+    _check_inputs(OCCLUDED.name, device, n, (*p, *d, tfar), prims)
+    lib = load_library()
+    occ = torch.empty(n, dtype=torch.bool, device=device)
+    _launch(OCCLUDED.name, lib.sphere_occluded, device,
+            [a.data_ptr() for a in (*p, *d, tfar, *prims)]
+            + [n, radius_sq.shape[0], occ.data_ptr()])
+    OCCLUDED.launches += 1
+    return occ

@@ -1,0 +1,132 @@
+"""Progressive accumulation and median-of-means resolve, the port of the JAX
+package's ``render/estimator.py`` (Renderer.hpp:38-68, 436-478).
+
+Radiance is accumulated round-robin into 5 buckets (bucket = accumulation %
+5); the resolve takes the per-pixel, per-channel median of the 5 bucket
+means, scales by exposure / (accumulations / 5), and applies ACES. The
+buckets are updated in place, where the JAX package returns new arrays: a
+frame's buckets are the largest state the renderer keeps.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core import color, sampling
+from ..core.rng import MASK
+from ..scene.scene import Scene
+from ..utils.config import RendererPolicy
+from . import renderer as _renderer
+
+
+@dataclasses.dataclass
+class RenderState:
+    """buckets: [B, 3, npix] float32 on the render device; accumulations: the
+    u32 pass counter, kept on the host; rays_traced: 0-d int64 on the render
+    device, the passes' ``ray_count`` summed since the last reset (the
+    Mrays/s numerator; read it only after the passes, it syncs)."""
+
+    buckets: torch.Tensor
+    accumulations: int
+    rays_traced: torch.Tensor
+
+    @staticmethod
+    def create(width: int, height: int, policy: RendererPolicy,
+               device=None) -> "RenderState":
+        return RenderState(
+            torch.zeros((policy.accumulation_buckets, 3, width * height),
+                        dtype=torch.float32, device=device),
+            0, torch.zeros((), dtype=torch.int64, device=device))
+
+    def reset(self) -> "RenderState":
+        """ResetAccumulator (Renderer.hpp:64-67)."""
+        return RenderState(torch.zeros_like(self.buckets), 0,
+                           torch.zeros_like(self.rays_traced))
+
+
+def _add_pass(buckets, policy, acc: int, rad_x, rad_y, rad_z):
+    buckets[acc % policy.accumulation_buckets] += torch.stack(
+        [rad_x, rad_y, rad_z])
+
+
+def accumulate(scene: Scene, policy: RendererPolicy, state: RenderState,
+               width: int, height: int) -> RenderState:
+    """One progressive sample per pixel into bucket accumulations % B
+    (Renderer.hpp:73-84)."""
+    acc = (state.accumulations + 1) & MASK
+    rad, count = _renderer.render_pass(scene, policy, acc, width, height)
+    _add_pass(state.buckets, policy, acc, *rad)
+    return RenderState(state.buckets, acc, state.rays_traced + count)
+
+
+def accumulate_wide(scene: Scene, policy: RendererPolicy, state: RenderState,
+                    width: int, height: int, k: int) -> RenderState:
+    """k passes traced as one wide wavefront; every bucket is bit-identical
+    to k sequential ``accumulate`` calls."""
+    acc0 = (state.accumulations + 1) & MASK
+    rad, count = _renderer.render_pass(scene, policy, acc0, width, height,
+                                       k_passes=k)
+    for i in range(k):
+        _add_pass(state.buckets, policy, (acc0 + i) & MASK,
+                  rad.x[i], rad.y[i], rad.z[i])
+    return RenderState(state.buckets, (acc0 + k - 1) & MASK,
+                       state.rays_traced + count)
+
+
+def launch_width(policy: RendererPolicy, width: int, height: int) -> int:
+    """Passes per wavefront launch for accumulate_n: fill rays_per_chunk,
+    cap 8 ('auto'), or policy.passes_per_launch."""
+    if policy.light_sampling == "restir":
+        return 1
+    ppl = policy.passes_per_launch
+    if ppl == "auto":
+        per_pass = width * height * policy.samples_per_pixel
+        return max(1, min(8, policy.rays_per_chunk // per_pass))
+    return max(1, int(ppl))
+
+
+def accumulate_n(scene: Scene, policy: RendererPolicy, state: RenderState,
+                 width: int, height: int, n: int) -> RenderState:
+    """n passes: launch_width passes per wavefront launch, then the
+    remainder one at a time (bit-identical to n sequential passes)."""
+    k = min(launch_width(policy, width, height), n)
+    if k > 1:
+        for _ in range(n // k):
+            state = accumulate_wide(scene, policy, state, width, height, k)
+        n = n % k
+    for _ in range(n):
+        state = accumulate(scene, policy, state, width, height)
+    return state
+
+
+def resolve(state: RenderState, policy: RendererPolicy, exposure, width: int,
+            height: int, tonemap: bool = True) -> torch.Tensor:
+    """Median-of-means resolve + ACES (Renderer.hpp:436-478): an [H, W, 3]
+    image, row 0 = bottom scanline. Bucket weights are equal only when
+    accumulations is a multiple of the bucket count, as in the reference."""
+    b = policy.accumulation_buckets
+    buckets = state.buckets
+    n_rounds = torch.tensor(float(max(state.accumulations // b, 1)),
+                            dtype=torch.float32, device=buckets.device)
+    scale = torch.as_tensor(exposure, dtype=torch.float32).to(buckets.device) \
+        / (n_rounds * policy.samples_per_pixel)
+    if policy.median and b == 5:
+        channels = [sampling.median5(*[buckets[k, c] for k in range(5)])
+                    * scale for c in range(3)]
+    elif policy.median:
+        channels = [buckets[:, c, :].median(dim=0).values * scale
+                    for c in range(3)]
+    else:  # average-of-buckets variant (Renderer.hpp:457-459)
+        channels = [buckets[:, c, :].mean(dim=0) * scale for c in range(3)]
+    r, g, bl = channels
+    if tonemap:
+        r, g, bl = color.tonemap_aces(r, g, bl)
+    return torch.stack([r.reshape(height, width), g.reshape(height, width),
+                        bl.reshape(height, width)], dim=-1)
+
+
+def resolve_hdr(state: RenderState, policy: RendererPolicy, exposure,
+                width: int, height: int) -> torch.Tensor:
+    """Linear-radiance resolve (no tonemap)."""
+    return resolve(state, policy, exposure, width, height, tonemap=False)

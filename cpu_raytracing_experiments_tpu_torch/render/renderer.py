@@ -1,0 +1,436 @@
+"""The wavefront path tracer, ported from the JAX package's
+``render/renderer.py`` for the main path.
+
+Structure of one bounce (``bounce_step``, Renderer.hpp:131-432): intersect
+(the closest-hit sphere battery) -> closest-hit frame -> NEE with MIS and a
+shadow any-hit (the any-hit sphere battery) -> emissive hit with MIS ->
+lambertian sample + Russian roulette -> miss/sky. ``trace_rays`` runs bounces
+over one chunk of rays as a Python loop with mask-based termination: it
+stops at ``max_bounces`` or when no lane is alive. ``render_pass`` generates
+camera rays in raster order and walks ``rays_per_chunk`` chunks; the padding
+lanes of the last chunk are dead from bounce 0.
+
+RNG is the counter scheme of ``core/rng.py``, bit for bit the JAX package's,
+so both packages draw the same numbers at every decision point. Knobs
+outside this port slice raise ``NotImplementedError`` (``check_policy``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..core import fp, rng, sampling
+from ..core.fp import fma
+from ..core.rng import MASK, add32, mul32
+from ..core.vec import Quat, Vec3
+from ..ops import closures, intersect
+from ..ops import gather as fast_gather
+from ..scene.scene import Scene
+from ..utils.config import RendererPolicy
+
+FLT_EPSILON = 1.1920928955078125e-07  # float32(1.1920929e-7)
+
+
+class PathState(NamedTuple):
+    """Per-ray SoA wavefront state (DataStreams.hpp:74-105)."""
+
+    bounce: int
+    p: Vec3  # [R] ray origin
+    d: Vec3  # [R] ray direction
+    throughput: Vec3
+    radiance: Vec3
+    prev_pdf: torch.Tensor  # [R] BRDF pdf of the previous bounce (MIS)
+    prev_delta: torch.Tensor  # [R] bool: previous bounce sampled a delta lobe
+    alive: torch.Tensor  # [R] bool
+    ray_count: torch.Tensor  # 0-d int64 holding a u32: useful rays traced
+    # (closest-hit + valid shadow rays), the Mrays/s numerator
+
+
+def narrowing_on(policy: RendererPolicy, scene: Scene) -> bool:
+    """Whether ``narrow_wavefront`` resolves to on (renderer.py:931-954 of
+    the JAX package): 'auto' engages at >= 64 prims or accel='pallas'."""
+    nw = policy.narrow_wavefront
+    if nw == "auto":
+        nw = scene.spheres.count >= 64 or policy.effective_accel == "pallas"
+    return bool(nw)
+
+
+def check_policy(policy: RendererPolicy, scene: Scene = None):
+    """Refuse every knob this port slice does not render, before any work,
+    so that no knob silently changes the result."""
+    refused = {
+        f"accel={policy.effective_accel!r}": policy.effective_accel != "brute",
+        f"primary_accel={policy.primary_accel!r}":
+            policy.primary_accel not in (None, "brute"),
+        f"brdf={policy.brdf!r}": policy.brdf != "lambertian",
+        f"light_sampling={policy.light_sampling!r}":
+            policy.light_sampling != "uniform",
+        "enable_dof": policy.enable_dof,
+        "stratify_camera": policy.stratify_camera,
+        "rng_scramble": policy.rng_scramble,
+        f"samples_per_pixel={policy.samples_per_pixel}":
+            policy.samples_per_pixel != 1,
+        "ray_order='tile'": policy.ray_order == "tile",
+    }
+    if scene is not None:
+        refused["scenes with triangles"] = scene.triangles is not None
+        refused["narrow_wavefront (resolves to on for this scene; pass "
+                "narrow_wavefront=False)"] = narrowing_on(policy, scene)
+    what = [k for k, bad in refused.items() if bad]
+    if what:
+        raise NotImplementedError(
+            "not ported to PyTorch yet: " + ", ".join(what))
+
+
+def path_index_from_pixel(i, width: int, policy: RendererPolicy):
+    """Tile-ordered path index (tile_index * TileSize + intra_tile_id) under
+    the reference's 16x16 tile decomposition (Renderer.hpp:85-88, 107)."""
+    tr = policy.tile_root
+    h_tiles = -(-width // tr)
+    x = i % width
+    y = i // width
+    launch = (y // tr) * h_tiles + (x // tr)
+    tid = (y % tr) * tr + (x % tr)
+    return add32(mul32(launch, policy.tile_size), tid)
+
+
+def pixel_seeds_from_index(i, width: int, policy: RendererPolicy, sample=None):
+    """Per-path base seed (Renderer.hpp:107): path * (2*max_bounces + 1); with
+    samples_per_pixel > 1 the stream index is path * spp + sample."""
+    path = path_index_from_pixel(i, width, policy)
+    spp = policy.samples_per_pixel
+    if spp > 1:
+        path = add32(mul32(path, spp), 0 if sample is None else sample)
+    return mul32(path, 2 * policy.max_bounces + 1)
+
+
+def pixel_seeds(width: int, height: int, policy: RendererPolicy, device=None):
+    i = torch.arange(width * height, dtype=torch.int64, device=device)
+    return pixel_seeds_from_index(i, width, policy)
+
+
+def _site_state(accumulation, counter):
+    """RNG site state (Renderer.hpp:117/255/362)."""
+    return rng.hash_2d(accumulation, counter)
+
+
+def generate_camera_rays(camera, x, y, accumulation, seeds, enable_dof: bool,
+                         policy=None) -> Tuple[Vec3, Vec3]:
+    """Primary rays (Camera.hpp:80-88 + Renderer.hpp:113-127), pinhole.
+    Returns contiguous [R] components, the layout the batteries take."""
+    if enable_dof or (policy is not None and (policy.stratify_camera
+                                              or policy.rng_scramble)):
+        raise NotImplementedError(
+            "enable_dof / stratify_camera / rng_scramble are not ported yet")
+    state = _site_state(accumulation, seeds)
+    state, ds = rng.draws(state, 2)
+    vx = x.to(torch.float32) + ds[0] - camera.half_width
+    vy = y.to(torch.float32) + ds[1] - camera.half_height
+    # view_dir.z is one scalar for the whole batch: XLA squares it once,
+    # outside the elementwise loop, so only x*x + y*y of |v|^2 contracts
+    len_sq = fma(vx, vx, vy * vy) + camera.z * camera.z
+    inv = fp.rsqrt(torch.clamp_min(len_sq, 1e-30))
+    view_dir = Vec3(vx * inv, vy * inv, camera.z * inv)
+    origin = Vec3(*(c.expand(vx.shape).contiguous() for c in camera.pos))
+    return origin, camera.orient.rotate(view_dir)
+
+
+def _closest_hit_frame(scene: Scene, state: PathState, tfar, prim_id, is_tri):
+    """Closest-hit shading inputs (Renderer.hpp:169-214): offset hit point,
+    backface-flipped normal, tangent quat, local view vector, material id.
+    Ids are clamped before the gather: a miss (-1) must not index."""
+    safe_sphere = torch.clamp_min(torch.where(is_tri, 0, prim_id), 0)
+    hit_pt = Vec3(*(fma(dc, tfar, pc) for dc, pc in zip(state.d, state.p)))
+    sp = scene.spheres
+    scx, scy, scz, s_rsq, mat_id = fast_gather.gather_cols(
+        safe_sphere, sp.center.x, sp.center.y, sp.center.z, sp.radius_sq,
+        sp.material_id)
+    n = (hit_pt - Vec3(scx, scy, scz)).normalize()
+    prim_extra = {"radius_sq": s_rsq}
+    backface = n.dot(state.d) >= 0.0
+    n = (-n).where(backface, n)
+    t = sampling.tangent_space(n)
+    v_local = sampling.to_local(t, -state.d)
+    # scale-aware normal offset against self-intersection
+    eps = torch.clamp_min(3e-5 * torch.maximum(
+        torch.abs(hit_pt.x),
+        torch.maximum(torch.abs(hit_pt.y), torch.abs(hit_pt.z))), 1e-4)
+    p_offset = Vec3(*(fma(nc, eps, hc) for nc, hc in zip(n, hit_pt)))
+    return p_offset, n, t, v_local, mat_id, backface, hit_pt, prim_extra
+
+
+def _select_light(scene: Scene, policy: RendererPolicy, point: Vec3, f,
+                  light_count: int):
+    """Uniform light selection from one unit draw, bit-identical to the
+    reference's rand_bounded_int (Random.hpp:31-34): (selected [R] int64,
+    selection pdf)."""
+    sel = torch.clamp_max((f * float(light_count)).to(torch.int64),
+                          light_count - 1)
+    return sel, 1.0 / light_count
+
+
+def _hit_light_selection_pdf(scene, policy, state, prim_id, is_tri,
+                             light_count):
+    """Selection pdf the previous shading point would have used for the hit
+    light; uniform selection makes it 1/L."""
+    return 1.0 / light_count
+
+
+def _next_event_estimation(scene: Scene, policy: RendererPolicy,
+                           state: PathState, accumulation, seeds, hit,
+                           prim_id, is_tri, p_offset: Vec3, t_quat: Quat,
+                           v_local: Vec3, mat: dict):
+    """NEE with MIS (Renderer.hpp:247-314): pick one sphere light uniformly,
+    cone-sample it, trace a shadow ray, add the power-heuristic-weighted
+    contribution. The reference's early rejections become masks.
+    Returns (contribution Vec3, shadow rays traced [R] bool)."""
+    light_count = scene.num_lights
+    zeros = torch.zeros_like(state.p.x)
+    zero3 = Vec3(zeros, zeros, zeros)
+    if light_count == 0:
+        return zero3, torch.zeros_like(hit)
+    site = _site_state(accumulation, add32(seeds, 2 * state.bounce))
+    site, (t_draw, s_draw) = rng.draws(site, 2)
+    site, sel_draw = rng.rand_unit_float(site)
+    selected, light_selection_pdf = _select_light(scene, policy, p_offset,
+                                                  sel_draw, light_count)
+
+    sel_s = torch.clamp(selected, 0, light_count - 1)
+    is_sphere_sel = selected < light_count
+    # one [L, 8] light table (prim id, center, r^2, emission), one row gather
+    sl = scene.lights.to(torch.int64)
+    sp, em = scene.spheres, scene.materials.emission
+    s_mid = sp.material_id[sl].to(torch.int64)
+    light_tbl = fast_gather.pack_table(
+        sl, sp.center.x[sl], sp.center.y[sl], sp.center.z[sl],
+        sp.radius_sq[sl], em.x[s_mid], em.y[s_mid], em.z[s_mid])
+    lrow = fast_gather.gather_rows(light_tbl, sel_s)
+    light_prim = lrow[:, 0].to(torch.int32)
+    lc = Vec3(lrow[:, 1], lrow[:, 2], lrow[:, 3])
+    lr_sq = lrow[:, 4]
+    em_s = Vec3(lrow[:, 5], lrow[:, 6], lrow[:, 7])
+    wc = lc - p_offset
+    center_dist2 = wc.dot(wc)
+    ok = (hit & is_sphere_sel
+          & ~((~is_tri) & (light_prim == prim_id))  # self (Renderer.hpp:263)
+          & (center_dist2 > lr_sq))  # inside the sphere (:266)
+    center_dist = fp.sqrt(center_dist2)
+    wc = wc * (1.0 / torch.clamp_min(center_dist, 1e-20))
+    sin_theta_max2 = lr_sq / torch.clamp_min(center_dist2, 1e-20)
+    # entire cone below the hemisphere (:270-273)
+    n_dot_w = sampling.to_local(t_quat, wc).z
+    ok = ok & ~((n_dot_w < 0.0) & (sin_theta_max2 < n_dot_w * n_dot_w))
+    dir_s, dist_s, pdf_s = sampling.sample_direction_to_sphere(
+        wc, sin_theta_max2, center_dist, lr_sq, t_draw, s_draw)
+    l_dir = dir_s.where(ok, zero3)
+    l_dist = torch.where(ok, dist_s, zeros)
+    l_pdf = torch.where(ok, pdf_s, zeros)
+    l_emission = em_s.where(ok, zero3)
+    valid = ok
+
+    l_local = sampling.to_local(t_quat, l_dir)
+    valid = valid & (l_local.z >= 0.0)  # sample below the hemisphere (:276)
+    shadow_radiance = (l_emission * state.throughput
+                       * closures.lambert_eval(mat["albedo"], l_local, v_local))
+    l_pdf = l_pdf * light_selection_pdf  # (:282)
+    brdf_pdf = closures.lambert_pdf(l_local)
+    shadow_radiance = shadow_radiance * sampling.power_heuristic_over_f(
+        l_pdf, brdf_pdf)
+    valid = valid & (shadow_radiance.max_component() > 0.0)  # (:285)
+
+    # Shadow trace (Renderer.hpp:302-314). Masked-out lanes get tfar = 0,
+    # which never occludes.
+    occluded = intersect.occluded_scene(
+        scene, p_offset, l_dir, torch.where(valid, l_dist, 0.0),
+        accel=policy.effective_accel)
+    contribution = shadow_radiance.where(valid & ~occluded, zero3)
+    return contribution, valid
+
+
+def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
+                  hit, prim_id, is_tri, mat_id, tfar, v_local: Vec3, em: Vec3,
+                  prim_extra: dict):
+    """Emissive-sphere hit with MIS (Renderer.hpp:319-353). The distance to
+    the light center comes from the law of cosines (:328-332)."""
+    is_emissive = hit & (em.max_component() > FLT_EPSILON)
+    light_count = scene.num_lights
+    if not policy.mis or light_count == 0:
+        weight = torch.ones_like(tfar)
+    else:
+        light_selection_pdf = _hit_light_selection_pdf(
+            scene, policy, state, prim_id, is_tri, light_count)
+        radius2 = prim_extra["radius_sq"]
+        n_dot_v = v_local.z
+        center_dist2 = fma(tfar, fma(n_dot_v, 2.0 * fp.sqrt(radius2), tfar),
+                           radius2)
+        light_pdf = light_selection_pdf * sampling.sphere_pdf(
+            radius2, torch.clamp_min(center_dist2, 1e-20))
+        mis_weight = sampling.power_heuristic(state.prev_pdf, light_pdf)
+        # a delta previous bounce could not have been light-sampled
+        mis_weight = torch.where(state.prev_delta, 1.0, mis_weight)
+        # bounce 0 was BRDF-blind: add emission unweighted (:344-353)
+        weight = mis_weight if state.bounce > 0 else torch.ones_like(tfar)
+    contribution = (state.throughput * em) * weight
+    zeros = torch.zeros_like(tfar)
+    return contribution.where(is_emissive, Vec3(zeros, zeros, zeros))
+
+
+def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
+                state: PathState) -> PathState:
+    """One wavefront bounce (Renderer.hpp:131-432)."""
+    # ---- INTERSECTION (Renderer.hpp:165): the closest-hit battery ----
+    tfar, prim_id, is_tri = intersect.intersect_scene(
+        scene, state.p, state.d, accel=policy.effective_accel)
+    hit = state.alive & (prim_id >= 0)
+    miss = state.alive & (prim_id < 0)
+
+    # ---- CLOSEST HIT (:169-214) ----
+    p_offset, n, t_quat, v_local, mat_id, backface, hit_pt, prim_extra = (
+        _closest_hit_frame(scene, state, tfar, prim_id, is_tri))
+    mt = scene.materials
+    ax, ay, az, ex, ey, ez = fast_gather.gather_cols(
+        mat_id, mt.albedo.x, mt.albedo.y, mt.albedo.z,
+        mt.emission.x, mt.emission.y, mt.emission.z)
+    mat = {"albedo": Vec3(ax, ay, az), "emission": Vec3(ex, ey, ez)}
+
+    radiance = state.radiance
+
+    # ---- NEE + SHADOW (:247-314): the any-hit battery ----
+    shadow_traced = torch.zeros_like(hit)
+    if policy.mis:
+        nee, shadow_traced = _next_event_estimation(
+            scene, policy, state, accumulation, seeds, hit, prim_id, is_tri,
+            p_offset, t_quat, v_local, mat)
+        radiance = radiance + nee
+
+    # ---- EMISSIVE HIT (:319-353) ----
+    radiance = radiance + _emissive_hit(
+        scene, policy, state, hit, prim_id, is_tri, mat_id, tfar, v_local,
+        em=mat["emission"], prim_extra=prim_extra)
+
+    # ---- BRDF SAMPLE + RUSSIAN ROULETTE (:357-404) ----
+    site = _site_state(accumulation, add32(seeds, 2 * state.bounce + 1))
+    site, (u_draw, v_draw, rr_draw) = rng.draws(site, 3)
+    bs = closures.lambert_sample(mat["albedo"], v_local, u_draw, v_draw)
+    bsdf_dir, bsdf_est = bs.direction, bs.estimator
+    bsdf_delta = torch.zeros_like(hit)
+    new_throughput = state.throughput * bsdf_est
+    if policy.russian_roulette:
+        q = 1.0 - new_throughput.max_component()
+        rr_kill = rr_draw < q
+        new_throughput = new_throughput * (
+            1.0 / torch.clamp_min(1.0 - q, FLT_EPSILON))
+    else:
+        rr_kill = torch.zeros_like(hit)
+    world_dir = sampling.to_world(t_quat, bsdf_dir)
+    # pdf of the sampled direction in the local frame, for next-bounce MIS
+    next_pdf = closures.lambert_pdf(bsdf_dir)
+
+    # ---- MISS / SKY (:408-420) ----
+    sky = scene.sky.sample(state.d)
+    thr = state.throughput
+    if policy.sky_bug_compat:
+        # reference bug: all channels scaled by throughput.r (:416-418)
+        sky_contrib = Vec3(thr.x * sky.x, thr.x * sky.y, thr.x * sky.z)
+    else:
+        sky_contrib = thr * sky
+    sky_on = miss & scene.sky.has_ambient()
+    zeros = torch.zeros_like(radiance.x)
+    radiance = radiance + sky_contrib.where(sky_on, Vec3(zeros, zeros, zeros))
+
+    alive_next = hit & ~rr_kill
+    if state.bounce + 1 >= policy.max_bounces:
+        alive_next = torch.zeros_like(alive_next)
+    rays_this_bounce = state.alive.sum() + shadow_traced.sum()
+    return PathState(
+        bounce=state.bounce + 1,
+        p=p_offset.where(alive_next, state.p),
+        d=world_dir.where(alive_next, state.d),
+        throughput=new_throughput.where(alive_next, state.throughput),
+        radiance=radiance,
+        prev_pdf=torch.where(alive_next, next_pdf, state.prev_pdf),
+        prev_delta=torch.where(alive_next, bsdf_delta, state.prev_delta),
+        alive=alive_next,
+        ray_count=add32(state.ray_count, rays_this_bounce),
+    )
+
+
+def initial_state(p0: Vec3, d0: Vec3, alive0=None) -> PathState:
+    """Bounce-0 wavefront state for camera rays; `alive0` masks lanes that
+    start dead (chunk padding)."""
+    zero = torch.zeros_like(p0.x)
+    one = torch.ones_like(p0.x)
+    alive = (torch.ones_like(p0.x, dtype=torch.bool) if alive0 is None
+             else alive0.clone())
+    return PathState(
+        bounce=0, p=p0, d=d0, throughput=Vec3(one, one, one),
+        radiance=Vec3(zero, zero, zero), prev_pdf=zero,
+        prev_delta=torch.zeros_like(alive), alive=alive,
+        ray_count=torch.zeros((), dtype=torch.int64, device=p0.x.device))
+
+
+def trace_rays(scene: Scene, policy: RendererPolicy, accumulation, seeds,
+               p0: Vec3, d0: Vec3, alive0=None):
+    """The bounce loop for one chunk of primary rays (Renderer.hpp:131-432):
+    (radiance Vec3 [R], ray_count). Stops at max_bounces or when no lane is
+    alive; the liveness test reads one bool back per bounce."""
+    state = initial_state(p0, d0, alive0)
+    while state.bounce < policy.max_bounces and bool(state.alive.any()):
+        state = bounce_step(scene, policy, accumulation, seeds, state)
+    return state.radiance, state.ray_count
+
+
+def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
+                width: int, height: int, pixel_start: int = 0,
+                npix: int = None, k_passes: int = 1):
+    """One progressive sample for a contiguous flat-pixel range in raster
+    order: (radiance Vec3 of [npix] tensors, row 0 = bottom scanline;
+    ray_count, a 0-d u32 in int64).
+
+    Rays go through ``trace_rays`` in ``rays_per_chunk`` chunks; the last
+    chunk is padded with lanes that are dead from bounce 0. With
+    ``k_passes > 1`` the k consecutive passes accumulation .. accumulation
+    + k - 1 are traced as one wide wavefront and the radiance comes back as
+    [k, npix] rows, each bit-identical to its sequential pass (the counter
+    RNG keys every draw by accumulation and pixel)."""
+    check_policy(policy, scene)
+    device = scene.device
+    if npix is None:
+        npix = width * height
+    nrays = npix * k_passes
+    ray = torch.arange(nrays, dtype=torch.int64, device=device)
+    pos = ray % npix if k_passes > 1 else ray
+    i = (pixel_start + pos) & MASK
+    x = i % width
+    y = i // width
+    seeds = pixel_seeds_from_index(i, width, policy)
+    accumulation = accumulation & MASK
+    acc_lane = (add32(accumulation, ray // npix) if k_passes > 1 else None)
+
+    chunk = min(policy.rays_per_chunk, nrays)
+    padded = -(-nrays // chunk) * chunk
+
+    def pad(a):
+        return torch.cat([a, torch.zeros(padded - nrays, dtype=a.dtype,
+                                         device=device)])
+
+    lane_ok = pad(torch.ones(nrays, dtype=torch.bool, device=device))
+    xs, ys, ss = pad(x), pad(y), pad(seeds)
+    accs = pad(acc_lane) if acc_lane is not None else None
+    rads, count = [], 0
+    for start in range(0, padded, chunk):
+        sl = slice(start, start + chunk)
+        acc = accs[sl] if accs is not None else accumulation
+        p0, d0 = generate_camera_rays(scene.camera, xs[sl], ys[sl], acc,
+                                      ss[sl], policy.enable_dof, policy)
+        rad, cnt = trace_rays(scene, policy, acc, ss[sl], p0, d0,
+                              alive0=lane_ok[sl])
+        rads.append(rad)
+        count = add32(cnt, count)
+    flat = Vec3(*(torch.cat([r[k] for r in rads])[:nrays] for k in range(3)))
+    if policy.clamp_radiance:
+        flat = Vec3(*(torch.clamp_max(c, policy.max_radiance) for c in flat))
+    if k_passes > 1:
+        flat = Vec3(*(c.reshape(k_passes, npix) for c in flat))
+    return flat, count

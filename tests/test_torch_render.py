@@ -1,0 +1,303 @@
+"""The PyTorch port's renderer against the JAX package's
+``render/renderer.py``, ``render/estimator.py`` and ``render/api.py``, on
+the CPU.
+
+* ``bounce_step`` on a 64x64 wavefront, fed the same JAX state at each
+  bounce: alive, ray_count and hit ids exactly equal; floats within a stated
+  tolerance.
+* whole renders through ``Renderer(device="cpu")`` against the checked-in
+  goldens at the bar of ``tests/test_goldens.py::_check``.
+* resume equivalence, refused knobs and the device rule of the entry points.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from cpu_raytracing_experiments_tpu.core import vec as jvec
+from cpu_raytracing_experiments_tpu.core.vec import Vec3 as JVec3
+from cpu_raytracing_experiments_tpu.ops import intersect as jint
+from cpu_raytracing_experiments_tpu.render import renderer as jr
+from cpu_raytracing_experiments_tpu.render.api import Renderer as JRenderer
+from cpu_raytracing_experiments_tpu.scene import builders as jbuilders
+from cpu_raytracing_experiments_tpu.utils.config import RendererPolicy as JPolicy
+from cpu_raytracing_experiments_tpu_torch import Renderer, render_image
+from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3 as TVec3
+from cpu_raytracing_experiments_tpu_torch.ops import intersect as tint
+from cpu_raytracing_experiments_tpu_torch.render import estimator
+from cpu_raytracing_experiments_tpu_torch.render import renderer as tr
+from cpu_raytracing_experiments_tpu_torch.scene import builders as tbuilders
+from cpu_raytracing_experiments_tpu_torch.scene.scene import Scene
+from cpu_raytracing_experiments_tpu_torch.utils.config import RendererPolicy
+
+from test_goldens import GOLDEN_DIR, POL as GOLDEN_POL, SIZE, SPP, _check
+from test_torch_scene import jax_scene_to_numpy
+
+ACC = 3  # accumulation index of the compared wavefront
+
+
+def _jax_state_to_torch(s) -> tr.PathState:
+    t = lambda a: torch.from_numpy(np.array(a))
+    v = lambda x: TVec3(*(t(c) for c in x))
+    return tr.PathState(
+        bounce=int(s.bounce), p=v(s.p), d=v(s.d), throughput=v(s.throughput),
+        radiance=v(s.radiance), prev_pdf=t(s.prev_pdf),
+        prev_delta=t(s.prev_delta), alive=t(s.alive),
+        ray_count=torch.tensor(int(s.ray_count)))
+
+
+def _stack(v):
+    return np.stack([np.asarray(c) for c in v], axis=1)
+
+
+@pytest.mark.parametrize("name,policy", [
+    ("default_scene", {}),
+    ("bvh_test_scene", {"narrow_wavefront": False}),
+])
+def test_bounce_step_matches_jax(name, policy):
+    """render/renderer.py::bounce_step, three bounces of a 64x64 wavefront
+    (4096 rays, one chunk), each fed the same JAX state. alive, ray_count and
+    the closest-hit ids must be exactly equal. Floats within rtol 1e-4 /
+    atol 1e-6 on at least 99.9% of lanes: both packages fuse the same
+    multiply-adds, but XLA's rsqrt and sin/cos are not correctly rounded,
+    which moves a shadow ray lying within an ulp of a light's silhouette."""
+    w = h = 64
+    jpol = JPolicy(max_bounces=6, rays_per_chunk=4096, **policy)
+    tpol = RendererPolicy(max_bounces=6, rays_per_chunk=4096, **policy)
+    jscene = getattr(jbuilders, name)(w, h)
+    tscene = Scene.from_numpy(jax_scene_to_numpy(jscene), device="cpu")
+    i = np.arange(w * h)
+    jseeds = jr.pixel_seeds(w, h, jpol)
+    tseeds = tr.pixel_seeds(w, h, tpol)
+    np.testing.assert_array_equal(np.asarray(jseeds).astype(np.int64),
+                                  tseeds.numpy())
+    p0, d0 = jax.jit(lambda s: jr.generate_camera_rays(
+        s.camera, jnp.asarray(i % w, jnp.int32), jnp.asarray(i // w, jnp.int32),
+        jnp.uint32(ACC), jseeds, False, jpol))(jscene)
+    tp0, td0 = tr.generate_camera_rays(
+        tscene.camera, torch.from_numpy(i % w), torch.from_numpy(i // w), ACC,
+        tseeds, False, tpol)
+    np.testing.assert_allclose(_stack(td0), _stack(d0), rtol=0, atol=1e-6)
+    one, zero = jnp.ones(w * h), jnp.zeros(w * h)
+    state = jr.PathState(
+        bounce=jnp.int32(0), p=p0, d=d0, throughput=JVec3(one, one, one),
+        radiance=JVec3(zero, zero, zero), prev_pdf=zero,
+        prev_delta=zero > 1.0, alive=zero < 1.0, ray_count=jnp.uint32(0))
+    step = jax.jit(lambda s, st: jr.bounce_step(s, jpol, jnp.uint32(ACC),
+                                                jseeds, st))
+    hit_ids = jax.jit(lambda s, p, d: jint.intersect_scene(s, p, d)[1])
+    for bounce in range(3):
+        tstate = _jax_state_to_torch(state)
+        want_ids = np.asarray(hit_ids(jscene, state.p, state.d))
+        got_ids = tint.intersect_scene(tscene, tstate.p, tstate.d)[1].numpy()
+        np.testing.assert_array_equal(got_ids, want_ids)
+        want = step(jscene, state)
+        got = tr.bounce_step(tscene, tpol, ACC, tseeds, tstate)
+        assert got.bounce == int(want.bounce) == bounce + 1
+        np.testing.assert_array_equal(got.alive.numpy(), np.asarray(want.alive))
+        assert int(got.ray_count) == int(want.ray_count)
+        for field in ("radiance", "throughput", "p", "d"):
+            close = np.isclose(_stack(getattr(got, field)),
+                               _stack(getattr(want, field)),
+                               rtol=1e-4, atol=1e-6).all(axis=1)
+            assert close.mean() >= 0.999, (bounce, field, close.mean())
+        state = want
+
+
+@pytest.mark.parametrize("name,policy", [
+    ("default_scene", {}),
+    ("bvh_test_scene", {"narrow_wavefront": False}),
+])
+def test_trace_rays_matches_jax_from_same_camera_rays(name, policy):
+    """render/renderer.py::trace_rays, all six bounces of two 64x64
+    passes, both packages starting from the JAX package's camera rays:
+    radiance within rtol 1e-4 / atol 1e-5 on at least 99.9% of lanes and
+    ray counts within 0.1%. (From their own camera rays the two packages
+    differ in one ulp of ~half the directions, because XLA's CPU rsqrt is
+    not correctly rounded: test_golden_bvh_test holds that case.)"""
+    w = h = 64
+    jpol = JPolicy(max_bounces=6, rays_per_chunk=4096, **policy)
+    tpol = RendererPolicy(max_bounces=6, rays_per_chunk=4096, **policy)
+    jscene = getattr(jbuilders, name)(w, h)
+    tscene = Scene.from_numpy(jax_scene_to_numpy(jscene), device="cpu")
+    i = np.arange(w * h)
+    jseeds = jr.pixel_seeds(w, h, jpol)
+    tseeds = tr.pixel_seeds(w, h, tpol)
+    camera = jax.jit(lambda s, a: jr.generate_camera_rays(
+        s.camera, jnp.asarray(i % w, jnp.int32), jnp.asarray(i // w, jnp.int32),
+        a, jseeds, False, jpol))
+    trace = jax.jit(lambda s, a, p, d: jr.trace_rays(s, jpol, a, jseeds, p, d))
+    to_t = lambda v: TVec3(*(torch.from_numpy(np.array(c)) for c in v))
+    for acc in (1, 2):
+        p0, d0 = camera(jscene, jnp.uint32(acc))
+        want, want_count = trace(jscene, jnp.uint32(acc), p0, d0)
+        got, got_count = tr.trace_rays(tscene, tpol, acc, tseeds, to_t(p0),
+                                       to_t(d0))
+        close = np.isclose(_stack(got), _stack(want), rtol=1e-4,
+                           atol=1e-5).all(axis=1)
+        assert close.mean() >= 0.999, (acc, close.mean())
+        assert abs(int(got_count) - int(want_count)) <= 1e-3 * int(want_count)
+
+
+def _exact_rsqrt(x):
+    """A correctly rounded float32 rsqrt for the JAX package: float64 on the
+    host, rounded once, as the port's ``core/fp.py::rsqrt`` computes it."""
+    return jax.pure_callback(
+        lambda a: (1.0 / np.sqrt(np.asarray(a, np.float64))).astype(np.float32),
+        jax.ShapeDtypeStruct(x.shape, jnp.float32), x,
+        vmap_method="expand_dims")
+
+
+@pytest.fixture
+def jax_exact_rsqrt(monkeypatch):
+    """The JAX package with XLA's CPU rsqrt (``vrsqrtps`` and Newton steps,
+    not correctly rounded) replaced by ``_exact_rsqrt`` for one test. The jit
+    caches are cleared on both sides, so no trace of either form reaches
+    another test."""
+    jax.clear_caches()
+    monkeypatch.setattr(jvec, "jax_rsqrt", _exact_rsqrt)
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("name", ["default_scene", "bvh_test_scene"])
+def test_camera_rays_match_jax_with_exact_rsqrt(name, jax_exact_rsqrt):
+    """render/renderer.py::generate_camera_rays: origins and directions are
+    bit-equal to the JAX package's once both round rsqrt correctly. XLA
+    squares the camera's scalar view depth once, outside the elementwise
+    loop, so only x*x + y*y of |v|^2 is contracted."""
+    w = h = 64
+    jpol = JPolicy(max_bounces=6, rays_per_chunk=4096)
+    tpol = RendererPolicy(max_bounces=6, rays_per_chunk=4096)
+    jscene = getattr(jbuilders, name)(w, h)
+    tscene = Scene.from_numpy(jax_scene_to_numpy(jscene), device="cpu")
+    i = np.arange(w * h)
+    camera = jax.jit(lambda s, a: jr.generate_camera_rays(
+        s.camera, jnp.asarray(i % w, jnp.int32), jnp.asarray(i // w, jnp.int32),
+        a, jr.pixel_seeds(w, h, jpol), False, jpol))
+    for acc in (1, 7):
+        p0, d0 = camera(jscene, jnp.uint32(acc))
+        tp0, td0 = tr.generate_camera_rays(
+            tscene.camera, torch.from_numpy(i % w), torch.from_numpy(i // w),
+            acc, tr.pixel_seeds(w, h, tpol), False, tpol)
+        np.testing.assert_array_equal(_stack(tp0), _stack(p0))
+        np.testing.assert_array_equal(_stack(td0), _stack(d0))
+
+
+def _render(builder, policy, device="cpu"):
+    r = Renderer(builder(SIZE, SIZE), policy, SIZE, SIZE, device=device)
+    r.accumulate(SPP)
+    return r.render(tonemap=False)
+
+
+def test_golden_hero():
+    """The hero scene, 64x64, 10 spp, max_bounces=6, rays_per_chunk=4096,
+    at tests/test_goldens.py::_check's bar."""
+    _check("hero", _render(tbuilders.default_scene, _port(GOLDEN_POL)))
+
+
+def test_golden_bvh_test(jax_exact_rsqrt):
+    """bvh_test (255 spheres), 64x64, 10 spp, narrowing off (the port does
+    not narrow; the JAX package's renders with and without narrowing agree
+    at _check's bar). The checked-in golden comes from XLA's CPU rsqrt, which the port
+    does not copy: it rounds rsqrt correctly. One ulp in half the camera
+    directions moves grazing hits at distance ~300 and so the 10-spp mean
+    by ~0.5%, beyond _check's 1e-3 on the mean. So the witness is the JAX
+    renderer with a correctly rounded rsqrt, and the port is held to it at
+    _check's bar; against the golden itself, at _check's bar on the share
+    of close values."""
+    pol = RendererPolicy(max_bounces=6, rays_per_chunk=4096,
+                         narrow_wavefront=False)
+    img = _render(tbuilders.bvh_test_scene, pol)
+    jr_ = JRenderer(jbuilders.bvh_test_scene(SIZE, SIZE),
+                    JPolicy(max_bounces=6, rays_per_chunk=4096,
+                            narrow_wavefront=False), SIZE, SIZE)
+    jr_.accumulate(SPP)
+    witness = np.asarray(jr_.render(tonemap=False))
+    assert np.isclose(img, witness, rtol=1e-3, atol=1e-4).mean() > 0.995
+    np.testing.assert_allclose(img.mean(), witness.mean(), rtol=1e-3)
+    golden = np.load(GOLDEN_DIR / f"bvh_test_{SIZE}x{SIZE}_{SPP}spp.npy")
+    assert np.isclose(img, golden, rtol=1e-3, atol=1e-4).mean() > 0.995
+
+
+def test_golden_white_furnace():
+    """Energy conservation: every pixel of the linear resolve is 1."""
+    img = _render(tbuilders.white_furnace_scene, _port(GOLDEN_POL))
+    _check("white_furnace", img)
+    np.testing.assert_allclose(img, 1.0, rtol=2e-3)
+
+
+def _port(jpol):
+    """The port's policy with the same fields as a JAX policy."""
+    return RendererPolicy(**{f.name: getattr(jpol, f.name)
+                             for f in dataclasses.fields(jpol)})
+
+
+def test_resume_equivalence_bitwise():
+    """accumulate(10) equals accumulate(4) then accumulate(6), and
+    accumulate(3) then accumulate(7), bit for bit: the counter RNG keys every
+    draw by (accumulation, pixel), however passes are batched into wide
+    launches (32x32 frames, 4096-ray chunks: 4 passes per launch)."""
+    pol = RendererPolicy(max_bounces=4, rays_per_chunk=4096)
+    assert estimator.launch_width(pol, 32, 32) == 4
+
+    def run(*splits):
+        r = Renderer(tbuilders.default_scene(32, 32), pol, 32, 32,
+                     device="cpu")
+        for n in splits:
+            r.accumulate(n)
+        return r.state
+
+    whole = run(10)
+    assert whole.accumulations == 10
+    for splits in ((4, 6), (3, 7)):
+        part = run(*splits)
+        assert part.accumulations == 10
+        assert torch.equal(part.buckets, whole.buckets), splits
+        assert int(part.rays_traced) == int(whole.rays_traced) > 0, splits
+
+
+@pytest.mark.parametrize("knob", [
+    {"accel": "pallas"}, {"use_bvh": True}, {"brdf": "ggx"},
+    {"light_sampling": "power"}, {"enable_dof": True},
+    {"stratify_camera": True}, {"rng_scramble": True},
+    {"samples_per_pixel": 2}, {"narrow_wavefront": True},
+    {"ray_order": "tile"}, {"primary_accel": "pallas"},
+])
+def test_knob_outside_slice_raises(knob):
+    """A knob the port does not render yet raises NotImplementedError
+    instead of changing the result."""
+    pol = RendererPolicy(max_bounces=2, rays_per_chunk=4096, **knob)
+    with pytest.raises(NotImplementedError):
+        Renderer(tbuilders.default_scene(8, 8), pol, 8, 8, device="cpu")
+
+
+def test_narrowing_auto_and_triangles_raise():
+    """narrow_wavefront='auto' resolves to on at >= 64 spheres (bvh_test has
+    255): refused; triangle scenes are refused at construction."""
+    with pytest.raises(NotImplementedError):
+        Renderer(tbuilders.bvh_test_scene(8, 8), RendererPolicy(), 8, 8,
+                 device="cpu")
+    arrays = jax_scene_to_numpy(jbuilders.default_scene(8, 8))
+    arrays["tri_v0"] = np.zeros((1, 3), np.float32)
+    with pytest.raises(NotImplementedError):
+        Scene.from_numpy(arrays)
+
+
+def test_entry_points_default_to_cuda():
+    """Renderer and render_image without `device` run on the card; with no
+    card they raise rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    scene = tbuilders.white_furnace_scene(8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Renderer(scene, RendererPolicy(), 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_image(scene, 8, 8, 5)
+    img = render_image(scene, 8, 8, 5, RendererPolicy(max_bounces=4),
+                       tonemap=False, device="cpu")
+    assert img.shape == (8, 8, 3)
