@@ -1,0 +1,113 @@
+"""Build-and-load of the port's native sources under ``csrc/``.
+
+Each source becomes one shared library with a plain C interface, compiled at
+first use (nvcc for the CUDA kernels, g++ for host code), keyed by a hash of
+the source and the flags, into ``_build/`` beside the package, and bound with
+ctypes. Nothing is compiled when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable, Optional, Sequence
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the flags of native/Makefile: no -march, no fast-math, so the host builder
+# rounds the same on every x86-64 machine
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/ on a machine with the CUDA toolkit")
+
+
+def gxx() -> str:
+    cand = shutil.which(os.environ.get("CXX", "g++"))
+    if not cand:
+        raise RuntimeError("no C++ compiler (g++) found for csrc/ host code")
+    return cand
+
+
+class Library:
+    """One source of ``csrc/`` as a ctypes library. ``bind(lib)`` declares
+    the argument and result types of its C functions."""
+
+    def __init__(self, source: str, compiler: Callable[[], str],
+                 flags: Sequence[str], bind: Callable[[ctypes.CDLL], None]):
+        self.source = CSRC / source
+        self.compiler = compiler
+        self.flags = tuple(flags)
+        self.bind = bind
+        self.build_log = ""  # the compiler's output, where this process built
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def load(self) -> ctypes.CDLL:
+        """Build (once per hash of source and flags) and load the library."""
+        if self._lib is not None:
+            return self._lib
+        key = hashlib.sha256(self.source.read_bytes()
+                             + " ".join(self.flags).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"{self.source.stem}_{key}.so"
+        if not so.exists():
+            compiler = self.compiler()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f".{so.stem}.{os.getpid()}.so")
+            proc = subprocess.run(
+                [compiler, *self.flags, "-o", str(tmp), str(self.source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            self.build_log = proc.stdout
+            if proc.returncode != 0:
+                raise RuntimeError(f"{compiler} failed to build "
+                                   f"{self.source}:\n{self.build_log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        self.bind(lib)
+        self._lib = lib
+        return lib
+
+
+COUNTERS = []  # every kernel's LaunchCounter, in order of definition
+
+
+class LaunchCounter:
+    """Launches of one kernel, counted by its wrapper where it launches."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        COUNTERS.append(self)
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    for c in COUNTERS:
+        c.launches = 0
+
+
+def launch_counts() -> dict:
+    return {c.name: c.launches for c in COUNTERS}
+
+
+def launch(name: str, fn, device, args):
+    """Call the C entry point `fn` on `device`'s current stream; raise on a
+    refused launch (the entry point returns cudaGetLastError())."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")

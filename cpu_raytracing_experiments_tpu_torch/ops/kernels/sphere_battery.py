@@ -10,51 +10,27 @@ ray batch against all spheres. Each has two forms in this module:
   ``ops/pallas/sphere_kernel.py``. ``closest_hit`` and ``any_hit`` launch it
   for CUDA tensors, or raise; nothing falls back.
 
-The kernels are built with nvcc for sm_90a at first use, keyed by a hash of
-the source and flags, into ``_build/`` beside the package, and bound with
-ctypes. Each wrapper counts its launches in ``CLOSEST.launches`` and
-``OCCLUDED.launches``.
+The kernels are built with nvcc for sm_90a at first use (``build.py``)
+and bound with ctypes. Each wrapper counts its launches in
+``CLOSEST.launches`` and ``OCCLUDED.launches``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ...core import fp
 from ...core.fp import fma
 from ...core.vec import Vec3
+from . import build
+from .build import LaunchCounter, reset_counts  # noqa: F401
 
 FLT_MAX = 3.4028234663852886e38  # float32 max, exactly representable
 PRIM_CHUNK = 512  # spheres per [R, C] block of the plain versions
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "sphere_battery.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-class LaunchCounter:
-    """Launches of one kernel, counted by its wrapper where it launches."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
-
 CLOSEST = LaunchCounter("sphere_closest")
 OCCLUDED = LaunchCounter("sphere_occluded")
-
-
-def reset_counts():
-    CLOSEST.launches = 0
-    OCCLUDED.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -68,19 +44,27 @@ def _closest_epilogue(t):
     return best, first
 
 
-def _sphere_candidates(p: Vec3, d: Vec3, cx, cy, cz, r_sq):
-    """[R, C] candidate distances, FLT_MAX where the ray misses. b and disc
-    fuse their multiply-adds as XLA does (core/fp.py)."""
-    tx = cx[None, :] - p.x[:, None]
-    ty = cy[None, :] - p.y[:, None]
-    tz = cz[None, :] - p.z[:, None]
-    b = fp.dot3(d.x[:, None], d.y[:, None], d.z[:, None], tx, ty, tz)
-    disc = fma(b, b, r_sq[None, :] - fp.dot3(tx, ty, tz, tx, ty, tz))
+def sphere_candidates(px, py, pz, dx, dy, dz, cx, cy, cz, r_sq):
+    """Candidate distances of rays against spheres, FLT_MAX where the ray
+    misses; the arguments broadcast against each other. b and disc fuse
+    their multiply-adds as XLA does (core/fp.py)."""
+    tx = cx - px
+    ty = cy - py
+    tz = cz - pz
+    b = fp.dot3(dx, dy, dz, tx, ty, tz)
+    disc = fma(b, b, r_sq - fp.dot3(tx, ty, tz, tx, ty, tz))
     sq = fp.sqrt(torch.clamp_min(disc, 0.0))
     t_near = b - sq
     t = torch.where(t_near < 0.0, b + sq, t_near)
     valid = (disc >= 0.0) & (t >= 0.0)
     return torch.where(valid, t, FLT_MAX)
+
+
+def _sphere_candidates(p: Vec3, d: Vec3, cx, cy, cz, r_sq):
+    """[R, C] candidate distances of rays [R] against spheres [C]."""
+    return sphere_candidates(
+        p.x[:, None], p.y[:, None], p.z[:, None], d.x[:, None], d.y[:, None],
+        d.z[:, None], cx[None, :], cy[None, :], cz[None, :], r_sq[None, :])
 
 
 def intersect_spheres(p: Vec3, d: Vec3, center: Vec3, radius_sq):
@@ -101,24 +85,33 @@ def intersect_spheres(p: Vec3, d: Vec3, center: Vec3, radius_sq):
     return best_t, best_id
 
 
-def _sphere_occluded_pairs(p: Vec3, d: Vec3, tfar, cx, cy, cz, r_sq):
-    """[R, C] occlusion bits: the selected root lies in [0, tfar), tested
-    sqrt-free (sign tests and square comparisons, ops/intersect.py:178-205
-    of the JAX package). tfar <= 0 never occludes. b*b has three uses here,
-    so XLA leaves it unfused in disc."""
-    tx = cx[None, :] - p.x[:, None]
-    ty = cy[None, :] - p.y[:, None]
-    tz = cz[None, :] - p.z[:, None]
-    b = fp.dot3(d.x[:, None], d.y[:, None], d.z[:, None], tx, ty, tz)
+def sphere_occluded_pairs(px, py, pz, dx, dy, dz, tfar, cx, cy, cz, r_sq):
+    """Occlusion bits of rays against spheres (the arguments broadcast): the
+    selected root lies in [0, tfar), tested sqrt-free (sign tests and square
+    comparisons, ops/intersect.py:178-205 of the JAX package). tfar <= 0
+    never occludes. b*b has three uses here, so XLA leaves it unfused in
+    disc."""
+    tx = cx - px
+    ty = cy - py
+    tz = cz - pz
+    b = fp.dot3(dx, dy, dz, tx, ty, tz)
     bb = b * b
-    disc = r_sq[None, :] - fp.dot3(tx, ty, tz, tx, ty, tz) + bb
-    e = b - tfar[:, None]
+    disc = r_sq - fp.dot3(tx, ty, tz, tx, ty, tz) + bb
+    e = b - tfar
     q = e * e
     near_ge0 = (b >= 0.0) & (bb >= disc)
     hit_near = (e < 0.0) | (q < disc)
     far_ge0 = (b >= 0.0) | (bb <= disc)
     hit_far = (e < 0.0) & (disc < q)
     return (disc >= 0.0) & torch.where(near_ge0, hit_near, far_ge0 & hit_far)
+
+
+def _sphere_occluded_pairs(p: Vec3, d: Vec3, tfar, cx, cy, cz, r_sq):
+    """[R, C] occlusion bits of rays [R] against spheres [C]."""
+    return sphere_occluded_pairs(
+        p.x[:, None], p.y[:, None], p.z[:, None], d.x[:, None], d.y[:, None],
+        d.z[:, None], tfar[:, None], cx[None, :], cy[None, :], cz[None, :],
+        r_sq[None, :])
 
 
 def occluded_spheres(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
@@ -136,44 +129,16 @@ def occluded_spheres(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
 # ---------------------------------------------------------------------------
 # Kernel build and binding
 # ---------------------------------------------------------------------------
-_lib = None
-BUILD_LOG = ""  # nvcc's output of the build this process loaded
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the sphere-battery kernels are built "
-                       "from csrc/ on a machine with the CUDA toolkit")
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"sphere_battery_{key}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".sphere_battery_{key}.{os.getpid()}.so"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sphere_closest.argtypes = [ptr] * 10 + [i32, i32] + [ptr] * 3
     lib.sphere_closest.restype = i32
     lib.sphere_occluded.argtypes = [ptr] * 11 + [i32, i32] + [ptr] * 2
     lib.sphere_occluded.restype = i32
-    _lib = lib
-    return lib
+
+
+LIBRARY = build.Library("sphere_battery.cu", build.nvcc, build.NVCC_FLAGS,
+                        _bind)
 
 
 def _check_inputs(name, device, n, rays, prims):
@@ -194,14 +159,6 @@ def _check_inputs(name, device, n, rays, prims):
         raise ValueError(f"{name}: more than 2^31 rays or spheres")
 
 
-def _launch(name, fn, device, args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-
-
 def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq):
     """Closest sphere hit per ray: (tfar [R] float32, prim [R] int32, -1 and
     FLT_MAX for a miss). CPU tensors take the plain version; CUDA tensors
@@ -212,12 +169,12 @@ def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq):
     n = p.x.shape[0]
     prims = (center.x, center.y, center.z, radius_sq)
     _check_inputs(CLOSEST.name, device, n, (*p, *d), prims)
-    lib = load_library()
+    lib = LIBRARY.load()
     tfar = torch.empty(n, dtype=torch.float32, device=device)
     prim = torch.empty(n, dtype=torch.int32, device=device)
-    _launch(CLOSEST.name, lib.sphere_closest, device,
-            [a.data_ptr() for a in (*p, *d, *prims)]
-            + [n, radius_sq.shape[0], tfar.data_ptr(), prim.data_ptr()])
+    build.launch(CLOSEST.name, lib.sphere_closest, device,
+                 [a.data_ptr() for a in (*p, *d, *prims)]
+                 + [n, radius_sq.shape[0], tfar.data_ptr(), prim.data_ptr()])
     CLOSEST.launches += 1
     return tfar, prim
 
@@ -232,10 +189,10 @@ def any_hit(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
     n = p.x.shape[0]
     prims = (center.x, center.y, center.z, radius_sq)
     _check_inputs(OCCLUDED.name, device, n, (*p, *d, tfar), prims)
-    lib = load_library()
+    lib = LIBRARY.load()
     occ = torch.empty(n, dtype=torch.bool, device=device)
-    _launch(OCCLUDED.name, lib.sphere_occluded, device,
-            [a.data_ptr() for a in (*p, *d, tfar, *prims)]
-            + [n, radius_sq.shape[0], occ.data_ptr()])
+    build.launch(OCCLUDED.name, lib.sphere_occluded, device,
+                 [a.data_ptr() for a in (*p, *d, tfar, *prims)]
+                 + [n, radius_sq.shape[0], occ.data_ptr()])
     OCCLUDED.launches += 1
     return occ

@@ -1,14 +1,17 @@
 """The wavefront path tracer, ported from the JAX package's
-``render/renderer.py`` for the main path.
+``render/renderer.py`` for sphere scenes under ``accel='brute'`` and
+``accel='pallas'``.
 
 Structure of one bounce (``bounce_step``, Renderer.hpp:131-432): intersect
-(the closest-hit sphere battery) -> closest-hit frame -> NEE with MIS and a
-shadow any-hit (the any-hit sphere battery) -> emissive hit with MIS ->
-lambertian sample + Russian roulette -> miss/sky. ``trace_rays`` runs bounces
-over one chunk of rays as a Python loop with mask-based termination: it
-stops at ``max_bounces`` or when no lane is alive. ``render_pass`` generates
-camera rays in raster order and walks ``rays_per_chunk`` chunks; the padding
-lanes of the last chunk are dead from bounce 0.
+(the closest-hit battery, or the clustered traversal) -> closest-hit frame
+-> NEE with MIS and a shadow any-hit -> emissive hit with MIS -> lambertian
+sample + Russian roulette -> miss/sky. ``trace_rays`` runs bounces over one
+chunk of rays as a Python loop with mask-based termination: it stops at
+``max_bounces`` or when no lane is alive, and with narrowing on it compacts
+the live lanes to the front of a narrower wavefront once they fit.
+``render_pass`` generates camera rays in raster or screen-tile order and
+walks ``rays_per_chunk`` chunks; the padding lanes of the last chunk are
+dead from bounce 0.
 
 RNG is the counter scheme of ``core/rng.py``, bit for bit the JAX package's,
 so both packages draw the same numbers at every decision point. Knobs
@@ -16,8 +19,12 @@ outside this port slice raise ``NotImplementedError`` (``check_policy``).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..core import fp, rng, sampling
@@ -26,6 +33,7 @@ from ..core.rng import MASK, add32, mul32
 from ..core.vec import Quat, Vec3
 from ..ops import closures, intersect
 from ..ops import gather as fast_gather
+from ..ops.kernels.cluster_traverse import compact_order
 from ..scene.scene import Scene
 from ..utils.config import RendererPolicy
 
@@ -57,12 +65,28 @@ def narrowing_on(policy: RendererPolicy, scene: Scene) -> bool:
 
 
 def check_policy(policy: RendererPolicy, scene: Scene = None):
-    """Refuse every knob this port slice does not render, before any work,
-    so that no knob silently changes the result."""
+    """Refuse every knob this port does not render, by name and before any
+    work, so that no knob silently changes the result.
+
+    ``accel`` / ``primary_accel`` may be 'brute' or 'pallas'. Of the pallas_*
+    knobs, ``pallas_tile_rays`` and ``pallas_compact`` act as in the JAX
+    package. ``pallas_unroll``, ``pallas_fuse``, ``pallas_trav_block``,
+    ``pallas_exit_refresh``, ``pallas_prefetch`` and ``pallas_plan_block``
+    are accepted and change nothing: they choose among TPU schedules that
+    the JAX package's tests hold bit-identical, and the CUDA kernels have one
+    schedule. ``pallas_interpret`` is accepted and ignored likewise. The
+    options that are not ported are refused: the streamed walks
+    (``pallas_stream`` True, or 'auto' where the scene's tables exceed the
+    JAX package's threshold), ``pallas_mxu``, any ``pallas_plan`` but 'ray' /
+    'auto', ``pallas_sort_impl='xla'`` and ``pallas_sort_visits=False``.
+    So is a scene cut into more clusters than the planner kernel sorts in
+    one block (``cluster_traverse.max_plan_clusters``: 16,384)."""
+    accels = {policy.effective_accel, policy.primary_accel or "brute"}
     refused = {
-        f"accel={policy.effective_accel!r}": policy.effective_accel != "brute",
+        f"accel={policy.effective_accel!r}":
+            policy.effective_accel not in ("brute", "pallas"),
         f"primary_accel={policy.primary_accel!r}":
-            policy.primary_accel not in (None, "brute"),
+            policy.primary_accel not in (None, "brute", "pallas"),
         f"brdf={policy.brdf!r}": policy.brdf != "lambertian",
         f"light_sampling={policy.light_sampling!r}":
             policy.light_sampling != "uniform",
@@ -71,12 +95,27 @@ def check_policy(policy: RendererPolicy, scene: Scene = None):
         "rng_scramble": policy.rng_scramble,
         f"samples_per_pixel={policy.samples_per_pixel}":
             policy.samples_per_pixel != 1,
-        "ray_order='tile'": policy.ray_order == "tile",
     }
+    if "pallas" in accels:
+        refused.update({
+            "pallas_stream=True": policy.pallas_stream is True,
+            "pallas_mxu": policy.pallas_mxu,
+            f"pallas_plan={policy.pallas_plan!r}":
+                policy.pallas_plan not in ("ray", "auto"),
+            "pallas_sort_impl='xla'": policy.pallas_sort_impl != "kernel",
+            "pallas_sort_visits=False": not policy.pallas_sort_visits,
+        })
     if scene is not None:
         refused["scenes with triangles"] = scene.triangles is not None
-        refused["narrow_wavefront (resolves to on for this scene; pass "
-                "narrow_wavefront=False)"] = narrowing_on(policy, scene)
+        cp = scene.sphere_clusters
+        if "pallas" in accels and cp is not None:
+            refused["pallas_stream='auto' (resolves to on for this scene's "
+                    "tables)"] = (policy.pallas_stream == "auto"
+                                  and intersect.stream_resolves_on(policy, cp))
+            most = intersect.max_clusters(policy, cp)
+            refused[f"accel='pallas' on {cp.num_clusters} clusters (the "
+                    f"planner kernel takes {most}; build with a larger "
+                    "cluster_size)"] = cp.num_clusters > most
     what = [k for k, bad in refused.items() if bad]
     if what:
         raise NotImplementedError(
@@ -243,7 +282,7 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     # which never occludes.
     occluded = intersect.occluded_scene(
         scene, p_offset, l_dir, torch.where(valid, l_dist, 0.0),
-        accel=policy.effective_accel)
+        accel=policy.effective_accel, policy=policy)
     contribution = shadow_radiance.where(valid & ~occluded, zero3)
     return contribution, valid
 
@@ -281,7 +320,8 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     """One wavefront bounce (Renderer.hpp:131-432)."""
     # ---- INTERSECTION (Renderer.hpp:165): the closest-hit battery ----
     tfar, prim_id, is_tri = intersect.intersect_scene(
-        scene, state.p, state.d, accel=policy.effective_accel)
+        scene, state.p, state.d, accel=policy.effective_accel,
+        alive=state.alive, policy=policy)
     hit = state.alive & (prim_id >= 0)
     miss = state.alive & (prim_id < 0)
 
@@ -370,23 +410,124 @@ def initial_state(p0: Vec3, d0: Vec3, alive0=None) -> PathState:
         ray_count=torch.zeros((), dtype=torch.int64, device=p0.x.device))
 
 
+def _narrow_caps(policy: RendererPolicy, scene: Scene, num_rays: int):
+    """Widths of the narrowing cascade: num_rays / f for each narrow factor,
+    rounded up to 2048 lanes, strictly decreasing."""
+    caps = []
+    if narrowing_on(policy, scene):
+        for f in policy.narrow_factors:
+            cap = -(-(num_rays // f) // 2048) * 2048
+            if 0 < cap < (caps[-1] if caps else num_rays):
+                caps.append(cap)
+    return caps
+
+
+def narrow_state(state: PathState, cap: int):
+    """Move the alive lanes of `state` to the front, stably, and keep the
+    first `cap` lanes: (narrow state, keep [cap] int64 = the full-width lane
+    of each narrow lane, inv [R] int64 = the compacted position of each
+    full-width lane)."""
+    order, inv = compact_order(state.alive)
+    keep = order[:cap].to(torch.int64)
+
+    def take(a):
+        return a[keep]
+
+    narrow = PathState(
+        bounce=state.bounce, p=Vec3(*map(take, state.p)),
+        d=Vec3(*map(take, state.d)),
+        throughput=Vec3(*map(take, state.throughput)),
+        radiance=Vec3(*map(take, state.radiance)),
+        prev_pdf=take(state.prev_pdf), prev_delta=take(state.prev_delta),
+        alive=take(state.alive), ray_count=state.ray_count)
+    return narrow, keep, inv.to(torch.int64)
+
+
 def trace_rays(scene: Scene, policy: RendererPolicy, accumulation, seeds,
                p0: Vec3, d0: Vec3, alive0=None):
     """The bounce loop for one chunk of primary rays (Renderer.hpp:131-432):
     (radiance Vec3 [R], ray_count). Stops at max_bounces or when no lane is
-    alive; the liveness test reads one bool back per bounce."""
+    alive; the liveness test reads one number back per bounce.
+
+    ``policy.primary_accel`` peels the primary bounce out of the loop and
+    runs it under that backend: every backend returns the same hits and the
+    RNG is keyed by the bounce, not by the loop.
+
+    Narrowing cascade (``narrow_wavefront``): full-width masked bounces run
+    until the live lanes fit 1/f of the width, then the alive lanes move to
+    the front of a narrower wavefront (stable: survivors keep their order,
+    so the traversal's tiles stay coherent) and the loop goes on there; once
+    per narrow factor. Each lane's radiance and the ray count are those of
+    the full-width loop."""
     state = initial_state(p0, d0, alive0)
+    if policy.primary_accel and policy.primary_accel != policy.effective_accel:
+        pol0 = dataclasses.replace(policy, accel=policy.primary_accel,
+                                   use_bvh=False)
+        state = bounce_step(scene, pol0, accumulation, seeds, state)
+
+    restores = []
+    for cap in _narrow_caps(policy, scene, p0.x.shape[0]):
+        while (state.bounce < policy.max_bounces
+               and int(state.alive.sum()) > cap):
+            state = bounce_step(scene, policy, accumulation, seeds, state)
+        full_radiance = state.radiance
+        state, keep, inv = narrow_state(state, cap)
+        restores.append((inv, cap, full_radiance))
+        seeds = seeds[keep]
+        if isinstance(accumulation, torch.Tensor) and accumulation.dim() >= 1:
+            # per-lane accumulation indices (render_pass k_passes > 1)
+            accumulation = accumulation[keep]
+
     while state.bounce < policy.max_bounces and bool(state.alive.any()):
         state = bounce_step(scene, policy, accumulation, seeds, state)
-    return state.radiance, state.ray_count
+    radiance = state.radiance
+    for inv, cap, prev_rad in reversed(restores):
+        # lane i went to narrow row inv[i] where inv[i] < cap; the lanes
+        # left behind were dead and keep their full-width value
+        live = inv < cap
+        back = torch.clamp_max(inv, cap - 1)
+        radiance = Vec3(*(torch.where(live, c[back], pc)
+                          for c, pc in zip(radiance, prev_rad)))
+    return radiance, state.ray_count
+
+
+@functools.lru_cache(maxsize=32)
+def _tile_pixel_order_np(width: int, npix: int, tile: int = 16):
+    """Static position -> pixel permutation visiting tile x tile screen
+    blocks in raster order, raster within each block (the reference's tile
+    decomposition, Renderer.hpp:75, as a ray-processing order): each
+    traversal tile then covers one compact screen block. None when the flat
+    range is not a whole number of scanlines."""
+    if npix % width:
+        return None
+    xs = np.arange(npix, dtype=np.int64) % width
+    ys = np.arange(npix, dtype=np.int64) // width
+    tiles_x = -(-width // tile)
+    key = ((ys // tile) * tiles_x + (xs // tile)) * (tile * tile) \
+        + (ys % tile) * tile + (xs % tile)
+    return np.argsort(key, kind="stable").astype(np.int64)
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_pixel_order(width: int, npix: int, tile: int, device):
+    """``_tile_pixel_order_np`` and its inverse (pixel -> position) as int64
+    tensors on `device`, made once per frame shape: (perm, inv), or None
+    where there is no such order."""
+    perm = _tile_pixel_order_np(width, npix, tile)
+    if perm is None:
+        return None
+    return (torch.from_numpy(perm).to(device),
+            torch.from_numpy(np.argsort(perm)).to(device))
 
 
 def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
                 width: int, height: int, pixel_start: int = 0,
                 npix: int = None, k_passes: int = 1):
-    """One progressive sample for a contiguous flat-pixel range in raster
-    order: (radiance Vec3 of [npix] tensors, row 0 = bottom scanline;
-    ray_count, a 0-d u32 in int64).
+    """One progressive sample for a contiguous flat-pixel range: (radiance
+    Vec3 of [npix] tensors in raster order, row 0 = bottom scanline;
+    ray_count, a 0-d u32 in int64). Rays are traced in raster order or, with
+    ``ray_order='tile'`` ('auto' under accel='pallas'), in screen-tile order,
+    and the radiance is put back into raster order.
 
     Rays go through ``trace_rays`` in ``rays_per_chunk`` chunks; the last
     chunk is padded with lanes that are dead from bounce 0. With
@@ -400,7 +541,22 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
         npix = width * height
     nrays = npix * k_passes
     ray = torch.arange(nrays, dtype=torch.int64, device=device)
+    ray_order = policy.ray_order
+    if ray_order == "auto":
+        ray_order = ("tile" if "pallas" in (policy.effective_accel,
+                                            policy.primary_accel)
+                     else "raster")
+    order = None
+    if ray_order == "tile":
+        # block edge matched to the traversal tile: one tile of
+        # pallas_tile_rays rays covers one square screen block
+        tile_rays = policy.pallas_tile_rays
+        edge = (16 if tile_rays == "auto"
+                else max(8, math.isqrt(max(tile_rays, 64))))
+        order = _tile_pixel_order(width, npix, edge, torch.device(device))
     pos = ray % npix if k_passes > 1 else ray
+    if order is not None:
+        pos = order[0][pos]
     i = (pixel_start + pos) & MASK
     x = i % width
     y = i // width
@@ -433,4 +589,6 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
         flat = Vec3(*(torch.clamp_max(c, policy.max_radiance) for c in flat))
     if k_passes > 1:
         flat = Vec3(*(c.reshape(k_passes, npix) for c in flat))
+    if order is not None:  # back to raster pixel order
+        flat = Vec3(*(c[..., order[1]] for c in flat))
     return flat, count

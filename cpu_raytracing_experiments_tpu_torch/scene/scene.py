@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.vec import Quat, Vec3
+from ..ops.clustered import ClusteredPrims
 
 
 def _f32(v, device=None) -> torch.Tensor:
@@ -241,6 +242,7 @@ class Scene:
     camera: Camera
     sky: Sky
     triangles: None = None  # triangle geometry is a later port slice
+    sphere_clusters: Optional[ClusteredPrims] = None  # scene.accel
 
     @property
     def num_lights(self) -> int:
@@ -251,9 +253,11 @@ class Scene:
         return self.spheres.radius_sq.device
 
     def to(self, device) -> "Scene":
+        cp = self.sphere_clusters
         return Scene(self.spheres.to(device), self.materials.to(device),
                      self.lights.to(device), self.camera.to(device),
-                     self.sky.to(device))
+                     self.sky.to(device),
+                     sphere_clusters=None if cp is None else cp.to(device))
 
     @staticmethod
     def from_numpy(arrays: dict, device=None) -> "Scene":
@@ -262,8 +266,9 @@ class Scene:
         ``sphere_material_id`` [P] int32, ``material_<field>`` ([M,3] or
         [M]), ``lights`` [L] int32, ``sky_ambient`` [3], ``sky_hdri``
         [H*W,3], ``sky_width``/``sky_height``, ``camera_pos`` [3],
-        ``camera_orient`` [4] (x,y,z,w) and the ``camera_<scalar>`` fields.
-        Values are taken bit for bit."""
+        ``camera_orient`` [4] (x,y,z,w) and the ``camera_<scalar>`` fields;
+        optionally ``sphere_clusters``, the dict ``ClusteredPrims.from_numpy``
+        reads. Values are taken bit for bit."""
         if any(k.startswith("tri") for k in arrays):
             raise NotImplementedError(
                 "triangle geometry is not ported yet (sphere scenes only)")
@@ -276,7 +281,9 @@ class Scene:
         camera = Camera(vec("camera_pos"), Quat(*(orient[k] for k in range(4))),
                         *(t(f"camera_{k}") for k in _CAMERA_SCALARS))
         spheres, mats, lights = _geometry(arrays, device)
-        return Scene(spheres, mats, lights, camera, sky)
+        cp = arrays.get("sphere_clusters")
+        return Scene(spheres, mats, lights, camera, sky, sphere_clusters=(
+            None if cp is None else ClusteredPrims.from_numpy(cp, device)))
 
     def to_numpy(self) -> dict:
         """The flat-array layout ``from_numpy`` reads."""
@@ -299,6 +306,8 @@ class Scene:
                                     else v.cpu().numpy())
         for k in _CAMERA_SCALARS:
             out[f"camera_{k}"] = getattr(self.camera, k).cpu().numpy()
+        if self.sphere_clusters is not None:
+            out["sphere_clusters"] = self.sphere_clusters.to_numpy()
         return out
 
 

@@ -2,11 +2,16 @@
 ``utils/config.py::RendererPolicy`` with the same defaults, so a policy and
 its fingerprint mean the same thing in both packages.
 
-The PyTorch port renders the main path (brute sphere battery, lambertian,
-uniform light selection, MIS, Russian roulette, median resolve). Knobs that
-select anything else are accepted here, so that later port slices only lift
-the checks, and are refused with ``NotImplementedError`` by
-``render.renderer.check_policy`` before any work is done.
+The PyTorch port renders sphere scenes (brute sphere battery or the
+clustered traversal of ``accel='pallas'``, lambertian, uniform light
+selection, MIS, Russian roulette, wavefront narrowing, raster or screen-tile
+ray order, median resolve). Knobs that select anything else are accepted
+here, so that later port slices only lift the checks, and are refused with
+``NotImplementedError`` by ``render.renderer.check_policy`` before any work
+is done. The pallas_* schedule knobs (``pallas_unroll``, ``pallas_fuse``,
+``pallas_trav_block``, ``pallas_exit_refresh``, ``pallas_prefetch``,
+``pallas_plan_block``) and ``pallas_interpret`` describe how the JAX
+package runs its TPU kernels; the port accepts them and they change nothing.
 """
 from __future__ import annotations
 

@@ -23,6 +23,10 @@ from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3 as TVec3
 from cpu_raytracing_experiments_tpu_torch.ops import intersect as tint
 from cpu_raytracing_experiments_tpu_torch.ops.kernels import sphere_battery as sb
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each, or the workers' thread pools fight over the cores.
+torch.set_num_threads(1)
+
 j_intersect_spheres = jax.jit(jint.intersect_spheres)
 j_occluded_spheres = jax.jit(jint.occluded_spheres)
 
@@ -172,9 +176,26 @@ def test_wrapper_refuses_other_devices_and_accels():
                    torch.empty(3, device="meta"))
     scene = builders.default_scene(16, 16)
     v = TVec3(*(torch.zeros(4) for _ in range(3)))
-    for accel in ("bvh", "pallas"):
+    for accel in ("bvh", "grid", "clustered"):
         with pytest.raises(NotImplementedError):
             tint.intersect_scene(scene, v, v, accel=accel)
+        with pytest.raises(NotImplementedError):
+            tint.occluded_scene(scene, v, v, torch.ones(4), accel=accel)
+    # the cluster kernels' wrappers refuse a device that is neither, too
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+    from cpu_raytracing_experiments_tpu_torch.scene import accel as taccel
+
+    cp = taccel.with_pallas_clusters(
+        builders.bvh_test_scene(8, 8), cluster_size=32).sphere_clusters
+    tf = torch.empty(8, device="meta")
+    with pytest.raises(ValueError):
+        ct._plan_visits(cp, meta, meta, tf, tf > 0, 64)
+    plan = ct._plan_visits(cp, v, v, torch.ones(4), torch.ones(4) > 0, 64)
+    with pytest.raises(ValueError):
+        ct.walk_closest(cp, *plan, meta, meta, tf, tf > 0, 64)
+    with pytest.raises(ValueError):
+        ct.walk_occluded(cp, *plan, meta, meta, tf, 64)
 
 
 @pytest.mark.cuda

@@ -29,12 +29,17 @@ from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3 as TVec3
 from cpu_raytracing_experiments_tpu_torch.ops import intersect as tint
 from cpu_raytracing_experiments_tpu_torch.render import estimator
 from cpu_raytracing_experiments_tpu_torch.render import renderer as tr
+from cpu_raytracing_experiments_tpu_torch.scene import accel as taccel
 from cpu_raytracing_experiments_tpu_torch.scene import builders as tbuilders
 from cpu_raytracing_experiments_tpu_torch.scene.scene import Scene
 from cpu_raytracing_experiments_tpu_torch.utils.config import RendererPolicy
 
 from test_goldens import GOLDEN_DIR, POL as GOLDEN_POL, SIZE, SPP, _check
 from test_torch_scene import jax_scene_to_numpy
+
+# The suite runs in several worker processes at once: one intra-op thread
+# each, or the workers' thread pools fight over the cores.
+torch.set_num_threads(1)
 
 ACC = 3  # accumulation index of the compared wavefront
 
@@ -201,9 +206,10 @@ def test_golden_hero():
 
 
 def test_golden_bvh_test(jax_exact_rsqrt):
-    """bvh_test (255 spheres), 64x64, 10 spp, narrowing off (the port does
-    not narrow; the JAX package's renders with and without narrowing agree
-    at _check's bar). The checked-in golden comes from XLA's CPU rsqrt, which the port
+    """bvh_test (255 spheres), 64x64, 10 spp, narrowing off in both packages
+    (narrowing leaves every lane's value as it is, in the JAX package and in
+    the port: tests/test_narrowing.py, tests/test_torch_narrowing.py). The
+    checked-in golden comes from XLA's CPU rsqrt, which the port
     does not copy: it rounds rsqrt correctly. One ulp in half the camera
     directions moves grazing hits at distance ~300 and so the 10-spp mean
     by ~0.5%, beyond _check's 1e-3 on the mean. So the witness is the JAX
@@ -262,26 +268,86 @@ def test_resume_equivalence_bitwise():
 
 
 @pytest.mark.parametrize("knob", [
-    {"accel": "pallas"}, {"use_bvh": True}, {"brdf": "ggx"},
+    {"accel": "clustered"}, {"use_bvh": True}, {"brdf": "ggx"},
     {"light_sampling": "power"}, {"enable_dof": True},
     {"stratify_camera": True}, {"rng_scramble": True},
-    {"samples_per_pixel": 2}, {"narrow_wavefront": True},
-    {"ray_order": "tile"}, {"primary_accel": "pallas"},
+    {"samples_per_pixel": 2}, {"primary_accel": "bvh"},
+    {"accel": "grid"}, {"accel": "pallas", "pallas_stream": True},
+    {"accel": "pallas", "pallas_mxu": True},
+    {"accel": "pallas", "pallas_plan": "super"},
+    {"primary_accel": "pallas", "pallas_plan": "group"},
+    {"accel": "pallas", "pallas_sort_impl": "xla"},
+    {"accel": "pallas", "pallas_sort_visits": False},
 ])
 def test_knob_outside_slice_raises(knob):
-    """A knob the port does not render yet raises NotImplementedError
-    instead of changing the result."""
+    """A knob the port does not render yet raises NotImplementedError, which
+    names it, instead of changing the result."""
     pol = RendererPolicy(max_bounces=2, rays_per_chunk=4096, **knob)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError) as err:
         Renderer(tbuilders.default_scene(8, 8), pol, 8, 8, device="cpu")
+    assert [k for k in knob if k in str(err.value)] or "use_bvh" in knob
+
+
+@pytest.mark.parametrize("knob", [
+    {"pallas_unroll": 4}, {"pallas_fuse": 2}, {"pallas_trav_block": 8},
+    {"pallas_exit_refresh": 32}, {"pallas_prefetch": True},
+    {"pallas_plan_block": 16}, {"pallas_interpret": True},
+    {"pallas_plan": "auto"},
+])
+def test_schedule_knobs_accepted_and_change_nothing(knob):
+    """The pallas_* schedule knobs choose among TPU schedules the JAX
+    package holds bit-identical; the port accepts them and renders the same
+    buckets."""
+    scene = taccel.with_pallas_clusters(
+        tbuilders.random_spheres_scene(16, 16, num_spheres=200),
+        cluster_size=32)
+    base = dict(max_bounces=3, rays_per_chunk=4096, accel="pallas",
+                pallas_tile_rays=64)
+
+    def buckets(**kw):
+        r = Renderer(scene, RendererPolicy(**base, **kw), 16, 16,
+                     device="cpu")
+        r.accumulate(2)
+        return r.state.buckets
+
+    assert torch.equal(buckets(**knob), buckets())
+
+
+def test_too_many_clusters_refused_before_any_work():
+    """The planner kernel sorts a tile's list in one block's shared memory:
+    at most 16,384 clusters at every tile size. A scene cut into more is
+    refused by name when the renderer is made, not at the first launch."""
+    import dataclasses
+
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+
+    assert [ct.max_plan_clusters(t) for t in (32, 128, 256, 1024)] \
+        == [16384] * 4
+    scene = taccel.with_pallas_clusters(
+        tbuilders.random_spheres_scene(8, 8, num_spheres=200),
+        cluster_size=32)
+    over = dataclasses.replace(scene, sphere_clusters=dataclasses.replace(
+        scene.sphere_clusters, num_clusters=16385))
+    pol = RendererPolicy(max_bounces=2, accel="pallas")
+    with pytest.raises(NotImplementedError, match="16385 clusters"):
+        Renderer(over, pol, 8, 8, device="cpu")
+    Renderer(scene, pol, 8, 8, device="cpu")
+    Renderer(over, RendererPolicy(max_bounces=2), 8, 8, device="cpu")
 
 
 def test_narrowing_auto_and_triangles_raise():
     """narrow_wavefront='auto' resolves to on at >= 64 spheres (bvh_test has
-    255): refused; triangle scenes are refused at construction."""
-    with pytest.raises(NotImplementedError):
-        Renderer(tbuilders.bvh_test_scene(8, 8), RendererPolicy(), 8, 8,
-                 device="cpu")
+    255) and under accel='pallas', and such a scene renders; triangle scenes
+    are refused at construction."""
+    big = tbuilders.bvh_test_scene(8, 8)
+    assert tr.narrowing_on(RendererPolicy(), big)
+    assert not tr.narrowing_on(RendererPolicy(), tbuilders.default_scene(8, 8))
+    assert tr.narrowing_on(RendererPolicy(accel="pallas"),
+                           tbuilders.default_scene(8, 8))
+    r = Renderer(big, RendererPolicy(max_bounces=2), 8, 8, device="cpu")
+    r.accumulate(1)
+    assert np.isfinite(r.render()).all()
     arrays = jax_scene_to_numpy(jbuilders.default_scene(8, 8))
     arrays["tri_v0"] = np.zeros((1, 3), np.float32)
     with pytest.raises(NotImplementedError):

@@ -14,6 +14,10 @@ from cpu_raytracing_experiments_tpu.core import rng as jrng
 from cpu_raytracing_experiments_tpu_torch.core import bitmanip as tbm
 from cpu_raytracing_experiments_tpu_torch.core import rng as trng
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each, or the workers' thread pools fight over the cores.
+torch.set_num_threads(1)
+
 EDGES = [0, 1, 2, 3, 12345, 0x7FFFFFFF, 0x80000000, 0xDEADBEEF, 0xFFFFFFFE,
          0xFFFFFFFF, 747796405, 2891336453]
 

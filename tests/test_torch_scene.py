@@ -3,7 +3,8 @@
 
 ``jax_scene_to_numpy`` (test side only: the port never imports the JAX
 package) flattens a JAX ``Scene`` into the arrays ``Scene.from_numpy``
-reads, so both packages render identical inputs. The port's own builders
+reads, with its sphere clusters (``jax_clusters_to_numpy``) where it has
+them, so both packages render identical inputs. The port's own builders
 must give exactly the JAX builders' arrays."""
 import numpy as np
 import pytest
@@ -17,9 +18,25 @@ from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3 as TVec3
 from cpu_raytracing_experiments_tpu_torch.scene import builders as tbuilders
 from cpu_raytracing_experiments_tpu_torch.scene import scene as tscene
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each, or the workers' thread pools fight over the cores.
+torch.set_num_threads(1)
+
 
 def _vec(v):
     return np.stack([np.asarray(c) for c in v], axis=-1)
+
+
+def jax_clusters_to_numpy(cp) -> dict:
+    """Flatten a JAX ClusteredPrims into the dict
+    ``ClusteredPrims.from_numpy`` reads."""
+    return {
+        "rows": np.asarray(cp.rows), "order": np.asarray(cp.order),
+        "lo": _vec(cp.lo), "hi": _vec(cp.hi),
+        "planes": None if cp.planes is None else np.asarray(cp.planes),
+        "num_clusters": int(cp.num_clusters),
+        "cluster_size": int(cp.cluster_size), "kind": str(cp.kind),
+    }
 
 
 def jax_scene_to_numpy(scene) -> dict:
@@ -48,12 +65,20 @@ def jax_scene_to_numpy(scene) -> dict:
     for k in ("half_width", "half_height", "z", "exposure", "aperture_radius",
               "focus_distance"):
         out[f"camera_{k}"] = np.asarray(getattr(scene.camera, k))
+    if scene.sphere_clusters is not None:
+        out["sphere_clusters"] = jax_clusters_to_numpy(scene.sphere_clusters)
     return out
 
 
 def _assert_same_arrays(got: dict, want: dict):
     assert sorted(got) == sorted(want)
     for k in want:
+        if isinstance(want[k], dict):  # the clusters' own arrays
+            _assert_same_arrays(got[k], want[k])
+            continue
+        if want[k] is None:
+            assert got[k] is None, k
+            continue
         a, b = np.asarray(got[k]), np.asarray(want[k])
         assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype, b.dtype)
         np.testing.assert_array_equal(a, b, err_msg=k)
