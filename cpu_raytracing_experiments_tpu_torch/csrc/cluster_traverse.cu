@@ -12,6 +12,11 @@
 //   cluster_occluded <- _make_shadow_kernel with _sphere_anyhit_battery /
 //                       _triangle_anyhit_battery (driven by
 //                       occluded_clustered_pallas)
+//   the battery code 2 of both walks <- _triangle_battery_mxu, the triangle
+//                       test in product form (mxu=True)
+//   cluster_closest_stream, cluster_occluded_stream <- _stream_kernels
+//                       (stream=True): the same walks over the row-packed
+//                       table of _tables_packed
 //
 // What they compute. Rays are cut into tiles of tile_r consecutive rays; one
 // thread block works on one tile.
@@ -53,6 +58,27 @@
 // cluster's rows once per tile (16 B per sphere, 48 B per triangle) and do
 // 20 (spheres) or about 35 (triangles) operations per (ray, primitive) pair,
 // the multiply-adds among them in double: operations bind them.
+//
+// The product-form triangle battery. Per visited cluster the TPU kernel
+// multiplies the tile's [tile_r, 3] direction and origin matrices with
+// m = [n | f1 | f2] of shape [3, 3K], then t = (d0 - n.p) / (n.d),
+// u = f1.p + t * (f1.d) + g1 and v likewise; the hit point is never formed.
+// Here each thread computes its ray's row of both products from the staged
+// rows of m, every element as mat3(): ax*bx, then two fused multiply-adds,
+// in float32 (fma32). No tensor core: one-pass TF32 would not keep the prim
+// ids. It rounds differently from the ordinary battery by design.
+//
+// The streamed walks. They read the packed table [C * F8, K] (cluster c's
+// attribute rows contiguous, zero rows up to F8 = 8 or 16) and keep two
+// slots of one cluster's attribute rows in shared memory. Before the block
+// waits for visit j's rows it starts the asynchronous copy (cp.async, 16
+// bytes a thread, one commit group per visit) of visit j + 1 into the other
+// slot, so that copy runs under visit j's battery. The zero rows are not
+// copied. A copy started for a visit that the early exit then skips is
+// waited for before the block ends. Any K is aligned: a packed cluster is
+// F8 * K floats and its attribute rows 4 * K or 12 * K, all multiples of 16
+// bytes. The batteries are the resident walks' own, fed the same values, so
+// the results are equal bit for bit.
 //
 // The simple design. Planner: the tile's rays (origin, 1/direction, tfar)
 // are staged in shared memory; each thread owns clusters c, c + 256, ... and
@@ -303,21 +329,108 @@ __device__ __forceinline__ float triangle_t(const Ray& r, float4 n, float4 f1,
   return valid ? t : FLT_MAX;
 }
 
-template <bool kTri>
+// One element of a [., 3] x [3, .] product: k = 0, 1, 2 in order, a fused
+// multiply-add per step (_mat3 of the plain version).
+__device__ __forceinline__ float mat3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return fma32(az, bz, fma32(ay, by, __fmul_rn(ax, bx)));
+}
+
+// _triangle_battery_mxu: the ray's rows of dmat x m and pmat x m for one
+// triangle (columns n, f1, f2 of m), then t, u and v without the hit point.
+__device__ __forceinline__ float triangle_product_t(const Ray& r, float4 n,
+                                                    float4 f1, float4 f2) {
+  const float den = mat3(r.dx, r.dy, r.dz, n.x, n.y, n.z);
+  const float f1d = mat3(r.dx, r.dy, r.dz, f1.x, f1.y, f1.z);
+  const float f2d = mat3(r.dx, r.dy, r.dz, f2.x, f2.y, f2.z);
+  const float pn = mat3(r.px, r.py, r.pz, n.x, n.y, n.z);
+  const float f1p = mat3(r.px, r.py, r.pz, f1.x, f1.y, f1.z);
+  const float f2p = mat3(r.px, r.py, r.pz, f2.x, f2.y, f2.z);
+  const float t = __fdiv_rn(__fsub_rn(n.w, pn), den);
+  const float u = __fadd_rn(fma32(t, f1d, f1p), f1.w);
+  const float v = __fadd_rn(fma32(t, f2d, f2p), f2.w);
+  const bool valid = fabsf(den) > 1e-12f && u >= 0.0f && v >= 0.0f &&
+                     __fadd_rn(u, v) <= 1.0f && t > 1e-6f;
+  return valid ? t : FLT_MAX;
+}
+
+// The `battery` argument of the walks' entry points.
+constexpr int kSphere = 0;
+constexpr int kTriangle = 1;
+constexpr int kTriangleProduct = 2;
+
+template <int kBattery>
 __device__ __forceinline__ float prim_t(const Ray& r, const float4* rows,
                                         int k) {
-  if (kTri) return triangle_t(r, rows[3 * k], rows[3 * k + 1], rows[3 * k + 2]);
+  if (kBattery == kTriangle) {
+    return triangle_t(r, rows[3 * k], rows[3 * k + 1], rows[3 * k + 2]);
+  }
+  if (kBattery == kTriangleProduct) {
+    return triangle_product_t(r, rows[3 * k], rows[3 * k + 1],
+                              rows[3 * k + 2]);
+  }
   return sphere_t(r, rows[k]);
 }
 
-// Stage cluster c's rows (K prims of kRows float4 each) into shared memory.
-template <bool kTri>
+// Stage cluster c's rows (K prims of 1 or 3 float4 each) into shared memory.
+template <int kBattery>
 __device__ __forceinline__ void stage(float4* rows,
                                       const float4* __restrict__ table, int c,
                                       int k_prims) {
-  const int n = k_prims * (kTri ? 3 : 1);
+  const int n = k_prims * (kBattery == kSphere ? 1 : 3);
   const float4* src = table + static_cast<size_t>(c) * n;
   for (int k = threadIdx.x; k < n; k += blockDim.x) rows[k] = src[k];
+}
+
+// Prim k of a cluster staged as attribute rows of K floats each (the packed
+// layout of the streamed walks), through the resident walks' batteries.
+template <bool kTri>
+__device__ __forceinline__ float packed_prim_t(const Ray& r, const float* a,
+                                               int k_prims, int k) {
+  if (kTri) {
+    return triangle_t(
+        r,
+        make_float4(a[k], a[k_prims + k], a[2 * k_prims + k],
+                    a[3 * k_prims + k]),
+        make_float4(a[4 * k_prims + k], a[5 * k_prims + k],
+                    a[6 * k_prims + k], a[7 * k_prims + k]),
+        make_float4(a[8 * k_prims + k], a[9 * k_prims + k],
+                    a[10 * k_prims + k], a[11 * k_prims + k]));
+  }
+  return sphere_t(r, make_float4(a[k], a[k_prims + k], a[2 * k_prims + k],
+                                 a[3 * k_prims + k]));
+}
+
+// cp.async: a 16-byte copy from global to shared memory that the thread
+// does not wait for; copies are grouped by commit and awaited by group.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's commit groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Start the copy of cluster c's attribute rows (n4 float4 of them, the zero
+// rows of the packed cluster left out) into a slot.
+__device__ __forceinline__ void fetch_cluster(float4* slot,
+                                              const float* __restrict__ packed,
+                                              int c, int cluster_floats,
+                                              int n4) {
+  const float4* src = reinterpret_cast<const float4*>(
+      packed + static_cast<size_t>(c) * cluster_floats);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    cp_async16(slot + i, src + i);
+  }
 }
 
 __device__ __forceinline__ Ray load_ray(const float* px, const float* py,
@@ -330,7 +443,7 @@ __device__ __forceinline__ Ray load_ray(const float* px, const float* py,
 // ---------------------------------------------------------------------------
 // cluster_closest
 // ---------------------------------------------------------------------------
-template <bool kTri>
+template <int kBattery>
 __global__ void closest_kernel(
     const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
     const float* __restrict__ entry, const float* __restrict__ root,
@@ -360,11 +473,11 @@ __global__ void closest_kernel(
   for (int j = 0; j < n; ++j) {
     if (!(entry[row + j] < mx)) break;  // uniform: mx is the block's
     const int c = visit[row + j];
-    stage<kTri>(rows, table, c, k_prims);
+    stage<kBattery>(rows, table, c, k_prims);
     __syncthreads();
     if (live) {
       for (int k = 0; k < k_prims; ++k) {
-        const float t = prim_t<kTri>(r, rows, k);
+        const float t = prim_t<kBattery>(r, rows, k);
         if (t < best) {  // strict: the first occurrence keeps a tie
           best = t;
           best_id = c * k_prims + k;
@@ -383,7 +496,7 @@ __global__ void closest_kernel(
 // ---------------------------------------------------------------------------
 // cluster_occluded
 // ---------------------------------------------------------------------------
-template <bool kTri>
+template <int kBattery>
 __global__ void occluded_kernel(
     const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
     const float* __restrict__ entry, const float* __restrict__ root,
@@ -414,12 +527,13 @@ __global__ void occluded_kernel(
   for (int j = 0; j < n; ++j) {
     if (!(entry[row + j] < mx)) break;
     const int c = visit[row + j];
-    stage<kTri>(rows, table, c, k_prims);
+    stage<kBattery>(rows, table, c, k_prims);
     __syncthreads();
     if (live && !occ) {
       for (int k = 0; k < k_prims; ++k) {
-        const bool hit = kTri ? prim_t<true>(r, rows, k) < tf
-                              : sphere_occludes(r, tf, rows[k]);
+        const bool hit = kBattery == kSphere
+                             ? sphere_occludes(r, tf, rows[k])
+                             : prim_t<kBattery>(r, rows, k) < tf;
         if (hit) {
           occ = true;
           break;
@@ -431,10 +545,141 @@ __global__ void occluded_kernel(
   if (in_range) occ_out[i] = occ ? 1 : 0;
 }
 
-// Shared memory above 48 KB has to be asked for.
+// ---------------------------------------------------------------------------
+// cluster_closest_stream, cluster_occluded_stream
+// ---------------------------------------------------------------------------
+// The loop both streamed walks share. Visit j's rows are in slot j & 1. The
+// copy of visit j + 1 is started before the wait for visit j, into the slot
+// that visit j - 1 used: the two barriers of that visit's block_max lie
+// between its reads and this overwrite. One commit group per trip, empty
+// where there is no next visit, so that "all but the newest group" is
+// always "visit j has landed". `visit_fn(c, rows)` runs the battery and
+// returns the tile's new exit bound.
+template <typename Visit>
+__device__ __forceinline__ void stream_walk(
+    const int32_t* __restrict__ visit_row, const float* __restrict__ entry_row,
+    int n, float mx, const float* __restrict__ packed, int cluster_floats,
+    int n4, float4* slots, Visit visit_fn) {
+  if (n > 0) fetch_cluster(slots, packed, visit_row[0], cluster_floats, n4);
+  cp_async_commit();
+  for (int j = 0; j < n; ++j) {
+    if (!(entry_row[j] < mx)) break;  // uniform: mx is the block's
+    if (j + 1 < n) {
+      fetch_cluster(slots + ((j + 1) & 1) * n4, packed, visit_row[j + 1],
+                    cluster_floats, n4);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's part of visit j has landed
+    __syncthreads();     // and every other thread's
+    mx = visit_fn(visit_row[j],
+                  reinterpret_cast<const float*>(slots + (j & 1) * n4));
+  }
+  cp_async_wait<0>();  // a copy started for a visit the exit skipped
+}
+
+template <bool kTri>
+__global__ void closest_stream_kernel(
+    const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
+    const float* __restrict__ entry, const float* __restrict__ root,
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ tf0, const uint8_t* __restrict__ valid,
+    const float* __restrict__ packed, int n_rays, int n_clusters, int k_prims,
+    float* __restrict__ tfar_out, int32_t* __restrict__ prim_out) {
+  extern __shared__ float4 slots[];  // two slots of n4 float4
+  __shared__ float s_red[32];
+  constexpr int kAttrs = kTri ? 12 : 4;
+  constexpr int kPackedRows = kTri ? 16 : 8;
+  const int tile = blockIdx.x;
+  const int i = tile * blockDim.x + threadIdx.x;
+  const bool in_range = i < n_rays;
+  const bool live = in_range && valid[i] != 0;
+  Ray r{};
+  float best = 0.0f;
+  if (in_range) {
+    r = load_ray(px, py, pz, dx, dy, dz, i);
+    best = tf0[i];
+  }
+  const float bound = live ? fminf(best, root_exit(root, r)) : -FLT_MAX;
+  const float mx = block_max(bound, s_red);
+  int32_t best_id = -1;
+  const size_t row = static_cast<size_t>(tile) * n_clusters;
+  stream_walk(
+      visit + row, entry + row, nvis[tile], mx, packed, kPackedRows * k_prims,
+      kAttrs * k_prims / 4, slots, [&](int c, const float* rows) {
+        if (live) {
+          for (int k = 0; k < k_prims; ++k) {
+            const float t = packed_prim_t<kTri>(r, rows, k_prims, k);
+            if (t < best) {  // strict: the first occurrence keeps a tie
+              best = t;
+              best_id = c * k_prims + k;
+            }
+          }
+        }
+        return block_max(live ? fminf(best, bound) : -FLT_MAX, s_red);
+      });
+  if (in_range) {
+    tfar_out[i] = best;
+    prim_out[i] = best_id;
+  }
+}
+
+template <bool kTri>
+__global__ void occluded_stream_kernel(
+    const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
+    const float* __restrict__ entry, const float* __restrict__ root,
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ tfar, const float* __restrict__ packed,
+    int n_rays, int n_clusters, int k_prims, uint8_t* __restrict__ occ_out) {
+  extern __shared__ float4 slots[];
+  __shared__ float s_red[32];
+  constexpr int kAttrs = kTri ? 12 : 4;
+  constexpr int kPackedRows = kTri ? 16 : 8;
+  const int tile = blockIdx.x;
+  const int i = tile * blockDim.x + threadIdx.x;
+  const bool in_range = i < n_rays;
+  Ray r{};
+  float tf = 0.0f;
+  if (in_range) {
+    r = load_ray(px, py, pz, dx, dy, dz, i);
+    tf = tfar[i];
+  }
+  const bool live = in_range && tf > 0.0f;  // tfar <= 0 (or NaN): invalid
+  const float bound = live ? fminf(tf, root_exit(root, r)) : -FLT_MAX;
+  const float mx = block_max(bound, s_red);
+  bool occ = false;
+  const size_t row = static_cast<size_t>(tile) * n_clusters;
+  stream_walk(
+      visit + row, entry + row, nvis[tile], mx, packed, kPackedRows * k_prims,
+      kAttrs * k_prims / 4, slots, [&](int /*c*/, const float* rows) {
+        if (live && !occ) {
+          for (int k = 0; k < k_prims; ++k) {
+            const bool hit =
+                kTri ? packed_prim_t<true>(r, rows, k_prims, k) < tf
+                     : sphere_occludes(
+                           r, tf,
+                           make_float4(rows[k], rows[k_prims + k],
+                                       rows[2 * k_prims + k],
+                                       rows[3 * k_prims + k]));
+            if (hit) {
+              occ = true;
+              break;
+            }
+          }
+        }
+        return block_max((live && !occ) ? bound : -FLT_MAX, s_red);
+      });
+  if (in_range) occ_out[i] = occ ? 1 : 0;
+}
+
+// Shared memory above 48 KB has to be asked for; the limit counts the
+// kernel's static shared memory (s_red, s_count) too, so ask from 47 KB on.
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes <= 47 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -471,13 +716,15 @@ extern "C" int cluster_closest(
     const int32_t* nvis, const int32_t* visit, const float* entry,
     const float* root, const float* px, const float* py, const float* pz,
     const float* dx, const float* dy, const float* dz, const float* tf0,
-    const uint8_t* valid, const float* table, int triangles, int n_rays,
+    const uint8_t* valid, const float* table, int battery, int n_rays,
     int tile_r, int n_clusters, int k_prims, float* tfar_out,
     int32_t* prim_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const size_t shared =
-      static_cast<size_t>(k_prims) * (triangles ? 3 : 1) * sizeof(float4);
-  auto kernel = triangles ? closest_kernel<true> : closest_kernel<false>;
+      static_cast<size_t>(k_prims) * (battery ? 3 : 1) * sizeof(float4);
+  auto kernel = battery == kTriangleProduct ? closest_kernel<kTriangleProduct>
+                : battery == kTriangle      ? closest_kernel<kTriangle>
+                                            : closest_kernel<kSphere>;
   const cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n_rays + tile_r - 1) / tile_r;
@@ -492,12 +739,15 @@ extern "C" int cluster_occluded(
     const int32_t* nvis, const int32_t* visit, const float* entry,
     const float* root, const float* px, const float* py, const float* pz,
     const float* dx, const float* dy, const float* dz, const float* tfar,
-    const float* table, int triangles, int n_rays, int tile_r, int n_clusters,
+    const float* table, int battery, int n_rays, int tile_r, int n_clusters,
     int k_prims, uint8_t* occ_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const size_t shared =
-      static_cast<size_t>(k_prims) * (triangles ? 3 : 1) * sizeof(float4);
-  auto kernel = triangles ? occluded_kernel<true> : occluded_kernel<false>;
+      static_cast<size_t>(k_prims) * (battery ? 3 : 1) * sizeof(float4);
+  auto kernel = battery == kTriangleProduct
+                    ? occluded_kernel<kTriangleProduct>
+                : battery == kTriangle ? occluded_kernel<kTriangle>
+                                       : occluded_kernel<kSphere>;
   const cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n_rays + tile_r - 1) / tile_r;
@@ -505,5 +755,48 @@ extern "C" int cluster_occluded(
       nvis, visit, entry, root, px, py, pz, dx, dy, dz, tfar,
       reinterpret_cast<const float4*>(table), n_rays, n_clusters, k_prims,
       occ_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The streamed walks: `packed` is the [C * F8, K] table, `battery` 0 for
+// spheres and 1 for triangles. Two slots of one cluster's attribute rows.
+extern "C" int cluster_closest_stream(
+    const int32_t* nvis, const int32_t* visit, const float* entry,
+    const float* root, const float* px, const float* py, const float* pz,
+    const float* dx, const float* dy, const float* dz, const float* tf0,
+    const uint8_t* valid, const float* packed, int battery, int n_rays,
+    int tile_r, int n_clusters, int k_prims, float* tfar_out,
+    int32_t* prim_out, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t shared =
+      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
+  auto kernel =
+      battery ? closest_stream_kernel<true> : closest_stream_kernel<false>;
+  const cudaError_t err = allow_shared(kernel, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n_rays + tile_r - 1) / tile_r;
+  kernel<<<tiles, tile_r, shared, static_cast<cudaStream_t>(stream)>>>(
+      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tf0, valid, packed,
+      n_rays, n_clusters, k_prims, tfar_out, prim_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cluster_occluded_stream(
+    const int32_t* nvis, const int32_t* visit, const float* entry,
+    const float* root, const float* px, const float* py, const float* pz,
+    const float* dx, const float* dy, const float* dz, const float* tfar,
+    const float* packed, int battery, int n_rays, int tile_r, int n_clusters,
+    int k_prims, uint8_t* occ_out, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t shared =
+      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
+  auto kernel =
+      battery ? occluded_stream_kernel<true> : occluded_stream_kernel<false>;
+  const cudaError_t err = allow_shared(kernel, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n_rays + tile_r - 1) / tile_r;
+  kernel<<<tiles, tile_r, shared, static_cast<cudaStream_t>(stream)>>>(
+      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tfar, packed, n_rays,
+      n_clusters, k_prims, occ_out);
   return static_cast<int>(cudaGetLastError());
 }

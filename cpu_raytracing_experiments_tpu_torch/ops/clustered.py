@@ -38,6 +38,10 @@ class ClusteredPrims:
     # [8] float32 [lo.xyz, hi.xyz, 0, 0]: the root AABB, the union of the
     # cluster bounds (derived; the walks cap their exit bound with it)
     root: Optional[torch.Tensor] = None
+    # [C * F8, K] row-packed attribute planes, the table the streamed walks
+    # read (derived: ``cluster_traverse._tables_packed`` makes it at first
+    # need; a third copy of the attributes beside `rows` and `planes`)
+    packed: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.root is None:
@@ -51,7 +55,8 @@ class ClusteredPrims:
             self, rows=self.rows.to(device), order=self.order.to(device),
             lo=self.lo.to(device), hi=self.hi.to(device),
             planes=None if self.planes is None else self.planes.to(device),
-            root=self.root.to(device))
+            root=self.root.to(device),
+            packed=None if self.packed is None else self.packed.to(device))
 
     @staticmethod
     def from_numpy(arrays: dict, device=None) -> "ClusteredPrims":

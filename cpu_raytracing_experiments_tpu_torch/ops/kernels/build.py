@@ -79,6 +79,15 @@ class Library:
         return lib
 
 
+def load_all(libraries: Sequence[Library]):
+    """Build and load several libraries, their compilers started together
+    (one compiler process per source, side by side)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
+        return list(pool.map(Library.load, libraries))
+
+
 COUNTERS = []  # every kernel's LaunchCounter, in order of definition
 
 

@@ -22,13 +22,31 @@ Each of the three steps has two forms in this module:
   nothing falls back. Each counts its launches (``PLAN``, ``CLOSEST``,
   ``OCCLUDED``).
 
+The walks have two more forms each, chosen by the wrappers' keywords as in
+the JAX module:
+
+* ``stream=True``: the streamed walks (``cluster_closest_stream``,
+  ``cluster_occluded_stream``). They read the row-packed table of
+  ``_tables_packed`` (cluster c's attribute rows contiguous) and copy each
+  visited cluster into one of two shared-memory slots asynchronously, the
+  next visit's copy in flight while the battery runs on the current one.
+  Results equal the resident walks bit for bit. The plain version is the
+  plain walk on tables unpacked from the packed layout.
+* ``mxu=True``: the triangle battery in product form
+  (``_triangle_battery_mxu``; ``cluster_closest[mxu]``,
+  ``cluster_occluded[mxu]``): the six ray . constant contractions of a
+  visited cluster as two [tile_r, 3] x [3, 3K] products, then
+  ``u = f1.p + t * (f1.d) + g1`` without forming the hit point. It rounds
+  differently from the ordinary battery by design (same ids, t to float
+  rounding). It applies to triangle packs of 128 or more prims a cluster
+  and not under ``stream``.
+
 What is TPU schedule in the JAX module and has no counterpart here: the
 lane packing of clusters below 128 prims, ``fuse`` / ``unroll`` /
 ``trav_block`` / ``exit_refresh`` / ``prefetch`` / ``plan_block``, the 8-row
 SMEM blocks, the [8, Cp] slab layout and the padding of the tile count to a
 multiple of 8. The other planners (``plan`` = 'super', 'group', 'tilebox',
-'hybrid', the unsorted plan), the streamed walks and the MXU triangle
-battery are not ported yet.
+'hybrid', the unsorted plan) are not ported yet.
 """
 from __future__ import annotations
 
@@ -55,6 +73,10 @@ MAX_SHARED_BYTES = 227 * 1024  # dynamic shared memory one block can have
 PLAN = LaunchCounter("cluster_plan")
 CLOSEST = LaunchCounter("cluster_closest")
 OCCLUDED = LaunchCounter("cluster_occluded")
+CLOSEST_STREAM = LaunchCounter("cluster_closest_stream")
+OCCLUDED_STREAM = LaunchCounter("cluster_occluded_stream")
+CLOSEST_MXU = LaunchCounter("cluster_closest[mxu]")
+OCCLUDED_MXU = LaunchCounter("cluster_occluded[mxu]")
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +91,41 @@ def _tables(cp: ClusteredPrims):
         raise ValueError("triangle clusters without stored planes")
     rows = src.reshape(c, k, -1)
     return tuple(rows[:, :, f] for f in range(rows.shape[2]))
+
+
+def _stream_rows(kind: str) -> int:
+    """Rows per cluster in the packed table of the streamed walks: the
+    attribute count rounded up to a multiple of 8 (8 for spheres, 16 for
+    triangles), the JAX package's layout."""
+    return -(-_N_ATTRS[kind] // 8) * 8
+
+
+def _tables_packed(cp: ClusteredPrims) -> torch.Tensor:
+    """[C * F8, K] row-packed attribute planes for the streamed walks:
+    cluster c's attribute rows are contiguous, zero-padded from the
+    attribute count to F8 = ``_stream_rows``, so one contiguous copy fetches
+    a cluster. Made once per pack and kept in its ``packed`` field."""
+    if cp.packed is None:
+        stacked = torch.stack(_tables(cp), dim=1)  # [C, F, K]
+        pad = _stream_rows(cp.kind) - stacked.shape[1]
+        cp.packed = torch.nn.functional.pad(stacked, (0, 0, 0, pad)).reshape(
+            -1, cp.cluster_size).contiguous()
+    return cp.packed
+
+
+def device_bytes(cp: ClusteredPrims) -> int:
+    """Bytes of every tensor the pack holds now, the packed table of the
+    streamed walks included once it is made."""
+    tensors = (cp.rows, cp.order, *cp.lo, *cp.hi, cp.planes, cp.root,
+               cp.packed)
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _tables_unpacked(cp: ClusteredPrims, packed: torch.Tensor):
+    """The per-attribute [C, K] planes read back out of a packed table."""
+    planes = packed.reshape(cp.num_clusters, _stream_rows(cp.kind),
+                            cp.cluster_size)
+    return tuple(planes[:, f] for f in range(_N_ATTRS[cp.kind]))
 
 
 def _slab_rows(cp: ClusteredPrims):
@@ -189,23 +246,64 @@ def _triangle_battery(px, py, pz, dx, dy, dz, rows):
     return torch.where(valid, t, FLT_MAX)
 
 
+def _mat3(ax, ay, az, bx, by, bz):
+    """One element of a [., 3] x [3, .] product, summed over k = 0, 1, 2 with
+    a fused multiply-add per step: the order the kernel fixes."""
+    return fma(az, bz, fma(ay, by, ax * bx))
+
+
+def _triangle_battery_mxu(px, py, pz, dx, dy, dz, rows):
+    """The Baldwin-Weber test in product form: the contractions of the ray's
+    direction and origin with the cluster's n, f1 and f2 are the two matrix
+    products dmat @ m and pmat @ m, m = [n | f1 | f2] of shape [3, 3K]; then
+    t = (d0 - n.p) / (n.d) and u = f1.p + t * (f1.d) + g1 (v likewise): the
+    hit point q = p + t * d is never formed. Algebraically the ordinary
+    battery, rounded differently."""
+    (nx, ny, nz, d0, f1x, f1y, f1z, g1, f2x, f2y, f2z, g2) = rows
+    den = _mat3(dx, dy, dz, nx, ny, nz)
+    f1d = _mat3(dx, dy, dz, f1x, f1y, f1z)
+    f2d = _mat3(dx, dy, dz, f2x, f2y, f2z)
+    pn = _mat3(px, py, pz, nx, ny, nz)
+    f1p = _mat3(px, py, pz, f1x, f1y, f1z)
+    f2p = _mat3(px, py, pz, f2x, f2y, f2z)
+    t = (d0 - pn) / den
+    u = fma(t, f1d, f1p) + g1
+    v = fma(t, f2d, f2p) + g2
+    valid = ((torch.abs(den) > 1e-12) & (u >= 0.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t > 1e-6))
+    return torch.where(valid, t, FLT_MAX)
+
+
 def _sphere_anyhit_battery(px, py, pz, dx, dy, dz, tf, rows):
     return sphere_occluded_pairs(px, py, pz, dx, dy, dz, tf, *rows)
 
 
-def _triangle_anyhit_battery(px, py, pz, dx, dy, dz, tf, rows):
-    return _triangle_battery(px, py, pz, dx, dy, dz, rows) < tf
+def _uses_mxu(cp: ClusteredPrims, mxu: bool) -> bool:
+    """The product-form battery is a triangle battery."""
+    return bool(mxu) and cp.kind == "triangle"
 
 
-_BATTERIES = {"sphere": _sphere_battery, "triangle": _triangle_battery}
-_ANYHIT_BATTERIES = {"sphere": _sphere_anyhit_battery,
-                     "triangle": _triangle_anyhit_battery}
+def _closest_battery(cp: ClusteredPrims, mxu: bool):
+    if _uses_mxu(cp, mxu):
+        return _triangle_battery_mxu
+    return _sphere_battery if cp.kind == "sphere" else _triangle_battery
+
+
+def _anyhit_battery(cp: ClusteredPrims, mxu: bool):
+    if cp.kind == "sphere":
+        return _sphere_anyhit_battery
+    closest = _closest_battery(cp, mxu)
+    return lambda px, py, pz, dx, dy, dz, tf, rows: closest(
+        px, py, pz, dx, dy, dz, rows) < tf
+
+
 NEG = -FLT_MAX
 
 
-def _walk_plain(cp, visit, entry, nvis, rays, bound, live_of, visit_fn,
-                stats):
-    """The loop both plain walks share: at visit position j every tile still
+def _walk_plain(cp, attrs, visit, entry, nvis, rays, bound, live_of,
+                visit_fn, stats):
+    """The loop both plain walks share, over the [C, K] attribute planes
+    `attrs`: at visit position j every tile still
     running (j < nvis and entry[j] below its exit bound mx) gathers its j-th
     cluster's rows and runs ``visit_fn(idx, cluster, rows, rays_of_idx,
     real)``; then mx is refreshed from the lanes ``live_of(idx)`` says still
@@ -214,7 +312,6 @@ def _walk_plain(cp, visit, entry, nvis, rays, bound, live_of, visit_fn,
     With `stats`, ``real`` is the [Ta, K] mask of the visited clusters'
     slots that hold a prim (padding slots have order -1) and ``visit_fn``
     returns the (ray, prim) tests this visit needs; else both are None."""
-    attrs = _tables(cp)
     filled = None
     if stats is not None:
         filled = cp.order.reshape(cp.num_clusters, cp.cluster_size) >= 0
@@ -241,9 +338,13 @@ def _walk_plain(cp, visit, entry, nvis, rays, bound, live_of, visit_fn,
 
 def walk_closest_plain(cp: ClusteredPrims, visit, entry, nvis, p: Vec3,
                        d: Vec3, tf0, valid, tile_r: int,
-                       stats: Optional[dict] = None):
+                       stats: Optional[dict] = None, mxu: bool = False,
+                       packed: Optional[torch.Tensor] = None):
     """The closest-hit walk in plain PyTorch: (tfar [R], packed prim
-    [R] int32 = cluster * K + slot, -1 = none). `stats`, if given, receives
+    [R] int32 = cluster * K + slot, -1 = none). With `packed` (the table of
+    ``_tables_packed``) it is the plain version of the streamed walk: the
+    same walk over planes unpacked from that layout. `mxu` takes the
+    product-form triangle battery. `stats`, if given, receives
     the (tile, cluster) visits of this walk, which refreshes its exit bound
     after every visit, and its pairs: every valid ray of a visiting tile
     against every prim of the visited cluster (padding slots not counted)."""
@@ -251,7 +352,8 @@ def walk_closest_plain(cp: ClusteredPrims, visit, entry, nvis, p: Vec3,
     px, py, pz, dx, dy, dz, tfs, ok = _tiled(p, d, tf0, valid, tile_r)
     rays = (px, py, pz, dx, dy, dz)
     k = cp.cluster_size
-    battery = _BATTERIES[cp.kind]
+    battery = _closest_battery(cp, mxu)
+    attrs = _tables(cp) if packed is None else _tables_unpacked(cp, packed)
     rexit = _root_exit_bound(_root_row(cp), *rays)
     start = torch.minimum(tfs, rexit)
     best = tfs.clone()
@@ -271,23 +373,26 @@ def walk_closest_plain(cp: ClusteredPrims, visit, entry, nvis, p: Vec3,
         if real is not None:
             return (ok[idx].sum(dim=1) * real.sum(dim=1)).sum()
 
-    _walk_plain(cp, visit, entry, nvis, rays, bound, lambda i: ok[i],
+    _walk_plain(cp, attrs, visit, entry, nvis, rays, bound, lambda i: ok[i],
                 visit_fn, stats)
     return best.reshape(-1)[:n], prim.reshape(-1)[:n]
 
 
 def walk_occluded_plain(cp: ClusteredPrims, visit, entry, nvis, p: Vec3,
                         d: Vec3, tfar, tile_r: int,
-                        stats: Optional[dict] = None):
+                        stats: Optional[dict] = None, mxu: bool = False,
+                        packed: Optional[torch.Tensor] = None):
     """The any-hit walk in plain PyTorch: [R] bool. Lanes with tfar <= 0 are
-    invalid and never occluded. `stats`, if given, receives the visits and
+    invalid and never occluded. `packed` and `mxu` as in
+    ``walk_closest_plain``. `stats`, if given, receives the visits and
     the pairs: for every valid lane not yet occluded, the prims of the
     visited cluster up to and including its first occluder there (all of
     them where none occludes; padding slots not counted)."""
     n = tfar.shape[0]
     px, py, pz, dx, dy, dz, tfs, ok = _tiled(p, d, tfar, tfar > 0.0, tile_r)
     rays = (px, py, pz, dx, dy, dz)
-    battery = _ANYHIT_BATTERIES[cp.kind]
+    battery = _anyhit_battery(cp, mxu)
+    attrs = _tables(cp) if packed is None else _tables_unpacked(cp, packed)
     bound = torch.minimum(tfs, _root_exit_bound(_root_row(cp), *rays))
     occ = torch.zeros_like(ok)
 
@@ -302,7 +407,7 @@ def walk_occluded_plain(cp: ClusteredPrims, visit, entry, nvis, p: Vec3,
             need = torch.where(hit, upto.gather(1, first), upto[:, -1:])
             return (need * live).sum()
 
-    _walk_plain(cp, visit, entry, nvis, rays, bound,
+    _walk_plain(cp, attrs, visit, entry, nvis, rays, bound,
                 lambda i: ok[i] & ~occ[i], visit_fn, stats)
     return occ.reshape(-1)[:n]
 
@@ -314,14 +419,19 @@ def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_plan.argtypes = [ptr] * 14 + [i32] * 3 + [ptr] * 4
     lib.cluster_plan.restype = i32
-    lib.cluster_closest.argtypes = [ptr] * 13 + [i32] * 5 + [ptr] * 3
-    lib.cluster_closest.restype = i32
-    lib.cluster_occluded.argtypes = [ptr] * 12 + [i32] * 5 + [ptr] * 2
-    lib.cluster_occluded.restype = i32
+    for fn in (lib.cluster_closest, lib.cluster_closest_stream):
+        fn.argtypes = [ptr] * 13 + [i32] * 5 + [ptr] * 3
+        fn.restype = i32
+    for fn in (lib.cluster_occluded, lib.cluster_occluded_stream):
+        fn.argtypes = [ptr] * 12 + [i32] * 5 + [ptr] * 2
+        fn.restype = i32
 
 
 LIBRARY = build.Library("cluster_traverse.cu", build.nvcc, build.NVCC_FLAGS,
                         _bind)
+
+# the `battery` argument of the walks' C entry points
+_SPHERE, _TRIANGLE, _TRIANGLE_PRODUCT = 0, 1, 2
 
 
 def _check(name: str, device, tensors, dtype, length=None):
@@ -335,28 +445,46 @@ def _check(name: str, device, tensors, dtype, length=None):
                 f"contiguous={a.is_contiguous()}")
 
 
+def walk_shared_bytes(cp: ClusteredPrims, stream: bool) -> int:
+    """Dynamic shared memory a walk's block stages clusters in: one
+    cluster's attributes for the resident walks, two slots of them for the
+    streamed walks (32 KB at 256 triangles a cluster, 128 KB at 1024; the
+    copies skip the zero rows that pad a packed cluster to F8)."""
+    return cp.cluster_size * _N_ATTRS[cp.kind] * 4 * (2 if stream else 1)
+
+
 def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
-                entry, nvis):
+                entry, nvis, stream):
+    """Checks what a walk kernel takes and returns its table: the [C*K, F]
+    rows (planes for triangles) of the resident walks, or the [C*F8, K]
+    packed table of the streamed ones."""
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors on {device}, need cuda or cpu")
     if tile_r % 32 or not 32 <= tile_r <= 1024:
         raise ValueError(f"{name}: tile_r={tile_r} must be a multiple of 32 "
                          "in [32, 1024] (one thread per ray of a tile)")
-    t_tiles, c = -(-n // tile_r), cp.num_clusters
+    t_tiles, c, k = -(-n // tile_r), cp.num_clusters, cp.cluster_size
     _check(name, device, rays, torch.float32, n)
-    table = cp.planes if cp.kind == "triangle" else cp.rows
+    if stream:
+        # any K is aligned for the 16-byte copies: a packed cluster is
+        # F8 * K floats, its attribute rows 4 * K or 12 * K
+        table, shape = _tables_packed(cp), (c * _stream_rows(cp.kind), k)
+    else:
+        table = cp.planes if cp.kind == "triangle" else cp.rows
+        shape = (c * k, _N_ATTRS[cp.kind])
     _check(name, device, (table, entry), torch.float32)
     _check(name, device, (visit, nvis), torch.int32)
     if (visit.shape != (t_tiles, c) or entry.shape != (t_tiles, c)
             or nvis.shape != (t_tiles,)):
         raise ValueError(f"{name}: plan of shape {tuple(visit.shape)} for "
                          f"{t_tiles} tiles x {c} clusters")
-    if table.shape != (c * cp.cluster_size, _N_ATTRS[cp.kind]):
-        raise ValueError(f"{name}: table of shape {tuple(table.shape)}")
-    if cp.cluster_size * _N_ATTRS[cp.kind] * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: cluster_size {cp.cluster_size} does not "
-                         "fit one block's shared memory")
-    if n >= 2 ** 31 or t_tiles * c >= 2 ** 31 or c * cp.cluster_size >= 2 ** 31:
+    if table.shape != shape:
+        raise ValueError(f"{name}: table of shape {tuple(table.shape)}, "
+                         f"need {shape}")
+    if walk_shared_bytes(cp, stream) > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: cluster_size {k} does not fit one "
+                         "block's shared memory")
+    if n >= 2 ** 31 or t_tiles * c >= 2 ** 31 or table.numel() >= 2 ** 31:
         raise ValueError(f"{name}: sizes beyond int32")
     return table
 
@@ -410,66 +538,107 @@ def _plan_visits(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
     return visit, entry, nvis
 
 
+def _walk_kernel(cp: ClusteredPrims, mxu: bool, stream: bool, resident,
+                 streamed, product):
+    """(counter, battery code) of the kernel form the keywords select, out
+    of a walk's three LaunchCounters."""
+    if stream and mxu:
+        raise ValueError("the streamed walks exclude the product-form "
+                         "battery (stream=True with mxu=True)")
+    if stream:
+        return streamed, int(cp.kind == "triangle")
+    if _uses_mxu(cp, mxu):
+        return product, _TRIANGLE_PRODUCT
+    return resident, _TRIANGLE if cp.kind == "triangle" else _SPHERE
+
+
 def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
-                 tf0, valid, tile_r: int):
+                 tf0, valid, tile_r: int, mxu: bool = False,
+                 stream: bool = False):
     """Closest hit over each tile's visit list: (tfar [R], packed prim [R]
     int32 = cluster * K + slot, or (tf0, -1)). CPU tensors take
-    ``walk_closest_plain``; CUDA tensors launch ``cluster_closest``."""
+    ``walk_closest_plain``; CUDA tensors launch ``cluster_closest``, its
+    product-form variant (`mxu`, triangle packs) or
+    ``cluster_closest_stream`` (`stream`)."""
     device = tf0.device
+    counter, battery = _walk_kernel(cp, mxu, stream, CLOSEST, CLOSEST_STREAM,
+                                    CLOSEST_MXU)
     if device.type == "cpu":
-        return walk_closest_plain(cp, visit, entry, nvis, p, d, tf0, valid,
-                                  tile_r)
+        return walk_closest_plain(
+            cp, visit, entry, nvis, p, d, tf0, valid, tile_r, mxu=mxu,
+            packed=_tables_packed(cp) if stream else None)
     n = tf0.shape[0]
-    table = _check_walk(CLOSEST.name, cp, device, n, tile_r, (*p, *d, tf0),
-                        visit, entry, nvis)
-    _check(CLOSEST.name, device, (valid,), torch.bool, n)
+    table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tf0),
+                        visit, entry, nvis, stream)
+    _check(counter.name, device, (valid,), torch.bool, n)
     root = _root_row(cp)
     lib = LIBRARY.load()
     tfar = torch.empty(n, dtype=torch.float32, device=device)
     prim = torch.empty(n, dtype=torch.int32, device=device)
-    build.launch(CLOSEST.name, lib.cluster_closest, device,
+    build.launch(counter.name,
+                 lib.cluster_closest_stream if stream else lib.cluster_closest,
+                 device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tf0, valid, table)]
-                 + [int(cp.kind == "triangle"), n, tile_r, cp.num_clusters,
-                    cp.cluster_size, tfar.data_ptr(), prim.data_ptr()])
-    CLOSEST.launches += 1
+                 + [battery, n, tile_r, cp.num_clusters, cp.cluster_size,
+                    tfar.data_ptr(), prim.data_ptr()])
+    counter.launches += 1
     return tfar, prim
 
 
 def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
-                  tfar, tile_r: int):
+                  tfar, tile_r: int, mxu: bool = False, stream: bool = False):
     """Any hit over each tile's visit list: [R] bool. CPU tensors take
-    ``walk_occluded_plain``; CUDA tensors launch ``cluster_occluded``."""
+    ``walk_occluded_plain``; CUDA tensors launch ``cluster_occluded``, its
+    product-form variant (`mxu`, triangle packs) or
+    ``cluster_occluded_stream`` (`stream`)."""
     device = tfar.device
+    counter, battery = _walk_kernel(cp, mxu, stream, OCCLUDED,
+                                    OCCLUDED_STREAM, OCCLUDED_MXU)
     if device.type == "cpu":
-        return walk_occluded_plain(cp, visit, entry, nvis, p, d, tfar, tile_r)
+        return walk_occluded_plain(
+            cp, visit, entry, nvis, p, d, tfar, tile_r, mxu=mxu,
+            packed=_tables_packed(cp) if stream else None)
     n = tfar.shape[0]
-    table = _check_walk(OCCLUDED.name, cp, device, n, tile_r, (*p, *d, tfar),
-                        visit, entry, nvis)
+    table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tfar),
+                        visit, entry, nvis, stream)
     root = _root_row(cp)
     lib = LIBRARY.load()
     occ = torch.empty(n, dtype=torch.bool, device=device)
-    build.launch(OCCLUDED.name, lib.cluster_occluded, device,
+    build.launch(counter.name,
+                 lib.cluster_occluded_stream if stream
+                 else lib.cluster_occluded, device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tfar, table)]
-                 + [int(cp.kind == "triangle"), n, tile_r, cp.num_clusters,
-                    cp.cluster_size, occ.data_ptr()])
-    OCCLUDED.launches += 1
+                 + [battery, n, tile_r, cp.num_clusters, cp.cluster_size,
+                    occ.data_ptr()])
+    counter.launches += 1
     return occ
 
 
 # ---------------------------------------------------------------------------
 # Host-facing wrappers
 # ---------------------------------------------------------------------------
+def _check_forms(cp: ClusteredPrims, mxu: bool, stream: bool):
+    """The JAX package's rule for clusters below 128 prims (lane-packed
+    there): neither the streamed walks nor the product-form battery."""
+    if cp.cluster_size < 128 and (stream or mxu):
+        raise ValueError(
+            f"cluster_size {cp.cluster_size} < 128 excludes stream and mxu "
+            "(ops.intersect._tile_for switches both off for such a pack)")
+
+
 def intersect_clustered_pallas(
     cp: ClusteredPrims, p: Vec3, d: Vec3,
     tfar0: Optional[torch.Tensor] = None,
     alive: Optional[torch.Tensor] = None,
-    tile_r: int = DEFAULT_TILE_R,
+    tile_r: int = DEFAULT_TILE_R, mxu: bool = False, stream: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closest hit. Returns (tfar [R], prim_id [R] int32 in ORIGINAL
     numbering, -1 = miss). `tfar0` seeds the search; `alive=False` lanes are
-    planned around and return (tfar0, -1)."""
+    planned around and return (tfar0, -1). `stream` takes the streamed walk,
+    `mxu` the product-form triangle battery (module docstring)."""
+    _check_forms(cp, mxu, stream)
     n = p.x.shape[0]
     device = p.x.device
     if tfar0 is None:
@@ -482,7 +651,7 @@ def intersect_clustered_pallas(
         plan_tf = torch.where(alive, tfar0, 0.0)
     visit, entry, nvis = _plan_visits(cp, p, d, plan_tf, valid, tile_r)
     tfar, packed = walk_closest(cp, visit, entry, nvis, p, d, tfar0, valid,
-                                tile_r)
+                                tile_r, mxu=mxu, stream=stream)
     orig = torch.where(packed >= 0,
                        cp.order[torch.clamp_min(packed, 0).to(torch.int64)],
                        -1)
@@ -490,12 +659,16 @@ def intersect_clustered_pallas(
 
 
 def occluded_clustered_pallas(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar,
-                              tile_r: int = DEFAULT_TILE_R) -> torch.Tensor:
+                              tile_r: int = DEFAULT_TILE_R,
+                              mxu: bool = False,
+                              stream: bool = False) -> torch.Tensor:
     """Any-hit: True where some prim lies at t in [0, tfar). Lanes with
     tfar <= 0 plan no visits (the renderer masks invalid shadow rays by
-    tfar = 0)."""
+    tfar = 0). `stream` and `mxu` as in ``intersect_clustered_pallas``."""
+    _check_forms(cp, mxu, stream)
     visit, entry, nvis = _plan_visits(cp, p, d, tfar, tfar > 0.0, tile_r)
-    return walk_occluded(cp, visit, entry, nvis, p, d, tfar, tile_r)
+    return walk_occluded(cp, visit, entry, nvis, p, d, tfar, tile_r, mxu=mxu,
+                         stream=stream)
 
 
 # ---------------------------------------------------------------------------
@@ -540,7 +713,7 @@ def _gather_vec3_padded(v: Vec3, idx, padval) -> Vec3:
 
 def intersect_clustered_pallas_compact(
     cp, p, d, alive, tfar0=None, tile_r: int = DEFAULT_TILE_R,
-    seg_len: int = DEFAULT_SEG_LEN,
+    seg_len: int = DEFAULT_SEG_LEN, mxu: bool = False, stream: bool = False,
 ):
     """``intersect_clustered_pallas`` on rays regrouped by
     ``coherence_order``, results scattered back."""
@@ -552,13 +725,14 @@ def intersect_clustered_pallas_compact(
         _gather_vec3_padded(d, order, 1.0),
         tfar0=(None if tfar0 is None
                else _ray_cols([(tfar0, 0.0)], rp)[0][order]),
-        alive=_ray_cols([(alive, False)], rp)[0][order], tile_r=tile_r)
+        alive=_ray_cols([(alive, False)], rp)[0][order], tile_r=tile_r,
+        mxu=mxu, stream=stream)
     return tfar[inv[:r]], prim[inv[:r]]
 
 
 def occluded_clustered_pallas_compact(
     cp, p, d, tfar, tile_r: int = DEFAULT_TILE_R,
-    seg_len: int = DEFAULT_SEG_LEN,
+    seg_len: int = DEFAULT_SEG_LEN, mxu: bool = False, stream: bool = False,
 ):
     """``occluded_clustered_pallas`` on rays regrouped by
     ``coherence_order``."""
@@ -568,5 +742,6 @@ def occluded_clustered_pallas_compact(
     occ = occluded_clustered_pallas(
         cp, _gather_vec3_padded(p, order, 1e30),
         _gather_vec3_padded(d, order, 1.0),
-        _ray_cols([(tfar, 0.0)], rp)[0][order], tile_r=tile_r)
+        _ray_cols([(tfar, 0.0)], rp)[0][order], tile_r=tile_r, mxu=mxu,
+        stream=stream)
     return occ[inv[:r]]

@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import intersect
 from ..scene.scene import Scene
 from ..utils.config import RendererPolicy
 from . import estimator
@@ -44,6 +45,9 @@ class Renderer:
         self.width = width
         self.height = height
         self.scene = scene.to(self.device)
+        if "pallas" in (self.policy.effective_accel,
+                        self.policy.primary_accel):
+            intersect.prepare_stream(self.policy, self.scene)
         cam = self.scene.camera
         if (float(cam.half_width) * 2 != width
                 or float(cam.half_height) * 2 != height):

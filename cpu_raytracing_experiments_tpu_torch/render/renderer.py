@@ -1,6 +1,6 @@
 """The wavefront path tracer, ported from the JAX package's
-``render/renderer.py`` for sphere scenes under ``accel='brute'`` and
-``accel='pallas'``.
+``render/renderer.py`` for scenes of spheres and triangles under
+``accel='brute'`` and ``accel='pallas'``.
 
 Structure of one bounce (``bounce_step``, Renderer.hpp:131-432): intersect
 (the closest-hit battery, or the clustered traversal) -> closest-hit frame
@@ -57,10 +57,11 @@ class PathState(NamedTuple):
 
 def narrowing_on(policy: RendererPolicy, scene: Scene) -> bool:
     """Whether ``narrow_wavefront`` resolves to on (renderer.py:931-954 of
-    the JAX package): 'auto' engages at >= 64 prims or accel='pallas'."""
+    the JAX package): 'auto' engages at >= 64 prims, spheres and triangles
+    together, or under accel='pallas'."""
     nw = policy.narrow_wavefront
     if nw == "auto":
-        nw = scene.spheres.count >= 64 or policy.effective_accel == "pallas"
+        nw = scene.num_prims >= 64 or policy.effective_accel == "pallas"
     return bool(nw)
 
 
@@ -69,18 +70,20 @@ def check_policy(policy: RendererPolicy, scene: Scene = None):
     work, so that no knob silently changes the result.
 
     ``accel`` / ``primary_accel`` may be 'brute' or 'pallas'. Of the pallas_*
-    knobs, ``pallas_tile_rays`` and ``pallas_compact`` act as in the JAX
-    package. ``pallas_unroll``, ``pallas_fuse``, ``pallas_trav_block``,
+    knobs, ``pallas_tile_rays``, ``pallas_compact``, ``pallas_stream`` and
+    ``pallas_mxu`` act as in the JAX package (``RendererPolicy`` itself
+    refuses ``pallas_stream=True`` together with ``pallas_mxu``; a pack of
+    fewer than 128 prims a cluster switches both off for itself).
+    ``pallas_unroll``, ``pallas_fuse``, ``pallas_trav_block``,
     ``pallas_exit_refresh``, ``pallas_prefetch`` and ``pallas_plan_block``
     are accepted and change nothing: they choose among TPU schedules that
     the JAX package's tests hold bit-identical, and the CUDA kernels have one
     schedule. ``pallas_interpret`` is accepted and ignored likewise. The
-    options that are not ported are refused: the streamed walks
-    (``pallas_stream`` True, or 'auto' where the scene's tables exceed the
-    JAX package's threshold), ``pallas_mxu``, any ``pallas_plan`` but 'ray' /
+    options that are not ported are refused: any ``pallas_plan`` but 'ray' /
     'auto', ``pallas_sort_impl='xla'`` and ``pallas_sort_visits=False``.
-    So is a scene cut into more clusters than the planner kernel sorts in
-    one block (``cluster_traverse.max_plan_clusters``: 16,384)."""
+    So is a scene whose spheres or triangles are cut into more clusters than
+    the planner kernel sorts in one block
+    (``cluster_traverse.max_plan_clusters``: 16,384)."""
     accels = {policy.effective_accel, policy.primary_accel or "brute"}
     refused = {
         f"accel={policy.effective_accel!r}":
@@ -98,24 +101,19 @@ def check_policy(policy: RendererPolicy, scene: Scene = None):
     }
     if "pallas" in accels:
         refused.update({
-            "pallas_stream=True": policy.pallas_stream is True,
-            "pallas_mxu": policy.pallas_mxu,
             f"pallas_plan={policy.pallas_plan!r}":
                 policy.pallas_plan not in ("ray", "auto"),
             "pallas_sort_impl='xla'": policy.pallas_sort_impl != "kernel",
             "pallas_sort_visits=False": not policy.pallas_sort_visits,
         })
-    if scene is not None:
-        refused["scenes with triangles"] = scene.triangles is not None
-        cp = scene.sphere_clusters
-        if "pallas" in accels and cp is not None:
-            refused["pallas_stream='auto' (resolves to on for this scene's "
-                    "tables)"] = (policy.pallas_stream == "auto"
-                                  and intersect.stream_resolves_on(policy, cp))
+    if scene is not None and "pallas" in accels:
+        for cp in (scene.sphere_clusters, scene.tri_clusters):
+            if cp is None:
+                continue
             most = intersect.max_clusters(policy, cp)
-            refused[f"accel='pallas' on {cp.num_clusters} clusters (the "
-                    f"planner kernel takes {most}; build with a larger "
-                    "cluster_size)"] = cp.num_clusters > most
+            refused[f"accel='pallas' on {cp.num_clusters} clusters of "
+                    f"{cp.kind}s (the planner kernel takes {most}; build "
+                    "with a larger cluster_size)"] = cp.num_clusters > most
     what = [k for k, bad in refused.items() if bad]
     if what:
         raise NotImplementedError(
@@ -187,6 +185,16 @@ def _closest_hit_frame(scene: Scene, state: PathState, tfar, prim_id, is_tri):
         sp.material_id)
     n = (hit_pt - Vec3(scx, scy, scz)).normalize()
     prim_extra = {"radius_sq": s_rsq}
+    tg = scene.triangles
+    if tg is not None:
+        # the geometric normal and the material of the hit triangle
+        safe_tri = torch.clamp_min(torch.where(is_tri, prim_id, 0), 0)
+        tnx, tny, tnz, t_mid, t_area = fast_gather.gather_cols(
+            safe_tri, tg.normal.x, tg.normal.y, tg.normal.z, tg.material_id,
+            tg.area)
+        n = Vec3(tnx, tny, tnz).where(is_tri, n)
+        mat_id = torch.where(is_tri, t_mid, mat_id)
+        prim_extra["area"] = t_area
     backface = n.dot(state.d) >= 0.0
     n = (-n).where(backface, n)
     t = sampling.tangent_space(n)
@@ -216,27 +224,14 @@ def _hit_light_selection_pdf(scene, policy, state, prim_id, is_tri,
     return 1.0 / light_count
 
 
-def _next_event_estimation(scene: Scene, policy: RendererPolicy,
-                           state: PathState, accumulation, seeds, hit,
-                           prim_id, is_tri, p_offset: Vec3, t_quat: Quat,
-                           v_local: Vec3, mat: dict):
-    """NEE with MIS (Renderer.hpp:247-314): pick one sphere light uniformly,
-    cone-sample it, trace a shadow ray, add the power-heuristic-weighted
-    contribution. The reference's early rejections become masks.
-    Returns (contribution Vec3, shadow rays traced [R] bool)."""
-    light_count = scene.num_lights
-    zeros = torch.zeros_like(state.p.x)
-    zero3 = Vec3(zeros, zeros, zeros)
-    if light_count == 0:
-        return zero3, torch.zeros_like(hit)
-    site = _site_state(accumulation, add32(seeds, 2 * state.bounce))
-    site, (t_draw, s_draw) = rng.draws(site, 2)
-    site, sel_draw = rng.rand_unit_float(site)
-    selected, light_selection_pdf = _select_light(scene, policy, p_offset,
-                                                  sel_draw, light_count)
-
-    sel_s = torch.clamp(selected, 0, light_count - 1)
-    is_sphere_sel = selected < light_count
+def _sphere_light_sample(scene: Scene, selected, n_lights: int, hit, prim_id,
+                         is_tri, p_offset: Vec3, t_quat: Quat, t_draw,
+                         s_draw):
+    """Cone sample of the selected sphere light (Renderer.hpp:258-273):
+    (ok, direction, distance, pdf, emission); `ok` is false where the lane
+    selected a triangle light, sits on or inside the light, or the whole cone
+    lies below the hemisphere."""
+    sel_s = torch.clamp(selected, 0, n_lights - 1)
     # one [L, 8] light table (prim id, center, r^2, emission), one row gather
     sl = scene.lights.to(torch.int64)
     sp, em = scene.spheres, scene.materials.emission
@@ -248,10 +243,9 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     light_prim = lrow[:, 0].to(torch.int32)
     lc = Vec3(lrow[:, 1], lrow[:, 2], lrow[:, 3])
     lr_sq = lrow[:, 4]
-    em_s = Vec3(lrow[:, 5], lrow[:, 6], lrow[:, 7])
     wc = lc - p_offset
     center_dist2 = wc.dot(wc)
-    ok = (hit & is_sphere_sel
+    ok = (hit & (selected < n_lights)
           & ~((~is_tri) & (light_prim == prim_id))  # self (Renderer.hpp:263)
           & (center_dist2 > lr_sq))  # inside the sphere (:266)
     center_dist = fp.sqrt(center_dist2)
@@ -262,11 +256,86 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     ok = ok & ~((n_dot_w < 0.0) & (sin_theta_max2 < n_dot_w * n_dot_w))
     dir_s, dist_s, pdf_s = sampling.sample_direction_to_sphere(
         wc, sin_theta_max2, center_dist, lr_sq, t_draw, s_draw)
-    l_dir = dir_s.where(ok, zero3)
-    l_dist = torch.where(ok, dist_s, zeros)
-    l_pdf = torch.where(ok, pdf_s, zeros)
-    l_emission = em_s.where(ok, zero3)
-    valid = ok
+    return ok, dir_s, dist_s, pdf_s, Vec3(lrow[:, 5], lrow[:, 6], lrow[:, 7])
+
+
+def _triangle_light_sample(scene: Scene, selected, n_sphere_lights: int, hit,
+                           prim_id, is_tri, p_offset: Vec3, t_draw, s_draw):
+    """Area sample of the selected triangle light: a uniform point on the
+    triangle by the sqrt warp, pdf = dist^2 / (area * cos) in solid angle,
+    and a shadow distance that stops short of the light's own surface.
+    Returns (ok, direction, distance, pdf, emission); `ok` is false where the
+    lane selected a sphere light, sits on that triangle, or sees it edge
+    on."""
+    n_lights = scene.num_tri_lights
+    sel_t = torch.clamp(selected - n_sphere_lights, 0, n_lights - 1)
+    tri, em = scene.triangles, scene.materials.emission
+    # one [L2, 17] table (index, v0, e1, e2, normal, area, emission)
+    tl = scene.tri_lights.to(torch.int64)
+    t_mid = tri.material_id[tl].to(torch.int64)
+    tri_tbl = fast_gather.pack_table(
+        tl, *(c[tl] for v in (tri.v0, tri.e1, tri.e2, tri.normal) for c in v),
+        tri.area[tl], em.x[t_mid], em.y[t_mid], em.z[t_mid])
+    trow = fast_gather.gather_rows(tri_tbl, sel_t)
+    light_tri = trow[:, 0].to(torch.int32)
+    v0, e1, e2, ln = (Vec3(trow[:, k], trow[:, k + 1], trow[:, k + 2])
+                      for k in (1, 4, 7, 10))
+    area = trow[:, 13]
+    su = fp.sqrt(torch.clamp_min(t_draw, 0.0))
+    a, b = su * (1.0 - s_draw), su * s_draw
+    # v0 + e1*a + e2*b contracts to fma(e2, b, fma(e1, a, v0))
+    pt = Vec3(*(fma(c2, b, fma(c1, a, c0)) for c0, c1, c2 in zip(v0, e1, e2)))
+    to_light = pt - p_offset
+    dist2 = to_light.dot(to_light)
+    dist = fp.sqrt(torch.clamp_min(dist2, 1e-20))
+    dir_t = to_light * (1.0 / dist)
+    cos_light = torch.abs(dir_t.dot(ln))
+    pdf_t = dist2 / torch.clamp_min(area * cos_light, 1e-9)
+    ok = (hit & (selected >= n_sphere_lights)
+          & ~(is_tri & (light_tri == prim_id)) & (cos_light > 1e-6))
+    shadow_dist = dist - torch.clamp_min(dist * 3e-5, 1e-4)
+    return (ok, dir_t, shadow_dist, pdf_t,
+            Vec3(trow[:, 14], trow[:, 15], trow[:, 16]))
+
+
+def _next_event_estimation(scene: Scene, policy: RendererPolicy,
+                           state: PathState, accumulation, seeds, hit,
+                           prim_id, is_tri, p_offset: Vec3, t_quat: Quat,
+                           v_local: Vec3, mat: dict):
+    """NEE with MIS (Renderer.hpp:247-314): pick one light uniformly among
+    the sphere lights and then the triangle lights, cone-sample a sphere
+    light or area-sample a triangle light, trace a shadow ray, add the
+    power-heuristic-weighted contribution. The reference's early rejections
+    become masks. Returns (contribution Vec3, shadow rays traced [R] bool)."""
+    n_sphere_lights, n_tri_lights = scene.num_lights, scene.num_tri_lights
+    light_count = n_sphere_lights + n_tri_lights
+    zeros = torch.zeros_like(state.p.x)
+    zero3 = Vec3(zeros, zeros, zeros)
+    if light_count == 0:
+        return zero3, torch.zeros_like(hit)
+    site = _site_state(accumulation, add32(seeds, 2 * state.bounce))
+    site, (t_draw, s_draw) = rng.draws(site, 2)
+    site, sel_draw = rng.rand_unit_float(site)
+    selected, light_selection_pdf = _select_light(scene, policy, p_offset,
+                                                  sel_draw, light_count)
+
+    l_dir, l_dist, l_pdf, l_emission = zero3, zeros, zeros, zero3
+    valid = torch.zeros_like(hit)
+    samples = []
+    if n_sphere_lights > 0:
+        samples.append(_sphere_light_sample(
+            scene, selected, n_sphere_lights, hit, prim_id, is_tri, p_offset,
+            t_quat, t_draw, s_draw))
+    if n_tri_lights > 0:
+        samples.append(_triangle_light_sample(
+            scene, selected, n_sphere_lights, hit, prim_id, is_tri, p_offset,
+            t_draw, s_draw))
+    for ok, dir_k, dist_k, pdf_k, em_k in samples:
+        l_dir = dir_k.where(ok, l_dir)
+        l_dist = torch.where(ok, dist_k, l_dist)
+        l_pdf = torch.where(ok, pdf_k, l_pdf)
+        l_emission = em_k.where(ok, l_emission)
+        valid = valid | ok
 
     l_local = sampling.to_local(t_quat, l_dir)
     valid = valid & (l_local.z >= 0.0)  # sample below the hemisphere (:276)
@@ -290,10 +359,12 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
 def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
                   hit, prim_id, is_tri, mat_id, tfar, v_local: Vec3, em: Vec3,
                   prim_extra: dict):
-    """Emissive-sphere hit with MIS (Renderer.hpp:319-353). The distance to
-    the light center comes from the law of cosines (:328-332)."""
+    """Emissive-primitive hit with MIS (Renderer.hpp:319-353). For a sphere
+    the distance to the light's center comes from the law of cosines
+    (:328-332); for a triangle the light pdf is tfar^2 / (area * |cos|), the
+    cosine at the light being the local view vector's z."""
     is_emissive = hit & (em.max_component() > FLT_EPSILON)
-    light_count = scene.num_lights
+    light_count = scene.num_lights + scene.num_tri_lights
     if not policy.mis or light_count == 0:
         weight = torch.ones_like(tfar)
     else:
@@ -305,6 +376,10 @@ def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
                            radius2)
         light_pdf = light_selection_pdf * sampling.sphere_pdf(
             radius2, torch.clamp_min(center_dist2, 1e-20))
+        if scene.num_tri_lights > 0:
+            tri_pdf = light_selection_pdf * (tfar * tfar) / torch.clamp_min(
+                prim_extra["area"] * torch.abs(n_dot_v), 1e-9)
+            light_pdf = torch.where(is_tri, tri_pdf, light_pdf)
         mis_weight = sampling.power_heuristic(state.prev_pdf, light_pdf)
         # a delta previous bounce could not have been light-sampled
         mis_weight = torch.where(state.prev_delta, 1.0, mis_weight)

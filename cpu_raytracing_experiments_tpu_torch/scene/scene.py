@@ -1,14 +1,11 @@
 """Scene model on PyTorch tensors, the counterpart of the JAX package's
-``scene/scene.py``: structure-of-arrays spheres and materials, the NEE light
-list, an equirect sky and a pinhole camera.
+``scene/scene.py``: structure-of-arrays spheres, triangles and materials, the
+NEE light lists, an equirect sky and a pinhole camera.
 
 The scene plays the part that weights play in a model port: ``Scene.from_numpy``
 takes the flat numpy arrays of a scene (``Scene.to_numpy`` gives the same
 layout), so both packages can render identical inputs. Builders assemble
 scenes on the host; ``Scene.to(device)`` moves one to the card.
-
-Triangle geometry is not part of this port slice: a scene that carries
-triangles is refused with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,6 +44,29 @@ class SphereGeometry:
     def to(self, device) -> "SphereGeometry":
         return SphereGeometry(self.center.to(device), self.radius_sq.to(device),
                               self.material_id.to(device))
+
+
+@dataclasses.dataclass
+class TriangleGeometry:
+    """SoA triangle list: first vertex, the two edges from it, the unit
+    geometric normal, the area (for light sampling) and the material id."""
+
+    v0: Vec3  # [T] float32
+    e1: Vec3  # [T] v1 - v0
+    e2: Vec3  # [T] v2 - v0
+    normal: Vec3  # [T]
+    material_id: torch.Tensor  # [T] int32
+    area: torch.Tensor  # [T] float32
+
+    @property
+    def count(self) -> int:
+        return self.material_id.shape[0]
+
+    def to(self, device) -> "TriangleGeometry":
+        return TriangleGeometry(
+            self.v0.to(device), self.e1.to(device), self.e2.to(device),
+            self.normal.to(device), self.material_id.to(device),
+            self.area.to(device))
 
 
 @dataclasses.dataclass
@@ -227,6 +247,7 @@ def build_light_list(material_ids: np.ndarray, emission: np.ndarray) -> np.ndarr
 
 _MATERIAL_FIELDS = ("albedo", "f0", "f80", "emission", "transmission",
                     "roughness", "ior_minus_one")
+_TRIANGLE_VECS = ("v0", "e1", "e2", "normal")
 _CAMERA_SCALARS = ("half_width", "half_height", "z", "exposure",
                    "aperture_radius", "focus_distance")
 
@@ -234,30 +255,50 @@ _CAMERA_SCALARS = ("half_width", "half_height", "z", "exposure",
 @dataclasses.dataclass
 class Scene:
     """Full scene aggregate (Scene.hpp:19-26). ``lights`` is the NEE light
-    list: int32 indices of emissive spheres."""
+    list of emissive spheres and ``tri_lights`` that of emissive triangles
+    (int32 indices into their own geometry); a light's index in NEE counts
+    the sphere lights first."""
 
     spheres: SphereGeometry
     materials: MaterialTable
     lights: torch.Tensor  # [L] int32
     camera: Camera
     sky: Sky
-    triangles: None = None  # triangle geometry is a later port slice
+    triangles: Optional[TriangleGeometry] = None
+    tri_lights: Optional[torch.Tensor] = None  # [L2] int32
     sphere_clusters: Optional[ClusteredPrims] = None  # scene.accel
+    tri_clusters: Optional[ClusteredPrims] = None
 
     @property
     def num_lights(self) -> int:
+        """Sphere lights, as in the JAX package; NEE adds the triangle
+        lights (``num_tri_lights``) to its count."""
         return int(self.lights.shape[0])
+
+    @property
+    def num_tri_lights(self) -> int:
+        return 0 if self.tri_lights is None else int(self.tri_lights.shape[0])
+
+    @property
+    def num_prims(self) -> int:
+        """Spheres plus triangles."""
+        tri = self.triangles
+        return self.spheres.count + (0 if tri is None else tri.count)
 
     @property
     def device(self) -> torch.device:
         return self.spheres.radius_sq.device
 
     def to(self, device) -> "Scene":
-        cp = self.sphere_clusters
+        def moved(a):
+            return None if a is None else a.to(device)
+
         return Scene(self.spheres.to(device), self.materials.to(device),
                      self.lights.to(device), self.camera.to(device),
-                     self.sky.to(device),
-                     sphere_clusters=None if cp is None else cp.to(device))
+                     self.sky.to(device), triangles=moved(self.triangles),
+                     tri_lights=moved(self.tri_lights),
+                     sphere_clusters=moved(self.sphere_clusters),
+                     tri_clusters=moved(self.tri_clusters))
 
     @staticmethod
     def from_numpy(arrays: dict, device=None) -> "Scene":
@@ -267,11 +308,11 @@ class Scene:
         [M]), ``lights`` [L] int32, ``sky_ambient`` [3], ``sky_hdri``
         [H*W,3], ``sky_width``/``sky_height``, ``camera_pos`` [3],
         ``camera_orient`` [4] (x,y,z,w) and the ``camera_<scalar>`` fields;
-        optionally ``sphere_clusters``, the dict ``ClusteredPrims.from_numpy``
-        reads. Values are taken bit for bit."""
-        if any(k.startswith("tri") for k in arrays):
-            raise NotImplementedError(
-                "triangle geometry is not ported yet (sphere scenes only)")
+        for a scene with triangles ``tri_v0``, ``tri_e1``, ``tri_e2``,
+        ``tri_normal`` [T,3], ``tri_area`` [T], ``tri_material_id`` [T] int32
+        and ``tri_lights`` [L2] int32; optionally ``sphere_clusters`` and
+        ``tri_clusters``, the dicts ``ClusteredPrims.from_numpy`` reads.
+        Values are taken bit for bit."""
         t = functools.partial(_tensor, arrays, device=device)
         vec = functools.partial(_vec, arrays, device=device)
         hdri = t("sky_hdri")
@@ -280,10 +321,15 @@ class Scene:
         orient = t("camera_orient")
         camera = Camera(vec("camera_pos"), Quat(*(orient[k] for k in range(4))),
                         *(t(f"camera_{k}") for k in _CAMERA_SCALARS))
-        spheres, mats, lights = _geometry(arrays, device)
-        cp = arrays.get("sphere_clusters")
-        return Scene(spheres, mats, lights, camera, sky, sphere_clusters=(
-            None if cp is None else ClusteredPrims.from_numpy(cp, device)))
+
+        def clusters(key):
+            cp = arrays.get(key)
+            return None if cp is None else ClusteredPrims.from_numpy(cp, device)
+
+        return Scene(*_geometry(arrays, device), camera, sky,
+                     **_triangles(arrays, device),
+                     sphere_clusters=clusters("sphere_clusters"),
+                     tri_clusters=clusters("tri_clusters"))
 
     def to_numpy(self) -> dict:
         """The flat-array layout ``from_numpy`` reads."""
@@ -306,8 +352,16 @@ class Scene:
                                     else v.cpu().numpy())
         for k in _CAMERA_SCALARS:
             out[f"camera_{k}"] = getattr(self.camera, k).cpu().numpy()
-        if self.sphere_clusters is not None:
-            out["sphere_clusters"] = self.sphere_clusters.to_numpy()
+        tri = self.triangles
+        if tri is not None:
+            for k in _TRIANGLE_VECS:
+                out[f"tri_{k}"] = _vec_np(getattr(tri, k))
+            out["tri_area"] = tri.area.cpu().numpy()
+            out["tri_material_id"] = tri.material_id.cpu().numpy()
+            out["tri_lights"] = self.tri_lights.cpu().numpy()
+        for key in ("sphere_clusters", "tri_clusters"):
+            if getattr(self, key) is not None:
+                out[key] = getattr(self, key).to_numpy()
         return out
 
 
@@ -315,10 +369,9 @@ def make_scene(centers, radii, material_ids, materials: dict, camera: Camera,
                sky: Sky, triangles: Optional[dict] = None) -> Scene:
     """Host-side scene assembly from numpy arrays (the JAX package's
     ``make_scene``). materials: albedo, f0, f80, emission, transmission
-    ([M,3]) and roughness, ior_minus_one ([M])."""
-    if triangles is not None:
-        raise NotImplementedError(
-            "triangle geometry is not ported yet (sphere scenes only)")
+    ([M,3]) and roughness, ior_minus_one ([M]). triangles: v0, v1, v2 ([T,3])
+    and material_id ([T]); edges, unit normals and areas are made here in
+    numpy float32, as there."""
     centers = np.asarray(centers, np.float32)
     radii = np.asarray(radii, np.float32)
     material_ids = np.asarray(material_ids, np.int32)
@@ -330,7 +383,21 @@ def make_scene(centers, radii, material_ids, materials: dict, camera: Camera,
         "lights": build_light_list(material_ids, m["emission"]),
     }
     arrays.update({f"material_{k}": m[k] for k in _MATERIAL_FIELDS})
-    return Scene(*_geometry(arrays, camera.z.device), camera=camera, sky=sky)
+    if triangles is not None:
+        v0 = np.asarray(triangles["v0"], np.float32)
+        e1 = np.asarray(triangles["v1"], np.float32) - v0
+        e2 = np.asarray(triangles["v2"], np.float32) - v0
+        tmid = np.asarray(triangles["material_id"], np.int32)
+        n = np.cross(e1, e2)
+        area2 = np.linalg.norm(n, axis=-1)
+        arrays.update({
+            "tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
+            "tri_normal": n / np.maximum(area2[:, None], 1e-20),
+            "tri_area": 0.5 * area2, "tri_material_id": tmid,
+            "tri_lights": build_light_list(tmid, m["emission"])})
+    device = camera.z.device
+    return Scene(*_geometry(arrays, device), camera=camera, sky=sky,
+                 **_triangles(arrays, device))
 
 
 def _tensor(arrays, key, dtype=np.float32, device=None) -> torch.Tensor:
@@ -353,3 +420,15 @@ def _geometry(arrays, device):
         t(f"material_{k}") if k in ("roughness", "ior_minus_one")
         else vec(f"material_{k}") for k in _MATERIAL_FIELDS))
     return spheres, mats, t("lights", np.int32)
+
+
+def _triangles(arrays, device) -> dict:
+    """The ``triangles`` and ``tri_lights`` fields of a Scene from the flat
+    arrays; both None for a scene without triangles."""
+    if "tri_v0" not in arrays:
+        return {"triangles": None, "tri_lights": None}
+    t = functools.partial(_tensor, arrays, device=device)
+    tri = TriangleGeometry(
+        *(_vec(arrays, f"tri_{k}", device=device) for k in _TRIANGLE_VECS),
+        material_id=t("tri_material_id", np.int32), area=t("tri_area"))
+    return {"triangles": tri, "tri_lights": t("tri_lights", np.int32)}

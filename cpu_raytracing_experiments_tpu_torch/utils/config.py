@@ -2,10 +2,11 @@
 ``utils/config.py::RendererPolicy`` with the same defaults, so a policy and
 its fingerprint mean the same thing in both packages.
 
-The PyTorch port renders sphere scenes (brute sphere battery or the
-clustered traversal of ``accel='pallas'``, lambertian, uniform light
-selection, MIS, Russian roulette, wavefront narrowing, raster or screen-tile
-ray order, median resolve). Knobs that select anything else are accepted
+The PyTorch port renders scenes of spheres and triangles (the dense
+batteries or the clustered traversal of ``accel='pallas'``, resident or
+streamed, with the ordinary or the product-form triangle battery;
+lambertian, uniform light selection, MIS, Russian roulette, wavefront
+narrowing, raster or screen-tile ray order, median resolve). Knobs that select anything else are accepted
 here, so that later port slices only lift the checks, and are refused with
 ``NotImplementedError`` by ``render.renderer.check_policy`` before any work
 is done. The pallas_* schedule knobs (``pallas_unroll``, ``pallas_fuse``,

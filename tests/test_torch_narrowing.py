@@ -196,6 +196,68 @@ def test_render_pallas_tile_order_equals_brute_and_meets_jax(jax_exact_rsqrt):
     np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
 
 
+def test_cornell_pallas_stream_equals_brute():
+    """Cornell (2 spheres, 12 triangles), 24x24, 2 passes, under
+    accel='pallas' with pallas_stream=True and 32 prims a cluster leaves the
+    buckets bit-identical to accel='brute' (after the JAX package's
+    test_renderer_accel_pallas_stream_matches_brute): both kinds are below
+    PALLAS_MIN_PRIMS and a pack below 128 prims a cluster switches the
+    streamed walks off for itself, so the dense batteries run on both
+    sides."""
+    w = h = 24
+    base = dict(max_bounces=4, rays_per_chunk=w * h)
+    scene = tbuilders.cornell_box_scene(w, h)
+    rb = Renderer(scene, RendererPolicy(**base), w, h, device="cpu")
+    rb.accumulate(2)
+    rp = Renderer(taccel.with_pallas_clusters(scene, cluster_size=32),
+                  RendererPolicy(pallas_stream=True, **base, **PALLAS), w, h,
+                  device="cpu")
+    rp.accumulate(2)
+    assert torch.equal(rp.state.buckets, rb.state.buckets)
+    assert int(rp.state.rays_traced) == int(rb.state.rays_traced) > w * h
+
+
+def test_mesh_render_stream_and_mxu():
+    """mesh_scene(32, 32, subdivisions=3) (1280 triangles) at 128 prims a
+    cluster, 10 passes, through Renderer with accel='pallas': the streamed
+    walks (pallas_stream=True) leave every bucket as the resident walks
+    (pallas_stream=False) have it, bit for bit, and 'auto' resolves to the
+    resident walks for this small table; the product-form triangle battery
+    (pallas_mxu=True) rounds t differently and is held to
+    tests/test_goldens.py::_check's bar against the resident render (> 99.5%
+    of values within rtol 1e-3 / atol 1e-4, means within 1e-3)."""
+    w = h = 32
+    scene = taccel.with_pallas_clusters(
+        tbuilders.mesh_scene(w, h, subdivisions=3), cluster_size=128)
+    assert scene.tri_clusters.cluster_size == 128
+    base = dict(max_bounces=4, rays_per_chunk=1024, **PALLAS)
+
+    def run(**kw):
+        pol = RendererPolicy(**base, **kw)
+        r = Renderer(scene, pol, w, h, device="cpu")
+        # the streamed walks' table is made with the renderer, not in a walk
+        assert (r.scene.tri_clusters.packed is not None) == \
+            tint.stream_resolves_on(pol, scene.tri_clusters)
+        r.accumulate(10)
+        return r, pol
+
+    resident, pol = run(pallas_stream=False)
+    assert not tint.stream_resolves_on(pol, scene.tri_clusters)
+    streamed, pol = run(pallas_stream=True)
+    assert tint.stream_resolves_on(pol, scene.tri_clusters)
+    auto, pol = run()
+    assert not tint.stream_resolves_on(pol, scene.tri_clusters)
+    for other in (streamed, auto):
+        assert torch.equal(other.state.buckets, resident.state.buckets)
+        assert int(other.state.rays_traced) == int(resident.state.rays_traced)
+    product, _ = run(pallas_mxu=True)
+    want = resident.render(tonemap=False)
+    img = product.render(tonemap=False)
+    assert want.mean() > 0.1
+    assert np.isclose(img, want, rtol=1e-3, atol=1e-4).mean() > 0.995
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+
+
 def test_small_scene_under_pallas_takes_the_dense_battery():
     """Below PALLAS_MIN_PRIMS spheres, or without clusters on the scene,
     accel='pallas' runs the dense battery, as in the JAX package: the same

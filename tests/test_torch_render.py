@@ -205,6 +205,38 @@ def test_golden_hero():
     _check("hero", _render(tbuilders.default_scene, _port(GOLDEN_POL)))
 
 
+def test_golden_cornell():
+    """The Cornell box (12 triangles with a triangle light, 2 spheres),
+    64x64, 10 spp, at tests/test_goldens.py::_check's bar."""
+    _check("cornell", _render(tbuilders.cornell_box_scene, _port(GOLDEN_POL)))
+
+
+@pytest.mark.parametrize("accel", [
+    # 134 s on one CPU core: the dense battery tests every ray against all
+    # 1280 triangles in float64 multiply-adds
+    pytest.param("brute", marks=pytest.mark.slow),
+    "pallas"])
+def test_golden_mesh(accel):
+    """mesh_scene(96, 96, subdivisions=3) (1280 triangles over a ground
+    sphere, a sphere light), 10 spp, against mesh_96x96_10spp.npy at
+    _check's bar (> 99.5% of values within rtol 1e-3 / atol 1e-4, the means
+    within 1e-3), as tests/test_goldens.py::test_golden_mesh holds the JAX
+    package: through the dense batteries, and through the clustered
+    traversal at 64 prims a cluster and 64-ray tiles."""
+    scene = tbuilders.mesh_scene(96, 96, subdivisions=3)
+    pol = _port(GOLDEN_POL)
+    if accel == "pallas":
+        scene = taccel.with_pallas_clusters(scene, cluster_size=64)
+        pol = dataclasses.replace(pol, accel="pallas", pallas_tile_rays=64,
+                                  rays_per_chunk=9216)
+    r = Renderer(scene, pol, 96, 96, device="cpu")
+    r.accumulate(SPP)
+    img = r.render(tonemap=False)
+    want = np.load(GOLDEN_DIR / "mesh_96x96_10spp.npy")
+    assert np.isclose(img, want, rtol=1e-3, atol=1e-4).mean() > 0.995
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+
+
 def test_golden_bvh_test(jax_exact_rsqrt):
     """bvh_test (255 spheres), 64x64, 10 spp, narrowing off in both packages
     (narrowing leaves every lane's value as it is, in the JAX package and in
@@ -273,7 +305,7 @@ def test_resume_equivalence_bitwise():
     {"stratify_camera": True}, {"rng_scramble": True},
     {"samples_per_pixel": 2}, {"primary_accel": "bvh"},
     {"accel": "grid"}, {"accel": "pallas", "pallas_stream": True},
-    {"accel": "pallas", "pallas_mxu": True},
+    {"accel": "pallas", "pallas_mxu": True},  # these two render now
     {"accel": "pallas", "pallas_plan": "super"},
     {"primary_accel": "pallas", "pallas_plan": "group"},
     {"accel": "pallas", "pallas_sort_impl": "xla"},
@@ -281,8 +313,24 @@ def test_resume_equivalence_bitwise():
 ])
 def test_knob_outside_slice_raises(knob):
     """A knob the port does not render yet raises NotImplementedError, which
-    names it, instead of changing the result."""
+    names it, instead of changing the result. ``pallas_stream=True`` and
+    ``pallas_mxu`` are ported: they render, and on this 9-sphere scene (dense
+    batteries under accel='pallas') leave the buckets as accel='brute' has
+    them; the two together are refused by RendererPolicy, as in the JAX
+    package."""
     pol = RendererPolicy(max_bounces=2, rays_per_chunk=4096, **knob)
+    if "pallas_stream" in knob or "pallas_mxu" in knob:
+        renders = [Renderer(tbuilders.default_scene(8, 8), p, 8, 8,
+                            device="cpu")
+                   for p in (pol, RendererPolicy(max_bounces=2,
+                                                 rays_per_chunk=4096,
+                                                 narrow_wavefront=True))]
+        for r in renders:
+            r.accumulate(1)
+        assert torch.equal(renders[0].state.buckets, renders[1].state.buckets)
+        with pytest.raises(ValueError, match="pallas_stream=True excludes"):
+            RendererPolicy(pallas_stream=True, pallas_mxu=True)
+        return
     with pytest.raises(NotImplementedError) as err:
         Renderer(tbuilders.default_scene(8, 8), pol, 8, 8, device="cpu")
     assert [k for k in knob if k in str(err.value)] or "use_bvh" in knob
@@ -334,24 +382,39 @@ def test_too_many_clusters_refused_before_any_work():
         Renderer(over, pol, 8, 8, device="cpu")
     Renderer(scene, pol, 8, 8, device="cpu")
     Renderer(over, RendererPolicy(max_bounces=2), 8, 8, device="cpu")
+    # the triangle pack of a scene is held to the same limit
+    mesh = taccel.with_pallas_clusters(
+        tbuilders.mesh_scene(8, 8, subdivisions=2), cluster_size=32)
+    over = dataclasses.replace(mesh, tri_clusters=dataclasses.replace(
+        mesh.tri_clusters, num_clusters=16385))
+    with pytest.raises(NotImplementedError,
+                       match="16385 clusters of triangles"):
+        Renderer(over, pol, 8, 8, device="cpu")
+    Renderer(mesh, pol, 8, 8, device="cpu")
 
 
 def test_narrowing_auto_and_triangles_raise():
-    """narrow_wavefront='auto' resolves to on at >= 64 spheres (bvh_test has
-    255) and under accel='pallas', and such a scene renders; triangle scenes
-    are refused at construction."""
+    """narrow_wavefront='auto' resolves to on at >= 64 prims, spheres and
+    triangles together (bvh_test has 255 spheres; mesh_scene(subdivisions=1)
+    80 triangles and 2 spheres; cornell's 14 prims stay below), and under
+    accel='pallas'; such scenes render. Triangle scenes no longer raise at
+    construction: they render, from the JAX package's arrays too."""
     big = tbuilders.bvh_test_scene(8, 8)
+    mesh = tbuilders.mesh_scene(8, 8, subdivisions=1)
+    cornell = tbuilders.cornell_box_scene(8, 8)
     assert tr.narrowing_on(RendererPolicy(), big)
+    assert tr.narrowing_on(RendererPolicy(), mesh)
+    assert not tr.narrowing_on(RendererPolicy(), cornell)
     assert not tr.narrowing_on(RendererPolicy(), tbuilders.default_scene(8, 8))
     assert tr.narrowing_on(RendererPolicy(accel="pallas"),
                            tbuilders.default_scene(8, 8))
-    r = Renderer(big, RendererPolicy(max_bounces=2), 8, 8, device="cpu")
-    r.accumulate(1)
-    assert np.isfinite(r.render()).all()
-    arrays = jax_scene_to_numpy(jbuilders.default_scene(8, 8))
-    arrays["tri_v0"] = np.zeros((1, 3), np.float32)
-    with pytest.raises(NotImplementedError):
-        Scene.from_numpy(arrays)
+    assert tr._narrow_caps(RendererPolicy(), mesh, 1 << 19) == [131072, 16384]
+    carried = Scene.from_numpy(
+        jax_scene_to_numpy(jbuilders.cornell_box_scene(8, 8)))
+    for scene in (big, mesh, cornell, carried):
+        r = Renderer(scene, RendererPolicy(max_bounces=2), 8, 8, device="cpu")
+        r.accumulate(1)
+        assert np.isfinite(r.render()).all()
 
 
 def test_entry_points_default_to_cuda():

@@ -3,8 +3,9 @@
 
 ``jax_scene_to_numpy`` (test side only: the port never imports the JAX
 package) flattens a JAX ``Scene`` into the arrays ``Scene.from_numpy``
-reads, with its sphere clusters (``jax_clusters_to_numpy``) where it has
-them, so both packages render identical inputs. The port's own builders
+reads, with its triangles, its triangle lights and its cluster packs
+(``jax_clusters_to_numpy``) where it has them, so both packages render
+identical inputs. The port's own builders
 must give exactly the JAX builders' arrays."""
 import numpy as np
 import pytest
@@ -41,8 +42,6 @@ def jax_clusters_to_numpy(cp) -> dict:
 
 def jax_scene_to_numpy(scene) -> dict:
     """Flatten a JAX Scene into the dict ``Scene.from_numpy`` reads."""
-    if scene.triangles is not None:
-        raise NotImplementedError("triangle scenes are not ported yet")
     out = {
         "sphere_center": _vec(scene.spheres.center),
         "sphere_radius_sq": np.asarray(scene.spheres.radius_sq),
@@ -65,8 +64,16 @@ def jax_scene_to_numpy(scene) -> dict:
     for k in ("half_width", "half_height", "z", "exposure", "aperture_radius",
               "focus_distance"):
         out[f"camera_{k}"] = np.asarray(getattr(scene.camera, k))
-    if scene.sphere_clusters is not None:
-        out["sphere_clusters"] = jax_clusters_to_numpy(scene.sphere_clusters)
+    tri = scene.triangles
+    if tri is not None:
+        for k in ("v0", "e1", "e2", "normal"):
+            out[f"tri_{k}"] = _vec(getattr(tri, k))
+        out["tri_area"] = np.asarray(tri.area)
+        out["tri_material_id"] = np.asarray(tri.material_id)
+        out["tri_lights"] = np.asarray(scene.tri_lights)
+    for key in ("sphere_clusters", "tri_clusters"):
+        if getattr(scene, key) is not None:
+            out[key] = jax_clusters_to_numpy(getattr(scene, key))
     return out
 
 
@@ -85,7 +92,7 @@ def _assert_same_arrays(got: dict, want: dict):
 
 
 BUILDERS = ["default_scene", "white_furnace_scene", "bvh_test_scene",
-            "random_spheres_scene"]
+            "random_spheres_scene", "cornell_box_scene"]
 
 
 @pytest.mark.parametrize("name", BUILDERS)
@@ -148,10 +155,17 @@ def test_sky_sample_matches_jax():
 
 
 def test_triangle_scenes_refused():
-    """Triangle geometry is a later port slice: refused, never dropped."""
-    with pytest.raises(NotImplementedError):
-        jax_scene_to_numpy(jbuilders.cornell_box_scene(16, 16))
-    arrays = jax_scene_to_numpy(jbuilders.default_scene(16, 16))
-    arrays["tri_v0"] = np.zeros((1, 3), np.float32)
-    with pytest.raises(NotImplementedError):
+    """Triangle geometry is ported, so a scene with triangles is no longer
+    refused: it is carried across whole (never dropped), with its triangle
+    lights, and ``Scene.to`` keeps it. What stays refused is a flat dict
+    that names some triangle arrays and lacks the others."""
+    arrays = jax_scene_to_numpy(jbuilders.cornell_box_scene(16, 16))
+    scene = tscene.Scene.from_numpy(arrays).to("cpu")
+    assert scene.triangles.count == 12 and scene.num_tri_lights == 2
+    assert scene.num_lights == 0 and scene.num_prims == 14
+    assert scene.triangles.material_id.dtype == torch.int32
+    assert scene.tri_lights.dtype == torch.int32
+    _assert_same_arrays(scene.to_numpy(), arrays)
+    del arrays["tri_area"]
+    with pytest.raises(KeyError):
         tscene.Scene.from_numpy(arrays)
