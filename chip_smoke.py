@@ -53,14 +53,27 @@ Phases:
  13. the triangle-mesh path at full width, 1920x1088, 8 bounces, default
      knobs, accel='pallas': mesh_scene(uv_res=224) (resident walks),
      mesh_scene(uv_res=810) (the default policy resolves to the streamed
-     walks) and mesh_scene(uv_res=224) with pallas_mxu=True.
+     walks) and mesh_scene(uv_res=224) with pallas_mxu=True;
+ 14. the planners (pallas_plan 'super', 'group', 'tilebox', 'hybrid', the
+     sort outside the kernel and the unsorted plan): on the 100,352-triangle
+     and the 100,000-sphere tables, each with a group-box pack beside the
+     default one, on camera, narrowed and diffuse batches, every mode of
+     cluster_plan and cluster_plan_rows against its plain version bit for
+     bit, 'super' equal to the flat plan, the tilebox and hybrid entries no
+     larger than the flat ones, and the walks each planner feeds equal to
+     the flat plan's walks but for exact ties between clusters; then
+     mesh_scene(uv_res=224) at 1920x1088 under each planner (eight
+     renders: the six of the planners and two more that launch the super
+     and group modes of cluster_plan_rows), and the mesh golden under
+     'group' and 'tilebox'.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
 keyed "kernels" lists every kernel: the five of the sphere paths, the two
-streamed walks and the two walks with the product-form battery), the total
-time, and {"ok": true, "device": {...}}. Without a CUDA device it exits 2
-and prints no result.
+streamed walks, the two walks with the product-form battery and the seven
+planner modes of phase 14), the clusters planned and walked per tile under
+each planner, the total time, and {"ok": true, "device": {...}}. Without a
+CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -95,11 +108,44 @@ REPLACES = {
     "cluster_occluded_stream": _TK + ":1174",
     "cluster_closest[mxu]": _TK + ":198",
     "cluster_occluded[mxu]": _TK + ":198",
+    "cluster_plan[super]": _TK + ":420",
+    "cluster_plan[group]": _TK + ":420",
+    "cluster_plan_rows[ray]": _TK + ":420",
+    "cluster_plan_rows[super]": _TK + ":420",
+    "cluster_plan_rows[group]": _TK + ":420",
+    "cluster_plan_rows[tilebox]": _TK + ":351",
+    "cluster_plan_rows[hybrid]": _TK + ":371",
 }
 # operations per test, counted from csrc/cluster_traverse.cu: a slab test is
 # 6 sub, 6 mul, 11 min/max, 2 compares and the running min; the triangle
 # battery 15 mul-adds counted as 2, a division and 7 compares and adds
 SLAB_OPS = 26
+# an interval test of the tilebox planner: per axis 4 sub, 8 mul, 14 min/max
+# and 2 selects; then 3 max, 2 min, 3 compares and a select
+TILEBOX_OPS = 93
+# the planner renders of phase 14: (label, policy knobs, group-box pack,
+# the counter of the planner kernel the render must launch); the last two
+# show the remaining modes of cluster_plan_rows on a render path and are
+# neither profiled nor timed beyond one pass a window
+PLANNER_RENDERS = (
+    ("super", {"pallas_plan": "super"}, False, "cluster_plan[super]"),
+    ("group", {"pallas_plan": "group"}, True, "cluster_plan[group]"),
+    ("tilebox", {"pallas_plan": "tilebox"}, False,
+     "cluster_plan_rows[tilebox]"),
+    ("hybrid", {"pallas_plan": "hybrid"}, False, "cluster_plan_rows[hybrid]"),
+    ("xla-sort", {"pallas_sort_impl": "xla"}, False,
+     "cluster_plan_rows[ray]"),
+    ("unsorted", {"pallas_sort_visits": False}, False,
+     "cluster_plan_rows[ray]"),
+    # the two remaining modes of cluster_plan_rows on a render path
+    ("super, xla-sort", {"pallas_plan": "super", "pallas_sort_impl": "xla"},
+     False, "cluster_plan_rows[super]"),
+    ("group, unsorted", {"pallas_plan": "group",
+                         "pallas_sort_visits": False}, True,
+     "cluster_plan_rows[group]"),
+)
+# the pack of diag_group_plan.py for pallas_plan='group'
+GROUP_PACK = {"cluster_size": 128, "fill_window": 8, "group_boxes": True}
 TRI_CLOSEST_OPS = 38
 TRI_OCCLUDED_OPS = 39
 FRAME = (1920, 1088)  # the full-width renders' frame
@@ -622,6 +668,208 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
     return out
 
 
+def plan_bound(torch, ct, cp, rays, tile, mode, sorted_):
+    """(bytes, operations) of one planner launch on these rays: each input
+    read once, the entries (and under the sort the ids and nvis) written
+    once; SLAB_OPS a slab test, TILEBOX_OPS an interval test. 'super' counts
+    the tests this run's data needs: every tile against the S union boxes,
+    and against the members of the unions it entered (counted by the plain
+    version); 'hybrid' the interval tests of its sign-coherent tiles and the
+    slab tests of the others."""
+    p, d, tf0, alive = rays
+    n, c = tf0.shape[0], cp.num_clusters
+    tiles = -(-n // tile)
+    s = -(-c // ct.SUPER)
+    boxes = {"group": 2 * c, "super": c + s}.get(mode, c)
+    nbytes = n * (7 * 4 + 1) + boxes * 24 + tiles * c * (8 if sorted_ else 4)
+    nbytes += tiles * 4 if sorted_ else 0
+    tiled = ct._tiled(p, d, torch.where(alive, tf0, 0.0), alive, tile)
+    if mode == "super":
+        entered = ct._tile_entry_rows(ct._super_slab_rows(cp), *tiled) \
+            < ct.FLT_MAX
+        members = torch.clamp(c - torch.arange(s, device=DEVICE) * ct.SUPER,
+                              max=ct.SUPER)
+        tests = tile * (tiles * s + int((entered * members).sum()))
+        return nbytes, tests * SLAB_OPS
+    if mode in ("tilebox", "hybrid"):
+        coherent = tiles
+        if mode == "hybrid":
+            ok, dx, dy, dz = tiled[7], tiled[3], tiled[4], tiled[5]
+            coherent = int((ct._sign_coherent(dx, ok)
+                            & ct._sign_coherent(dy, ok)
+                            & ct._sign_coherent(dz, ok)).sum())
+        return nbytes, (coherent * c * TILEBOX_OPS + n * 14
+                        + (tiles - coherent) * tile * c * SLAB_OPS)
+    return nbytes, n * boxes * SLAB_OPS
+
+
+def check_planners(torch, timer, cp, gcp, rays, label, tile=CLUSTER_TILE,
+                   stats=False):
+    """Phase 14 on one table and one ray batch: every planner mode of both
+    kernels against its plain version, bit for bit (cluster_plan_rows' whole
+    [T, C] matrix; cluster_plan's nvis and, below it, ids and entries), on
+    the default pack `cp` and, for 'group', on the group-box pack `gcp`;
+    'super' equal to the flat plan; the tilebox and hybrid entries at most
+    the flat entry of every cluster the flat plan enters. Then the walks fed
+    by each planner against the walks fed by the flat plan on the same pack:
+    equal occlusion, equal t bits, and equal ids except at lanes where the
+    two winners lie in different clusters at exactly the same t. With
+    `stats`, the clusters planned and walked (closest) per tile under each
+    planner. Returns (kernel rows, per-planner numbers)."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+
+    p, d, tf0, alive = rays
+    n, c = tf0.shape[0], cp.num_clusters
+    tiles = -(-n // tile)
+    plan_tf = torch.where(alive, tf0, 0.0)
+    args = lambda pack: (pack, p, d, plan_tf, alive, tile)
+    pack_of = lambda mode: gcp if mode.startswith("group") else cp
+    bad, rows, kernels = [], {}, {}
+    for mode in ct.PLANS:
+        got = ct.plan_rows(*args(pack_of(mode)), mode)
+        want = ct.plan_rows_plain(*args(pack_of(mode)), mode)
+        if not torch.equal(got, want):
+            bad.append(f"cluster_plan_rows[{mode}] != plain "
+                       f"({int((got != want).sum())} entries)")
+        rows[mode] = got
+        kernels[f"cluster_plan_rows[{mode}]"] = (
+            lambda m=mode: ct.plan_rows(*args(pack_of(m)), m),
+            lambda m=mode: ct.plan_rows_plain(*args(pack_of(m)), m),
+            plan_bound(torch, ct, pack_of(mode), rays, tile, mode, False))
+    flat = rows["ray"]
+    entered = flat < ct.FLT_MAX
+    if not torch.equal(rows["super"], flat):
+        bad.append("cluster_plan_rows[super] != [ray]")
+    for mode in ("tilebox", "hybrid"):
+        if not bool((rows[mode][entered] <= flat[entered]).all()):
+            bad.append(f"cluster_plan_rows[{mode}] is no superset")
+    below = lambda v, nv: (torch.arange(v.shape[1], device=DEVICE)[None, :]
+                           < nv[:, None])
+    lists = {"ray": ct._plan_visits(*args(cp)),
+             "ray on the group pack": ct._plan_visits(*args(gcp))}
+    for mode in ("super", "group"):
+        kv, ke, kn = ct._plan_visits(*args(pack_of(mode)), mode)
+        pv, pe, pn = ct.plan_visits_plain(*args(pack_of(mode)), mode)
+        m = below(pv, pn)
+        if not (torch.equal(kn, pn) and torch.equal(kv[m], pv[m])
+                and torch.equal(ke[m], pe[m])):
+            bad.append(f"cluster_plan[{mode}] != plain")
+        lists[mode] = (kv, ke, kn)
+        kernels[f"cluster_plan[{mode}]"] = (
+            lambda m=mode: ct._plan_visits(*args(pack_of(m)), m),
+            lambda m=mode: ct.plan_visits_plain(*args(pack_of(m)), m),
+            plan_bound(torch, ct, pack_of(mode), rays, tile, mode, True))
+    (bv, be, bn), (sv, se, sn) = lists["ray"], lists["super"]
+    m = below(bv, bn)
+    if not (torch.equal(sn, bn) and torch.equal(sv[m], bv[m])
+            and torch.equal(se[m], be[m])):
+        bad.append("cluster_plan[super] != cluster_plan")
+    del rows, flat, entered
+
+    # the walks each planner feeds, against the flat plan's on that pack
+    reference = {}
+    for pack in (cp, gcp):
+        visits = lists["ray" if pack is cp else "ray on the group pack"]
+        t, i = ct.walk_closest(pack, *visits, p, d, tf0, alive, tile)
+        scale = torch.where(torch.arange(n, device=DEVICE) % 2 == 0, 1.001,
+                            0.999)
+        shadow_tf = torch.where(alive, torch.where(i >= 0, t * scale, tf0),
+                                0.0)
+        occ = ct.walk_occluded(pack, *ct._plan_visits(
+            pack, p, d, shadow_tf, shadow_tf > 0, tile), p, d, shadow_tf,
+            tile)
+        reference[id(pack)] = (t, i, shadow_tf, occ)
+    numbers = {}
+    for how, kw in (("ray", {}), ("super", {"plan": "super"}),
+                    ("group", {"plan": "group"}),
+                    ("tilebox", {"plan": "tilebox"}),
+                    ("hybrid", {"plan": "hybrid"}),
+                    ("xla-sort", {"sort_impl": "xla"}),
+                    ("unsorted", {"sort": False})):
+        pack = pack_of(how)
+        rt, ri, shadow_tf, rocc = reference[id(pack)]
+        visits = ct._plan_visits(*args(pack), **kw)
+        t, i = ct.walk_closest(pack, *visits, p, d, tf0, alive, tile)
+        occ = ct.walk_occluded(pack, *ct._plan_visits(
+            pack, p, d, shadow_tf, shadow_tf > 0, tile, **kw), p, d,
+            shadow_tf, tile)
+        same_t = t.view(torch.int32) == rt.view(torch.int32)
+        other = i != ri
+        k = pack.cluster_size
+        ties = other & same_t & (i >= 0) & (ri >= 0) & (i // k != ri // k)
+        unexplained = int((~same_t | (other & ~ties)).sum())
+        occ_differ = int((occ != rocc).sum())
+        if unexplained or occ_differ:
+            bad.append(f"walks under {how}: {unexplained} lanes differ from "
+                       f"the flat plan's beyond exact ties, {occ_differ} "
+                       "any-hit lanes differ")
+        numbers[how] = {"planned": int(visits[2].sum()) / tiles,
+                        "ties": int(ties.sum())}
+        if stats:
+            walked = {}
+            ct.walk_closest_plain(pack, *visits, p, d, tf0, alive, tile,
+                                  stats=walked)
+            numbers[how]["walked"] = walked.get("visits", 0) / tiles
+    log(f"[{label}] R={n} C={c} (group pack C={gcp.num_clusters}): "
+        + "; ".join(f"{how} planned {v['planned']:.1f}"
+                    + (f" walked {v['walked']:.1f}" if "walked" in v else "")
+                    + f" ties {v['ties']}" for how, v in numbers.items()))
+    if bad:
+        raise AssertionError(f"[{label}] " + "; ".join(bad))
+
+    out = {}
+    shape = f"R={n} tile_r={tile} C={c} K={cp.cluster_size} {cp.kind}s"
+    for name, (kern, plain, (nbytes, ops)) in kernels.items():
+        ms = timer(kern, 5, warmup=1)
+        plain_ms = timer(plain, 1, warmup=0)
+        out[name] = kernel_row(name, CLUSTER_SOURCE, f"{shape}, {label}",
+                               None, 0.0, ms, plain_ms, nbytes, ops)
+        log(f"[{label}] {name}: {ms:.4f} ms (bound "
+            f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}; "
+            f"plain {plain_ms:.2f} ms)")
+    return out, numbers
+
+
+def planned_per_tile(r):
+    """One more pass of renderer `r` with the planner wrapped: the clusters
+    planned per tile over the pass's closest-hit and any-hit calls (nvis
+    summed over every tile of every call, over the tiles)."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+
+    real = (ct._plan_visits, ct.intersect_clustered_pallas,
+            ct.occluded_clustered_pallas)
+    counts = {"closest": [0, 0], "any-hit": [0, 0]}
+    calling = []
+
+    def plan(*args, **kw):
+        visit, entry, nvis = real[0](*args, **kw)
+        counts[calling[-1]][0] += int(nvis.sum())
+        counts[calling[-1]][1] += nvis.numel()
+        return visit, entry, nvis
+
+    def wrap(fn, what):
+        def call(*args, **kw):
+            calling.append(what)
+            try:
+                return fn(*args, **kw)
+            finally:
+                calling.pop()
+        return call
+
+    ct._plan_visits = plan
+    ct.intersect_clustered_pallas = wrap(real[1], "closest")
+    ct.occluded_clustered_pallas = wrap(real[2], "any-hit")
+    try:
+        r.accumulate(1)
+    finally:
+        (ct._plan_visits, ct.intersect_clustered_pallas,
+         ct.occluded_clustered_pallas) = real
+    return {what: planned / max(1, tiles)
+            for what, (planned, tiles) in counts.items()}
+
+
 def check_against_brute(torch, scene, rays, label):
     """The clustered closest walk against the brute sphere_closest kernel:
     equal tfar wherever the brute battery hits, equal ids except where two
@@ -650,13 +898,15 @@ def check_against_brute(torch, scene, rays, label):
 
 
 def render(torch, crt, scene, policy, width, height, passes, label, expect,
-           idle=()):
+           idle=(), probe=None, profiled=True):
     """Run WINDOWS timed windows of `passes` accumulation passes each
     through Renderer.accumulate, with the launch counts set to 0 just
     before the first and read just after the last; returns (image,
     numbers). ms/pass is the median window's; rays per pass are the port's
     ray_count summed over all timed passes. Every kernel named in `expect`
-    must have been launched in those passes, and none named in `idle`."""
+    must have been launched in those passes, and none named in `idle`.
+    Then one profiled pass (unless not `profiled`); `probe(renderer)`, if
+    given, runs after it and its result is kept under "probe"."""
     import numpy as np
 
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
@@ -690,9 +940,11 @@ def render(torch, crt, scene, policy, width, height, passes, label, expect,
         if launches[name] != 0:
             raise AssertionError(f"[{label}] {name} was launched "
                                  f"{launches[name]} times on this path")
-    profile_pass(torch, r, label)
+    if profiled:
+        profile_pass(torch, r, label)
     return img, {"ms_per_pass": ms, "rays_per_pass": rays,
-                 "launches": launches}
+                 "launches": launches,
+                 "probe": None if probe is None else probe(r)}
 
 
 def profile_pass(torch, r, label):
@@ -958,7 +1210,59 @@ def main() -> int:
             torch, crt, meshes[uv_res], pol(max_bounces=8, accel="pallas",
                                             **kw),
             *FRAME, 2, f"13 {name}", expect + sphere_kernels,
-            idle if uv_res == 224 else idle + resident[1:])
+            idle if uv_res == 224 else idle + resident[1:],
+            planned_per_tile if name == "mesh 100k pallas" else None)
+    log(f"[13 mesh 100k pallas] clusters planned a tile over one pass: "
+        f"{mesh_paths['mesh 100k pallas']['probe']}")
+
+    # ---- phase 14: the planners ----
+    log(f"[14] phases 1-13 done at {time.perf_counter() - t_start:.1f} s")
+    planner_kernels = tuple(REPLACES)[-7:]
+    planners = ("cluster_plan",) + planner_kernels
+    gmesh = crt.accel.with_pallas_clusters(meshes[224], **GROUP_PACK)
+    gbig = crt.accel.with_pallas_clusters(big, **GROUP_PACK)
+    plan_rows, plan_numbers = {}, {}
+    for tname, scene, grouped, cp, gcp in (
+            ("mesh 100k", meshes[224], gmesh, meshes[224].tri_clusters,
+             gmesh.tri_clusters),
+            ("100k spheres", big, gbig, big.sphere_clusters,
+             gbig.sphere_clusters)):
+        batches = cluster_rays(torch, np, crt, scene, cp, 17, narrowed=True)
+        for kind in ("camera", "narrowed", "diffuse"):
+            plan_rows[tname, kind], plan_numbers[tname, kind] = \
+                check_planners(torch, timer, cp, gcp, batches[kind],
+                               f"14 {tname}, {kind} rays",
+                               stats=(tname, kind) == ("mesh 100k",
+                                                       "narrowed"))
+        del batches
+    del gbig
+    log(f"[14] planner checks done at {time.perf_counter() - t_start:.1f} s")
+    planner_paths = {}
+    for i, (name, kw, grouped, kernel) in enumerate(PLANNER_RENDERS):
+        extra = i >= len(PLANNER_RENDERS) - 2
+        # a tilebox pass takes seconds: one pass a window there
+        _, planner_paths[name] = render(
+            torch, crt, gmesh if grouped else meshes[224],
+            pol(max_bounces=8, accel="pallas", **kw), *FRAME,
+            1 if extra or name == "tilebox" else 2, f"14 mesh 100k {name}",
+            (kernel,) + resident[1:] + sphere_kernels,
+            tuple(k for k in planners if k != kernel), planned_per_tile,
+            profiled=not extra)
+        log(f"[14 mesh 100k {name}] clusters planned a tile over one pass: "
+            f"{planner_paths[name]['probe']}")
+    small_group = crt.accel.with_pallas_clusters(
+        crt.builders.mesh_scene(96, 96, subdivisions=3), **GROUP_PACK)
+    for name, scene, kernel in (
+            ("group", small_group, "cluster_plan[group]"),
+            ("tilebox", small_mesh, "cluster_plan_rows[tilebox]")):
+        r = crt.Renderer(scene, pol(
+            max_bounces=6, rays_per_chunk=9216, accel="pallas",
+            pallas_tile_rays=64, pallas_plan=name), 96, 96)
+        build.reset_counts()
+        r.accumulate(10)
+        if build.launch_counts()[kernel] <= 0:
+            raise AssertionError(f"[14 mesh {name}] {kernel} never launched")
+        golden_check(np, r.render(tonemap=False), f"mesh pallas {name}")
 
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
@@ -977,6 +1281,15 @@ def main() -> int:
                               else "mesh 100k pallas mxu" if "[mxu]" in name
                               else "mesh 100k pallas"]
             row["launches"] = path["launches"][name]
+    # each planner kernel's launches: those of the first render that takes it
+    first_path = {}
+    for name, _, _, kernel in PLANNER_RENDERS:
+        first_path.setdefault(kernel, planner_paths[name])
+    for (tname, _), rows in plan_rows.items():
+        for name, row in rows.items():
+            # the 100,000-sphere table is on no planner render
+            row["launches"] = (first_path[name]["launches"][name]
+                               if tname == "mesh 100k" else 0)
     main_rows = dict(cluster_rows.pop(("100k spheres", "diffuse")))
     # the streamed walks' main-path shape is the 1.3 M-triangle table's
     cluster_rows["100k spheres", "diffuse, streamed"] = {
@@ -985,11 +1298,16 @@ def main() -> int:
                 for name in streamed[1:]}
     new_rows.update({name: mesh_rows[224, "narrowed"].pop(name)
                      for name in product[1:]})
+    new_rows.update({name: plan_rows["mesh 100k", "narrowed"].pop(name)
+                     for name in planner_kernels})
     log(card)
     log(json.dumps({"kernels_at_1k_spheres": list(field_rows.values())}))
     log(json.dumps({"cluster_kernels_at_other_shapes": [
-        row for rows in list(cluster_rows.values()) + list(mesh_rows.values())
+        row for rows in (list(cluster_rows.values()) + list(mesh_rows.values())
+                         + list(plan_rows.values()))
         for row in rows.values()]}))
+    log(json.dumps({"planners_per_tile": {
+        f"{tname}, {kind}": v for (tname, kind), v in plan_numbers.items()}}))
     log(json.dumps({"kernels": list(hero_rows.values())
                     + list(main_rows.values()) + list(new_rows.values())}))
     log(f"chip_smoke: every phase passed in "

@@ -5,7 +5,12 @@
 // Replaces the TPU kernels of the JAX package's
 // ops/pallas/traverse_kernel.py:
 //   cluster_plan     <- _make_plan_kernel(sort_in_kernel=True), the flat
-//                       'ray' plan (driven by _plan_visits)
+//                       'ray' plan and its use_super ('super') and use_dual
+//                       ('group') options (driven by _plan_visits)
+//   cluster_plan_rows <- _make_plan_kernel(sort_in_kernel=False) with the
+//                       same options, _make_plan_kernel_tilebox and
+//                       _make_plan_kernel_hybrid: the unsorted entry matrix
+//                       that _plan_visits sorts in XLA
 //   cluster_closest  <- _make_closest_kernel with _sphere_battery /
 //                       _triangle_battery (driven by
 //                       intersect_clustered_pallas)
@@ -25,7 +30,18 @@
 //   tfar), then the tile's entered clusters sorted front to back, the lowest
 //   cluster id first among equal entries. Outputs the sorted entries, the
 //   cluster ids in that order and their number nvis; positions at or past
-//   nvis hold FLT_MAX and -1 and are never read.
+//   nvis hold FLT_MAX and -1 and are never read. Its modes: 'ray' as said;
+//   'group', the lesser of the entries against a cluster's two leaf boxes;
+//   'super', the entries against the union boxes of 128 consecutive
+//   clusters first, then the 'ray' entries of the members of the entered
+//   unions only, which equal the 'ray' plan bit for bit.
+//   cluster_plan_rows: the same entries, unsorted, as a [T, C] matrix, in
+//   those three modes and two more. 'tilebox': the tile's valid rays summed
+//   up by per-axis origin and direction intervals and their largest tfar,
+//   tested against each box once by interval arithmetic (a lower bound of
+//   every ray's entry). 'hybrid': 'tilebox' where the tile's directions are
+//   sign-coherent on all three axes, else 'ray'. It keeps no list in shared
+//   memory and so has no cluster limit.
 //   cluster_closest: every valid ray's nearest primitive over the tile's
 //   visit list, walked while the next entry is below the tile's exit bound
 //   mx = max over valid lanes of min(current tfar, exit distance from the
@@ -54,10 +70,13 @@
 //
 // Bound on an H100. The planner does tile_r x C slab tests per tile (about
 // 25 operations each) and writes 8 bytes per (tile, cluster): operations
-// bind it from a few hundred clusters on. The walks read each visited
-// cluster's rows once per tile (16 B per sphere, 48 B per triangle) and do
-// 20 (spheres) or about 35 (triangles) operations per (ray, primitive) pair,
-// the multiply-adds among them in double: operations bind them.
+// bind it from a few hundred clusters on. 'super' does tile_r x (S + 128 E)
+// tests for E entered unions; 'tilebox' one interval test per (tile,
+// cluster) and writes 4 bytes for it: bytes bind it. The walks read each
+// visited cluster's rows once per tile (16 B per sphere, 48 B per triangle)
+// and do 20 (spheres) or about 35 (triangles) operations per (ray,
+// primitive) pair, the multiply-adds among them in double: operations bind
+// them.
 //
 // The product-form triangle battery. Per visited cluster the TPU kernel
 // multiplies the tile's [tile_r, 3] direction and origin matrices with
@@ -85,12 +104,16 @@
 // loops over the staged rays, which every thread reads at the same address
 // (a broadcast). Entered clusters are compacted into 64-bit keys (entry bits
 // << 32 | cluster id: entries are non-negative, so they order as unsigned
-// integers) and sorted by a bitonic network in shared memory. Walks: one
-// thread per ray with its ray in registers; the visited cluster's rows are
-// staged in shared memory as float4 and read by broadcast; the exit bound is
-// a block-wide max through warp shuffles. Warp-level culling inside a tile,
-// several clusters per staging step and tensor-core batteries are later
-// work.
+// integers) and sorted by a bitonic network in shared memory. 'super' keeps
+// the S union entries in shared memory; each warp's 32 consecutive clusters
+// share one union, so the skip is uniform over a warp. The tilebox bundle
+// is one block-wide reduction (warp shuffles, then one value per warp in
+// shared memory) of min / max that propagate NaN, as the JAX reductions do.
+// Walks: one thread per ray with its ray in registers; the visited
+// cluster's rows are staged in shared memory as float4 and read by
+// broadcast; the exit bound is a block-wide max through warp shuffles.
+// Warp-level culling inside a tile, several clusters per staging step and
+// tensor-core batteries are later work.
 
 #include <cfloat>
 #include <cstdint>
@@ -170,12 +193,108 @@ __device__ __forceinline__ float block_max(float v, float* s_red) {
 }
 
 // ---------------------------------------------------------------------------
-// cluster_plan
+// Planners: cluster_plan (sorted in the kernel), cluster_plan_rows (the
+// unsorted entry matrix)
 // ---------------------------------------------------------------------------
+// The `mode` argument of both entry points (_MODES of the wrapper).
+constexpr int kFlat = 0;     // 'ray'
+constexpr int kDual = 1;     // 'group': the second slab set is each
+                             // cluster's second leaf box
+constexpr int kSuper = 2;    // 'super': the second slab set is the S
+                             // supercluster boxes
+constexpr int kTilebox = 3;  // 'tilebox' (cluster_plan_rows only)
+constexpr int kHybrid = 4;   // 'hybrid' (cluster_plan_rows only)
+constexpr int kSuperSize = 128;  // clusters a supercluster box covers
+
+// Six rows of boxes: lo.xyz, hi.xyz.
+struct Boxes {
+  const float *lox, *loy, *loz, *hix, *hiy, *hiz;
+};
+
+// The tile's rays as staged in shared memory: origin, 1 / direction, tfar;
+// an invalid lane is staged as a ray that enters no box.
+struct Staged {
+  float *px, *py, *pz, *ix, *iy, *iz, *tf;
+};
+
+__device__ __forceinline__ Staged staged_rays(float* base, int tile_r) {
+  return Staged{base,              base + tile_r,     base + 2 * tile_r,
+                base + 3 * tile_r, base + 4 * tile_r, base + 5 * tile_r,
+                base + 6 * tile_r};
+}
+
+__device__ __forceinline__ void stage_rays(
+    const Staged& s, const float* __restrict__ px,
+    const float* __restrict__ py, const float* __restrict__ pz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, const float* __restrict__ tf,
+    const uint8_t* __restrict__ valid, int base, int n_rays, int tile_r) {
+  for (int i = threadIdx.x; i < tile_r; i += blockDim.x) {
+    const int r = base + i;
+    const bool ok = r < n_rays && valid[r] != 0;
+    // an invalid lane never enters a box: entry >= 0 is never below tfar 0
+    s.px[i] = ok ? px[r] : 0.0f;
+    s.py[i] = ok ? py[r] : 0.0f;
+    s.pz[i] = ok ? pz[r] : 0.0f;
+    s.ix[i] = ok ? __fdiv_rn(1.0f, dx[r]) : 1.0f;
+    s.iy[i] = ok ? __fdiv_rn(1.0f, dy[r]) : 1.0f;
+    s.iz[i] = ok ? __fdiv_rn(1.0f, dz[r]) : 1.0f;
+    s.tf[i] = ok ? tf[r] : 0.0f;
+  }
+}
+
+// _tile_entry_row for box c: the least slab entry distance over the staged
+// rays, FLT_MAX where no ray enters the box before its tfar.
+__device__ __forceinline__ float tile_entry(const Boxes& b, int c,
+                                            const Staged& s, int tile_r) {
+  const float lx = b.lox[c], ly = b.loy[c], lz = b.loz[c];
+  const float hx = b.hix[c], hy = b.hiy[c], hz = b.hiz[c];
+  float emin = FLT_MAX;
+  for (int i = 0; i < tile_r; ++i) {
+    const Slab sl = slab(lx, ly, lz, hx, hy, hz, s.px[i], s.py[i], s.pz[i],
+                         s.ix[i], s.iy[i], s.iz[i]);
+    const float entry = fmaxf(sl.tmin, 0.0f);
+    const bool hit = !sl.nan && sl.tmax >= entry && entry < s.tf[i];
+    emin = fminf(emin, hit ? entry : FLT_MAX);
+  }
+  return emin;
+}
+
+// Phase A of 'super': the staged rays against the S supercluster boxes,
+// into s_super[S]. Returns after a barrier.
+__device__ __forceinline__ void super_entries(const Boxes& supers,
+                                              int n_super, const Staged& s,
+                                              int tile_r, float* s_super) {
+  for (int k = threadIdx.x; k < n_super; k += blockDim.x) {
+    s_super[k] = tile_entry(supers, k, s, tile_r);
+  }
+  __syncthreads();
+}
+
+// The entry of cluster c under an exact mode. 'group': the lesser of the
+// two leaf boxes' entries (the min over rays and the min of the two rows
+// commute, and no entry is NaN). 'super' (phase B): the flat entry where the
+// cluster's supercluster was entered, else FLT_MAX; a supercluster box
+// contains its members' boxes and the slab test is monotone in the box, so
+// this equals the flat entry bit for bit.
+template <int kMode>
+__device__ __forceinline__ float exact_entry(const Boxes& b,
+                                             const Boxes& second, int c,
+                                             const Staged& s, int tile_r,
+                                             const float* s_super) {
+  if (kMode == kDual) {
+    return fminf(tile_entry(b, c, s, tile_r),
+                 tile_entry(second, c, s, tile_r));
+  }
+  if (kMode == kSuper && !(s_super[c / kSuperSize] < FLT_MAX)) {
+    return FLT_MAX;
+  }
+  return tile_entry(b, c, s, tile_r);
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kPlanThreads)
-plan_kernel(const float* __restrict__ lox, const float* __restrict__ loy,
-            const float* __restrict__ loz, const float* __restrict__ hix,
-            const float* __restrict__ hiy, const float* __restrict__ hiz,
+plan_kernel(Boxes boxes, Boxes second, int n_super,
             const float* __restrict__ px, const float* __restrict__ py,
             const float* __restrict__ pz, const float* __restrict__ dx,
             const float* __restrict__ dy, const float* __restrict__ dz,
@@ -183,45 +302,25 @@ plan_kernel(const float* __restrict__ lox, const float* __restrict__ loy,
             int n_rays, int tile_r, int n_clusters, int n_keys,
             float* __restrict__ entry_out, int32_t* __restrict__ visit_out,
             int32_t* __restrict__ nvis_out) {
-  extern __shared__ unsigned long long keys[];  // n_keys, then 7 ray rows
+  // n_keys keys, then 7 ray rows, then n_super supercluster entries
+  extern __shared__ unsigned long long keys[];
   float* rays = reinterpret_cast<float*>(keys + n_keys);
-  float* spx = rays;
-  float* spy = spx + tile_r;
-  float* spz = spy + tile_r;
-  float* six = spz + tile_r;
-  float* siy = six + tile_r;
-  float* siz = siy + tile_r;
-  float* stf = siz + tile_r;
+  const Staged staged = staged_rays(rays, tile_r);
+  float* s_super = rays + 7 * tile_r;
   __shared__ int s_count;
 
   const int tile = blockIdx.x;
-  const int base = tile * tile_r;
   if (threadIdx.x == 0) s_count = 0;
-  for (int i = threadIdx.x; i < tile_r; i += blockDim.x) {
-    const int r = base + i;
-    const bool ok = r < n_rays && valid[r] != 0;
-    // an invalid lane never enters a box: entry >= 0 is never below tfar 0
-    spx[i] = ok ? px[r] : 0.0f;
-    spy[i] = ok ? py[r] : 0.0f;
-    spz[i] = ok ? pz[r] : 0.0f;
-    six[i] = ok ? __fdiv_rn(1.0f, dx[r]) : 1.0f;
-    siy[i] = ok ? __fdiv_rn(1.0f, dy[r]) : 1.0f;
-    siz[i] = ok ? __fdiv_rn(1.0f, dz[r]) : 1.0f;
-    stf[i] = ok ? tf[r] : 0.0f;
-  }
+  stage_rays(staged, px, py, pz, dx, dy, dz, tf, valid, tile * tile_r,
+             n_rays, tile_r);
   __syncthreads();
+  if (kMode == kSuper) {
+    super_entries(second, n_super, staged, tile_r, s_super);
+  }
 
   for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
-    const float lx = lox[c], ly = loy[c], lz = loz[c];
-    const float hx = hix[c], hy = hiy[c], hz = hiz[c];
-    float emin = FLT_MAX;
-    for (int i = 0; i < tile_r; ++i) {
-      const Slab s = slab(lx, ly, lz, hx, hy, hz, spx[i], spy[i], spz[i],
-                          six[i], siy[i], siz[i]);
-      const float entry = fmaxf(s.tmin, 0.0f);
-      const bool hit = !s.nan && s.tmax >= entry && entry < stf[i];
-      emin = fminf(emin, hit ? entry : FLT_MAX);
-    }
+    float emin = exact_entry<kMode>(boxes, second, c, staged, tile_r,
+                                    s_super);
     if (emin < FLT_MAX) {
       if (emin == 0.0f) emin = 0.0f;  // -0 would order last as an integer
       const int pos = atomicAdd(&s_count, 1);
@@ -264,6 +363,162 @@ plan_kernel(const float* __restrict__ lox, const float* __restrict__ loy,
         seen ? static_cast<int32_t>(key & 0xffffffffull) : -1;
   }
   if (threadIdx.x == 0) nvis_out[tile] = n_vis;
+}
+
+// min / max that propagate NaN, as jnp.minimum / maximum and jnp.min / max
+// do (fminf / fmaxf drop it): the interval test has no NaN flag of its own.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// The tile's ray bundle of _tilebox_entry_row: per axis the masked min /
+// max of origin (pl, ph) and direction (dl, dh) over the valid rays, the
+// max of their tfar, whether any ray is valid. Invalid lanes count as
+// +FLT_MAX in a min and -FLT_MAX in a max, as the JAX fills.
+constexpr int kBundle = 14;  // pl.xyz, dl.xyz (mins); ph.xyz, dh.xyz, tfm,
+                             // any (maxes)
+
+__device__ __forceinline__ void tile_bundle(
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ tf, const uint8_t* __restrict__ valid,
+    int base, int n_rays, int tile_r, float (*s_part)[32], float* bundle) {
+  float v[kBundle];
+  for (int k = 0; k < 6; ++k) v[k] = FLT_MAX;
+  for (int k = 6; k < kBundle; ++k) v[k] = -FLT_MAX;
+  for (int i = threadIdx.x; i < tile_r; i += blockDim.x) {
+    const int r = base + i;
+    if (!(r < n_rays && valid[r] != 0)) continue;
+    const float a[6] = {px[r], py[r], pz[r], dx[r], dy[r], dz[r]};
+    for (int k = 0; k < 6; ++k) {
+      v[k] = nan_min(v[k], a[k]);
+      v[6 + k] = nan_max(v[6 + k], a[k]);
+    }
+    v[12] = nan_max(v[12], tf[r]);
+    v[13] = 1.0f;
+  }
+  for (int k = 0; k < kBundle; ++k) {
+    for (int o = 16; o > 0; o >>= 1) {
+      const float w = __shfl_xor_sync(0xffffffffu, v[k], o);
+      v[k] = k < 6 ? nan_min(v[k], w) : nan_max(v[k], w);
+    }
+  }
+  const int n_warps = (blockDim.x + 31) >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    for (int k = 0; k < kBundle; ++k) s_part[k][threadIdx.x >> 5] = v[k];
+  }
+  __syncthreads();
+  for (int k = 0; k < kBundle; ++k) {
+    float m = s_part[k][0];
+    for (int w = 1; w < n_warps; ++w) {
+      m = k < 6 ? nan_min(m, s_part[k][w]) : nan_max(m, s_part[k][w]);
+    }
+    bundle[k] = m;
+  }
+}
+
+// One axis of the bundle: its origin interval and the interval of
+// 1 / direction; `mixed` where the direction interval holds 0, and the axis
+// then bounds nothing.
+struct Axis {
+  bool mixed;
+  float pl, ph, il, ih;
+};
+
+__device__ __forceinline__ Axis bundle_axis(float pl, float ph, float dl,
+                                            float dh) {
+  const bool mixed = dl <= 0.0f && dh >= 0.0f;
+  const float inv_a = __fdiv_rn(1.0f, mixed ? 1.0f : dh);
+  const float inv_b = __fdiv_rn(1.0f, mixed ? 1.0f : dl);
+  return Axis{mixed, pl, ph, nan_min(inv_a, inv_b), nan_max(inv_a, inv_b)};
+}
+
+// The axis's bounds (lower bound of tmin, upper bound of tmax) for the box
+// [lo, hi] on that axis, the products of _tilebox_entry_row's axis().
+__device__ __forceinline__ void axis_bounds(const Axis& a, float lo,
+                                            float hi, float* lb, float* ub) {
+  const float lp = __fsub_rn(lo, a.ph), ll = __fsub_rn(lo, a.pl);
+  const float hp = __fsub_rn(hi, a.ph), hl = __fsub_rn(hi, a.pl);
+  const float a1 = __fmul_rn(lp, a.il), a2 = __fmul_rn(lp, a.ih);
+  const float a3 = __fmul_rn(ll, a.il), a4 = __fmul_rn(ll, a.ih);
+  const float b1 = __fmul_rn(hp, a.il), b2 = __fmul_rn(hp, a.ih);
+  const float b3 = __fmul_rn(hl, a.il), b4 = __fmul_rn(hl, a.ih);
+  const float t_lo_lb = nan_min(nan_min(a1, a2), nan_min(a3, a4));
+  const float t_lo_ub = nan_max(nan_max(a1, a2), nan_max(a3, a4));
+  const float t_hi_lb = nan_min(nan_min(b1, b2), nan_min(b3, b4));
+  const float t_hi_ub = nan_max(nan_max(b1, b2), nan_max(b3, b4));
+  *lb = a.mixed ? -FLT_MAX : nan_min(t_lo_lb, t_hi_lb);
+  *ub = a.mixed ? FLT_MAX : nan_max(t_lo_ub, t_hi_ub);
+}
+
+// _tilebox_entry_row for box c: a lower bound of every valid ray's entry,
+// FLT_MAX where the bundle cannot enter the box before its largest tfar.
+__device__ __forceinline__ float tilebox_entry(const Boxes& b, int c,
+                                               const Axis* axes, float tfm,
+                                               bool any_ok) {
+  float xlb, xub, ylb, yub, zlb, zub;
+  axis_bounds(axes[0], b.lox[c], b.hix[c], &xlb, &xub);
+  axis_bounds(axes[1], b.loy[c], b.hiy[c], &ylb, &yub);
+  axis_bounds(axes[2], b.loz[c], b.hiz[c], &zlb, &zub);
+  const float entry = nan_max(nan_max(nan_max(xlb, ylb), zlb), 0.0f);
+  const float exit_ub = nan_min(nan_min(xub, yub), zub);
+  const bool hit = exit_ub >= entry && entry < tfm && any_ok;
+  return hit ? entry : FLT_MAX;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kPlanThreads)
+plan_rows_kernel(Boxes boxes, Boxes second, int n_super,
+                 const float* __restrict__ px, const float* __restrict__ py,
+                 const float* __restrict__ pz, const float* __restrict__ dx,
+                 const float* __restrict__ dy, const float* __restrict__ dz,
+                 const float* __restrict__ tf,
+                 const uint8_t* __restrict__ valid, int n_rays, int tile_r,
+                 int n_clusters, float* __restrict__ entry_out) {
+  extern __shared__ float rays[];  // 7 ray rows, then n_super entries
+  const Staged staged = staged_rays(rays, tile_r);
+  float* s_super = rays + 7 * tile_r;
+  __shared__ float s_part[kBundle][32];
+  const int tile = blockIdx.x;
+  const size_t row = static_cast<size_t>(tile) * n_clusters;
+
+  if (kMode == kTilebox || kMode == kHybrid) {
+    float v[kBundle];
+    tile_bundle(px, py, pz, dx, dy, dz, tf, valid, tile * tile_r, n_rays,
+                tile_r, s_part, v);
+    // one block plans one tile: the branch is uniform over the block
+    const bool coherent = (v[3] > 0.0f || v[9] < 0.0f) &&
+                          (v[4] > 0.0f || v[10] < 0.0f) &&
+                          (v[5] > 0.0f || v[11] < 0.0f);
+    if (kMode == kTilebox || coherent) {
+      const Axis axes[3] = {bundle_axis(v[0], v[6], v[3], v[9]),
+                            bundle_axis(v[1], v[7], v[4], v[10]),
+                            bundle_axis(v[2], v[8], v[5], v[11])};
+      for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
+        float e = tilebox_entry(boxes, c, axes, v[12], v[13] > 0.0f);
+        if (e == 0.0f) e = 0.0f;
+        entry_out[row + c] = e;
+      }
+      return;
+    }
+  }
+  stage_rays(staged, px, py, pz, dx, dy, dz, tf, valid, tile * tile_r,
+             n_rays, tile_r);
+  __syncthreads();
+  if (kMode == kSuper) {
+    super_entries(second, n_super, staged, tile_r, s_super);
+  }
+  for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
+    float e = exact_entry<kMode == kHybrid ? kFlat : kMode>(
+        boxes, second, c, staged, tile_r, s_super);
+    if (e == 0.0f) e = 0.0f;
+    entry_out[row + c] = e;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -676,10 +931,11 @@ __global__ void occluded_stream_kernel(
 }
 
 // Shared memory above 48 KB has to be asked for; the limit counts the
-// kernel's static shared memory (s_red, s_count) too, so ask from 47 KB on.
+// kernel's static shared memory (s_red, s_count, s_part: under 2 KB) too,
+// so ask from 46 KB on.
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 47 * 1024) return cudaSuccess;
+  if (bytes <= 46 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -690,27 +946,72 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 // C entry points, bound with ctypes. Each launches on `stream` and returns
 // the first CUDA error (0 = launched). The wrappers in
 // ops/kernels/cluster_traverse.py check shapes, types and sizes.
-extern "C" int cluster_plan(
-    const float* lox, const float* loy, const float* loz, const float* hix,
-    const float* hiy, const float* hiz, const float* px, const float* py,
-    const float* pz, const float* dx, const float* dy, const float* dz,
-    const float* tf, const uint8_t* valid, int n_rays, int tile_r,
-    int n_clusters, float* entry_out, int32_t* visit_out, int32_t* nvis_out,
-    void* stream) {
+// The planners' common arguments: `mode` (kFlat ... kHybrid), the six rows
+// of the cluster boxes (the first leaf boxes under kDual), a second set of
+// six rows (the second leaf boxes under kDual, the n_second supercluster
+// boxes under kSuper; unused otherwise), the rays, their count, the tile
+// size and the cluster count.
+#define PLAN_ARGS                                                          \
+  int mode, const float *lox, const float *loy, const float *loz,          \
+      const float *hix, const float *hiy, const float *hiz,                \
+      const float *slox, const float *sloy, const float *sloz,             \
+      const float *shix, const float *shiy, const float *shiz,             \
+      int n_second, const float *px, const float *py, const float *pz,     \
+      const float *dx, const float *dy, const float *dz, const float *tf,  \
+      const uint8_t *valid, int n_rays, int tile_r, int n_clusters
+
+// cluster_plan: modes kFlat, kDual and kSuper, each tile's list sorted.
+extern "C" int cluster_plan(PLAN_ARGS, float* entry_out, int32_t* visit_out,
+                            int32_t* nvis_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (mode != kFlat && mode != kDual && mode != kSuper) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int n_keys = 1;
   while (n_keys < n_clusters) n_keys <<= 1;
+  const int n_super = mode == kSuper ? n_second : 0;
   const size_t shared = static_cast<size_t>(n_keys) * 8 +
-                        static_cast<size_t>(tile_r) * 7 * sizeof(float);
-  const cudaError_t err = allow_shared(plan_kernel, shared);
+                        (static_cast<size_t>(tile_r) * 7 + n_super) *
+                            sizeof(float);
+  auto kernel = mode == kDual    ? plan_kernel<kDual>
+                : mode == kSuper ? plan_kernel<kSuper>
+                                 : plan_kernel<kFlat>;
+  const cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n_rays + tile_r - 1) / tile_r;
-  plan_kernel<<<tiles, kPlanThreads, shared,
-                static_cast<cudaStream_t>(stream)>>>(
-      lox, loy, loz, hix, hiy, hiz, px, py, pz, dx, dy, dz, tf, valid, n_rays,
-      tile_r, n_clusters, n_keys, entry_out, visit_out, nvis_out);
+  kernel<<<tiles, kPlanThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      Boxes{lox, loy, loz, hix, hiy, hiz},
+      Boxes{slox, sloy, sloz, shix, shiy, shiz}, n_super, px, py, pz, dx, dy,
+      dz, tf, valid, n_rays, tile_r, n_clusters, n_keys, entry_out, visit_out,
+      nvis_out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// cluster_plan_rows: every mode, the unsorted [T, C] entry matrix.
+extern "C" int cluster_plan_rows(PLAN_ARGS, float* entry_out, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (mode < kFlat || mode > kHybrid) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_super = mode == kSuper ? n_second : 0;
+  const size_t shared =
+      (static_cast<size_t>(tile_r) * 7 + n_super) * sizeof(float);
+  auto kernel = mode == kDual      ? plan_rows_kernel<kDual>
+                : mode == kSuper   ? plan_rows_kernel<kSuper>
+                : mode == kTilebox ? plan_rows_kernel<kTilebox>
+                : mode == kHybrid  ? plan_rows_kernel<kHybrid>
+                                   : plan_rows_kernel<kFlat>;
+  const cudaError_t err = allow_shared(kernel, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n_rays + tile_r - 1) / tile_r;
+  kernel<<<tiles, kPlanThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      Boxes{lox, loy, loz, hix, hiy, hiz},
+      Boxes{slox, sloy, sloz, shix, shiy, shiz}, n_super, px, py, pz, dx, dy,
+      dz, tf, valid, n_rays, tile_r, n_clusters, entry_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#undef PLAN_ARGS
 
 extern "C" int cluster_closest(
     const int32_t* nvis, const int32_t* visit, const float* entry,

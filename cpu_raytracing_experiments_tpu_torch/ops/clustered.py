@@ -5,8 +5,9 @@ cluster has an AABB, and the packed rows feed the cluster-walk kernels
 (``ops/kernels/cluster_traverse.py``). The build is numpy, statement for
 statement the JAX package's, so the arrays are equal to the last bit.
 
-Not ported here: the per-leaf group boxes (``group_boxes``, read only by
-``pallas_plan='group'``) and the XLA paths ``intersect_clustered`` /
+``build_clusters_sah(group_boxes=True)`` also records each cluster's SAH
+leaf boxes (``glo`` / ``ghi``), which ``pallas_plan='group'`` culls against.
+Not ported here: the XLA paths ``intersect_clustered`` /
 ``occluded_clustered`` of ``accel='clustered'``.
 """
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 from ..bvh import builder as _bvh
 from ..core.vec import Vec3
 
+SUPER = 128  # clusters a supercluster box covers (pallas_plan='super')
+
 
 @dataclasses.dataclass
 class ClusteredPrims:
@@ -32,6 +35,12 @@ class ClusteredPrims:
     # [C*K, 12] Baldwin-Weber plane attributes (n, d0, f1, g1, f2, g2),
     # computed once in numpy at build time (triangles only)
     planes: Optional[torch.Tensor] = None
+    # per-cluster SAH leaf boxes ([2, C] per component), made by
+    # build_clusters_sah(group_boxes=True): a cluster holds one or two
+    # leaves; glo/ghi[0] bounds the first, [1] the second (a copy of the
+    # first for a single-leaf cluster). pallas_plan='group' culls against them
+    glo: Optional[Vec3] = None
+    ghi: Optional[Vec3] = None
     num_clusters: int = 0
     cluster_size: int = 0
     kind: str = "sphere"
@@ -42,6 +51,10 @@ class ClusteredPrims:
     # read (derived: ``cluster_traverse._tables_packed`` makes it at first
     # need; a third copy of the attributes beside `rows` and `planes`)
     packed: Optional[torch.Tensor] = None
+    # [6, S] float32 rows lo.xyz, hi.xyz of the S = ceil(C / SUPER)
+    # supercluster boxes, each the union of SUPER consecutive clusters
+    # (derived; pallas_plan='super' culls against them first)
+    supers: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.root is None:
@@ -49,31 +62,51 @@ class ClusteredPrims:
                                device=self.lo.x.device)
             self.root = torch.stack([*(c.min() for c in self.lo),
                                      *(c.max() for c in self.hi), zero, zero])
+        if self.supers is None:
+            s = -(-self.num_clusters // SUPER)
+
+            def union(a, pad, reduce):
+                padded = torch.nn.functional.pad(
+                    a, (0, s * SUPER - a.shape[0]), value=pad)
+                return reduce(padded.reshape(s, SUPER), dim=1)
+
+            # padding members are inverted boxes, neutral in the union
+            self.supers = torch.stack(
+                [union(a, 1e30, torch.amin) for a in self.lo]
+                + [union(a, -1e30, torch.amax) for a in self.hi])
 
     def to(self, device) -> "ClusteredPrims":
         return dataclasses.replace(
             self, rows=self.rows.to(device), order=self.order.to(device),
             lo=self.lo.to(device), hi=self.hi.to(device),
             planes=None if self.planes is None else self.planes.to(device),
-            root=self.root.to(device),
+            glo=None if self.glo is None else self.glo.to(device),
+            ghi=None if self.ghi is None else self.ghi.to(device),
+            root=self.root.to(device), supers=self.supers.to(device),
             packed=None if self.packed is None else self.packed.to(device))
 
     @staticmethod
     def from_numpy(arrays: dict, device=None) -> "ClusteredPrims":
         """From the flat arrays of ``to_numpy``'s layout: ``rows`` [C*K, F],
         ``order`` [C*K] int32, ``lo``/``hi`` [C, 3], ``planes`` [C*K, 12]
-        (triangles) and the ints ``num_clusters``, ``cluster_size`` and the
-        string ``kind``. Values are taken bit for bit."""
+        (triangles), ``glo``/``ghi`` [2, C, 3] (group boxes, or absent) and
+        the ints ``num_clusters``, ``cluster_size`` and the string ``kind``.
+        Values are taken bit for bit."""
         def t(key, dtype=np.float32):
             return torch.from_numpy(
                 np.array(arrays[key], dtype=dtype, order="C")).to(device)
 
-        lo, hi = t("lo"), t("hi")
+        def vec(key, axis):
+            a = t(key)
+            return Vec3(*(a.select(axis, k).contiguous() for k in range(3)))
+
+        has = lambda key: arrays.get(key) is not None
         return ClusteredPrims(
             rows=t("rows"), order=t("order", np.int32),
-            lo=Vec3(*(lo[:, k].contiguous() for k in range(3))),
-            hi=Vec3(*(hi[:, k].contiguous() for k in range(3))),
-            planes=t("planes") if arrays.get("planes") is not None else None,
+            lo=vec("lo", 1), hi=vec("hi", 1),
+            planes=t("planes") if has("planes") else None,
+            glo=vec("glo", 2) if has("glo") else None,
+            ghi=vec("ghi", 2) if has("ghi") else None,
             num_clusters=int(arrays["num_clusters"]),
             cluster_size=int(arrays["cluster_size"]),
             kind=str(arrays["kind"]))
@@ -83,14 +116,20 @@ class ClusteredPrims:
         return {
             "rows": self.rows.cpu().numpy(),
             "order": self.order.cpu().numpy(),
-            "lo": np.stack([c.cpu().numpy() for c in self.lo], axis=-1),
-            "hi": np.stack([c.cpu().numpy() for c in self.hi], axis=-1),
+            "lo": _stack3(self.lo), "hi": _stack3(self.hi),
             "planes": (None if self.planes is None
                        else self.planes.cpu().numpy()),
+            "glo": None if self.glo is None else _stack3(self.glo),
+            "ghi": None if self.ghi is None else _stack3(self.ghi),
             "num_clusters": self.num_clusters,
             "cluster_size": self.cluster_size,
             "kind": self.kind,
         }
+
+
+def _stack3(v: Vec3) -> np.ndarray:
+    """The components of `v` stacked on a last axis of 3, in numpy."""
+    return np.stack([c.cpu().numpy() for c in v], axis=-1)
 
 
 def _bw_planes_np(packed: np.ndarray) -> np.ndarray:
@@ -127,7 +166,7 @@ def _norm_k(k: int) -> int:
 
 
 def _pack(rows: np.ndarray, full_order: np.ndarray, c_lo, c_hi, k: int,
-          kind: str) -> ClusteredPrims:
+          kind: str, g_lo=None, g_hi=None) -> ClusteredPrims:
     """Packed rows with far-away degenerate padding prims that never hit
     (x = 1e16, everything else 0), as tensors on the CPU."""
     p = rows.shape[0]
@@ -139,19 +178,25 @@ def _pack(rows: np.ndarray, full_order: np.ndarray, c_lo, c_hi, k: int,
         "rows": packed, "order": full_order.astype(np.int32),
         "lo": c_lo, "hi": c_hi,
         "planes": _bw_planes_np(packed) if kind == "triangle" else None,
+        "glo": g_lo, "ghi": g_hi,
         "num_clusters": c_lo.shape[0], "cluster_size": k, "kind": kind})
 
 
 def build_clusters_sah(mins: np.ndarray, maxs: np.ndarray, rows: np.ndarray,
                        cluster_size: int = 128, kind: str = "sphere",
-                       fill_window: int = 1) -> ClusteredPrims:
+                       fill_window: int = 1,
+                       group_boxes: bool = False) -> ClusteredPrims:
     """SAH-cut clustering: build an SAH tree with leaf_size=cluster_size
     (leaves are then maximal subtrees holding <= cluster_size prims) and emit
     each leaf as one cluster, padded to cluster_size. Consecutive leaves in
     tree order are greedily re-merged while their union stays within
     cluster_size; `fill_window` > 1 keeps that many partially filled groups
     open and puts each leaf into the first it fits in (windowed first-fit),
-    closing the oldest group when none fits and the window is full."""
+    closing the oldest group when none fits and the window is full.
+
+    `group_boxes=True` caps a cluster at two leaves and records each
+    cluster's leaf boxes in ``glo`` / ``ghi``, so that
+    ``pallas_plan='group'`` culls per leaf inside a packed cluster."""
     mins32 = np.asarray(mins, np.float32)
     maxs32 = np.asarray(maxs, np.float32)
     p = mins32.shape[0]
@@ -162,9 +207,10 @@ def build_clusters_sah(mins: np.ndarray, maxs: np.ndarray, rows: np.ndarray,
     # leaves tile the reordered prim range contiguously, so sorting by range
     # start makes consecutive leaves tree-adjacent (usually siblings)
     leaf_ids = leaf_ids[np.argsort(first[leaf_ids], kind="stable")]
-    groups = []  # closed groups, (ids, lo, hi)
+    groups = []  # closed groups, (ids, lo, hi, leaf boxes)
     open_groups = []  # windowed first-fit: insertion-ordered open groups
     w = max(1, int(fill_window))
+    max_leaves = 2 if group_boxes else None
     for nid in leaf_ids:
         b, m = int(first[nid]), int(count[nid])
         # the native builder ends un-splittable runs (identical centroids)
@@ -174,17 +220,21 @@ def build_clusters_sah(mins: np.ndarray, maxs: np.ndarray, rows: np.ndarray,
             for b2 in range(b, b + m, k):
                 m2 = min(k, b + m - b2)
                 ids = order[b2 : b2 + m2].astype(np.int64)
-                groups.append((ids, mins32[ids].min(axis=0),
-                               maxs32[ids].max(axis=0)))
+                blo, bhi = mins32[ids].min(axis=0), maxs32[ids].max(axis=0)
+                groups.append((ids, blo, bhi, [(blo, bhi)]))
             continue
         ids = order[b : b + m].astype(np.int64)
         lo, hi = node_min[nid].copy(), node_max[nid].copy()
-        for gi, (pids, plo, phi) in enumerate(open_groups):
-            if pids.size + m <= k:
+        for gi, (pids, plo, phi, pboxes) in enumerate(open_groups):
+            if pids.size + m <= k and (
+                    max_leaves is None or len(pboxes) < max_leaves):
                 merged = (np.concatenate([pids, ids]), np.minimum(plo, lo),
-                          np.maximum(phi, hi))
-                # a full group stops occupying a window slot
-                if merged[0].size == k:
+                          np.maximum(phi, hi), pboxes + [(lo, hi)])
+                # a group that can take no further leaf (at exactly k prims,
+                # or at the leaf cap) stops occupying a window slot
+                if merged[0].size == k or (
+                        max_leaves is not None
+                        and len(merged[3]) >= max_leaves):
                     groups.append(merged)
                     open_groups.pop(gi)
                 else:
@@ -192,9 +242,9 @@ def build_clusters_sah(mins: np.ndarray, maxs: np.ndarray, rows: np.ndarray,
                 break
         else:
             if m == k:
-                groups.append((ids, lo, hi))
+                groups.append((ids, lo, hi, [(lo, hi)]))
             else:
-                open_groups.append((ids, lo, hi))
+                open_groups.append((ids, lo, hi, [(lo, hi)]))
             if len(open_groups) > w:  # close the oldest group
                 groups.append(open_groups.pop(0))
     groups.extend(open_groups)
@@ -202,10 +252,15 @@ def build_clusters_sah(mins: np.ndarray, maxs: np.ndarray, rows: np.ndarray,
     full_order = np.full(num_clusters * k, -1, np.int64)
     c_lo = np.empty((num_clusters, 3), np.float32)
     c_hi = np.empty((num_clusters, 3), np.float32)
-    for c, (ids, lo, hi) in enumerate(groups):
+    g_lo = np.empty((2, num_clusters, 3), np.float32) if group_boxes else None
+    g_hi = np.empty((2, num_clusters, 3), np.float32) if group_boxes else None
+    for c, (ids, lo, hi, boxes) in enumerate(groups):
         full_order[c * k : c * k + ids.size] = ids
         c_lo[c], c_hi[c] = lo, hi
-    return _pack(rows, full_order, c_lo, c_hi, k, kind)
+        if group_boxes:
+            g_lo[0, c], g_hi[0, c] = boxes[0]
+            g_lo[1, c], g_hi[1, c] = boxes[-1]  # boxes[0] for a single leaf
+    return _pack(rows, full_order, c_lo, c_hi, k, kind, g_lo, g_hi)
 
 
 def _morton3(x, y, z):

@@ -37,14 +37,16 @@ RAY_CHUNK = 1 << 15  # rays per [R, PRIM_CHUNK] block of the dense triangle
 
 
 def _tile_for(kw: dict, cp) -> dict:
-    """Resolve tile_r='auto' and stream='auto' per cluster pack, as the JAX
-    package does: 128 rays per tile below 2048 clusters, else 256; the
-    streamed walks where the pack's tables exceed PALLAS_STREAM_BYTES;
-    neither the streamed walks nor the product-form triangle battery
-    (``mxu``) for clusters of fewer than 128 prims; and no product-form
-    battery under the streamed walks."""
+    """Resolve tile_r='auto', plan='auto' and stream='auto' per cluster
+    pack, as the JAX package does: 128 rays per tile below 2048 clusters,
+    else 256; the flat 'ray' planner; the streamed walks where the pack's
+    tables exceed PALLAS_STREAM_BYTES; neither the streamed walks nor the
+    product-form triangle battery (``mxu``) for clusters of fewer than 128
+    prims; and no product-form battery under the streamed walks."""
     if kw.get("tile_r") == "auto":
         kw = dict(kw, tile_r=128 if cp.num_clusters < 2048 else 256)
+    if kw.get("plan") == "auto":
+        kw = dict(kw, plan="ray")
     if kw.get("stream") == "auto":
         kw = dict(kw, stream=_tk.table_bytes(cp) > PALLAS_STREAM_BYTES)
     if cp.cluster_size < 128:
@@ -62,10 +64,13 @@ def _pallas_kw(policy) -> dict:
     refuses the options that are not ported."""
     if policy is None:
         return {"tile_r": _tk.DEFAULT_TILE_R, "compact": False, "mxu": False,
-                "stream": "auto"}
+                "stream": "auto", "plan": "ray", "sort": True,
+                "sort_impl": "kernel"}
     return {"tile_r": policy.pallas_tile_rays,
             "compact": policy.pallas_compact, "mxu": policy.pallas_mxu,
-            "stream": policy.pallas_stream}
+            "stream": policy.pallas_stream, "plan": policy.pallas_plan,
+            "sort": policy.pallas_sort_visits,
+            "sort_impl": policy.pallas_sort_impl}
 
 
 def stream_resolves_on(policy, cp) -> bool:
@@ -81,10 +86,14 @@ def prepare_stream(policy, scene) -> None:
             _tk._tables_packed(cp)
 
 
-def max_clusters(policy, cp) -> int:
-    """The most clusters the planner kernel takes at the tile size `policy`
-    resolves to for `cp` (``cluster_traverse.max_plan_clusters``)."""
+def max_clusters(policy, cp):
+    """The most clusters the planner takes under `policy` for `cp`: where
+    the policy sorts in ``cluster_plan``, its limit at the tile size the
+    policy resolves to (``cluster_traverse.max_plan_clusters``); None (no
+    limit) where ``cluster_plan_rows`` plans."""
     kw = _tile_for(_pallas_kw(policy), cp)
+    if not _tk.sorts_in_kernel(cp, kw["plan"], kw["sort"], kw["sort_impl"]):
+        return None
     return _tk.max_plan_clusters(kw["tile_r"])
 
 

@@ -17,10 +17,35 @@ Each of the three steps has two forms in this module:
   j-th cluster rows. It runs for tensors on the CPU, and ``chip_smoke.py``
   holds the kernels to it on the card;
 * a hand-written CUDA kernel (``csrc/cluster_traverse.cu``: ``cluster_plan``,
-  ``cluster_closest``, ``cluster_occluded``), launched for CUDA tensors by
-  ``_plan_visits``, ``walk_closest`` and ``walk_occluded``, or they raise;
-  nothing falls back. Each counts its launches (``PLAN``, ``CLOSEST``,
-  ``OCCLUDED``).
+  ``cluster_plan_rows``, ``cluster_closest``, ``cluster_occluded``),
+  launched for CUDA tensors by ``_plan_visits`` / ``plan_rows``,
+  ``walk_closest`` and ``walk_occluded``, or they raise; nothing falls
+  back. Each counts its launches (``PLAN``, ``PLAN_SUPER``, ``PLAN_GROUP``,
+  ``PLAN_ROWS``, ``CLOSEST``, ``OCCLUDED``).
+
+The planner has the JAX module's modes (``plan``), each the same function
+there and here:
+
+* 'ray': per cluster box, the least slab entry distance over the tile's
+  valid rays (``_tile_entry_row``);
+* 'group': the lesser of those entries against a cluster's two SAH leaf
+  boxes (``ClusteredPrims.glo`` / ``ghi``; a pack without them plans as
+  'ray');
+* 'super': the entries against the union boxes of SUPER consecutive
+  clusters first, then the 'ray' entries of the members of the
+  superclusters some ray entered, FLT_MAX for the others: equal to 'ray' bit
+  for bit;
+* 'tilebox': one interval slab test per tile and cluster, from the tile's
+  masked min / max of origin, direction and tfar (``_tilebox_entry_row``):
+  a lower bound of every ray's entry, so a superset of the 'ray' list;
+* 'hybrid': the tilebox entries where the tile's valid directions are
+  sign-coherent on all three axes, the 'ray' entries elsewhere.
+
+With ``sort`` and ``sort_impl='kernel'``, 'ray', 'super' and 'group' are
+planned and sorted by ``cluster_plan``. Every other combination launches
+``cluster_plan_rows``, which writes the unsorted [T, C] entry matrix, and
+sorts in PyTorch as the JAX package sorts in XLA (``_sort_tail``,
+``_unsorted_tail``).
 
 The walks have two more forms each, chosen by the wrappers' keywords as in
 the JAX module:
@@ -45,8 +70,7 @@ What is TPU schedule in the JAX module and has no counterpart here: the
 lane packing of clusters below 128 prims, ``fuse`` / ``unroll`` /
 ``trav_block`` / ``exit_refresh`` / ``prefetch`` / ``plan_block``, the 8-row
 SMEM blocks, the [8, Cp] slab layout and the padding of the tile count to a
-multiple of 8. The other planners (``plan`` = 'super', 'group', 'tilebox',
-'hybrid', the unsorted plan) are not ported yet.
+multiple of 8.
 """
 from __future__ import annotations
 
@@ -58,7 +82,7 @@ import torch
 from ...core import fp
 from ...core.fp import fma
 from ...core.vec import Vec3
-from ..clustered import ClusteredPrims
+from ..clustered import SUPER, ClusteredPrims
 from . import build
 from .build import LaunchCounter
 from .sphere_battery import (FLT_MAX, _closest_epilogue, sphere_candidates,
@@ -71,6 +95,11 @@ PLAN_CHUNK_ELEMS = 1 << 23  # [t, tile_r, C] elements per planner chunk
 MAX_SHARED_BYTES = 227 * 1024  # dynamic shared memory one block can have
 
 PLAN = LaunchCounter("cluster_plan")
+PLAN_SUPER = LaunchCounter("cluster_plan[super]")
+PLAN_GROUP = LaunchCounter("cluster_plan[group]")
+PLANS = ("ray", "super", "group", "tilebox", "hybrid")
+PLAN_ROWS = {plan: LaunchCounter(f"cluster_plan_rows[{plan}]")
+             for plan in PLANS}
 CLOSEST = LaunchCounter("cluster_closest")
 OCCLUDED = LaunchCounter("cluster_occluded")
 CLOSEST_STREAM = LaunchCounter("cluster_closest_stream")
@@ -131,6 +160,20 @@ def _tables_unpacked(cp: ClusteredPrims, packed: torch.Tensor):
 def _slab_rows(cp: ClusteredPrims):
     """The cluster AABBs as six [C] rows: lo.xyz, hi.xyz."""
     return (*cp.lo, *cp.hi)
+
+
+def _group_slab_rows(cp: ClusteredPrims):
+    """The group boxes as two six-row slab sets of [C] rows: set 0 bounds
+    each cluster's first SAH leaf, set 1 its second (a copy of the first
+    for a single-leaf cluster), so the lesser of the two entries is exact."""
+    return tuple(tuple(a[g] for a in (*cp.glo, *cp.ghi)) for g in range(2))
+
+
+def _super_slab_rows(cp: ClusteredPrims):
+    """The supercluster boxes as six [S] rows, S = ceil(C / SUPER): box s is
+    the union of clusters [s * SUPER, (s + 1) * SUPER). Consecutive clusters
+    of the SAH cut are tree-adjacent, so the unions stay tight."""
+    return tuple(cp.supers[i] for i in range(6))
 
 
 def _root_row(cp: ClusteredPrims) -> torch.Tensor:
@@ -198,19 +241,18 @@ def _root_exit_bound(root, px, py, pz, dx, dy, dz):
     return torch.where(hit, tmax * (1.0 + 1e-5), 0.0)
 
 
-def plan_visits_plain(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
-                      tile_r: int):
-    """The planner in plain PyTorch: per tile and cluster the min over valid
-    rays of the slab entry distance (``_tile_entry_row``), then a stable sort
-    of each row. Returns (visit [T, C] int32, entry [T, C] float32 sorted,
-    FLT_MAX past the end; nvis [T] int32)."""
-    px, py, pz, dx, dy, dz, tfs, ok = _tiled(p, d, tf, valid, tile_r)
-    t_tiles, c = px.shape[0], cp.num_clusters
-    lo = [a[None, None, :] for a in cp.lo]
-    hi = [a[None, None, :] for a in cp.hi]
-    zero = torch.zeros((), dtype=torch.float32, device=tf.device)
-    step = max(1, PLAN_CHUNK_ELEMS // (tile_r * c))
-    rows = []
+def _tile_entry_rows(slabs, px, py, pz, dx, dy, dz, tfs, ok):
+    """[T, B] per tile and box of the six [B] `slabs` rows, the least slab
+    entry distance over the tile's valid rays, FLT_MAX where none enters the
+    box before its tf (``_tile_entry_row``); rays are [T, tile_r]. Chunked
+    over tiles, a [t, tile_r, B] slab battery at a time."""
+    t_tiles, tile_r = px.shape
+    b = slabs[0].shape[0]
+    lo = [a[None, None, :] for a in slabs[:3]]
+    hi = [a[None, None, :] for a in slabs[3:]]
+    zero = torch.zeros((), dtype=torch.float32, device=px.device)
+    step = max(1, PLAN_CHUNK_ELEMS // max(1, tile_r * b))
+    rows = [torch.empty((0, b), dtype=torch.float32, device=px.device)]
     for s in range(0, t_tiles, step):
         sl = slice(s, s + step)
         tmin, tmax = _slab(lo, hi, *(a[sl, :, None]
@@ -218,11 +260,161 @@ def plan_visits_plain(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
         entry = torch.maximum(tmin, zero)
         hit = (tmax >= entry) & (entry < tfs[sl, :, None]) & ok[sl, :, None]
         rows.append(torch.where(hit, entry, FLT_MAX).amin(dim=1))
-    entry_t = (torch.cat(rows) if rows else
-               torch.empty((0, c), dtype=torch.float32, device=tf.device))
-    entry_sorted, order = torch.sort(entry_t, dim=1, stable=True)
-    nvis = (entry_sorted < FLT_MAX).sum(dim=1).to(torch.int32)
+    return torch.cat(rows)
+
+
+def _super_entry_rows(cp: ClusteredPrims, rays):
+    """'super': phase A tests the tiles against the S supercluster boxes;
+    phase B computes the member clusters' entries (the flat rows'
+    arithmetic) of each entered supercluster, for the tiles that entered
+    it. Every other entry stays FLT_MAX."""
+    srow = _tile_entry_rows(_super_slab_rows(cp), *rays)  # [T, S]
+    c = cp.num_clusters
+    out = torch.full((srow.shape[0], c), FLT_MAX, dtype=torch.float32,
+                     device=srow.device)
+    slabs = _slab_rows(cp)
+    for s in range(srow.shape[1]):
+        tiles = torch.nonzero(srow[:, s] < FLT_MAX)[:, 0]
+        if tiles.numel() == 0:
+            continue
+        members = slice(s * SUPER, min((s + 1) * SUPER, c))
+        out[tiles, members] = _tile_entry_rows(
+            tuple(a[members] for a in slabs), *(a[tiles] for a in rays))
+    return out
+
+
+def _tilebox_entry_rows(slabs, px, py, pz, dx, dy, dz, tfs, ok):
+    """[T, C] interval slab test per tile (``_tilebox_entry_row``): each
+    tile's valid rays are summed up by the masked min / max of origin and
+    direction per axis and the max of tf, and every cluster is tested
+    against that bundle once. An axis whose direction interval holds 0
+    bounds nothing. The entry is a lower bound of every valid ray's entry,
+    so the list is a superset of the exact one. torch.minimum / maximum and
+    amin / amax propagate NaN, as jnp's do."""
+    big = FLT_MAX
+
+    def mn(a):
+        return torch.where(ok, a, big).amin(dim=1, keepdim=True)
+
+    def mx(a):
+        return torch.where(ok, a, -big).amax(dim=1, keepdim=True)
+
+    any_ok = ok.any(dim=1, keepdim=True)
+    tfm = mx(tfs)
+
+    def axis(lo, hi, pl, ph, dl, dh):
+        mixed = (dl <= 0.0) & (dh >= 0.0)
+        inv_a = 1.0 / torch.where(mixed, 1.0, dh)
+        inv_b = 1.0 / torch.where(mixed, 1.0, dl)
+        il = torch.minimum(inv_a, inv_b)
+        ih = torch.maximum(inv_a, inv_b)
+        a1, a2 = (lo - ph) * il, (lo - ph) * ih
+        a3, a4 = (lo - pl) * il, (lo - pl) * ih
+        b1, b2 = (hi - ph) * il, (hi - ph) * ih
+        b3, b4 = (hi - pl) * il, (hi - pl) * ih
+        t_lo_lb = torch.minimum(torch.minimum(a1, a2), torch.minimum(a3, a4))
+        t_lo_ub = torch.maximum(torch.maximum(a1, a2), torch.maximum(a3, a4))
+        t_hi_lb = torch.minimum(torch.minimum(b1, b2), torch.minimum(b3, b4))
+        t_hi_ub = torch.maximum(torch.maximum(b1, b2), torch.maximum(b3, b4))
+        tmin_lb = torch.minimum(t_lo_lb, t_hi_lb)
+        tmax_ub = torch.maximum(t_lo_ub, t_hi_ub)
+        return (torch.where(mixed, -big, tmin_lb),
+                torch.where(mixed, big, tmax_ub))
+
+    lo = [a[None, :] for a in slabs[:3]]
+    hi = [a[None, :] for a in slabs[3:]]
+    xlb, xub = axis(lo[0], hi[0], mn(px), mx(px), mn(dx), mx(dx))
+    ylb, yub = axis(lo[1], hi[1], mn(py), mx(py), mn(dy), mx(dy))
+    zlb, zub = axis(lo[2], hi[2], mn(pz), mx(pz), mn(dz), mx(dz))
+    zero = torch.zeros((), dtype=torch.float32, device=px.device)
+    entry = torch.maximum(torch.maximum(torch.maximum(xlb, ylb), zlb), zero)
+    exit_ub = torch.minimum(torch.minimum(xub, yub), zub)
+    hit = (exit_ub >= entry) & (entry < tfm) & any_ok
+    return torch.where(hit, entry, big)
+
+
+def _sign_coherent(d, ok):
+    """[T, 1]: the tile's valid values of `d` all > 0 or all < 0 (true for
+    a tile without a valid ray)."""
+    lo = torch.where(ok, d, FLT_MAX).amin(dim=1, keepdim=True)
+    hi = torch.where(ok, d, -FLT_MAX).amax(dim=1, keepdim=True)
+    return (lo > 0.0) | (hi < 0.0)
+
+
+def plan_rows_plain(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
+                    tile_r: int, plan: str = "ray"):
+    """The unsorted [T, C] entry matrix of a resolved planner mode
+    (``_plan_mode``) in plain PyTorch: the plain version of
+    ``cluster_plan_rows``, and of ``cluster_plan`` before its sort."""
+    rays = _tiled(p, d, tf, valid, tile_r)
+    slabs = _slab_rows(cp)
+    if plan == "ray":
+        return _tile_entry_rows(slabs, *rays)
+    if plan == "group":
+        first, second = _group_slab_rows(cp)
+        return torch.minimum(_tile_entry_rows(first, *rays),
+                             _tile_entry_rows(second, *rays))
+    if plan == "super":
+        return _super_entry_rows(cp, rays)
+    boxed = _tilebox_entry_rows(slabs, *rays)
+    if plan == "tilebox":
+        return boxed
+    ok, dx, dy, dz = rays[7], rays[3], rays[4], rays[5]
+    coherent = (_sign_coherent(dx, ok) & _sign_coherent(dy, ok)
+                & _sign_coherent(dz, ok))
+    return torch.where(coherent, boxed, _tile_entry_rows(slabs, *rays))
+
+
+def _sort_tail(entry):
+    """The sorted tail (the JAX package's XLA argsort + take_along_axis):
+    each row sorted by a stable sort, the lowest cluster id first among
+    equal entries. Returns (visit [T, C] int32, sorted entry, nvis [T]
+    int32); past nvis the entries are FLT_MAX."""
+    entry_sorted, order = torch.sort(entry, dim=1, stable=True)
+    nvis = (entry < FLT_MAX).sum(dim=1).to(torch.int32)
     return order.to(torch.int32), entry_sorted, nvis
+
+
+def _unsorted_tail(entry):
+    """The unsorted tail (``sort=False``): the entered clusters to the front
+    by a stable sort on the hit flag only, so they keep cluster-id order;
+    their entries in that order, then the suffix minimum of those. The
+    walks leave a tile at the first entry[j] >= mx, which is exact only
+    where no later entry is smaller: the suffix minimum makes it so for
+    any visit order (and is the identity on sorted entries)."""
+    order = torch.sort((entry >= FLT_MAX).to(torch.int32), dim=1,
+                       stable=True).indices
+    gathered = entry.gather(1, order).flip(1)
+    suffix_min = torch.cummin(gathered, dim=1).values.flip(1).contiguous()
+    nvis = (entry < FLT_MAX).sum(dim=1).to(torch.int32)
+    return order.to(torch.int32), suffix_min, nvis
+
+
+def _plan_mode(cp: ClusteredPrims, plan: str) -> str:
+    """The planner mode that runs: 'group' on a pack without group boxes
+    plans as 'ray', as in the JAX package."""
+    if plan not in PLANS:
+        raise ValueError(f"plan={plan!r}: one of {PLANS}")
+    return "ray" if plan == "group" and cp.glo is None else plan
+
+
+def sorts_in_kernel(cp: ClusteredPrims, plan: str, sort: bool,
+                    sort_impl: str) -> bool:
+    """Whether ``_plan_visits`` sorts in ``cluster_plan`` (the only planner
+    with a cluster limit, ``max_plan_clusters``): 'ray', 'super' and
+    'group' with ``sort`` and ``sort_impl='kernel'``."""
+    return (sort and sort_impl == "kernel"
+            and _plan_mode(cp, plan) in ("ray", "super", "group"))
+
+
+def plan_visits_plain(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
+                      tile_r: int, plan: str = "ray", sort: bool = True):
+    """The planner in plain PyTorch: ``plan_rows_plain`` then the sorted or
+    the unsorted tail. Returns (visit [T, C] int32, entry [T, C] float32,
+    FLT_MAX past the end; nvis [T] int32). Where the sort runs
+    (``sort_impl``) does not change what it gives."""
+    rows = plan_rows_plain(cp, p, d, tf, valid, tile_r, _plan_mode(cp, plan))
+    return _sort_tail(rows) if sort else _unsorted_tail(rows)
 
 
 def _sphere_battery(px, py, pz, dx, dy, dz, rows):
@@ -417,8 +609,12 @@ def walk_occluded_plain(cp: ClusteredPrims, visit, entry, nvis, p: Vec3,
 # ---------------------------------------------------------------------------
 def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cluster_plan.argtypes = [ptr] * 14 + [i32] * 3 + [ptr] * 4
-    lib.cluster_plan.restype = i32
+    lib.cluster_plan.argtypes = ([i32] + [ptr] * 12 + [i32] + [ptr] * 8
+                                 + [i32] * 3 + [ptr] * 4)
+    lib.cluster_plan_rows.argtypes = ([i32] + [ptr] * 12 + [i32] + [ptr] * 8
+                                      + [i32] * 3 + [ptr] * 2)
+    for fn in (lib.cluster_plan, lib.cluster_plan_rows):
+        fn.restype = i32
     for fn in (lib.cluster_closest, lib.cluster_closest_stream):
         fn.argtypes = [ptr] * 13 + [i32] * 5 + [ptr] * 3
         fn.restype = i32
@@ -432,6 +628,8 @@ LIBRARY = build.Library("cluster_traverse.cu", build.nvcc, build.NVCC_FLAGS,
 
 # the `battery` argument of the walks' C entry points
 _SPHERE, _TRIANGLE, _TRIANGLE_PRODUCT = 0, 1, 2
+# the `mode` argument of the planners' C entry points
+_MODES = {"ray": 0, "group": 1, "super": 2, "tilebox": 3, "hybrid": 4}
 
 
 def _check(name: str, device, tensors, dtype, length=None):
@@ -494,47 +692,98 @@ def max_plan_clusters(tile_r: int) -> int:
     list in shared memory, as a power-of-two array of 8-byte keys beside 28
     bytes for each staged ray: 16,384 clusters for any tile_r up to 1024.
     With 256 prims a cluster that is 4,194,304 prims in full clusters, and
-    about 3.1 million at the three-quarter fill of the SAH build."""
+    about 3.1 million at the three-quarter fill of the SAH build.
+    ``cluster_plan_rows`` (every plan that does not sort in the kernel) has
+    no such limit."""
     keys = (MAX_SHARED_BYTES - tile_r * 28) // 8
     return 1 << (keys.bit_length() - 1) if keys >= 1 else 0
 
 
-def _plan_visits(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
-                 tile_r: int):
-    """Per ray-tile broad phase: (visit [T, C] int32 cluster ids sorted near
-    to far, entry [T, C] float32 sorted tile-min entry distances, nvis [T]
-    int32), T = ceil(R / tile_r). Only positions below nvis are meaningful.
-    Lanes that are not `valid`, or whose tf is 0, plan no visits. CPU tensors
-    take ``plan_visits_plain``; CUDA tensors launch ``cluster_plan``."""
+def _plan_args(name: str, cp: ClusteredPrims, mode: str, p: Vec3, d: Vec3,
+               tf, valid, tile_r: int, in_kernel: bool):
+    """Checks what a planner kernel takes (`in_kernel`: ``cluster_plan``,
+    else ``cluster_plan_rows``); returns its arguments before the outputs,
+    and T."""
     device = tf.device
-    if device.type == "cpu":
-        return plan_visits_plain(cp, p, d, tf, valid, tile_r)
-    name = PLAN.name
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors on {device}, need cuda or cpu")
     n, c = tf.shape[0], cp.num_clusters
     t_tiles = -(-n // tile_r)
     if not 1 <= tile_r <= 1024:
         raise ValueError(f"{name}: tile_r={tile_r} outside [1, 1024]")
-    if c > max_plan_clusters(tile_r):
+    if in_kernel and c > max_plan_clusters(tile_r):
         raise ValueError(f"{name}: {c} clusters, more than the "
                          f"{max_plan_clusters(tile_r)} whose sort keys fit "
                          "one block's shared memory")
     if n >= 2 ** 31 or t_tiles * c >= 2 ** 31:
         raise ValueError(f"{name}: sizes beyond int32")
-    slabs = _slab_rows(cp)
+    if mode == "group":
+        slabs, extra = _group_slab_rows(cp)
+        _check(name, device, extra, torch.float32, c)
+    elif mode == "super":
+        slabs, extra = _slab_rows(cp), _super_slab_rows(cp)
+        _check(name, device, extra, torch.float32, -(-c // SUPER))
+    else:
+        slabs, extra = _slab_rows(cp), (None,) * 6
     _check(name, device, slabs, torch.float32, c)
     _check(name, device, (*p, *d, tf), torch.float32, n)
     _check(name, device, (valid,), torch.bool, n)
-    lib = LIBRARY.load()
-    entry = torch.empty((t_tiles, c), dtype=torch.float32, device=device)
-    visit = torch.empty((t_tiles, c), dtype=torch.int32, device=device)
+    args = ([_MODES[mode]]
+            + [a.data_ptr() for a in slabs]
+            + [None if a is None else a.data_ptr() for a in extra]
+            + [0 if extra[0] is None else extra[0].shape[0]]
+            + [a.data_ptr() for a in (*p, *d, tf, valid)]
+            + [n, tile_r, c])
+    return args, t_tiles
+
+
+def plan_rows(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid, tile_r: int,
+              plan: str = "ray"):
+    """The unsorted [T, C] entry matrix of planner mode `plan`. CPU tensors
+    take ``plan_rows_plain``; CUDA tensors launch ``cluster_plan_rows``."""
+    mode = _plan_mode(cp, plan)
+    if tf.device.type == "cpu":
+        return plan_rows_plain(cp, p, d, tf, valid, tile_r, mode)
+    counter = PLAN_ROWS[mode]
+    args, t_tiles = _plan_args(counter.name, cp, mode, p, d, tf, valid,
+                               tile_r, False)
+    entry = torch.empty((t_tiles, cp.num_clusters), dtype=torch.float32,
+                        device=tf.device)
+    build.launch(counter.name, LIBRARY.load().cluster_plan_rows, tf.device,
+                 args + [entry.data_ptr()])
+    counter.launches += 1
+    return entry
+
+
+def _plan_visits(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
+                 tile_r: int, plan: str = "ray", sort: bool = True,
+                 sort_impl: str = "kernel"):
+    """Per ray-tile broad phase: (visit [T, C] int32 cluster ids in visit
+    order, entry [T, C] float32 entry distances in that order, nvis [T]
+    int32), T = ceil(R / tile_r). Only positions below nvis are meaningful.
+    Lanes that are not `valid`, or whose tf is 0, plan no visits. `plan` is
+    the planner mode (module docstring); `sort` orders each list front to
+    back, else the entered clusters keep cluster-id order under suffix-
+    minimum entries; `sort_impl='kernel'` sorts 'ray', 'super' and 'group'
+    lists in ``cluster_plan``, and every other combination takes
+    ``plan_rows`` and sorts in PyTorch. CPU tensors take
+    ``plan_visits_plain``."""
+    mode = _plan_mode(cp, plan)
+    if tf.device.type == "cpu":
+        return plan_visits_plain(cp, p, d, tf, valid, tile_r, mode, sort)
+    if not sorts_in_kernel(cp, mode, sort, sort_impl):
+        rows = plan_rows(cp, p, d, tf, valid, tile_r, mode)
+        return _sort_tail(rows) if sort else _unsorted_tail(rows)
+    counter = {"ray": PLAN, "super": PLAN_SUPER, "group": PLAN_GROUP}[mode]
+    args, t_tiles = _plan_args(counter.name, cp, mode, p, d, tf, valid,
+                               tile_r, True)
+    shape, device = (t_tiles, cp.num_clusters), tf.device
+    entry = torch.empty(shape, dtype=torch.float32, device=device)
+    visit = torch.empty(shape, dtype=torch.int32, device=device)
     nvis = torch.empty((t_tiles,), dtype=torch.int32, device=device)
-    build.launch(name, lib.cluster_plan, device,
-                 [a.data_ptr() for a in (*slabs, *p, *d, tf, valid)]
-                 + [n, tile_r, c]
-                 + [a.data_ptr() for a in (entry, visit, nvis)])
-    PLAN.launches += 1
+    build.launch(counter.name, LIBRARY.load().cluster_plan, device,
+                 args + [a.data_ptr() for a in (entry, visit, nvis)])
+    counter.launches += 1
     return visit, entry, nvis
 
 
@@ -633,11 +882,13 @@ def intersect_clustered_pallas(
     tfar0: Optional[torch.Tensor] = None,
     alive: Optional[torch.Tensor] = None,
     tile_r: int = DEFAULT_TILE_R, mxu: bool = False, stream: bool = False,
+    plan: str = "ray", sort: bool = True, sort_impl: str = "kernel",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closest hit. Returns (tfar [R], prim_id [R] int32 in ORIGINAL
     numbering, -1 = miss). `tfar0` seeds the search; `alive=False` lanes are
     planned around and return (tfar0, -1). `stream` takes the streamed walk,
-    `mxu` the product-form triangle battery (module docstring)."""
+    `mxu` the product-form triangle battery, `plan`, `sort` and `sort_impl`
+    the planner (module docstring; ``_plan_visits``)."""
     _check_forms(cp, mxu, stream)
     n = p.x.shape[0]
     device = p.x.device
@@ -649,7 +900,8 @@ def intersect_clustered_pallas(
     else:
         valid = alive
         plan_tf = torch.where(alive, tfar0, 0.0)
-    visit, entry, nvis = _plan_visits(cp, p, d, plan_tf, valid, tile_r)
+    visit, entry, nvis = _plan_visits(cp, p, d, plan_tf, valid, tile_r, plan,
+                                      sort, sort_impl)
     tfar, packed = walk_closest(cp, visit, entry, nvis, p, d, tfar0, valid,
                                 tile_r, mxu=mxu, stream=stream)
     orig = torch.where(packed >= 0,
@@ -660,13 +912,15 @@ def intersect_clustered_pallas(
 
 def occluded_clustered_pallas(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar,
                               tile_r: int = DEFAULT_TILE_R,
-                              mxu: bool = False,
-                              stream: bool = False) -> torch.Tensor:
+                              mxu: bool = False, stream: bool = False,
+                              plan: str = "ray", sort: bool = True,
+                              sort_impl: str = "kernel") -> torch.Tensor:
     """Any-hit: True where some prim lies at t in [0, tfar). Lanes with
     tfar <= 0 plan no visits (the renderer masks invalid shadow rays by
-    tfar = 0). `stream` and `mxu` as in ``intersect_clustered_pallas``."""
+    tfar = 0). The keywords as in ``intersect_clustered_pallas``."""
     _check_forms(cp, mxu, stream)
-    visit, entry, nvis = _plan_visits(cp, p, d, tfar, tfar > 0.0, tile_r)
+    visit, entry, nvis = _plan_visits(cp, p, d, tfar, tfar > 0.0, tile_r,
+                                      plan, sort, sort_impl)
     return walk_occluded(cp, visit, entry, nvis, p, d, tfar, tile_r, mxu=mxu,
                          stream=stream)
 
@@ -713,10 +967,11 @@ def _gather_vec3_padded(v: Vec3, idx, padval) -> Vec3:
 
 def intersect_clustered_pallas_compact(
     cp, p, d, alive, tfar0=None, tile_r: int = DEFAULT_TILE_R,
-    seg_len: int = DEFAULT_SEG_LEN, mxu: bool = False, stream: bool = False,
+    seg_len: int = DEFAULT_SEG_LEN, **kw,
 ):
     """``intersect_clustered_pallas`` on rays regrouped by
-    ``coherence_order``, results scattered back."""
+    ``coherence_order``, results scattered back; `kw` are its keywords
+    (mxu, stream, plan, sort, sort_impl)."""
     r = alive.shape[0]
     order, inv, rp = coherence_order(alive, d, seg_len)
     order, inv = order.to(torch.int64), inv.to(torch.int64)
@@ -725,23 +980,21 @@ def intersect_clustered_pallas_compact(
         _gather_vec3_padded(d, order, 1.0),
         tfar0=(None if tfar0 is None
                else _ray_cols([(tfar0, 0.0)], rp)[0][order]),
-        alive=_ray_cols([(alive, False)], rp)[0][order], tile_r=tile_r,
-        mxu=mxu, stream=stream)
+        alive=_ray_cols([(alive, False)], rp)[0][order], tile_r=tile_r, **kw)
     return tfar[inv[:r]], prim[inv[:r]]
 
 
 def occluded_clustered_pallas_compact(
     cp, p, d, tfar, tile_r: int = DEFAULT_TILE_R,
-    seg_len: int = DEFAULT_SEG_LEN, mxu: bool = False, stream: bool = False,
+    seg_len: int = DEFAULT_SEG_LEN, **kw,
 ):
     """``occluded_clustered_pallas`` on rays regrouped by
-    ``coherence_order``."""
+    ``coherence_order``; `kw` as in ``intersect_clustered_pallas``."""
     r = tfar.shape[0]
     order, inv, rp = coherence_order(tfar > 0.0, d, seg_len)
     order, inv = order.to(torch.int64), inv.to(torch.int64)
     occ = occluded_clustered_pallas(
         cp, _gather_vec3_padded(p, order, 1e30),
         _gather_vec3_padded(d, order, 1.0),
-        _ray_cols([(tfar, 0.0)], rp)[0][order], tile_r=tile_r, mxu=mxu,
-        stream=stream)
+        _ray_cols([(tfar, 0.0)], rp)[0][order], tile_r=tile_r, **kw)
     return occ[inv[:r]]

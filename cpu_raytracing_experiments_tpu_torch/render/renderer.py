@@ -33,7 +33,7 @@ from ..core.rng import MASK, add32, mul32
 from ..core.vec import Quat, Vec3
 from ..ops import closures, intersect
 from ..ops import gather as fast_gather
-from ..ops.kernels.cluster_traverse import compact_order
+from ..ops.kernels.cluster_traverse import PLANS, compact_order
 from ..scene.scene import Scene
 from ..utils.config import RendererPolicy
 
@@ -79,11 +79,14 @@ def check_policy(policy: RendererPolicy, scene: Scene = None):
     are accepted and change nothing: they choose among TPU schedules that
     the JAX package's tests hold bit-identical, and the CUDA kernels have one
     schedule. ``pallas_interpret`` is accepted and ignored likewise. The
-    options that are not ported are refused: any ``pallas_plan`` but 'ray' /
-    'auto', ``pallas_sort_impl='xla'`` and ``pallas_sort_visits=False``.
-    So is a scene whose spheres or triangles are cut into more clusters than
-    the planner kernel sorts in one block
-    (``cluster_traverse.max_plan_clusters``: 16,384)."""
+    planners render: ``pallas_plan`` 'ray', 'auto', 'super', 'group',
+    'tilebox' and 'hybrid', ``pallas_sort_impl`` 'kernel' and 'xla' and
+    ``pallas_sort_visits`` either way; another ``pallas_plan`` is refused.
+    So is a scene whose spheres or triangles are cut into more clusters
+    than the planner kernel sorts in one block
+    (``cluster_traverse.max_plan_clusters``: 16,384), where the policy
+    sorts there ('ray', 'super' or 'group' with ``pallas_sort_visits`` and
+    ``pallas_sort_impl='kernel'``); the other planners have no limit."""
     accels = {policy.effective_accel, policy.primary_accel or "brute"}
     refused = {
         f"accel={policy.effective_accel!r}":
@@ -99,21 +102,19 @@ def check_policy(policy: RendererPolicy, scene: Scene = None):
         f"samples_per_pixel={policy.samples_per_pixel}":
             policy.samples_per_pixel != 1,
     }
+    plans = "pallas" in accels and policy.pallas_plan in ("auto",) + PLANS
     if "pallas" in accels:
-        refused.update({
-            f"pallas_plan={policy.pallas_plan!r}":
-                policy.pallas_plan not in ("ray", "auto"),
-            "pallas_sort_impl='xla'": policy.pallas_sort_impl != "kernel",
-            "pallas_sort_visits=False": not policy.pallas_sort_visits,
-        })
-    if scene is not None and "pallas" in accels:
+        refused[f"pallas_plan={policy.pallas_plan!r}"] = not plans
+    if scene is not None and plans:
         for cp in (scene.sphere_clusters, scene.tri_clusters):
             if cp is None:
                 continue
             most = intersect.max_clusters(policy, cp)
             refused[f"accel='pallas' on {cp.num_clusters} clusters of "
                     f"{cp.kind}s (the planner kernel takes {most}; build "
-                    "with a larger cluster_size)"] = cp.num_clusters > most
+                    "with a larger cluster_size, or plan with "
+                    "pallas_sort_impl='xla')"] = (most is not None
+                                                  and cp.num_clusters > most)
     what = [k for k, bad in refused.items() if bad]
     if what:
         raise NotImplementedError(

@@ -35,28 +35,33 @@ def _triangle_tables(scene: Scene):
 
 
 def with_pallas_clusters(scene: Scene, cluster_size="auto",
-                         method: str = "sah", fill_window: int = 1) -> Scene:
+                         method: str = "sah", fill_window: int = 1,
+                         group_boxes: bool = False) -> Scene:
     """Attach clusters sized for the cluster-walk kernels (accel='pallas',
     ops/kernels/cluster_traverse.py). method='sah' (default) cuts an SAH
     tree into maximal <= K-prim leaves (tight boxes, partial fill);
-    method='morton' is the fixed-size morton chop. cluster_size='auto' is
+    method='morton' is the fixed-size morton chop. `group_boxes` (SAH only)
+    caps a cluster at two leaves and keeps their boxes for
+    ``pallas_plan='group'``. cluster_size='auto' is
     the JAX package's pick by prim count, the larger of the sphere and the
     triangle count (64 below 50,000 prims, 128 below 200,000, else 256),
     kept so that both packages build the same tables.
 
     The SAH tree comes from ``csrc/bvh_builder.cpp``, built with g++ at
     first use; without a C++ compiler the build raises (there is no second
-    builder). The planner kernel takes at most 16,384 clusters
-    (``cluster_traverse.max_plan_clusters``), which at cluster_size 256 is
-    about 3.1 million prims; the renderer refuses a larger table before
-    any work (``render.renderer.check_policy``)."""
+    builder). The planner kernel that sorts in the kernel takes at most
+    16,384 clusters (``cluster_traverse.max_plan_clusters``), which at
+    cluster_size 256 is about 3.1 million prims; the renderer refuses a
+    larger table before any work where a policy takes that sort
+    (``render.renderer.check_policy``)."""
     if cluster_size == "auto":
         p = scene.spheres.count
         if scene.triangles is not None:
             p = max(p, scene.triangles.count)
         cluster_size = 64 if p < 50_000 else (128 if p < 200_000 else 256)
     if method == "sah":
-        return _with_sah_clusters(scene, cluster_size, fill_window)
+        return _with_sah_clusters(scene, cluster_size, fill_window,
+                                  group_boxes)
     # each kind at its own cluster count
     return _attach(scene, lambda mins, maxs, rows, kind:
                    clustered.build_clusters(
@@ -76,10 +81,11 @@ def _attach(scene: Scene, build) -> Scene:
 
 
 def _with_sah_clusters(scene: Scene, cluster_size: int,
-                       fill_window: int = 1) -> Scene:
+                       fill_window: int = 1,
+                       group_boxes: bool = False) -> Scene:
     return _attach(scene, functools.partial(
         clustered.build_clusters_sah, cluster_size=cluster_size,
-        fill_window=fill_window))
+        fill_window=fill_window, group_boxes=group_boxes))
 
 
 def with_clusters(scene: Scene, num_clusters: int = 64) -> Scene:

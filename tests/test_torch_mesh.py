@@ -133,7 +133,7 @@ def test_morton_tri_clusters_and_auto_k_equal_jax():
 
     picked = []
 
-    def spy(scene, cluster_size, fill_window):
+    def spy(scene, cluster_size, *options):
         picked.append(cluster_size)
         return scene
 

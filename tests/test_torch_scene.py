@@ -35,6 +35,8 @@ def jax_clusters_to_numpy(cp) -> dict:
         "rows": np.asarray(cp.rows), "order": np.asarray(cp.order),
         "lo": _vec(cp.lo), "hi": _vec(cp.hi),
         "planes": None if cp.planes is None else np.asarray(cp.planes),
+        "glo": None if cp.glo is None else _vec(cp.glo),
+        "ghi": None if cp.ghi is None else _vec(cp.ghi),
         "num_clusters": int(cp.num_clusters),
         "cluster_size": int(cp.cluster_size), "kind": str(cp.kind),
     }
