@@ -5,10 +5,16 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py    # every phase, always; needs one CUDA card
 
 Phases:
-  1. device info and the build of csrc/ (both CUDA sources with nvcc for
-     sm_90a and the host tree builder with g++, the three compilers started
-     together);
-  2. each sphere-battery kernel against its plain PyTorch version, bit for
+  1. device info and the build of csrc/ (the three CUDA sources with nvcc
+     for sm_90a and the host tree builder with g++, the four compilers
+     started together); -Xptxas -v of the streamed walks and the fma kernel
+     (registers, spills, shared memory), and the float64 instructions in the
+     SASS of every kernel of the walks and batteries (cuobjdump): a streamed
+     walk with any fails the run;
+  2. the fma kernel against fp.fma's plain form (float64, round-to-odd),
+     bit for bit, on 2^22 random triples with wide exponents, the triples on
+     which a float64 sum rounds twice, specials and broadcast operands; each
+     sphere-battery kernel against its plain PyTorch version, bit for
      bit, on seeded batches with tangent/grazing rays, duplicate spheres on
      both sides of a staging-chunk boundary and shadow lanes with tfar <= 0;
      their CUDA-event times beside the bound and the plain version's time;
@@ -44,7 +50,12 @@ Phases:
      rounding), and
      mesh_scene(uv_res=810) (1,312,200 triangles, K = 256, tiles of 256)
      with the planner, the resident and the streamed walks, on camera,
-     diffuse and narrowed batches;
+     diffuse and narrowed batches; the streamed walks bit for bit at every
+     S of their S-way split (1, 2, 4) and timed at each; then the tie batch:
+     a pack made from the 100,352-triangle one in which every prim has 3
+     more copies in its cluster and 4 in the next cluster, walked streamed
+     at every S against the plain version and the resident kernels, the
+     first copy in (visit, slot) order winning every hit;
  12. goldens on the card: cornell 64x64 and mesh_scene(96, 96,
      subdivisions=3) at the bar of tests/test_goldens.py::_check through the
      dense batteries; the mesh again under accel='pallas' at K = 128 with
@@ -69,16 +80,18 @@ Phases:
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
-keyed "kernels" lists every kernel: the five of the sphere paths, the two
-streamed walks, the two walks with the product-form battery and the seven
-planner modes of phase 14), the clusters planned and walked per tile under
+keyed "kernels" lists every kernel: the five of the sphere paths, the fma
+kernel, the two streamed walks with their S, the two walks with the
+product-form battery and the seven planner modes of phase 14), the clusters planned and walked per tile under
 each planner, the total time, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -95,8 +108,11 @@ WINDOWS = 3  # timed windows, for the spread of ms/pass within one call
 KERNEL_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/sphere_battery.cu"
 CLUSTER_SOURCE = \
     "cpu_raytracing_experiments_tpu_torch/csrc/cluster_traverse.cu"
+FMA_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/fma.cu"
 _TK = "cpu_raytracing_experiments_tpu/ops/pallas/traverse_kernel.py"
 REPLACES = {
+    "fma": "none: the single-rounding a*b + c that XLA contracts in the JAX "
+           "package's elementwise code (core/fp.py)",
     "sphere_closest":
         "cpu_raytracing_experiments_tpu/ops/pallas/sphere_kernel.py:72",
     "sphere_occluded":
@@ -156,6 +172,8 @@ ROUNDING_TERMS = 2  # float32 epsilons (2^-23) of rounding allowed per summed
 # battery differ is shown to lie on a decision boundary (boundary_ratio)
 PLAIN_WALK_LIMIT_S = 20.0  # a plain walk predicted to take longer is run on
 # the narrowed width instead
+FMA_TRIPLES = 1 << 22  # random triples the fma kernel is held to fp.fma on
+SPLITS = (1, 2, 4)  # the S of the streamed walks' S-way split
 
 
 def log(*args):
@@ -173,7 +191,12 @@ def gpu_name_power() -> str:
 class Timer:
     """CUDA-event timing of one callable, with the L2 cache flushed before
     every launch (the main path meets the battery's inputs cold enough that
-    a warm-L2 time would undercut the HBM bound)."""
+    a warm-L2 time would undercut the HBM bound). The card spins for
+    HOST_SLACK_CYCLES after the flush, so that the host has enqueued the
+    callable's launches before the start event fires: the time between the
+    events is the device's, not the wrapper's host time."""
+
+    HOST_SLACK_CYCLES = 2_000_000  # about 1 ms at the H100's clock
 
     def __init__(self, torch):
         self.torch = torch
@@ -187,6 +210,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOST_SLACK_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -195,6 +219,256 @@ class Timer:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+
+def ptxas_report(build_log: str, keys):
+    """(entry function, registers, spill bytes stored and loaded, shared
+    memory bytes) from nvcc's -Xptxas -v output, for the entry functions
+    whose mangled names hold one of `keys`."""
+    out, fn, spill = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            if any(k in fn for k in keys):
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.append((fn, int(m.group(1)), spill,
+                            int(smem.group(1)) if smem else 0))
+            fn = None
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel of csrc/: the streamed walks'
+    battery and split, or the function's name."""
+    m = re.search(r"(closest|occluded)_stream_kernelILb([01])ELi(\d)E",
+                  mangled)
+    if m:
+        return (f"cluster_{m.group(1)}_stream["
+                f"{'triangle' if m.group(2) == '1' else 'sphere'}, "
+                f"S={m.group(3)}]")
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I(?:Li)?(\w)E)?", mangled)
+    if not m:
+        return mangled
+    arg = {"i": "int", "x": "long long"}.get(m.group(2), m.group(2))
+    return m.group(1) + (f"<{arg}>" if arg else "")
+
+
+def sass_report(library) -> dict:
+    """Per kernel of a built library (cuobjdump -sass): its SASS
+    instructions, the float64 arithmetic among them (DFMA, DADD, DMUL,
+    DSETP, DMNMX) and the conversions to or from float64 (F2F with an F64
+    operand)."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library.path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"instructions": 0, "f64 arithmetic": 0,
+                          "f64 conversions": 0}
+            continue
+        if fn is None or not re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            continue
+        counts[fn]["instructions"] += 1
+        if re.search(r"\bD(FMA|ADD|MUL|SETP|MNMX)\b", line):
+            counts[fn]["f64 arithmetic"] += 1
+        if re.search(r"\bF2F\.[A-Z0-9.]*F64", line):
+            counts[fn]["f64 conversions"] += 1
+    return counts
+
+
+def report_kernels(libraries):
+    """Phase 1's reading of what was compiled: -Xptxas -v for the streamed
+    walks and the fma kernel, and the SASS of every kernel of the two CUDA
+    sources with walks and batteries; raises where a streamed walk holds
+    float64 arithmetic or a float64 conversion."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        sphere_battery as sb
+
+    for lib in libraries:
+        for fn, regs, (st, ld), smem in ptxas_report(
+                lib.build_log, ("stream_kernel", "fma_kernel")):
+            log(f"    ptxas {kernel_name(fn)}: {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B, {smem} B static shared")
+    bad = []
+    for lib in (ct.LIBRARY, sb.LIBRARY):
+        for fn, c in sass_report(lib).items():
+            log(f"    SASS {lib.source.name} {kernel_name(fn)}: "
+                f"{c['instructions']} instructions, {c['f64 arithmetic']} "
+                f"float64 arithmetic, {c['f64 conversions']} float64 "
+                "conversions")
+            if "stream_kernel" in fn and (c["f64 arithmetic"]
+                                          or c["f64 conversions"]):
+                bad.append(kernel_name(fn))
+    if bad:
+        raise AssertionError(f"float64 in the streamed walks: {bad}")
+
+
+def wide_floats(np, g, n):
+    """Random float32 of either sign with exponents from -30 to 30."""
+    return (g.uniform(1.0, 2.0, n) * 2.0 ** g.integers(-30, 31, n)
+            * g.choice([-1.0, 1.0], n)).astype(np.float32)
+
+
+def check_fma(torch, np, timer):
+    """The fma kernel against fp.fma's plain form (float64 with
+    round-to-odd) on the card: FMA_TRIPLES random triples with exponents
+    from -30 to 30, the triples on which a float64 sum rounds twice
+    (a = 1 + k 2^-23, b = 2^-24 (1 - (k - 1) 2^-23), c = 1, k = 2800-2959)
+    and specials (NaN, inf, signed zeros, subnormal results), bit for bit
+    (NaN lanes: both NaN); then broadcast operands and a Python-float c.
+    Returns its row, timed at the hero chunk's 2^19 lanes."""
+    from cpu_raytracing_experiments_tpu_torch.core import fp
+
+    g = np.random.default_rng(23)
+    k = np.arange(2800, 2960)
+    twice = ((1.0 + k * 2.0 ** -23).astype(np.float32),
+             (2.0 ** -24 * (1.0 - (k - 1) * 2.0 ** -23)).astype(np.float32),
+             np.ones(k.size, np.float32))
+    nan, inf = float("nan"), float("inf")
+    specials = [(nan, 1, 1), (1, 1, nan), (inf, 1, 1), (inf, 0, 1),
+                (inf, 1, -inf), (1e30, 1e30, 0), (-0.0, 1, 0.0),
+                (-0.0, 1, -0.0), (2, 3, -6), (2.0 ** -75, 2.0 ** -75, 0),
+                (2.0 ** -75, 1.5 * 2.0 ** -75, 0),
+                (2.0 ** -100, 2.0 ** -50, 2.0 ** -149)]
+    cols = [np.concatenate([wide_floats(np, g, FMA_TRIPLES), twice[j],
+                            np.array([r[j] for r in specials], np.float32)])
+            for j in range(3)]
+    a, b, c = (torch.tensor(x, device=DEVICE) for x in cols)
+
+    def same(x, y):
+        return ((x.view(torch.int32) == y.view(torch.int32))
+                | (torch.isnan(x) & torch.isnan(y)))
+
+    got = fp.fma(a, b, c)
+    want = fp.fma_plain(a, b, c)
+    bits = same(got, want)
+    rounded_twice = (a.double() * b.double() + c.double()).float()
+    fixed = int((~same(rounded_twice, want)).sum())
+    x, y = a[:4096].reshape(64, 64), b[:64].reshape(1, 64)
+    broadcast = bool(same(fp.fma(x, y, 0.75), fp.fma_plain(x, y, 0.75)).all())
+    n_bad = int((~bits).sum())
+    log(f"[2 fma] {a.numel()} triples: kernel equal to the plain form on "
+        f"{a.numel() - n_bad} (the float64 sum rounded to float32 differs "
+        f"from it on {fixed}); broadcast [64, 64] x [1, 64] + 0.75 equal "
+        f"{broadcast}")
+    if n_bad or not broadcast:
+        idx = torch.nonzero(~bits)[:5, 0].tolist()
+        for i in idx:
+            log(f"  lane {i}: ({float(a[i])!r}, {float(b[i])!r}, "
+                f"{float(c[i])!r}) kernel {float(got[i])!r} plain "
+                f"{float(want[i])!r}")
+        raise AssertionError("the fma kernel disagrees with fp.fma_plain")
+    n = 1 << 19
+    a, b, c = a[:n].clone(), b[:n].clone(), c[:n].clone()
+    ms = timer(lambda: fp.fma(a, b, c), 20)
+    plain_ms = timer(lambda: fp.fma_plain(a, b, c), 5, warmup=1)
+    row = kernel_row("fma", FMA_SOURCE, f"n={n}", None, 0.0, ms, plain_ms,
+                     n * 16, n * 2)
+    log(f"[2 fma] {ms:.4f} ms (bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}; plain {plain_ms:.4f} ms)")
+    return row
+
+
+@contextlib.contextmanager
+def forced_split(ct, split):
+    """The streamed walks at a given S of their split, not the wrapper's."""
+    chosen = ct._stream_split
+    ct._stream_split = lambda *args: split
+    try:
+        yield
+    finally:
+        ct._stream_split = chosen
+
+
+def tie_pack(np, cp):
+    """A triangle pack in which every prim meets exact ties, made from the
+    pack `cp`: its cluster i becomes clusters 2i and 2i + 1 with its box;
+    cluster 2i holds cluster i's first K/4 slots' prims, prim m in slots 2m,
+    2m + 1, K/2 + 2m and K/2 + 2m + 1 (a tie across the S threads of a ray
+    and within one thread), cluster 2i + 1 holds cluster 2i's slot
+    (k + 1) mod K in slot k, at the same entry (a tie across two visits).
+    Every copy has its own id. The rule: the first copy in (visit order,
+    slot order) wins, which is slot 2m of cluster 2i."""
+    from cpu_raytracing_experiments_tpu_torch.ops.clustered import \
+        ClusteredPrims
+
+    src = cp.to_numpy()
+    k = src["cluster_size"]
+    planes = src["planes"].reshape(-1, k, 12)
+    rows = src["rows"].reshape(-1, k, src["rows"].shape[1])
+    slot = (np.arange(k) % (k // 2)) // 2
+    twin = slot[(np.arange(k) + 1) % k]
+    pick = lambda a: np.stack([x for c in a for x in (c[slot], c[twin])])
+    c2 = 2 * planes.shape[0]
+    return ClusteredPrims.from_numpy({
+        "rows": pick(rows).reshape(c2 * k, -1),
+        "planes": pick(planes).reshape(c2 * k, 12),
+        "order": np.arange(c2 * k, dtype=np.int32),
+        "lo": np.repeat(src["lo"], 2, axis=0),
+        "hi": np.repeat(src["hi"], 2, axis=0),
+        "num_clusters": c2, "cluster_size": k, "kind": "triangle"},
+        device=DEVICE)
+
+
+def check_ties(torch, cp, rays, label, tile=CLUSTER_TILE):
+    """The tie batch: both streamed walks on the tie pack `cp` at every S
+    of their split and at the wrapper's own, against the plain version and
+    the resident kernels, bit for bit, and every hit won by the first copy
+    of its prim (slot 2m of the first cluster of a pair)."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+
+    p, d, tf0, alive = rays
+    n, k = tf0.shape[0], cp.cluster_size
+    packed = ct._tables_packed(cp)
+    plan = ct._plan_visits(cp, p, d, torch.where(alive, tf0, 0.0), alive,
+                           tile)
+    pt, pid = ct.walk_closest_plain(cp, *plan, p, d, tf0, alive, tile,
+                                    packed=packed)
+    rt, rid = ct.walk_closest(cp, *plan, p, d, tf0, alive, tile)
+    hit = pid >= 0
+    slot = pid[hit] % k
+    rule = bool((((pid[hit] // k) % 2 == 0) & (slot < k // 2)
+                 & (slot % 2 == 0)).all())
+    scale = torch.where(torch.arange(n, device=DEVICE) % 2 == 0, 1.001, 0.999)
+    shadow_tf = torch.where(alive, torch.where(hit, pt * scale, tf0), 0.0)
+    splan = ct._plan_visits(cp, p, d, shadow_tf, shadow_tf > 0, tile)
+    po = ct.walk_occluded_plain(cp, *splan, p, d, shadow_tf, tile,
+                                packed=packed)
+    ro = ct.walk_occluded(cp, *splan, p, d, shadow_tf, tile)
+    ok = {"resident equal to plain": _same_hits(torch, (rt, rid), (pt, pid))
+          and torch.equal(ro, po), "first copy wins": rule}
+    chosen = ct._stream_split(plan[0].shape[0], tile, torch.device(DEVICE))
+    for split in SPLITS + (None,):
+        with (forced_split(ct, split) if split else contextlib.nullcontext()):
+            st, sid = ct.walk_closest(cp, *plan, p, d, tf0, alive, tile,
+                                      stream=True)
+            so = ct.walk_occluded(cp, *splan, p, d, shadow_tf, tile,
+                                  stream=True)
+        ok[f"S={split or chosen}{'' if split else ' (chosen)'}"] = (
+            _same_hits(torch, (st, sid), (pt, pid)) and torch.equal(so, po))
+    log(f"[{label}] tie pack C={cp.num_clusters} K={k}, R={n}: {int(hit.sum())}"
+        f" hits, each on a prim with 3 more copies in its cluster and 4 in "
+        f"the next; occluded {int(po.sum())}; {ok}")
+    if not all(ok.values()):
+        raise AssertionError(f"[{label}] the tie batch fails: {ok}")
 
 
 def ray_batch(torch, np, center, radius_sq, n, seed):
@@ -576,18 +850,35 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
                                            tile),
             occ_bytes + c * k * row_bytes, occ_ops, 0.0, "cluster_occluded"),
     }
+    split = ct._stream_split(tiles, tile, torch.device(DEVICE))
     if stream:
-        st, sid = ct.walk_closest(cp, pv, pe, pn, p, d, tf0, alive, tile,
-                                  stream=True)
-        so = ct.walk_occluded(cp, sv, se, sn, p, d, shadow_tf, tile,
-                              stream=True)
-        torch.cuda.synchronize()
-        ok = {"closest, plain": _same_hits(torch, (st, sid), (pt, pid)),
-              "closest, resident": _same_hits(torch, (st, sid), (kt, kid)),
-              "any-hit, plain": torch.equal(so, po),
-              "any-hit, resident": torch.equal(so, ko)}
-        log(f"[{label}] streamed walks equal to: {ok}")
-        if not all(ok.values()):
+        ok, sweep = {}, {}
+        for s in SPLITS:
+            # every S of the split, bit for bit; the wrapper takes `split`
+            with forced_split(ct, s):
+                st, sid = ct.walk_closest(cp, pv, pe, pn, p, d, tf0, alive,
+                                          tile, stream=True)
+                so = ct.walk_occluded(cp, sv, se, sn, p, d, shadow_tf, tile,
+                                      stream=True)
+                torch.cuda.synchronize()
+                ok[s] = {"closest, plain": _same_hits(torch, (st, sid),
+                                                      (pt, pid)),
+                         "closest, resident": _same_hits(torch, (st, sid),
+                                                         (kt, kid)),
+                         "any-hit, plain": torch.equal(so, po),
+                         "any-hit, resident": torch.equal(so, ko)}
+                sweep[s] = (
+                    timer(lambda: ct.walk_closest(
+                        cp, pv, pe, pn, p, d, tf0, alive, tile, stream=True),
+                        3, warmup=1),
+                    timer(lambda: ct.walk_occluded(
+                        cp, sv, se, sn, p, d, shadow_tf, tile, stream=True),
+                        3, warmup=1))
+        log(f"[{label}] streamed walks equal at S = 1, 2, 4 to: {ok}")
+        log(f"[{label}] streamed walks at S = 1, 2, 4 (the wrapper takes S = "
+            f"{split}): closest / any-hit ms " + ", ".join(
+                f"S={s} {c:.4f} / {o:.4f}" for s, (c, o) in sweep.items()))
+        if not all(all(v.values()) for v in ok.values()):
             raise AssertionError(f"[{label}] a streamed walk disagrees")
         # the bytes of the rows copied: one cluster's attribute rows per
         # visit walked, beside the rays, the lists and the results
@@ -662,6 +953,8 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
                     else plain_s[plain_of] * 1e3)
         out[name] = kernel_row(name, CLUSTER_SOURCE, f"{shape}, {label}",
                                None, dt, ms, plain_ms, nbytes, ops)
+        if name.endswith("_stream"):
+            out[name]["split"] = split
         log(f"[{label}] {name}: {ms:.4f} ms (bound "
             f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}; "
             f"plain {plain_ms:.2f} ms)")
@@ -1005,6 +1298,7 @@ def main() -> int:
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import fma as kf
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
     from cpu_raytracing_experiments_tpu_torch.utils import native
@@ -1016,7 +1310,7 @@ def main() -> int:
     log(f"[1] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    libraries = (sb.LIBRARY, ct.LIBRARY, native.LIBRARY)
+    libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, native.LIBRARY)
     build.load_all(libraries)
     log(f"[1] csrc/ built side by side and loaded in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(lib.source.name for lib in libraries)})")
@@ -1024,8 +1318,10 @@ def main() -> int:
         for line in lib.build_log.strip().splitlines():
             if "Used" in line or "error" in line or "warning" in line:
                 log(f"    {lib.source.name}:", line.strip())
+    report_kernels(libraries)
 
     timer = Timer(torch)
+    fma_row = check_fma(torch, np, timer)
     pol = crt.RendererPolicy
     sphere_kernels = ("sphere_closest", "sphere_occluded")
     cluster_kernels = ("cluster_plan", "cluster_closest", "cluster_occluded")
@@ -1057,7 +1353,8 @@ def main() -> int:
     golden_check(np, r.render(tonemap=False), "hero")
     _, hero_path = render(torch, crt, hero,
                           pol(max_bounces=8, rays_per_chunk=1 << 19),
-                          1920, 1088, PASSES, "5 hero", sphere_kernels)
+                          1920, 1088, PASSES, "5 hero",
+                          sphere_kernels + ("fma",))
     _, field_path = render(torch, crt, field, pol(max_bounces=8), 512, 512,
                            PASSES, "6 random_spheres 1k brute",
                            sphere_kernels)
@@ -1167,6 +1464,14 @@ def main() -> int:
             f"{mib['rows']:.1f}, planes {mib['planes']:.1f}, the streamed "
             f"walks' packed table {mib['packed']:.1f})")
 
+    # the tie batch: the streamed walks where (t, slot) ties are certain
+    ties = tie_pack(np, meshes[224].tri_clusters)
+    batches = cluster_rays(torch, np, crt, meshes[224], ties, 19,
+                           narrowed=False)
+    for kind, rays in batches.items():
+        check_ties(torch, ties, rays, f"11 ties, {kind} rays")
+    del ties, batches
+
     gpol = pol(max_bounces=6, rays_per_chunk=4096)
     r = crt.Renderer(crt.builders.cornell_box_scene(64, 64), gpol, 64, 64)
     r.accumulate(10)
@@ -1267,6 +1572,7 @@ def main() -> int:
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
             row["launches"] = path["launches"][name]
+    fma_row["launches"] = hero_path["launches"]["fma"]
     for (tname, _), rows in cluster_rows.items():
         path = big_pallas if tname == "100k spheres" else field_pallas
         for name, row in rows.items():
@@ -1308,7 +1614,7 @@ def main() -> int:
         for row in rows.values()]}))
     log(json.dumps({"planners_per_tile": {
         f"{tname}, {kind}": v for (tname, kind), v in plan_numbers.items()}}))
-    log(json.dumps({"kernels": list(hero_rows.values())
+    log(json.dumps({"kernels": list(hero_rows.values()) + [fma_row]
                     + list(main_rows.values()) + list(new_rows.values())}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -10,12 +10,16 @@ thresholds flip and whole paths diverge, so the port writes each contraction
 out with ``fma``, and keeps square roots and transcendentals correctly
 rounded:
 
-* ``fma(a, b, c)`` is ``float32(float64(a) * float64(b) + float64(c))``: the
-  product is exact in float64, the sum is rounded to float64 and then to
-  float32. It equals a single-rounding fmaf except in about one case in
-  2^29, and it is the same expression on every device, which the CUDA
-  kernels evaluate in double too (PyTorch has no single-rounding fma on the
-  card: ``addcmul`` rounds the product first there);
+* ``fma(a, b, c)`` rounds once, as a hardware fused multiply-add does.
+  On the CPU it is computed in float64 and rounded to odd: the product
+  a*b is exact in float64, the sum's rounding error comes from TwoSum, and
+  an inexact sum whose last bit is even steps one float64 ulp toward the
+  exact value. Float64 keeps 53 >= 2*24 + 2 bits, so rounding that result
+  to float32 gives the correctly rounded a*b + c (subnormal results
+  included). A tensor on the card goes to one elementwise CUDA kernel
+  (``ops/kernels/fma.py``, ``__fmaf_rn``), which rounds the same; PyTorch
+  has no single-rounding fma there (``addcmul`` rounds the product
+  first). The CUDA kernels of ``csrc/`` use ``__fmaf_rn`` too;
 * ``sqrt``: IEEE on the card; on the CPU PyTorch's vectorised sqrt is off by
   one ulp in ~0.6% of lanes, so the CPU path goes through float64;
 * ``rsqrt``, ``sin``, ``cos``: through float64, rounded once to float32.
@@ -30,15 +34,39 @@ import torch
 
 
 def _f64(x):
+    """A tensor in float64; a Python float rounded to float32 first, as a
+    weakly typed scalar is in the JAX package's float32 arithmetic."""
     if isinstance(x, torch.Tensor):
         return x.double()
-    return float(x)
+    return float(torch.tensor(float(x), dtype=torch.float32))
+
+
+def fma_plain(a, b, c):
+    """a * b + c rounded once to float32, in float64 with round-to-odd
+    (module docstring); any device, and broadcasting as PyTorch does. NaN
+    and inf propagate as in IEEE arithmetic."""
+    p = _f64(a) * _f64(b)  # exact: 24 + 24 bits
+    c = _f64(c)
+    s = p + c
+    # TwoSum: s + err == p + c exactly
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    odd = torch.nextafter(s, toward)
+    s = torch.where((err != 0) & even & torch.isfinite(s), odd, s)
+    return s.to(torch.float32)
 
 
 def fma(a, b, c):
-    """a * b + c, rounded as described above. `a` is a float32 tensor; `b`
-    and `c` may be tensors or Python floats."""
-    return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
+    """a * b + c rounded once to float32. `a` is a float32 tensor; `b` and
+    `c` may be float32 tensors or Python floats, and broadcast. A tensor on
+    the CPU takes ``fma_plain``; one on the card launches the fma kernel."""
+    if a.is_cuda:
+        from ..ops.kernels import fma as kernel
+
+        return kernel.fma(a, b, c)
+    return fma_plain(a, b, c)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

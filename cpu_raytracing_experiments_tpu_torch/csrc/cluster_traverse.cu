@@ -58,7 +58,8 @@
 //
 // Rounding contract: bit-equal to the plain PyTorch versions in
 // ops/kernels/cluster_traverse.py on the card, as in sphere_battery.cu:
-// fma32 for the multiply-adds that XLA fuses in the JAX package, the _rn
+// fma32 (__fmaf_rn, rounded once as core/fp.py's fma and XLA's contraction
+// are) for the multiply-adds that XLA fuses in the JAX package, the _rn
 // intrinsics (never contracted by nvcc) and IEEE division and square root
 // for the rest. Build without --use_fast_math.
 // NaN: jnp.minimum / torch.minimum propagate NaN and fminf does not. In the
@@ -74,9 +75,8 @@
 // tests for E entered unions; 'tilebox' one interval test per (tile,
 // cluster) and writes 4 bytes for it: bytes bind it. The walks read each
 // visited cluster's rows once per tile (16 B per sphere, 48 B per triangle)
-// and do 20 (spheres) or about 35 (triangles) operations per (ray,
-// primitive) pair, the multiply-adds among them in double: operations bind
-// them.
+// and do 20 (spheres) or about 38 (triangles) float32 operations per (ray,
+// primitive) pair: operations bind them.
 //
 // The product-form triangle battery. Per visited cluster the TPU kernel
 // multiplies the tile's [tile_r, 3] direction and origin matrices with
@@ -89,15 +89,45 @@
 //
 // The streamed walks. They read the packed table [C * F8, K] (cluster c's
 // attribute rows contiguous, zero rows up to F8 = 8 or 16) and keep two
-// slots of one cluster's attribute rows in shared memory. Before the block
-// waits for visit j's rows it starts the asynchronous copy (cp.async, 16
-// bytes a thread, one commit group per visit) of visit j + 1 into the other
-// slot, so that copy runs under visit j's battery. The zero rows are not
-// copied. A copy started for a visit that the early exit then skips is
-// waited for before the block ends. Any K is aligned: a packed cluster is
-// F8 * K floats and its attribute rows 4 * K or 12 * K, all multiples of 16
-// bytes. The batteries are the resident walks' own, fed the same values, so
+// slots of one cluster's rows in shared memory. Before the block waits for
+// visit j's rows it starts the asynchronous copy (cp.async, one commit
+// group per visit) of visit j + 1 into the other slot, so that copy runs
+// under visit j's battery. The zero rows are not copied. A copy started for
+// a visit that the early exit then skips is waited for before the block
+// ends. The copies are 4 bytes each and transpose the attribute rows into
+// the resident tables' layout (a sphere one float4, a triangle three), so
+// that the batteries are the resident walks' own, fed the same values:
 // the results are equal bit for bit.
+//
+// What bounds the streamed walks, and the design against it. They carry the
+// large meshes (1.3 M triangles, 127 of 130 planned clusters walked a tile
+// on bounce rays), where a launch is some 4.3e9 (lane, slot) pairs of a
+// float32 battery of about 40 instructions: the SMs' issue rate bounds it.
+// Four things kept them far from that rate, and each has its answer here.
+// (1) Float64: the multiply-adds ran in double, and the conversions to and
+// from it issue at 1/8 of the float32 rate; the battery is float32 only now
+// (__fmaf_rn). (2) Shared loads: read from attribute rows, a triangle took
+// twelve 4-byte loads, and the shared-memory pipe (one load a clock an SM)
+// bound the walk; staged transposed it takes three 16-byte ones. (3) A
+// narrow wavefront leaves most of the card idle: the bounce loop's
+// 131,072-lane batches are 512 tiles of 256 threads, about half the card's
+// resident threads, and of those only the live lanes work. So S threads
+// share a ray (S in {1, 2, 4}, the wrapper's choice from the tile count and
+// the SM count, ops/kernels/cluster_traverse.py::_stream_split): thread t
+// works on ray t / S and owns the slots k = t % S (mod S) of each staged
+// cluster; after each visit the S adjacent lanes reduce (t, slot) by
+// __shfl_xor, the least t and the lowest slot of equal t, and the ray's
+// best takes the result only if strictly nearer, so the first prim in
+// (visit order, slot order) keeps a tie, as in the sequential loop; the
+// any-hit walk ORs the S lanes. (4) Dead lanes rode in warps that ran the
+// battery: one block-wide prefix sum over the live flags (a ballot per
+// warp, one warp's scan of the warps' counts) packs the tile's live rays
+// into the first ray positions, so a warp past the live count skips the
+// battery on a uniform branch and only joins the barriers; each result is
+// written to its ray's own index, and a lane that is not live gets its
+// untouched result at the start. The exit bound keeps its meaning: the
+// block's max of every live ray's bound, refreshed after each visit. A
+// block is tile_r * S threads, at most 1024 (__launch_bounds__).
 //
 // The simple design. Planner: the tile's rays (origin, 1/direction, tfar)
 // are staged in shared memory; each thread owns clusters c, c + 256, ... and
@@ -109,13 +139,15 @@
 // share one union, so the skip is uniform over a warp. The tilebox bundle
 // is one block-wide reduction (warp shuffles, then one value per warp in
 // shared memory) of min / max that propagate NaN, as the JAX reductions do.
-// Walks: one thread per ray with its ray in registers; the visited
+// Resident walks: one thread per ray with its ray in registers; the visited
 // cluster's rows are staged in shared memory as float4 and read by
 // broadcast; the exit bound is a block-wide max through warp shuffles.
-// Warp-level culling inside a tile, several clusters per staging step and
-// tensor-core batteries are later work.
+// The split and the packing of live rays of the streamed walks (above) are
+// still to come to them; warp-level culling inside a tile, several clusters
+// per staging step and tensor-core batteries are later work.
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -123,12 +155,9 @@ namespace {
 
 constexpr int kPlanThreads = 256;
 
-// core/fp.py's fma: the product is exact in double, the sum rounds to
-// double and then to float.
+// core/fp.py's fma: a * b + c rounded once.
 __device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(
-      __fma_rn(static_cast<double>(a), static_cast<double>(b),
-               static_cast<double>(c)));
+  return __fmaf_rn(a, b, c);
 }
 
 // ax*bx + ay*by + az*bz as XLA contracts it: fma(z, z', fma(x, x', y*y')).
@@ -637,30 +666,11 @@ __device__ __forceinline__ void stage(float4* rows,
   for (int k = threadIdx.x; k < n; k += blockDim.x) rows[k] = src[k];
 }
 
-// Prim k of a cluster staged as attribute rows of K floats each (the packed
-// layout of the streamed walks), through the resident walks' batteries.
-template <bool kTri>
-__device__ __forceinline__ float packed_prim_t(const Ray& r, const float* a,
-                                               int k_prims, int k) {
-  if (kTri) {
-    return triangle_t(
-        r,
-        make_float4(a[k], a[k_prims + k], a[2 * k_prims + k],
-                    a[3 * k_prims + k]),
-        make_float4(a[4 * k_prims + k], a[5 * k_prims + k],
-                    a[6 * k_prims + k], a[7 * k_prims + k]),
-        make_float4(a[8 * k_prims + k], a[9 * k_prims + k],
-                    a[10 * k_prims + k], a[11 * k_prims + k]));
-  }
-  return sphere_t(r, make_float4(a[k], a[k_prims + k], a[2 * k_prims + k],
-                                 a[3 * k_prims + k]));
-}
-
-// cp.async: a 16-byte copy from global to shared memory that the thread
+// cp.async: a 4-byte copy from global to shared memory that the thread
 // does not wait for; copies are grouped by commit and awaited by group.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(gmem)
                : "memory");
 }
@@ -675,16 +685,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Start the copy of cluster c's attribute rows (n4 float4 of them, the zero
-// rows of the packed cluster left out) into a slot.
+// Start the copy of cluster c's kAttrs attribute rows (K floats each, at the
+// head of its packed rows; the zero rows are left out) into a slot,
+// transposed to the resident tables' layout: prim k's attributes as
+// kAttrs / 4 float4 (sphere: c, rsq; triangle: n, d0 | f1, g1 | f2, g2), so
+// that the battery reads a prim in one or three 16-byte loads. Consecutive
+// threads read consecutive floats of an attribute row.
+template <int kAttrs>
 __device__ __forceinline__ void fetch_cluster(float4* slot,
                                               const float* __restrict__ packed,
-                                              int c, int cluster_floats,
-                                              int n4) {
-  const float4* src = reinterpret_cast<const float4*>(
-      packed + static_cast<size_t>(c) * cluster_floats);
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-    cp_async16(slot + i, src + i);
+                                              int c, int k_prims,
+                                              int cluster_floats) {
+  const float* src = packed + static_cast<size_t>(c) * cluster_floats;
+  float* dst = reinterpret_cast<float*>(slot);
+  const int n = kAttrs * k_prims;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int attr = i / k_prims;
+    cp_async4(dst + (i - attr * k_prims) * kAttrs + attr, src + i);
   }
 }
 
@@ -803,139 +820,237 @@ __global__ void occluded_kernel(
 // ---------------------------------------------------------------------------
 // cluster_closest_stream, cluster_occluded_stream
 // ---------------------------------------------------------------------------
+constexpr int kMaxBlock = 1024;  // threads a block: tile_r * S at most
+
 // The loop both streamed walks share. Visit j's rows are in slot j & 1. The
 // copy of visit j + 1 is started before the wait for visit j, into the slot
 // that visit j - 1 used: the two barriers of that visit's block_max lie
 // between its reads and this overwrite. One commit group per trip, empty
 // where there is no next visit, so that "all but the newest group" is
-// always "visit j has landed". `visit_fn(c, rows)` runs the battery and
-// returns the tile's new exit bound.
-template <typename Visit>
+// always "visit j has landed". `visit_fn(c, rows)` runs the battery on the
+// staged rows (prim k at rows[k * kAttrs / 4]) and returns the tile's new
+// exit bound.
+template <int kAttrs, typename Visit>
 __device__ __forceinline__ void stream_walk(
     const int32_t* __restrict__ visit_row, const float* __restrict__ entry_row,
-    int n, float mx, const float* __restrict__ packed, int cluster_floats,
-    int n4, float4* slots, Visit visit_fn) {
-  if (n > 0) fetch_cluster(slots, packed, visit_row[0], cluster_floats, n4);
+    int n, float mx, const float* __restrict__ packed, int k_prims,
+    int cluster_floats, float4* slots, Visit visit_fn) {
+  const int n4 = kAttrs / 4 * k_prims;  // float4 a slot
+  if (n > 0) {
+    fetch_cluster<kAttrs>(slots, packed, visit_row[0], k_prims,
+                          cluster_floats);
+  }
   cp_async_commit();
   for (int j = 0; j < n; ++j) {
     if (!(entry_row[j] < mx)) break;  // uniform: mx is the block's
     if (j + 1 < n) {
-      fetch_cluster(slots + ((j + 1) & 1) * n4, packed, visit_row[j + 1],
-                    cluster_floats, n4);
+      fetch_cluster<kAttrs>(slots + ((j + 1) & 1) * n4, packed,
+                            visit_row[j + 1], k_prims, cluster_floats);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's part of visit j has landed
     __syncthreads();     // and every other thread's
-    mx = visit_fn(visit_row[j],
-                  reinterpret_cast<const float*>(slots + (j & 1) * n4));
+    mx = visit_fn(visit_row[j], slots + (j & 1) * n4);
   }
   cp_async_wait<0>();  // a copy started for a visit the exit skipped
 }
 
-template <bool kTri>
-__global__ void closest_stream_kernel(
+// The tile's live rays packed to the front: thread t < tile_r says in `live`
+// whether ray t of the tile is live; afterwards s_rays[q] is the tile index
+// of the q-th live ray, in ray order, and the count is returned. One ballot
+// per warp, then one warp scans the warps' counts (s_scan: 33 ints).
+// Returns after a barrier.
+__device__ __forceinline__ int pack_live(bool live, int* s_rays,
+                                         int* s_scan) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) s_scan[warp] = __popc(ballot);
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    const int v = lane < n_warps ? s_scan[lane] : 0;
+    int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    s_scan[lane] = incl - v;  // the warps before this one
+    if (lane == 31) s_scan[32] = incl;
+  }
+  __syncthreads();
+  if (live) {
+    s_rays[s_scan[warp] + __popc(ballot & ((1u << lane) - 1))] = threadIdx.x;
+  }
+  __syncthreads();
+  return s_scan[32];
+}
+
+// The S-way split, for S = kS in {1, 2, 4}: thread t works on the live ray
+// q = t / S of the packed order, and owns the slots k = t % S (mod S) of
+// each staged cluster, walked in ascending order. The S threads of a ray are adjacent lanes of one
+// warp. A warp whose first ray position is past the live count holds no
+// live ray and skips the battery on a uniform branch (it still joins the
+// barriers); in a warp that holds one, every lane runs the battery, so the
+// shuffles see all 32 lanes, and a thread without a ray discards its result.
+struct Split {
+  int q, s;        // ray position in the packed order, slot residue
+  bool has_ray;    // q < the tile's live count
+  bool warp_live;  // some ray of this warp is live (uniform over the warp)
+};
+
+template <int kS>
+__device__ __forceinline__ Split split_of(int n_live) {
+  const int q = threadIdx.x / kS;
+  return Split{q, static_cast<int>(threadIdx.x % kS), q < n_live,
+               static_cast<int>(threadIdx.x & ~31u) / kS < n_live};
+}
+
+template <bool kTri, int kS>
+__global__ void __launch_bounds__(kMaxBlock) closest_stream_kernel(
     const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
     const float* __restrict__ entry, const float* __restrict__ root,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ tf0, const uint8_t* __restrict__ valid,
-    const float* __restrict__ packed, int n_rays, int n_clusters, int k_prims,
-    float* __restrict__ tfar_out, int32_t* __restrict__ prim_out) {
+    const float* __restrict__ packed, int n_rays, int tile_r, int n_clusters,
+    int k_prims, float* __restrict__ tfar_out, int32_t* __restrict__ prim_out) {
   extern __shared__ float4 slots[];  // two slots of n4 float4
   __shared__ float s_red[32];
+  __shared__ int s_rays[kMaxBlock];
+  __shared__ int s_scan[33];
   constexpr int kAttrs = kTri ? 12 : 4;
   constexpr int kPackedRows = kTri ? 16 : 8;
+  constexpr int kBattery = kTri ? kTriangle : kSphere;
   const int tile = blockIdx.x;
-  const int i = tile * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  const bool live = in_range && valid[i] != 0;
+  const int base = tile * tile_r;
+  bool own_live = false;
+  const int t = threadIdx.x;
+  if (t < tile_r && base + t < n_rays) {
+    const int i = base + t;
+    own_live = valid[i] != 0;
+    if (!own_live) {  // a lane the walk leaves as it is: (tf0, -1)
+      tfar_out[i] = tf0[i];
+      prim_out[i] = -1;
+    }
+  }
+  const Split sp = split_of<kS>(pack_live(own_live, s_rays, s_scan));
+  int i = 0;
   Ray r{};
   float best = 0.0f;
-  if (in_range) {
+  if (sp.has_ray) {
+    i = base + s_rays[sp.q];
     r = load_ray(px, py, pz, dx, dy, dz, i);
     best = tf0[i];
   }
-  const float bound = live ? fminf(best, root_exit(root, r)) : -FLT_MAX;
+  const float bound = sp.has_ray ? fminf(best, root_exit(root, r)) : -FLT_MAX;
   const float mx = block_max(bound, s_red);
   int32_t best_id = -1;
   const size_t row = static_cast<size_t>(tile) * n_clusters;
-  stream_walk(
-      visit + row, entry + row, nvis[tile], mx, packed, kPackedRows * k_prims,
-      kAttrs * k_prims / 4, slots, [&](int c, const float* rows) {
-        if (live) {
-          for (int k = 0; k < k_prims; ++k) {
-            const float t = packed_prim_t<kTri>(r, rows, k_prims, k);
-            if (t < best) {  // strict: the first occurrence keeps a tie
-              best = t;
-              best_id = c * k_prims + k;
+  stream_walk<kAttrs>(
+      visit + row, entry + row, nvis[tile], mx, packed, k_prims,
+      kPackedRows * k_prims, slots, [&](int c, const float4* rows) {
+        if (sp.warp_live) {
+          float tl = INFINITY;  // this thread's slots: least t, first slot
+          int kl = k_prims;
+          for (int k = sp.s; k < k_prims; k += kS) {
+            const float t = prim_t<kBattery>(r, rows, k);
+            if (t < tl) {
+              tl = t;
+              kl = k;
             }
           }
+          // over the ray's S threads: the least t, the lowest slot of equals
+          for (int o = 1; o < kS; o <<= 1) {
+            const float to = __shfl_xor_sync(0xffffffffu, tl, o);
+            const int ko = __shfl_xor_sync(0xffffffffu, kl, o);
+            if (to < tl || (to == tl && ko < kl)) {
+              tl = to;
+              kl = ko;
+            }
+          }
+          // strict: an earlier visit keeps a tie
+          if (sp.has_ray && tl < best) {
+            best = tl;
+            best_id = c * k_prims + kl;
+          }
         }
-        return block_max(live ? fminf(best, bound) : -FLT_MAX, s_red);
+        return block_max(sp.has_ray ? fminf(best, bound) : -FLT_MAX, s_red);
       });
-  if (in_range) {
+  if (sp.has_ray && sp.s == 0) {
     tfar_out[i] = best;
     prim_out[i] = best_id;
   }
 }
 
-template <bool kTri>
-__global__ void occluded_stream_kernel(
+template <bool kTri, int kS>
+__global__ void __launch_bounds__(kMaxBlock) occluded_stream_kernel(
     const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
     const float* __restrict__ entry, const float* __restrict__ root,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ tfar, const float* __restrict__ packed,
-    int n_rays, int n_clusters, int k_prims, uint8_t* __restrict__ occ_out) {
+    int n_rays, int tile_r, int n_clusters, int k_prims,
+    uint8_t* __restrict__ occ_out) {
   extern __shared__ float4 slots[];
   __shared__ float s_red[32];
+  __shared__ int s_rays[kMaxBlock];
+  __shared__ int s_scan[33];
   constexpr int kAttrs = kTri ? 12 : 4;
   constexpr int kPackedRows = kTri ? 16 : 8;
   const int tile = blockIdx.x;
-  const int i = tile * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
+  const int base = tile * tile_r;
+  bool own_live = false;
+  const int t = threadIdx.x;
+  if (t < tile_r && base + t < n_rays) {
+    const int i = base + t;
+    own_live = tfar[i] > 0.0f;  // tfar <= 0 (or NaN): invalid, never occluded
+    if (!own_live) occ_out[i] = 0;
+  }
+  const Split sp = split_of<kS>(pack_live(own_live, s_rays, s_scan));
+  int i = 0;
   Ray r{};
   float tf = 0.0f;
-  if (in_range) {
+  if (sp.has_ray) {
+    i = base + s_rays[sp.q];
     r = load_ray(px, py, pz, dx, dy, dz, i);
     tf = tfar[i];
   }
-  const bool live = in_range && tf > 0.0f;  // tfar <= 0 (or NaN): invalid
-  const float bound = live ? fminf(tf, root_exit(root, r)) : -FLT_MAX;
+  const float bound = sp.has_ray ? fminf(tf, root_exit(root, r)) : -FLT_MAX;
+  // the farthest a still-unoccluded lane can be hit: clusters entirely
+  // beyond it cannot occlude
   const float mx = block_max(bound, s_red);
   bool occ = false;
   const size_t row = static_cast<size_t>(tile) * n_clusters;
-  stream_walk(
-      visit + row, entry + row, nvis[tile], mx, packed, kPackedRows * k_prims,
-      kAttrs * k_prims / 4, slots, [&](int /*c*/, const float* rows) {
-        if (live && !occ) {
-          for (int k = 0; k < k_prims; ++k) {
-            const bool hit =
-                kTri ? packed_prim_t<true>(r, rows, k_prims, k) < tf
-                     : sphere_occludes(
-                           r, tf,
-                           make_float4(rows[k], rows[k_prims + k],
-                                       rows[2 * k_prims + k],
-                                       rows[3 * k_prims + k]));
-            if (hit) {
-              occ = true;
-              break;
-            }
+  stream_walk<kAttrs>(
+      visit + row, entry + row, nvis[tile], mx, packed, k_prims,
+      kPackedRows * k_prims, slots, [&](int /*c*/, const float4* rows) {
+        if (sp.warp_live) {
+          const bool need = sp.has_ray && !occ;
+          bool hit = false;
+          for (int k = sp.s; need && k < k_prims; k += kS) {
+            hit = kTri ? prim_t<kTriangle>(r, rows, k) < tf
+                       : sphere_occludes(r, tf, rows[k]);
+            if (hit) break;
           }
+          for (int o = 1; o < kS; o <<= 1) {  // any of the ray's S threads
+            hit = __shfl_xor_sync(0xffffffffu, static_cast<int>(hit), o) ||
+                  hit;
+          }
+          occ = occ || (need && hit);
         }
-        return block_max((live && !occ) ? bound : -FLT_MAX, s_red);
+        return block_max((sp.has_ray && !occ) ? bound : -FLT_MAX, s_red);
       });
-  if (in_range) occ_out[i] = occ ? 1 : 0;
+  if (sp.has_ray && sp.s == 0) occ_out[i] = occ ? 1 : 0;
 }
 
 // Shared memory above 48 KB has to be asked for; the limit counts the
-// kernel's static shared memory (s_red, s_count, s_part: under 2 KB) too,
-// so ask from 46 KB on.
+// kernel's static shared memory too (at most 4.4 KB: the streamed walks'
+// packed ray order), so ask from 40 KB on.
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 46 * 1024) return cudaSuccess;
+  if (bytes <= 40 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -1060,25 +1175,60 @@ extern "C" int cluster_occluded(
 }
 
 // The streamed walks: `packed` is the [C * F8, K] table, `battery` 0 for
-// spheres and 1 for triangles. Two slots of one cluster's attribute rows.
+// spheres and 1 for triangles, `split` the S of the S-way split (1, 2 or 4;
+// tile_r * S threads a block, at most 1024). Two slots of one cluster's
+// attribute rows.
+using ClosestStreamFn = decltype(&closest_stream_kernel<true, 1>);
+using OccludedStreamFn = decltype(&occluded_stream_kernel<true, 1>);
+
+// The kernels of (battery, split), or nullptr for a split they do not have.
+static ClosestStreamFn closest_stream_for(int battery, int split) {
+  if (battery) {
+    return split == 4   ? closest_stream_kernel<true, 4>
+           : split == 2 ? closest_stream_kernel<true, 2>
+           : split == 1 ? closest_stream_kernel<true, 1>
+                        : nullptr;
+  }
+  return split == 4   ? closest_stream_kernel<false, 4>
+         : split == 2 ? closest_stream_kernel<false, 2>
+         : split == 1 ? closest_stream_kernel<false, 1>
+                      : nullptr;
+}
+
+static OccludedStreamFn occluded_stream_for(int battery, int split) {
+  if (battery) {
+    return split == 4   ? occluded_stream_kernel<true, 4>
+           : split == 2 ? occluded_stream_kernel<true, 2>
+           : split == 1 ? occluded_stream_kernel<true, 1>
+                        : nullptr;
+  }
+  return split == 4   ? occluded_stream_kernel<false, 4>
+         : split == 2 ? occluded_stream_kernel<false, 2>
+         : split == 1 ? occluded_stream_kernel<false, 1>
+                      : nullptr;
+}
+
 extern "C" int cluster_closest_stream(
     const int32_t* nvis, const int32_t* visit, const float* entry,
     const float* root, const float* px, const float* py, const float* pz,
     const float* dx, const float* dy, const float* dz, const float* tf0,
-    const uint8_t* valid, const float* packed, int battery, int n_rays,
-    int tile_r, int n_clusters, int k_prims, float* tfar_out,
+    const uint8_t* valid, const float* packed, int battery, int split,
+    int n_rays, int tile_r, int n_clusters, int k_prims, float* tfar_out,
     int32_t* prim_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const ClosestStreamFn kernel = closest_stream_for(battery, split);
+  if (kernel == nullptr || tile_r * split > kMaxBlock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t shared =
       2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
-  auto kernel =
-      battery ? closest_stream_kernel<true> : closest_stream_kernel<false>;
   const cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, tile_r, shared, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<tiles, tile_r * split, shared,
+           static_cast<cudaStream_t>(stream)>>>(
       nvis, visit, entry, root, px, py, pz, dx, dy, dz, tf0, valid, packed,
-      n_rays, n_clusters, k_prims, tfar_out, prim_out);
+      n_rays, tile_r, n_clusters, k_prims, tfar_out, prim_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1086,18 +1236,21 @@ extern "C" int cluster_occluded_stream(
     const int32_t* nvis, const int32_t* visit, const float* entry,
     const float* root, const float* px, const float* py, const float* pz,
     const float* dx, const float* dy, const float* dz, const float* tfar,
-    const float* packed, int battery, int n_rays, int tile_r, int n_clusters,
-    int k_prims, uint8_t* occ_out, void* stream) {
+    const float* packed, int battery, int split, int n_rays, int tile_r,
+    int n_clusters, int k_prims, uint8_t* occ_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const OccludedStreamFn kernel = occluded_stream_for(battery, split);
+  if (kernel == nullptr || tile_r * split > kMaxBlock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t shared =
       2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
-  auto kernel =
-      battery ? occluded_stream_kernel<true> : occluded_stream_kernel<false>;
   const cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, tile_r, shared, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<tiles, tile_r * split, shared,
+           static_cast<cudaStream_t>(stream)>>>(
       nvis, visit, entry, root, px, py, pz, dx, dy, dz, tfar, packed, n_rays,
-      n_clusters, k_prims, occ_out);
+      tile_r, n_clusters, k_prims, occ_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,17 +19,17 @@
 // ops/kernels/sphere_battery.py bit for bit, on the card. PyTorch evaluates
 // each elementwise op as its own kernel, rounded once, in the order the
 // expression is written; the plain versions fuse the multiply-adds that XLA
-// fuses in the JAX package, through core/fp.py's fma, which is
-// float32(float64(a) * float64(b) + float64(c)). This file evaluates the
-// same operations in the same order: fma32 below for those, and
+// fuses in the JAX package, through core/fp.py's fma, which rounds once
+// (the fma kernel of csrc/fma.cu on the card). This file evaluates the same
+// operations in the same order: __fmaf_rn for those, and
 // __fmul_rn/__fadd_rn/__fsub_rn, which nvcc never contracts, and IEEE
 // __fsqrt_rn for the rest. Build without --use_fast_math.
 //
 // Bound on an H100. Per ray, closest reads 6 floats and writes tfar + prim
 // (32 B); any-hit reads 7 floats and writes one byte (29 B). Per (ray, sphere)
-// pair, closest does 19 FLOP and one sqrt, any-hit 19 FLOP; the five (four)
-// multiply-adds among them run in double to keep the rounding contract,
-// which costs FP64 rate but moves no bytes. At the hero
+// pair, closest does 19 FLOP and one sqrt, any-hit 19 FLOP, all in float32
+// (the five or four multiply-adds among them as single-rounding FMAs). At
+// the hero
 // scene's 9 spheres the battery is bound by memory bytes (2^19 rays x 32 B =
 // 16.8 MB, about 5 us at 3.35 TB/s); at 1000 spheres it is bound by FP32
 // operations (262144 x 1000 pairs x 20 ops = 5.2 GFLOP, about 78 us at
@@ -63,12 +63,9 @@ __device__ __forceinline__ Ray load_ray(const float* px, const float* py,
   return Ray{px[i], py[i], pz[i], dx[i], dy[i], dz[i]};
 }
 
-// core/fp.py's fma: the product is exact in double, the sum rounds to
-// double and then to float.
+// core/fp.py's fma: a * b + c rounded once.
 __device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(
-      __fma_rn(static_cast<double>(a), static_cast<double>(b),
-               static_cast<double>(c)));
+  return __fmaf_rn(a, b, c);
 }
 
 // b = dx*tx + dy*ty + dz*tz and len2 = |t|^2 as XLA contracts a three-term

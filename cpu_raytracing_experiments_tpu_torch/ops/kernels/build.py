@@ -52,6 +52,7 @@ class Library:
         self.flags = tuple(flags)
         self.bind = bind
         self.build_log = ""  # the compiler's output, where this process built
+        self.path: Optional[Path] = None  # the loaded library's file
         self._lib: Optional[ctypes.CDLL] = None
 
     def load(self) -> ctypes.CDLL:
@@ -75,6 +76,7 @@ class Library:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         self.bind(lib)
+        self.path = so
         self._lib = lib
         return lib
 

@@ -55,8 +55,10 @@ the JAX module:
   ``_tables_packed`` (cluster c's attribute rows contiguous) and copy each
   visited cluster into one of two shared-memory slots asynchronously, the
   next visit's copy in flight while the battery runs on the current one.
-  Results equal the resident walks bit for bit. The plain version is the
-  plain walk on tables unpacked from the packed layout.
+  S threads share a ray (``_stream_split``: S = 1, 2 or 4 by the tile count
+  and the card's size) and a tile's live rays are packed into its first
+  warps. Results equal the resident walks bit for bit. The plain version is
+  the plain walk on tables unpacked from the packed layout.
 * ``mxu=True``: the triangle battery in product form
   (``_triangle_battery_mxu``; ``cluster_closest[mxu]``,
   ``cluster_occluded[mxu]``): the six ray . constant contractions of a
@@ -75,6 +77,7 @@ multiple of 8.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -93,6 +96,7 @@ DEFAULT_SEG_LEN = 2048
 _N_ATTRS = {"sphere": 4, "triangle": 12}
 PLAN_CHUNK_ELEMS = 1 << 23  # [t, tile_r, C] elements per planner chunk
 MAX_SHARED_BYTES = 227 * 1024  # dynamic shared memory one block can have
+MAX_BLOCK = 1024  # threads a block can have
 
 PLAN = LaunchCounter("cluster_plan")
 PLAN_SUPER = LaunchCounter("cluster_plan[super]")
@@ -615,11 +619,13 @@ def _bind(lib: ctypes.CDLL):
                                       + [i32] * 3 + [ptr] * 2)
     for fn in (lib.cluster_plan, lib.cluster_plan_rows):
         fn.restype = i32
-    for fn in (lib.cluster_closest, lib.cluster_closest_stream):
-        fn.argtypes = [ptr] * 13 + [i32] * 5 + [ptr] * 3
-        fn.restype = i32
-    for fn in (lib.cluster_occluded, lib.cluster_occluded_stream):
-        fn.argtypes = [ptr] * 12 + [i32] * 5 + [ptr] * 2
+    lib.cluster_closest.argtypes = [ptr] * 13 + [i32] * 5 + [ptr] * 3
+    lib.cluster_occluded.argtypes = [ptr] * 12 + [i32] * 5 + [ptr] * 2
+    # the streamed walks take the split S after the battery code
+    lib.cluster_closest_stream.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 3
+    lib.cluster_occluded_stream.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 2
+    for fn in (lib.cluster_closest, lib.cluster_occluded,
+               lib.cluster_closest_stream, lib.cluster_occluded_stream):
         fn.restype = i32
 
 
@@ -664,8 +670,7 @@ def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
     t_tiles, c, k = -(-n // tile_r), cp.num_clusters, cp.cluster_size
     _check(name, device, rays, torch.float32, n)
     if stream:
-        # any K is aligned for the 16-byte copies: a packed cluster is
-        # F8 * K floats, its attribute rows 4 * K or 12 * K
+        # the kernels copy 4 bytes at a time, so any K is aligned
         table, shape = _tables_packed(cp), (c * _stream_rows(cp.kind), k)
     else:
         table = cp.planes if cp.kind == "triangle" else cp.rows
@@ -787,6 +792,38 @@ def _plan_visits(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
     return visit, entry, nvis
 
 
+@functools.lru_cache(maxsize=None)
+def _card_threads(index: int) -> int:
+    """Threads card `index` holds resident at once: SMs x threads an SM
+    (132 x 2048 on an H100 SXM)."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+STREAM_WAVES = 4  # the streamed walks' threads, in the card's resident threads
+
+
+def _stream_split(t_tiles: int, tile_r: int, device) -> int:
+    """S of the streamed walks' S-way split (``csrc/cluster_traverse.cu``:
+    S threads a ray, each owning every S-th slot of a staged cluster): the
+    largest of 1, 2 and 4 at which the launch's T x tile_r x S threads stay
+    within STREAM_WAVES times the threads the card holds resident at once,
+    in blocks of at most MAX_BLOCK threads. More threads a ray shorten each
+    tile's walk S-fold, which trims the tail of long tiles and fills the
+    card on a narrow wavefront, and each repeats its ray's setup and joins
+    the reduction; ``chip_smoke.py`` times S = 1, 2 and 4 on every streamed
+    batch. On an H100: S = 4 for the 131,072-lane narrowed batches, S = 2
+    for 2^19 lanes, at tiles of 128 or 256 rays."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    budget = STREAM_WAVES * _card_threads(index)
+    s = 1
+    while (s < 4 and tile_r * 2 * s <= MAX_BLOCK
+           and t_tiles * tile_r * 2 * s <= budget):
+        s *= 2
+    return s
+
+
 def _walk_kernel(cp: ClusteredPrims, mxu: bool, stream: bool, resident,
                  streamed, product):
     """(counter, battery code) of the kernel form the keywords select, out
@@ -824,13 +861,14 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     lib = LIBRARY.load()
     tfar = torch.empty(n, dtype=torch.float32, device=device)
     prim = torch.empty(n, dtype=torch.int32, device=device)
+    split = [_stream_split(visit.shape[0], tile_r, device)] if stream else []
     build.launch(counter.name,
                  lib.cluster_closest_stream if stream else lib.cluster_closest,
                  device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tf0, valid, table)]
-                 + [battery, n, tile_r, cp.num_clusters, cp.cluster_size,
-                    tfar.data_ptr(), prim.data_ptr()])
+                 + [battery, *split, n, tile_r, cp.num_clusters,
+                    cp.cluster_size, tfar.data_ptr(), prim.data_ptr()])
     counter.launches += 1
     return tfar, prim
 
@@ -854,13 +892,14 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     root = _root_row(cp)
     lib = LIBRARY.load()
     occ = torch.empty(n, dtype=torch.bool, device=device)
+    split = [_stream_split(visit.shape[0], tile_r, device)] if stream else []
     build.launch(counter.name,
                  lib.cluster_occluded_stream if stream
                  else lib.cluster_occluded, device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tfar, table)]
-                 + [battery, n, tile_r, cp.num_clusters, cp.cluster_size,
-                    occ.data_ptr()])
+                 + [battery, *split, n, tile_r, cp.num_clusters,
+                    cp.cluster_size, occ.data_ptr()])
     counter.launches += 1
     return occ
 

@@ -470,6 +470,90 @@ def test_stream_walks_match_jax_triangles(stream_packs):
     assert torch.equal(cid, rid) and torch.equal(ct, rt)
 
 
+def _tie_pack(jcp):
+    """A triangle pack in which every prim meets exact ties, as flat arrays
+    (``ClusteredPrims.from_numpy``'s layout): source cluster i becomes
+    clusters 2i and 2i + 1 with its box. Cluster 2i holds its first K/4
+    prims, prim m in slots 2m, 2m + 1, K/2 + 2m and K/2 + 2m + 1 (adjacent
+    slots, so an S-way split meets the tie across threads, and slots K/2
+    apart, so one thread meets it too); cluster 2i + 1 holds cluster 2i's
+    slot (k + 1) mod K in slot k, at the same entry, so it is visited just
+    after 2i. Every copy has its own id (order = its packed index), so the
+    winning copy shows."""
+    src = jax_clusters_to_numpy(jcp)
+    k = src["cluster_size"]
+    planes = src["planes"].reshape(-1, k, 12)
+    rows = src["rows"].reshape(-1, k, src["rows"].shape[1])
+    slot = (np.arange(k) % (k // 2)) // 2  # prim m of slot k in cluster 2i
+    twin = slot[(np.arange(k) + 1) % k]
+    pick = lambda a: np.stack([x for c in a for x in (c[slot], c[twin])])
+    c2 = 2 * planes.shape[0]
+    return {
+        "rows": pick(rows).reshape(c2 * k, -1),
+        "planes": pick(planes).reshape(c2 * k, 12),
+        "order": np.arange(c2 * k, dtype=np.int32),
+        "lo": np.repeat(src["lo"], 2, axis=0),
+        "hi": np.repeat(src["hi"], 2, axis=0),
+        "num_clusters": c2, "cluster_size": k, "kind": "triangle",
+    }
+
+
+def _jax_pack(arrays):
+    """The JAX package's ClusteredPrims of flat arrays."""
+    vec = lambda a: JVec3(*(jnp.asarray(a[:, i]) for i in range(3)))
+    return jcl.ClusteredPrims(
+        rows=jnp.asarray(arrays["rows"]), order=jnp.asarray(arrays["order"]),
+        lo=vec(arrays["lo"]), hi=vec(arrays["hi"]),
+        planes=jnp.asarray(arrays["planes"]),
+        num_clusters=arrays["num_clusters"],
+        cluster_size=arrays["cluster_size"], kind=arrays["kind"])
+
+
+@pytest.fixture(scope="module")
+def tie_packs(stream_packs):
+    arrays = _tie_pack(stream_packs["triangle"][0])
+    return _jax_pack(arrays), tcl.ClusteredPrims.from_numpy(arrays)
+
+
+def test_stream_walks_ties_match_jax(tie_packs):
+    """The plain streamed walks on a pack of duplicated triangles against
+    the Pallas kernels with ``stream=True`` in interpret mode: ids, the bits
+    of tfar and the occlusion bits equal. Every hit meets a tie in its
+    cluster and one across two visits, and the rule of both packages
+    shows: the first copy in (visit order, slot order) wins, so the winner
+    sits in the first cluster of a pair, in slot 2m of its prim."""
+    jcp, tcp = tie_packs
+    k = tcp.cluster_size
+    n = 1024
+    p, d = _rays(n, 151, coherent=True)
+    alive = np.random.default_rng(152).random(n) > 0.2
+    want_t, want_id = jtk.intersect_clustered_pallas(
+        jcp, _jv(p), _jv(d), None, jnp.asarray(alive), tile_r=TILE_R,
+        interpret=True, stream=True)
+    got_t, got_id = ttk.intersect_clustered_pallas(
+        tcp, _tv(p), _tv(d), None, torch.from_numpy(alive), tile_r=TILE_R,
+        stream=True)
+    np.testing.assert_array_equal(got_id.numpy(), np.asarray(want_id))
+    np.testing.assert_array_equal(_bits(got_t.numpy()), _bits(want_t))
+    ids = got_id.numpy()
+    hit = ids >= 0
+    assert hit.sum() > 80
+    slot = ids[hit] % k
+    assert ((ids[hit] // k) % 2 == 0).all()
+    assert ((slot < k // 2) & (slot % 2 == 0)).all()
+    tf = np.full(n, 3.0, np.float32)
+    tf[hit] = got_t.numpy()[hit] * np.float32(1.01)
+    tf[~alive] = 0.0
+    want = jtk.occluded_clustered_pallas(
+        jcp, _jv(p), _jv(d), jnp.asarray(tf), tile_r=TILE_R, interpret=True,
+        stream=True)
+    got = ttk.occluded_clustered_pallas(tcp, _tv(p), _tv(d),
+                                        torch.from_numpy(tf), tile_r=TILE_R,
+                                        stream=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.numpy()[hit].all() and not got.numpy()[~alive].any()
+
+
 def test_mxu_battery_matches_jax():
     """The product-form triangle battery (``mxu=True``) against the Pallas
     kernel with ``mxu=True`` in interpret mode, on the triangle pack of
@@ -596,6 +680,19 @@ def test_default_policy_streams_the_large_mesh_table():
         RendererPolicy(pallas_stream=False), _Pack("triangle", 6800, 256))
 
 
+@pytest.mark.parametrize("lanes,tile_r,split", [
+    (131072, 256, 4), (131072, 128, 4), (1 << 19, 256, 2), (1 << 19, 128, 2),
+    (1 << 21, 256, 1), (4096, 512, 2), (4096, 1024, 1)])
+def test_stream_split_rule(monkeypatch, lanes, tile_r, split):
+    """The streamed walks' S on a card of 132 SMs x 2048 threads: the
+    largest of 1, 2, 4 within four times the resident threads, and at most
+    1024 threads a block."""
+    monkeypatch.setattr(ttk, "_card_threads", lambda index: 132 * 2048)
+    got = ttk._stream_split(-(-lanes // tile_r), tile_r,
+                            torch.device("cuda", 0))
+    assert got == split
+
+
 def _card_batch(cp_cpu, n=4000):
     cp = cp_cpu.to("cuda")
     p, d = _rays(n, 101)
@@ -678,3 +775,40 @@ def test_kernels_match_plain_on_card(spheres, triangles):
         assert torch.equal(
             ttk.walk_occluded(cp, pv, pe, pn, p, d, tf, TILE_R),
             ttk.walk_occluded_plain(cp, pv, pe, pn, p, d, tf, TILE_R))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_stream_kernels_ties_and_dead_lanes_on_card(tie_packs, stream_packs,
+                                                    monkeypatch, split):
+    """The streamed kernels on a CUDA card at each S of their S-way split:
+    on the tie pack and on a batch with half its lanes dead, equal to the
+    plain version and to the resident kernels, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    monkeypatch.setattr(ttk, "_stream_split", lambda *args: split)
+    for cp_cpu in (tie_packs[1], stream_packs["triangle"][1],
+                   stream_packs["sphere"][1]):
+        cp = cp_cpu.to("cuda")
+        n = 3000
+        p, d = _rays(n, 161, coherent=cp_cpu is tie_packs[1])
+        p, d = _tv(p).to("cuda"), _tv(d).to("cuda")
+        g = np.random.default_rng(162)
+        alive = torch.from_numpy(g.random(n) < 0.5).cuda()
+        tf0 = torch.full((n,), float(FLT_MAX), device="cuda")
+        plan = ttk._plan_visits(cp, p, d, tf0, alive, TILE_R)
+        kt, kid = ttk.walk_closest(cp, *plan, p, d, tf0, alive, TILE_R,
+                                   stream=True)
+        for ot, oid in (
+                ttk.walk_closest_plain(cp, *plan, p, d, tf0, alive, TILE_R,
+                                       packed=ttk._tables_packed(cp)),
+                ttk.walk_closest(cp, *plan, p, d, tf0, alive, TILE_R)):
+            assert torch.equal(kid, oid)
+            assert torch.equal(kt.view(torch.int32), ot.view(torch.int32))
+        tf = torch.where(alive, torch.where(kid >= 0, kt * 1.001, 5.0), 0.0)
+        splan = ttk._plan_visits(cp, p, d, tf, tf > 0, TILE_R)
+        ko = ttk.walk_occluded(cp, *splan, p, d, tf, TILE_R, stream=True)
+        assert torch.equal(ko, ttk.walk_occluded_plain(
+            cp, *splan, p, d, tf, TILE_R, packed=ttk._tables_packed(cp)))
+        assert torch.equal(ko, ttk.walk_occluded(cp, *splan, p, d, tf,
+                                                 TILE_R))
