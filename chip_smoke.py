@@ -7,10 +7,11 @@ NVIDIA GPU and check it end to end.
 Phases:
   1. device info and the build of csrc/ (the three CUDA sources with nvcc
      for sm_90a and the host tree builder with g++, the four compilers
-     started together); -Xptxas -v of the streamed walks and the fma kernel
-     (registers, spills, shared memory), and the float64 instructions in the
-     SASS of every kernel of the walks and batteries (cuobjdump): a streamed
-     walk with any fails the run;
+     started together); -Xptxas -v of the planner, the split walks and the
+     fma kernel (registers, spills, shared memory), the float64 instructions
+     in the SASS of every kernel of the walks and batteries (cuobjdump): the
+     planner or a split walk with any fails the run; the SASS opcodes of the
+     flat planner and the card's clock, for its issue floor;
   2. the fma kernel against fp.fma's plain form (float64, round-to-odd),
      bit for bit, on 2^22 random triples with wide exponents, the triples on
      which a float64 sum rounds twice, specials and broadcast operands; each
@@ -31,9 +32,10 @@ Phases:
      launches them with: the 2^19 camera rays of the frame's first chunk,
      2^19 diffuse-like rays with a tfar0 seed and half the lanes dead, and
      the 131,072-lane wavefront the bounce loop narrows that chunk to, with
-     its alive mask; on the 100,000-sphere and the 20,000-triangle table
-     also the streamed walks, against their plain versions and against the
-     resident kernels, bit for bit;
+     its alive mask; the closest walk bit for bit and timed at every S of its
+     S-way split (1, 2, 4); on the 100,000-sphere and the 20,000-triangle
+     table also the streamed walks, against their plain versions and
+     against the resident kernels, bit for bit;
   8. the clustered closest walk against the brute sphere_closest kernel on
      the same rays: equal tfar, equal ids except at exact ties;
   9. the large-scene path at full width: random_spheres_scene(1920, 1088)
@@ -43,8 +45,8 @@ Phases:
      accel='brute': bit-identical buckets;
  11. the triangle-mesh tables: mesh_scene(uv_res=224) (100,352 triangles,
      K = 128, tiles of 128) with the resident walks and the product-form
-     triangle battery (against its plain version: equal ids and occlusion
-     bits, t within 2 ulp; against the ordinary battery: ids equal and t
+     triangle battery (against its plain version at every S: equal ids,
+     occlusion bits and t bits; against the ordinary battery: ids equal and t
      within rtol 1e-5 / atol 1e-6 on every lane but those that a float64
      evaluation shows to lie on a decision boundary to within float32
      rounding), and
@@ -53,9 +55,10 @@ Phases:
      diffuse and narrowed batches; the streamed walks bit for bit at every
      S of their S-way split (1, 2, 4) and timed at each; then the tie batch:
      a pack made from the 100,352-triangle one in which every prim has 3
-     more copies in its cluster and 4 in the next cluster, walked streamed
-     at every S against the plain version and the resident kernels, the
-     first copy in (visit, slot) order winning every hit;
+     more copies in its cluster and 4 in the next cluster, walked by the
+     closest walk (both triangle batteries) and the streamed walks at every
+     S against the plain version and the resident kernels, the first copy
+     in (visit, slot) order winning every hit;
  12. goldens on the card: cornell 64x64 and mesh_scene(96, 96,
      subdivisions=3) at the bar of tests/test_goldens.py::_check through the
      dense batteries; the mesh again under accel='pallas' at K = 128 with
@@ -76,14 +79,17 @@ Phases:
      mesh_scene(uv_res=224) at 1920x1088 under each planner (eight
      renders: the six of the planners and two more that launch the super
      and group modes of cluster_plan_rows), and the mesh golden under
-     'group' and 'tilebox'.
+     'group' and 'tilebox'; then the cluster limit: with max_plan_clusters
+     patched below the mesh pack's C, the sorted plan comes from
+     cluster_plan_rows and the PyTorch sort, equal to cluster_plan's.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
 keyed "kernels" lists every kernel: the five of the sphere paths, the fma
-kernel, the two streamed walks with their S, the two walks with the
-product-form battery and the seven planner modes of phase 14), the clusters planned and walked per tile under
-each planner, the total time, and {"ok": true, "device": {...}}. Without a
+kernel, the closest walks and the streamed any-hit walk with their S, the
+walks with the product-form battery and the seven planner modes of phase
+14), the clusters planned and walked per tile under each planner, the
+total time, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
@@ -249,6 +255,15 @@ def ptxas_report(build_log: str, keys):
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel of csrc/: the streamed walks'
     battery and split, or the function's name."""
+    m = re.search(r"closest_kernelILi(\d)ELb([01])ELi(\d)E", mangled)
+    if m:
+        battery = ("sphere", "triangle", "product form")[int(m.group(1))]
+        return (f"cluster_closest{'_stream' if m.group(2) == '1' else ''}"
+                f"[{battery}, S={m.group(3)}]")
+    m = re.search(r"plan_kernelILi(\d)ELb([01])E", mangled)
+    if m:
+        return (f"cluster_plan[{('ray', 'group', 'super')[int(m.group(1))]}, "
+                f"{'wide' if m.group(2) == '1' else 'narrow'}]")
     m = re.search(r"(closest|occluded)_stream_kernelILb([01])ELi(\d)E",
                   mangled)
     if m:
@@ -265,8 +280,8 @@ def kernel_name(mangled: str) -> str:
 def sass_report(library) -> dict:
     """Per kernel of a built library (cuobjdump -sass): its SASS
     instructions, the float64 arithmetic among them (DFMA, DADD, DMUL,
-    DSETP, DMNMX) and the conversions to or from float64 (F2F with an F64
-    operand)."""
+    DSETP, DMNMX), the conversions to or from float64 (F2F with an F64
+    operand) and the count of each opcode."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
 
     tool = Path(build.nvcc()).parent / "cuobjdump"
@@ -279,11 +294,15 @@ def sass_report(library) -> dict:
         if m:
             fn = m.group(1)
             counts[fn] = {"instructions": 0, "f64 arithmetic": 0,
-                          "f64 conversions": 0}
+                          "f64 conversions": 0, "opcodes": {}}
             continue
-        if fn is None or not re.search(r"/\*[0-9a-f]{4,}\*/", line):
+        m = re.search(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if fn is None or not m:
             continue
         counts[fn]["instructions"] += 1
+        ops = counts[fn]["opcodes"]
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
         if re.search(r"\bD(FMA|ADD|MUL|SETP|MNMX)\b", line):
             counts[fn]["f64 arithmetic"] += 1
         if re.search(r"\bF2F\.[A-Z0-9.]*F64", line):
@@ -291,11 +310,17 @@ def sass_report(library) -> dict:
     return counts
 
 
+SPLIT_WALKS = ("stream_kernel", "closest_kernel")  # the split walks' names
+CHECKED = SPLIT_WALKS + ("plan_kernel",)  # kernels that must hold no float64
+
+
 def report_kernels(libraries):
-    """Phase 1's reading of what was compiled: -Xptxas -v for the streamed
-    walks and the fma kernel, and the SASS of every kernel of the two CUDA
-    sources with walks and batteries; raises where a streamed walk holds
-    float64 arithmetic or a float64 conversion."""
+    """Phase 1's reading of what was compiled: -Xptxas -v for the planner,
+    the split walks and the fma kernel, the SASS of every kernel of the two
+    CUDA sources with walks and batteries, and the opcodes of the flat
+    planner (the slab tests of its sweep are unrolled 80 times: 8 octants x
+    (8 + 2) boxes); raises where the planner or a split walk holds float64
+    arithmetic or a float64 conversion."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
@@ -303,7 +328,7 @@ def report_kernels(libraries):
 
     for lib in libraries:
         for fn, regs, (st, ld), smem in ptxas_report(
-                lib.build_log, ("stream_kernel", "fma_kernel")):
+                lib.build_log, CHECKED + ("fma_kernel",)):
             log(f"    ptxas {kernel_name(fn)}: {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B, {smem} B static shared")
     bad = []
@@ -313,11 +338,15 @@ def report_kernels(libraries):
                 f"{c['instructions']} instructions, {c['f64 arithmetic']} "
                 f"float64 arithmetic, {c['f64 conversions']} float64 "
                 "conversions")
-            if "stream_kernel" in fn and (c["f64 arithmetic"]
-                                          or c["f64 conversions"]):
+            if any(k in fn for k in CHECKED) and (c["f64 arithmetic"]
+                                                  or c["f64 conversions"]):
                 bad.append(kernel_name(fn))
+            if "plan_kernelILi0E" in fn:
+                log(f"    SASS opcodes of {kernel_name(fn)}: " + ", ".join(
+                    f"{op} {n}" for op, n in sorted(
+                        c["opcodes"].items(), key=lambda kv: -kv[1])))
     if bad:
-        raise AssertionError(f"float64 in the streamed walks: {bad}")
+        raise AssertionError(f"float64 in the planner or a split walk: {bad}")
 
 
 def wide_floats(np, g, n):
@@ -388,7 +417,7 @@ def check_fma(torch, np, timer):
 
 @contextlib.contextmanager
 def forced_split(ct, split):
-    """The streamed walks at a given S of their split, not the wrapper's."""
+    """The split walks at a given S of their split, not the wrapper's."""
     chosen = ct._stream_split
     ct._stream_split = lambda *args: split
     try:
@@ -428,10 +457,11 @@ def tie_pack(np, cp):
 
 
 def check_ties(torch, cp, rays, label, tile=CLUSTER_TILE):
-    """The tie batch: both streamed walks on the tie pack `cp` at every S
-    of their split and at the wrapper's own, against the plain version and
-    the resident kernels, bit for bit, and every hit won by the first copy
-    of its prim (slot 2m of the first cluster of a pair)."""
+    """The tie batch: the closest walk (with the ordinary and the
+    product-form battery) and both streamed walks on the tie pack `cp` at
+    every S of their split and at the wrapper's own, against the plain
+    version and the resident kernels, bit for bit, and every hit won by the
+    first copy of its prim (slot 2m of the first cluster of a pair)."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
 
@@ -443,10 +473,17 @@ def check_ties(torch, cp, rays, label, tile=CLUSTER_TILE):
     pt, pid = ct.walk_closest_plain(cp, *plan, p, d, tf0, alive, tile,
                                     packed=packed)
     rt, rid = ct.walk_closest(cp, *plan, p, d, tf0, alive, tile)
+    mt, mid = ct.walk_closest_plain(cp, *plan, p, d, tf0, alive, tile,
+                                    mxu=True)
+
+    def first_copy(ids):
+        hit = ids >= 0
+        slot = ids[hit] % k
+        return bool((((ids[hit] // k) % 2 == 0) & (slot < k // 2)
+                     & (slot % 2 == 0)).all())
+
     hit = pid >= 0
-    slot = pid[hit] % k
-    rule = bool((((pid[hit] // k) % 2 == 0) & (slot < k // 2)
-                 & (slot % 2 == 0)).all())
+    rule = first_copy(pid) and first_copy(mid)
     scale = torch.where(torch.arange(n, device=DEVICE) % 2 == 0, 1.001, 0.999)
     shadow_tf = torch.where(alive, torch.where(hit, pt * scale, tf0), 0.0)
     splan = ct._plan_visits(cp, p, d, shadow_tf, shadow_tf > 0, tile)
@@ -462,8 +499,13 @@ def check_ties(torch, cp, rays, label, tile=CLUSTER_TILE):
                                       stream=True)
             so = ct.walk_occluded(cp, *splan, p, d, shadow_tf, tile,
                                   stream=True)
+            resident = ct.walk_closest(cp, *plan, p, d, tf0, alive, tile)
+            product = ct.walk_closest(cp, *plan, p, d, tf0, alive, tile,
+                                      mxu=True)
         ok[f"S={split or chosen}{'' if split else ' (chosen)'}"] = (
-            _same_hits(torch, (st, sid), (pt, pid)) and torch.equal(so, po))
+            _same_hits(torch, (st, sid), (pt, pid)) and torch.equal(so, po)
+            and _same_hits(torch, resident, (pt, pid))
+            and _same_hits(torch, product, (mt, mid)))
     log(f"[{label}] tie pack C={cp.num_clusters} K={k}, R={n}: {int(hit.sum())}"
         f" hits, each on a prim with 3 more copies in its cluster and 4 in "
         f"the next; occluded {int(po.sum())}; {ok}")
@@ -744,16 +786,31 @@ def unexplained_mxu_lanes(torch, cp, p, d, tf0, ordinary, product):
             worst)
 
 
+def closest_splits(torch, timer, ct, want, label, name, walk):
+    """A closest walk `walk()` at every S of its split against the plain
+    version's `want` (tfar, id), bit for bit, and timed at each S; the
+    times are logged. Returns whether every S agrees."""
+    ok, ms = {}, {}
+    for s in SPLITS:
+        with forced_split(ct, s):
+            ok[s] = _same_hits(torch, walk(), want)
+            ms[s] = timer(walk, 3, warmup=1)
+    log(f"[{label}] {name} at S = 1, 2, 4: equal to plain {ok}; ms "
+        + ", ".join(f"S={s} {t:.4f}" for s, t in ms.items()))
+    return all(ok.values())
+
+
 def check_cluster_kernels(torch, np, timer, cp, rays, label,
                           tile=CLUSTER_TILE, stream=False, mxu=False,
                           time_plain_apart=True):
     """The cluster kernels against their plain versions on one table and one
     ray batch, and their numbers: the planner and the two resident walks,
-    bit for bit; with `stream` also the two streamed walks, bit for bit
+    bit for bit, the closest walk at every S of its split (timed at each);
+    with `stream` also the two streamed walks, bit for bit
     against their plain version (the plain walk over tables unpacked from
     the packed layout) and against the resident kernels; with `mxu` also the
     walks with the product-form triangle battery, against their plain
-    version (equal ids and occlusion bits, t within 2 ulp) and against the
+    version (equal ids, occlusion bits and t bits) and against the
     ordinary battery (the ids agree and t lies within rtol 1e-5 / atol 1e-6
     on every lane but those that `boundary_ratio` shows to lie on a decision
     boundary to within float32 rounding; the counts are printed). The any-hit walk
@@ -798,6 +855,9 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
         cp, pv, pe, pn, p, d, tf0, alive, tile, stats=closest_stats,
         packed=packed))
     ok_closest = _same_hits(torch, (kt, kid), (pt, pid))
+    ok_closest = ok_closest and closest_splits(
+        torch, timer, ct, (pt, pid), label, "cluster_closest",
+        lambda: ct.walk_closest(cp, pv, pe, pn, p, d, tf0, alive, tile))
     # shadow rays: to just behind the closest hit on even lanes (occluded),
     # to just before it on odd lanes, tfar0 where nothing was hit
     scale = torch.where(torch.arange(n, device=DEVICE) % 2 == 0, 1.001, 0.999)
@@ -836,8 +896,8 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
         "cluster_plan": (
             lambda: ct._plan_visits(cp, p, d, plan_tf, alive, tile),
             lambda: ct.plan_visits_plain(cp, p, d, plan_tf, alive, tile),
-            ray_bytes + c * 24 + tiles * (c * 8 + 4), n * c * SLAB_OPS, 0.0,
-            "cluster_plan"),
+            ray_bytes + c * 24 + tiles * (c * 8 + 4),
+            int(alive.sum()) * c * SLAB_OPS, 0.0, "cluster_plan"),
         "cluster_closest": (
             lambda: ct.walk_closest(cp, pv, pe, pn, p, d, tf0, alive, tile),
             lambda: ct.walk_closest_plain(cp, pv, pe, pn, p, d, tf0, alive,
@@ -909,6 +969,10 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
         mhit = qid >= 0
         ulp = int((mt.view(torch.int32) - qt.view(torch.int32))[mhit]
                   .abs().max()) if bool(mhit.any()) else 0
+        ok_splits = closest_splits(
+            torch, timer, ct, (qt, qid), label, "cluster_closest[mxu]",
+            lambda: ct.walk_closest(cp, pv, pe, pn, p, d, tf0, alive, tile,
+                                    mxu=True))
         merr = float((mt[mhit] - qt[mhit]).abs().max()) if bool(
             mhit.any()) else 0.0
         # against the ordinary battery: a lane at an edge, at a silhouette
@@ -927,8 +991,8 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
             f"{ROUNDING_TERMS} epsilons a term (largest ratio of the others "
             f"{worst:.3f}; {on_boundary} of all hits lie on one by the same "
             f"measure), any-hit lanes that differ {int((mo != ko).sum())}")
-        if not (torch.equal(mid, qid) and torch.equal(mo, qo) and ulp <= 2
-                and unexplained == 0):
+        if not (torch.equal(mid, qid) and torch.equal(mo, qo) and ulp == 0
+                and ok_splits and unexplained == 0):
             raise AssertionError(f"[{label}] the product-form battery misses "
                                  "its contract")
         kernels["cluster_closest[mxu]"] = (
@@ -953,7 +1017,7 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
                     else plain_s[plain_of] * 1e3)
         out[name] = kernel_row(name, CLUSTER_SOURCE, f"{shape}, {label}",
                                None, dt, ms, plain_ms, nbytes, ops)
-        if name.endswith("_stream"):
+        if name.startswith("cluster_closest") or name.endswith("_stream"):
             out[name]["split"] = split
         log(f"[{label}] {name}: {ms:.4f} ms (bound "
             f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}; "
@@ -964,11 +1028,12 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
 def plan_bound(torch, ct, cp, rays, tile, mode, sorted_):
     """(bytes, operations) of one planner launch on these rays: each input
     read once, the entries (and under the sort the ids and nvis) written
-    once; SLAB_OPS a slab test, TILEBOX_OPS an interval test. 'super' counts
-    the tests this run's data needs: every tile against the S union boxes,
-    and against the members of the unions it entered (counted by the plain
-    version); 'hybrid' the interval tests of its sign-coherent tiles and the
-    slab tests of the others."""
+    once; SLAB_OPS a slab test of a valid ray (a dead lane needs none),
+    TILEBOX_OPS an interval test. 'super' counts the tests this run's data
+    needs: every tile's valid rays against the S union boxes, and against
+    the members of the unions it entered (counted by the plain version);
+    'hybrid' the interval tests of its sign-coherent tiles and the slab
+    tests of the others."""
     p, d, tf0, alive = rays
     n, c = tf0.shape[0], cp.num_clusters
     tiles = -(-n // tile)
@@ -977,23 +1042,23 @@ def plan_bound(torch, ct, cp, rays, tile, mode, sorted_):
     nbytes = n * (7 * 4 + 1) + boxes * 24 + tiles * c * (8 if sorted_ else 4)
     nbytes += tiles * 4 if sorted_ else 0
     tiled = ct._tiled(p, d, torch.where(alive, tf0, 0.0), alive, tile)
+    valid = tiled[7].sum(dim=1)  # [T] valid rays a tile
     if mode == "super":
         entered = ct._tile_entry_rows(ct._super_slab_rows(cp), *tiled) \
             < ct.FLT_MAX
         members = torch.clamp(c - torch.arange(s, device=DEVICE) * ct.SUPER,
                               max=ct.SUPER)
-        tests = tile * (tiles * s + int((entered * members).sum()))
+        tests = int((valid * (s + (entered * members).sum(dim=1))).sum())
         return nbytes, tests * SLAB_OPS
     if mode in ("tilebox", "hybrid"):
-        coherent = tiles
+        coherent = torch.ones_like(valid, dtype=torch.bool)
         if mode == "hybrid":
             ok, dx, dy, dz = tiled[7], tiled[3], tiled[4], tiled[5]
-            coherent = int((ct._sign_coherent(dx, ok)
-                            & ct._sign_coherent(dy, ok)
-                            & ct._sign_coherent(dz, ok)).sum())
-        return nbytes, (coherent * c * TILEBOX_OPS + n * 14
-                        + (tiles - coherent) * tile * c * SLAB_OPS)
-    return nbytes, n * boxes * SLAB_OPS
+            coherent = (ct._sign_coherent(dx, ok) & ct._sign_coherent(dy, ok)
+                        & ct._sign_coherent(dz, ok))[:, 0]
+        return nbytes, (int(coherent.sum()) * c * TILEBOX_OPS + n * 14
+                        + int(valid[~coherent].sum()) * c * SLAB_OPS)
+    return nbytes, int(valid.sum()) * boxes * SLAB_OPS
 
 
 def check_planners(torch, timer, cp, gcp, rays, label, tile=CLUSTER_TILE,
@@ -1122,6 +1187,44 @@ def check_planners(torch, timer, cp, gcp, rays, label, tile=CLUSTER_TILE,
             f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}; "
             f"plain {plain_ms:.2f} ms)")
     return out, numbers
+
+
+def check_cluster_limit(torch, cp, gcp, rays, label, tile=CLUSTER_TILE):
+    """A pack above max_plan_clusters: with the limit patched to one below
+    the pack's C, the sorted plan of 'ray', 'super' and 'group' (the latter
+    on the group-box pack `gcp`) launches cluster_plan_rows, not
+    cluster_plan, and its nvis, and below nvis its ids and entries, equal
+    cluster_plan's bit for bit."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+
+    p, d, tf0, alive = rays
+    plan_tf = torch.where(alive, tf0, 0.0)
+    limit = ct.max_plan_clusters
+    ok = {}
+    for mode, pack in (("ray", cp), ("super", cp), ("group", gcp)):
+        kernel = {"ray": "cluster_plan"}.get(mode, f"cluster_plan[{mode}]")
+        want = ct._plan_visits(pack, p, d, plan_tf, alive, tile, mode)
+        build.reset_counts()
+        ct.max_plan_clusters = lambda tile_r, c=pack.num_clusters: c - 1
+        try:
+            got = ct._plan_visits(pack, p, d, plan_tf, alive, tile, mode)
+        finally:
+            ct.max_plan_clusters = limit
+        counts = build.launch_counts()
+        below = (torch.arange(pack.num_clusters, device=DEVICE)[None, :]
+                 < want[2][:, None])
+        ok[mode] = (counts[f"cluster_plan_rows[{mode}]"] == 1
+                    and counts[kernel] == 0
+                    and torch.equal(got[2], want[2])
+                    and torch.equal(got[0][below], want[0][below])
+                    and torch.equal(got[1][below], want[1][below]))
+    log(f"[{label}] C above the limit: cluster_plan_rows and the sort, "
+        f"equal to cluster_plan's lists: {ok}")
+    if not all(ok.values()):
+        raise AssertionError(f"[{label}] the plan above the cluster limit "
+                             "differs")
 
 
 def planned_per_tile(r):
@@ -1308,7 +1411,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_name_power()
     log(f"[1] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        "clocks.max.sm " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
     t0 = time.perf_counter()
     libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, native.LIBRARY)
     build.load_all(libraries)
@@ -1539,6 +1646,8 @@ def main() -> int:
                                f"14 {tname}, {kind} rays",
                                stats=(tname, kind) == ("mesh 100k",
                                                        "narrowed"))
+            check_cluster_limit(torch, cp, gcp, batches[kind],
+                                f"14 {tname}, {kind} rays")
         del batches
     del gbig
     log(f"[14] planner checks done at {time.perf_counter() - t_start:.1f} s")

@@ -67,7 +67,8 @@
 // that box face) reaches tmin and tmax whichever operand it starts in, and
 // the comparison `tmax >= entry` is then false: the ray does not enter the
 // box. So slab() uses fminf/fmaxf and reports separately whether any of the
-// six products was NaN.
+// six products was NaN, and cluster_plan's sweep uses min / max that
+// propagate NaN (nan_min, nan_max), with the same outcome.
 //
 // Bound on an H100. The planner does tile_r x C slab tests per tile (about
 // 25 operations each) and writes 8 bytes per (tile, cluster): operations
@@ -99,7 +100,8 @@
 // that the batteries are the resident walks' own, fed the same values:
 // the results are equal bit for bit.
 //
-// What bounds the streamed walks, and the design against it. They carry the
+// What bounds the split walks (the streamed walks and every closest walk),
+// and the design against it. The streamed walks carry the
 // large meshes (1.3 M triangles, 127 of 130 planned clusters walked a tile
 // on bounce rays), where a launch is some 4.3e9 (lane, slot) pairs of a
 // float32 battery of about 40 instructions: the SMs' issue rate bounds it.
@@ -129,22 +131,42 @@
 // block's max of every live ray's bound, refreshed after each visit. A
 // block is tile_r * S threads, at most 1024 (__launch_bounds__).
 //
-// The simple design. Planner: the tile's rays (origin, 1/direction, tfar)
-// are staged in shared memory; each thread owns clusters c, c + 256, ... and
-// loops over the staged rays, which every thread reads at the same address
-// (a broadcast). Entered clusters are compacted into 64-bit keys (entry bits
-// << 32 | cluster id: entries are non-negative, so they order as unsigned
-// integers) and sorted by a bitonic network in shared memory. 'super' keeps
-// the S union entries in shared memory; each warp's 32 consecutive clusters
-// share one union, so the skip is uniform over a warp. The tilebox bundle
-// is one block-wide reduction (warp shuffles, then one value per warp in
-// shared memory) of min / max that propagate NaN, as the JAX reductions do.
-// Resident walks: one thread per ray with its ray in registers; the visited
-// cluster's rows are staged in shared memory as float4 and read by
-// broadcast; the exit bound is a block-wide max through warp shuffles.
-// The split and the packing of live rays of the streamed walks (above) are
-// still to come to them; warp-level culling inside a tile, several clusters
-// per staging step and tensor-core batteries are later work.
+// The sorted planner, cluster_plan. A slab test has no multiply-add: 6
+// subtractions and 6 multiplications for the FP32 pipe, and min / max /
+// compares for the integer-rate one, so the SMs' issue rate binds it before
+// the FLOP bound does, and a first design that read seven 4-byte shared
+// words per test and tested the six products for NaN apart ran at 4.6x the
+// FLOP bound. Here each lane keeps the boxes of 8 clusters (4 under 'group')
+// in registers and streams the tile's staged rays past them, so that two
+// 16-byte broadcast loads of a ray feed 8 tests. The staged rays are the
+// tile's valid ones only, grouped by octant (the signs of 1 / d): within an
+// octant every slab's near and far plane are known at compile time, so
+// tmin is a max of three products and tmax a min of three, with min / max
+// that propagate NaN in place of the NaN flag, and `entry < tfar` is
+// `min(tmax, tfp) >= entry` with tfp the float below tfar: 20 instructions
+// a test. Every warp takes every batch of clusters and an eighth of the
+// rays, and folds its least entries into one per cluster by shared atomic
+// min on the float bits, so the warps stay even for any C; a C of at most
+// kNarrowClusters takes batches of 2 in fewer registers, for occupancy. The
+// entered ids are compacted (a ballot per warp) and sorted by (entry, id)
+// in shared memory: by one warp in registers up to 32 keys, else by a
+// block-wide bitonic network. 'super' sweeps the S union boxes first, then
+// the 32-cluster slots of the entered unions; 'group' holds both leaf
+// boxes of a cluster. cluster_plan_rows keeps the first design's loop:
+// each thread owns clusters c, c + 256, ... and loops over the staged
+// rays; 'super' keeps the S union entries in shared memory, each warp's 32
+// consecutive clusters sharing one union. The tilebox bundle is one
+// block-wide reduction (warp shuffles, then one value per warp in shared
+// memory) of min / max that propagate NaN, as the JAX reductions do.
+// The walks. cluster_closest and cluster_closest_stream are one kernel
+// template, the split walk described above, that differs only in the
+// fetch: the resident [C * K, F] table is already in the batteries'
+// layout and is copied 16 bytes at a time. cluster_occluded keeps one
+// thread per ray with its ray in registers, the visited cluster's rows
+// staged in shared memory as float4 and read by broadcast, and the exit
+// bound a block-wide max through warp shuffles; the split is still to come
+// to it. Warp-level culling inside a tile, several clusters per staging
+// step and tensor-core batteries are later work.
 
 #include <cfloat>
 #include <cmath>
@@ -321,8 +343,249 @@ __device__ __forceinline__ float exact_entry(const Boxes& b,
   return tile_entry(b, c, s, tile_r);
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kPlanThreads)
+// ---------------------------------------------------------------------------
+// cluster_plan: the sweep of the staged rays against register-held boxes
+// ---------------------------------------------------------------------------
+// min / max that propagate NaN, as jnp.minimum / maximum and jnp.min / max
+// do (fminf / fmaxf drop it): one instruction each on sm_80 and later.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+constexpr int kPlanWarps = kPlanThreads / 32;
+constexpr int kMaxRaysAThread = 1024 / kPlanThreads;  // tile_r <= 1024
+constexpr unsigned kMissBits = 0x7f7fffffu;  // FLT_MAX: no entry
+constexpr uint16_t kPadId = 0xffffu;         // sorts last
+
+// The tile's valid rays staged for the sweep, grouped by octant (the signs
+// of 1 / d), two float4 each: (px, py, pz, tfp), (ix, iy, iz, 0), with tfp
+// the largest float below tfar, so that `entry < tfar` is `entry <= tfp`.
+// Octant o holds rays [s_oct[o], s_oct[o + 1]). Invalid lanes are left out:
+// they enter no box. Returns after a barrier.
+__device__ __forceinline__ void stage_octants(
+    float4* s_ray, int* s_oct, const float* __restrict__ px,
+    const float* __restrict__ py, const float* __restrict__ pz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, const float* __restrict__ tf,
+    const uint8_t* __restrict__ valid, int base, int n_rays, int tile_r) {
+  __shared__ int s_in_octant[8];
+  if (threadIdx.x < 8) s_in_octant[threadIdx.x] = 0;
+  __syncthreads();
+  float4 a[kMaxRaysAThread], b[kMaxRaysAThread];
+  int oct[kMaxRaysAThread], at[kMaxRaysAThread];
+#pragma unroll
+  for (int k = 0; k < kMaxRaysAThread; ++k) {
+    const int i = threadIdx.x + k * kPlanThreads;
+    const int r = base + i;
+    oct[k] = -1;
+    if (i < tile_r && r < n_rays && valid[r] != 0) {
+      const float ix = __fdiv_rn(1.0f, dx[r]);
+      const float iy = __fdiv_rn(1.0f, dy[r]);
+      const float iz = __fdiv_rn(1.0f, dz[r]);
+      a[k] = make_float4(px[r], py[r], pz[r], nextafterf(tf[r], -INFINITY));
+      b[k] = make_float4(ix, iy, iz, 0.0f);
+      oct[k] = static_cast<int>(signbit(ix)) |
+               (static_cast<int>(signbit(iy)) << 1) |
+               (static_cast<int>(signbit(iz)) << 2);
+      at[k] = atomicAdd(&s_in_octant[oct[k]], 1);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int o = 0; o < 8; ++o) {
+      s_oct[o] = sum;
+      sum += s_in_octant[o];
+    }
+    s_oct[8] = sum;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kMaxRaysAThread; ++k) {
+    if (oct[k] >= 0) {
+      const int q = s_oct[oct[k]] + at[k];
+      s_ray[2 * q] = a[k];
+      s_ray[2 * q + 1] = b[k];
+    }
+  }
+  __syncthreads();
+}
+
+// One batch of the sweep: kR slots of 32 clusters, lane l of the warp holding
+// cluster 32 slot + l of each, as kBoxes boxes (two under 'group') with
+// lo <= hi per axis (a NaN coordinate makes every slab product NaN).
+template <int kBoxes, int kR>
+struct Batch {
+  float lo[kR][kBoxes][3], hi[kR][kBoxes][3];
+  float e[kR];  // least entry so far, FLT_MAX for none
+};
+
+// The staged rays of octant kOct that this warp takes (every kPlanWarps-th)
+// against a batch. Knowing the signs of 1 / d, the slab's near and far
+// planes are known per axis: tmin is the max of the near products and tmax
+// the min of the far ones, with the same values as the min / max pairs of
+// _tile_entry_row ((lo - p) * i <= (hi - p) * i for i >= 0: rounding is
+// monotone), and a NaN product propagates into one of them, which makes
+// `exit >= entry` false as in the plain version. Ten instructions of
+// arithmetic and eight min / max / compare a slab test; two 16-byte
+// broadcast loads a ray for the kR x kBoxes tests of the batch.
+template <int kOct, int kBoxes, int kR>
+__device__ __forceinline__ void sweep_octant(const float4* s_ray, int begin,
+                                             int end,
+                                             Batch<kBoxes, kR>& bt) {
+  constexpr bool nx = kOct & 1, ny = kOct & 2, nz = kOct & 4;
+  for (int r = begin + (threadIdx.x >> 5); r < end; r += kPlanWarps) {
+    const float4 a = s_ray[2 * r], b = s_ray[2 * r + 1];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+#pragma unroll
+      for (int g = 0; g < kBoxes; ++g) {
+        const float* lo = bt.lo[j][g];
+        const float* hi = bt.hi[j][g];
+        const float t0x = __fmul_rn(__fsub_rn(nx ? hi[0] : lo[0], a.x), b.x);
+        const float t1x = __fmul_rn(__fsub_rn(nx ? lo[0] : hi[0], a.x), b.x);
+        const float t0y = __fmul_rn(__fsub_rn(ny ? hi[1] : lo[1], a.y), b.y);
+        const float t1y = __fmul_rn(__fsub_rn(ny ? lo[1] : hi[1], a.y), b.y);
+        const float t0z = __fmul_rn(__fsub_rn(nz ? hi[2] : lo[2], a.z), b.z);
+        const float t1z = __fmul_rn(__fsub_rn(nz ? lo[2] : hi[2], a.z), b.z);
+        const float entry = nan_max(nan_max(nan_max(t0x, t0y), t0z), 0.0f);
+        const float exit = nan_min(nan_min(nan_min(t1x, t1y), t1z), a.w);
+        if (exit >= entry) bt.e[j] = fminf(bt.e[j], entry);
+      }
+    }
+  }
+}
+
+// Every staged ray of this warp's share against a batch, octant by octant.
+template <int kBoxes, int kR>
+__device__ __forceinline__ void sweep(const float4* s_ray, const int* s_oct,
+                                      Batch<kBoxes, kR>& bt) {
+  sweep_octant<0>(s_ray, s_oct[0], s_oct[1], bt);
+  sweep_octant<1>(s_ray, s_oct[1], s_oct[2], bt);
+  sweep_octant<2>(s_ray, s_oct[2], s_oct[3], bt);
+  sweep_octant<3>(s_ray, s_oct[3], s_oct[4], bt);
+  sweep_octant<4>(s_ray, s_oct[4], s_oct[5], bt);
+  sweep_octant<5>(s_ray, s_oct[5], s_oct[6], bt);
+  sweep_octant<6>(s_ray, s_oct[6], s_oct[7], bt);
+  sweep_octant<7>(s_ray, s_oct[7], s_oct[8], bt);
+}
+
+// Load box c (or the NaN box past n) into a batch, lo and hi put in order
+// with NaN kept, so that the near / far choice of sweep_octant holds for any
+// box and the test equals the min / max pairs of the plain version.
+__device__ __forceinline__ void load_box(const Boxes& b, int c, int n,
+                                         float* lo, float* hi) {
+  const float nan = __int_as_float(0x7fc00000);
+  const float l[3] = {c < n ? b.lox[c] : nan, c < n ? b.loy[c] : nan,
+                      c < n ? b.loz[c] : nan};
+  const float h[3] = {c < n ? b.hix[c] : nan, c < n ? b.hiy[c] : nan,
+                      c < n ? b.hiz[c] : nan};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    lo[k] = nan_min(l[k], h[k]);
+    hi[k] = nan_max(l[k], h[k]);
+  }
+}
+
+// One batch of kR slots from list position k: slot_of(k + j) for j below
+// `left` (more positions are padding, NaN boxes). Every warp sweeps the
+// batch on its share of the rays and folds each cluster's least entry into
+// s_min[c] (float bits: entries are >= 0, so they order as unsigned; -0 is
+// made +0 first).
+template <int kBoxes, int kR, typename SlotOf>
+__device__ __forceinline__ void sweep_batch(const Boxes& b, const Boxes& b2,
+                                            int n, int k, int left,
+                                            SlotOf slot_of,
+                                            const float4* s_ray,
+                                            const int* s_oct,
+                                            unsigned* s_min) {
+  const int lane = threadIdx.x & 31;
+  Batch<kBoxes, kR> bt;
+  int c[kR];
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    c[j] = j < left ? 32 * slot_of(k + j) + lane : n;
+    load_box(b, c[j], n, bt.lo[j][0], bt.hi[j][0]);
+    if (kBoxes == 2) load_box(b2, c[j], n, bt.lo[j][kBoxes - 1],
+                              bt.hi[j][kBoxes - 1]);
+    bt.e[j] = FLT_MAX;
+  }
+  sweep(s_ray, s_oct, bt);
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    if (c[j] < n && bt.e[j] < FLT_MAX) {
+      atomicMin(&s_min[c[j]], __float_as_uint(__fadd_rn(bt.e[j], 0.0f)));
+    }
+  }
+}
+
+// The least entry over the tile's staged rays of each of the n boxes of
+// the slots slot_of(0 .. n_slots - 1), into s_min (set to kMissBits by the
+// caller). kWide: batches of 8 boxes a lane, the rest in batches of 2;
+// else batches of 2 only, in fewer registers. Every warp takes every batch
+// and an eighth of the rays, so the warps stay even whatever n is. Returns
+// after a barrier.
+template <int kBoxes, bool kWide, typename SlotOf>
+__device__ __forceinline__ void sweep_slots(const Boxes& b, const Boxes& b2,
+                                            int n, int n_slots,
+                                            SlotOf slot_of,
+                                            const float4* s_ray,
+                                            const int* s_oct,
+                                            unsigned* s_min) {
+  constexpr int kRest = 2 / kBoxes, kFull = kWide ? 8 / kBoxes : kRest;
+  int k = 0;
+  for (; k + kFull <= n_slots; k += kFull) {
+    sweep_batch<kBoxes, kFull>(b, b2, n, k, kFull, slot_of, s_ray, s_oct,
+                               s_min);
+  }
+  for (; k < n_slots; k += kRest) {
+    sweep_batch<kBoxes, kRest>(b, b2, n, k, n_slots - k, slot_of, s_ray,
+                               s_oct, s_min);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void fill(unsigned* a, int n, unsigned v) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = v;
+}
+
+// Dynamic shared memory of cluster_plan, in this order: the staged rays
+// (2 tile_r float4), s_min (C), s_super (S), the slot list (C / 32 rounded
+// up), the ids to sort (n_keys = C rounded up to a power of two, 2 bytes
+// each).
+__host__ __device__ inline size_t plan_shared_bytes(int tile_r, int n_clusters,
+                                                    int n_super, int n_keys) {
+  return static_cast<size_t>(tile_r) * 32 +
+         (static_cast<size_t>(n_clusters) + n_super + (n_clusters + 31) / 32) *
+             4 +
+         static_cast<size_t>(n_keys) * 2;
+}
+
+__device__ __forceinline__ unsigned long long sort_key(const unsigned* s_min,
+                                                       uint16_t id) {
+  return id == kPadId ? ~0ull
+                      : (static_cast<unsigned long long>(s_min[id]) << 32) | id;
+}
+
+// kWide: register blocks of 8 boxes a lane, for C above kNarrowClusters;
+// else blocks of 2, and the registers for 4 blocks an SM (a small C leaves
+// little work per tile, and latency, not issue, bounds it). Left alone,
+// ptxas gives the wide kernels 160-168 registers, one block an SM; at 3
+// blocks (80 registers) they ran fastest without a spill, 'super' at 2
+// (128: at 80 its two sweeps spill).
+constexpr int kNarrowClusters = 256;
+
+template <int kMode, bool kWide>
+__global__ void __launch_bounds__(kPlanThreads,
+                                  kWide ? (kMode == kSuper ? 2 : 3) : 4)
 plan_kernel(Boxes boxes, Boxes second, int n_super,
             const float* __restrict__ px, const float* __restrict__ py,
             const float* __restrict__ pz, const float* __restrict__ dx,
@@ -331,51 +594,98 @@ plan_kernel(Boxes boxes, Boxes second, int n_super,
             int n_rays, int tile_r, int n_clusters, int n_keys,
             float* __restrict__ entry_out, int32_t* __restrict__ visit_out,
             int32_t* __restrict__ nvis_out) {
-  // n_keys keys, then 7 ray rows, then n_super supercluster entries
-  extern __shared__ unsigned long long keys[];
-  float* rays = reinterpret_cast<float*>(keys + n_keys);
-  const Staged staged = staged_rays(rays, tile_r);
-  float* s_super = rays + 7 * tile_r;
+  extern __shared__ float4 s_ray[];
+  unsigned* s_min = reinterpret_cast<unsigned*>(s_ray + 2 * tile_r);
+  unsigned* s_super = s_min + n_clusters;
+  const int n_slots = (n_clusters + 31) / 32;
+  int* s_list = reinterpret_cast<int*>(s_super + n_super);
+  uint16_t* s_ids = reinterpret_cast<uint16_t*>(s_list + n_slots);
+  __shared__ int s_oct[9];
   __shared__ int s_count;
 
   const int tile = blockIdx.x;
   if (threadIdx.x == 0) s_count = 0;
-  stage_rays(staged, px, py, pz, dx, dy, dz, tf, valid, tile * tile_r,
-             n_rays, tile_r);
-  __syncthreads();
+  fill(s_min, n_clusters, kMissBits);
+  fill(s_super, n_super, kMissBits);
+  stage_octants(s_ray, s_oct, px, py, pz, dx, dy, dz, tf, valid,
+                tile * tile_r, n_rays, tile_r);
+  const auto identity = [](int k) { return k; };
   if (kMode == kSuper) {
-    super_entries(second, n_super, staged, tile_r, s_super);
+    // phase A: the union boxes; then the slots of the entered unions (a
+    // slot's 32 clusters lie in one union of 128)
+    sweep_slots<1, kWide>(second, second, n_super, (n_super + 31) / 32,
+                          identity, s_ray, s_oct, s_super);
+    for (int s = threadIdx.x; s < n_slots; s += blockDim.x) {
+      if (s_super[s * 32 / kSuperSize] != kMissBits) {
+        s_list[atomicAdd(&s_count, 1)] = s;
+      }
+    }
+    __syncthreads();
+    const int n_list = s_count;
+    __syncthreads();
+    if (threadIdx.x == 0) s_count = 0;
+    sweep_slots<1, kWide>(boxes, boxes, n_clusters, n_list,
+                          [s_list](int k) { return s_list[k]; }, s_ray, s_oct,
+                          s_min);
+  } else {
+    sweep_slots<kMode == kDual ? 2 : 1, kWide>(
+        boxes, second, n_clusters, n_slots, identity, s_ray, s_oct, s_min);
   }
 
-  for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
-    float emin = exact_entry<kMode>(boxes, second, c, staged, tile_r,
-                                    s_super);
-    if (emin < FLT_MAX) {
-      if (emin == 0.0f) emin = 0.0f;  // -0 would order last as an integer
-      const int pos = atomicAdd(&s_count, 1);
-      keys[pos] = (static_cast<unsigned long long>(__float_as_uint(emin))
-                   << 32) | static_cast<unsigned int>(c);
+  // the entered clusters' ids, one atomic a warp and 32 clusters
+  for (int c0 = threadIdx.x & ~31; c0 < n_clusters; c0 += blockDim.x) {
+    const int c = c0 + (threadIdx.x & 31);
+    const bool in = c < n_clusters && s_min[c] != kMissBits;
+    const unsigned ballot = __ballot_sync(0xffffffffu, in);
+    int first = 0;
+    if ((threadIdx.x & 31) == 0 && ballot) {
+      first = atomicAdd(&s_count, __popc(ballot));
+    }
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (in) {
+      s_ids[first + __popc(ballot & ((1u << (threadIdx.x & 31)) - 1))] =
+          static_cast<uint16_t>(c);
     }
   }
   __syncthreads();
   const int n_vis = s_count;
   int n_sort = 1;
   while (n_sort < n_vis) n_sort <<= 1;
+  // bitonic sort, ascending: by entry, then by cluster id. Up to 32 keys
+  // one warp sorts them in registers, with no block barrier a step.
+  if (n_sort <= 32) {
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      unsigned long long key =
+          sort_key(s_min, lane < n_vis ? s_ids[lane] : kPadId);
+      for (int k = 2; k <= 32; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          const unsigned long long other =
+              __shfl_xor_sync(0xffffffffu, key, j);
+          const bool low = key < other;
+          // the lower lane of a pair keeps the lesser key where ascending
+          key = (((lane & j) == 0) == ((lane & k) == 0)) == low ? key : other;
+        }
+      }
+      if (lane < n_vis) s_ids[lane] = static_cast<uint16_t>(key);
+    }
+    __syncthreads();
+    n_sort = 0;  // sorted
+  }
   for (int i = n_vis + threadIdx.x; i < n_sort; i += blockDim.x) {
-    keys[i] = ~0ull;
+    s_ids[i] = kPadId;
   }
   __syncthreads();
-  // bitonic sort, ascending: by entry, then by cluster id
   for (int k = 2; k <= n_sort; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
         const int partner = i ^ j;
         if (partner > i) {
-          const unsigned long long a = keys[i], b = keys[partner];
+          const uint16_t a = s_ids[i], b = s_ids[partner];
           const bool ascending = (i & k) == 0;
-          if ((a > b) == ascending) {
-            keys[i] = b;
-            keys[partner] = a;
+          if ((sort_key(s_min, a) > sort_key(s_min, b)) == ascending) {
+            s_ids[i] = b;
+            s_ids[partner] = a;
           }
         }
       }
@@ -385,23 +695,11 @@ plan_kernel(Boxes boxes, Boxes second, int n_super,
   const size_t row = static_cast<size_t>(tile) * n_clusters;
   for (int i = threadIdx.x; i < n_clusters; i += blockDim.x) {
     const bool seen = i < n_vis;
-    const unsigned long long key = seen ? keys[i] : 0ull;
-    entry_out[row + i] =
-        seen ? __uint_as_float(static_cast<unsigned int>(key >> 32)) : FLT_MAX;
-    visit_out[row + i] =
-        seen ? static_cast<int32_t>(key & 0xffffffffull) : -1;
+    const int id = seen ? s_ids[i] : -1;
+    entry_out[row + i] = seen ? __uint_as_float(s_min[id]) : FLT_MAX;
+    visit_out[row + i] = id;
   }
   if (threadIdx.x == 0) nvis_out[tile] = n_vis;
-}
-
-// min / max that propagate NaN, as jnp.minimum / maximum and jnp.min / max
-// do (fminf / fmaxf drop it): the interval test has no NaN flag of its own.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
 // The tile's ray bundle of _tilebox_entry_row: per axis the masked min /
@@ -705,64 +1003,30 @@ __device__ __forceinline__ void fetch_cluster(float4* slot,
   }
 }
 
+// cp.async of 16 bytes (both addresses 16-byte aligned), past L1.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+// Start the copy of cluster c's n4 float4 of the resident [C * K, F] table
+// into a slot: they are contiguous and already in the batteries' layout.
+__device__ __forceinline__ void fetch_rows(float4* slot,
+                                           const float4* __restrict__ table,
+                                           int c, int n4) {
+  const float4* src = table + static_cast<size_t>(c) * n4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    cp_async16(slot + i, src + i);
+  }
+}
+
 __device__ __forceinline__ Ray load_ray(const float* px, const float* py,
                                         const float* pz, const float* dx,
                                         const float* dy, const float* dz,
                                         int i) {
   return Ray{px[i], py[i], pz[i], dx[i], dy[i], dz[i]};
-}
-
-// ---------------------------------------------------------------------------
-// cluster_closest
-// ---------------------------------------------------------------------------
-template <int kBattery>
-__global__ void closest_kernel(
-    const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
-    const float* __restrict__ entry, const float* __restrict__ root,
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tf0, const uint8_t* __restrict__ valid,
-    const float4* __restrict__ table, int n_rays, int n_clusters, int k_prims,
-    float* __restrict__ tfar_out, int32_t* __restrict__ prim_out) {
-  extern __shared__ float4 rows[];
-  __shared__ float s_red[32];
-  const int tile = blockIdx.x;
-  const int i = tile * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  const bool live = in_range && valid[i] != 0;
-  Ray r{};
-  float best = 0.0f;
-  if (in_range) {
-    r = load_ray(px, py, pz, dx, dy, dz, i);
-    best = tf0[i];
-  }
-  const float bound = live ? fminf(best, root_exit(root, r)) : -FLT_MAX;
-  float mx = block_max(bound, s_red);
-  int32_t best_id = -1;
-  const int n = nvis[tile];
-  const size_t row = static_cast<size_t>(tile) * n_clusters;
-  for (int j = 0; j < n; ++j) {
-    if (!(entry[row + j] < mx)) break;  // uniform: mx is the block's
-    const int c = visit[row + j];
-    stage<kBattery>(rows, table, c, k_prims);
-    __syncthreads();
-    if (live) {
-      for (int k = 0; k < k_prims; ++k) {
-        const float t = prim_t<kBattery>(r, rows, k);
-        if (t < best) {  // strict: the first occurrence keeps a tie
-          best = t;
-          best_id = c * k_prims + k;
-        }
-      }
-    }
-    // its two barriers also fence this visit's reads of `rows`
-    mx = block_max(live ? fminf(best, bound) : -FLT_MAX, s_red);
-  }
-  if (in_range) {
-    tfar_out[i] = best;
-    prim_out[i] = best_id;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -822,31 +1086,24 @@ __global__ void occluded_kernel(
 // ---------------------------------------------------------------------------
 constexpr int kMaxBlock = 1024;  // threads a block: tile_r * S at most
 
-// The loop both streamed walks share. Visit j's rows are in slot j & 1. The
-// copy of visit j + 1 is started before the wait for visit j, into the slot
-// that visit j - 1 used: the two barriers of that visit's block_max lie
-// between its reads and this overwrite. One commit group per trip, empty
-// where there is no next visit, so that "all but the newest group" is
-// always "visit j has landed". `visit_fn(c, rows)` runs the battery on the
-// staged rows (prim k at rows[k * kAttrs / 4]) and returns the tile's new
-// exit bound.
-template <int kAttrs, typename Visit>
+// The loop of the split walks (cluster_closest, and both streamed walks).
+// Visit j's rows are in slot j & 1. The copy of visit j + 1 is started
+// before the wait for visit j, into the slot that visit j - 1 used: the two
+// barriers of that visit's block_max lie between its reads and this
+// overwrite. One commit group per trip, empty where there is no next visit,
+// so that "all but the newest group" is always "visit j has landed".
+// `fetch(slot, c)` starts the copies of cluster c's n4 float4 into a slot;
+// `visit_fn(c, rows)` runs the battery on the staged rows (prim k at
+// rows[k * n4 / K]) and returns the tile's new exit bound.
+template <typename Fetch, typename Visit>
 __device__ __forceinline__ void stream_walk(
     const int32_t* __restrict__ visit_row, const float* __restrict__ entry_row,
-    int n, float mx, const float* __restrict__ packed, int k_prims,
-    int cluster_floats, float4* slots, Visit visit_fn) {
-  const int n4 = kAttrs / 4 * k_prims;  // float4 a slot
-  if (n > 0) {
-    fetch_cluster<kAttrs>(slots, packed, visit_row[0], k_prims,
-                          cluster_floats);
-  }
+    int n, float mx, int n4, float4* slots, Fetch fetch, Visit visit_fn) {
+  if (n > 0) fetch(slots, visit_row[0]);
   cp_async_commit();
   for (int j = 0; j < n; ++j) {
     if (!(entry_row[j] < mx)) break;  // uniform: mx is the block's
-    if (j + 1 < n) {
-      fetch_cluster<kAttrs>(slots + ((j + 1) & 1) * n4, packed,
-                            visit_row[j + 1], k_prims, cluster_floats);
-    }
+    if (j + 1 < n) fetch(slots + ((j + 1) & 1) * n4, visit_row[j + 1]);
     cp_async_commit();
     cp_async_wait<1>();  // this thread's part of visit j has landed
     __syncthreads();     // and every other thread's
@@ -905,23 +1162,26 @@ __device__ __forceinline__ Split split_of(int n_live) {
                static_cast<int>(threadIdx.x & ~31u) / kS < n_live};
 }
 
-template <bool kTri, int kS>
-__global__ void __launch_bounds__(kMaxBlock) closest_stream_kernel(
+// cluster_closest (kPacked false: the resident [C * K, F] table, copied 16
+// bytes at a time) and cluster_closest_stream (kPacked: the packed table,
+// transposed by 4-byte copies) in one body: they differ only in how a
+// cluster's rows reach shared memory.
+template <int kBattery, bool kPacked, int kS>
+__global__ void __launch_bounds__(kMaxBlock) closest_kernel(
     const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
     const float* __restrict__ entry, const float* __restrict__ root,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ tf0, const uint8_t* __restrict__ valid,
-    const float* __restrict__ packed, int n_rays, int tile_r, int n_clusters,
+    const float* __restrict__ table, int n_rays, int tile_r, int n_clusters,
     int k_prims, float* __restrict__ tfar_out, int32_t* __restrict__ prim_out) {
   extern __shared__ float4 slots[];  // two slots of n4 float4
   __shared__ float s_red[32];
   __shared__ int s_rays[kMaxBlock];
   __shared__ int s_scan[33];
-  constexpr int kAttrs = kTri ? 12 : 4;
-  constexpr int kPackedRows = kTri ? 16 : 8;
-  constexpr int kBattery = kTri ? kTriangle : kSphere;
+  constexpr int kAttrs = kBattery == kSphere ? 4 : 12;
+  constexpr int kPackedRows = kBattery == kSphere ? 8 : 16;
   const int tile = blockIdx.x;
   const int base = tile * tile_r;
   bool own_live = false;
@@ -947,9 +1207,17 @@ __global__ void __launch_bounds__(kMaxBlock) closest_stream_kernel(
   const float mx = block_max(bound, s_red);
   int32_t best_id = -1;
   const size_t row = static_cast<size_t>(tile) * n_clusters;
-  stream_walk<kAttrs>(
-      visit + row, entry + row, nvis[tile], mx, packed, k_prims,
-      kPackedRows * k_prims, slots, [&](int c, const float4* rows) {
+  const int n4 = kAttrs / 4 * k_prims;
+  const auto fetch = [&](float4* slot, int c) {
+    if (kPacked) {
+      fetch_cluster<kAttrs>(slot, table, c, k_prims, kPackedRows * k_prims);
+    } else {
+      fetch_rows(slot, reinterpret_cast<const float4*>(table), c, n4);
+    }
+  };
+  stream_walk(
+      visit + row, entry + row, nvis[tile], mx, n4, slots, fetch,
+      [&](int c, const float4* rows) {
         if (sp.warp_live) {
           float tl = INFINITY;  // this thread's slots: least t, first slot
           int kl = k_prims;
@@ -1023,9 +1291,13 @@ __global__ void __launch_bounds__(kMaxBlock) occluded_stream_kernel(
   const float mx = block_max(bound, s_red);
   bool occ = false;
   const size_t row = static_cast<size_t>(tile) * n_clusters;
-  stream_walk<kAttrs>(
-      visit + row, entry + row, nvis[tile], mx, packed, k_prims,
-      kPackedRows * k_prims, slots, [&](int /*c*/, const float4* rows) {
+  stream_walk(
+      visit + row, entry + row, nvis[tile], mx, kAttrs / 4 * k_prims, slots,
+      [&](float4* slot, int c) {
+        fetch_cluster<kAttrs>(slot, packed, c, k_prims,
+                              kPackedRows * k_prims);
+      },
+      [&](int /*c*/, const float4* rows) {
         if (sp.warp_live) {
           const bool need = sp.has_ray && !occ;
           bool hit = false;
@@ -1046,7 +1318,7 @@ __global__ void __launch_bounds__(kMaxBlock) occluded_stream_kernel(
 }
 
 // Shared memory above 48 KB has to be asked for; the limit counts the
-// kernel's static shared memory too (at most 4.4 KB: the streamed walks'
+// kernel's static shared memory too (at most 4.4 KB: the split walks'
 // packed ray order), so ask from 40 KB on.
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
@@ -1084,13 +1356,17 @@ extern "C" int cluster_plan(PLAN_ARGS, float* entry_out, int32_t* visit_out,
   }
   int n_keys = 1;
   while (n_keys < n_clusters) n_keys <<= 1;
+  if (n_clusters > kPadId) return static_cast<int>(cudaErrorInvalidValue);
   const int n_super = mode == kSuper ? n_second : 0;
-  const size_t shared = static_cast<size_t>(n_keys) * 8 +
-                        (static_cast<size_t>(tile_r) * 7 + n_super) *
-                            sizeof(float);
-  auto kernel = mode == kDual    ? plan_kernel<kDual>
-                : mode == kSuper ? plan_kernel<kSuper>
-                                 : plan_kernel<kFlat>;
+  const size_t shared =
+      plan_shared_bytes(tile_r, n_clusters, n_super, n_keys);
+  const bool wide = n_clusters > kNarrowClusters;
+  auto kernel = mode == kDual
+                    ? (wide ? plan_kernel<kDual, true> : plan_kernel<kDual, false>)
+                : mode == kSuper
+                    ? (wide ? plan_kernel<kSuper, true>
+                            : plan_kernel<kSuper, false>)
+                    : (wide ? plan_kernel<kFlat, true> : plan_kernel<kFlat, false>);
   const cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n_rays + tile_r - 1) / tile_r;
@@ -1128,29 +1404,6 @@ extern "C" int cluster_plan_rows(PLAN_ARGS, float* entry_out, void* stream) {
 
 #undef PLAN_ARGS
 
-extern "C" int cluster_closest(
-    const int32_t* nvis, const int32_t* visit, const float* entry,
-    const float* root, const float* px, const float* py, const float* pz,
-    const float* dx, const float* dy, const float* dz, const float* tf0,
-    const uint8_t* valid, const float* table, int battery, int n_rays,
-    int tile_r, int n_clusters, int k_prims, float* tfar_out,
-    int32_t* prim_out, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t shared =
-      static_cast<size_t>(k_prims) * (battery ? 3 : 1) * sizeof(float4);
-  auto kernel = battery == kTriangleProduct ? closest_kernel<kTriangleProduct>
-                : battery == kTriangle      ? closest_kernel<kTriangle>
-                                            : closest_kernel<kSphere>;
-  const cudaError_t err = allow_shared(kernel, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, tile_r, shared, static_cast<cudaStream_t>(stream)>>>(
-      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tf0, valid,
-      reinterpret_cast<const float4*>(table), n_rays, n_clusters, k_prims,
-      tfar_out, prim_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int cluster_occluded(
     const int32_t* nvis, const int32_t* visit, const float* entry,
     const float* root, const float* px, const float* py, const float* pz,
@@ -1174,26 +1427,78 @@ extern "C" int cluster_occluded(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The streamed walks: `packed` is the [C * F8, K] table, `battery` 0 for
-// spheres and 1 for triangles, `split` the S of the S-way split (1, 2 or 4;
-// tile_r * S threads a block, at most 1024). Two slots of one cluster's
-// attribute rows.
-using ClosestStreamFn = decltype(&closest_stream_kernel<true, 1>);
-using OccludedStreamFn = decltype(&occluded_stream_kernel<true, 1>);
+// The closest walks: `battery` 0 (spheres), 1 (triangles) or 2 (the
+// product form, resident table only), `split` the S of the S-way split (1,
+// 2 or 4; tile_r * S threads a block, at most 1024). Two slots of one
+// cluster's rows. cluster_closest reads the resident [C * K, F] table
+// (16-byte aligned), cluster_closest_stream the packed [C * F8, K] one.
+using ClosestFn = decltype(&closest_kernel<kSphere, false, 1>);
 
-// The kernels of (battery, split), or nullptr for a split they do not have.
-static ClosestStreamFn closest_stream_for(int battery, int split) {
-  if (battery) {
-    return split == 4   ? closest_stream_kernel<true, 4>
-           : split == 2 ? closest_stream_kernel<true, 2>
-           : split == 1 ? closest_stream_kernel<true, 1>
-                        : nullptr;
-  }
-  return split == 4   ? closest_stream_kernel<false, 4>
-         : split == 2 ? closest_stream_kernel<false, 2>
-         : split == 1 ? closest_stream_kernel<false, 1>
+template <int kBattery, bool kPacked>
+static ClosestFn closest_split(int split) {
+  return split == 4   ? closest_kernel<kBattery, kPacked, 4>
+         : split == 2 ? closest_kernel<kBattery, kPacked, 2>
+         : split == 1 ? closest_kernel<kBattery, kPacked, 1>
                       : nullptr;
 }
+
+// The kernel of (battery, table, split), or nullptr where there is none.
+static ClosestFn closest_for(int battery, bool packed, int split) {
+  if (packed) {
+    return battery == kTriangle ? closest_split<kTriangle, true>(split)
+           : battery == kSphere ? closest_split<kSphere, true>(split)
+                                : nullptr;
+  }
+  return battery == kTriangleProduct
+             ? closest_split<kTriangleProduct, false>(split)
+         : battery == kTriangle ? closest_split<kTriangle, false>(split)
+         : battery == kSphere   ? closest_split<kSphere, false>(split)
+                                : nullptr;
+}
+
+#define CLOSEST_ARGS                                                        \
+  const int32_t *nvis, const int32_t *visit, const float *entry,            \
+      const float *root, const float *px, const float *py, const float *pz, \
+      const float *dx, const float *dy, const float *dz, const float *tf0,  \
+      const uint8_t *valid, const float *table, int battery, int split,     \
+      int n_rays, int tile_r, int n_clusters, int k_prims, float *tfar_out, \
+      int32_t *prim_out, void *stream
+
+static int launch_closest(bool packed, CLOSEST_ARGS) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const ClosestFn kernel = closest_for(battery, packed, split);
+  if (kernel == nullptr || tile_r * split > kMaxBlock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t shared =
+      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
+  const cudaError_t err = allow_shared(kernel, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n_rays + tile_r - 1) / tile_r;
+  kernel<<<tiles, tile_r * split, shared,
+           static_cast<cudaStream_t>(stream)>>>(
+      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tf0, valid, table,
+      n_rays, tile_r, n_clusters, k_prims, tfar_out, prim_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cluster_closest(CLOSEST_ARGS) {
+  return launch_closest(false, nvis, visit, entry, root, px, py, pz, dx, dy,
+                        dz, tf0, valid, table, battery, split, n_rays, tile_r,
+                        n_clusters, k_prims, tfar_out, prim_out, stream);
+}
+
+extern "C" int cluster_closest_stream(CLOSEST_ARGS) {
+  return launch_closest(true, nvis, visit, entry, root, px, py, pz, dx, dy,
+                        dz, tf0, valid, table, battery, split, n_rays, tile_r,
+                        n_clusters, k_prims, tfar_out, prim_out, stream);
+}
+
+#undef CLOSEST_ARGS
+
+// The streamed any-hit walk: `packed` is the [C * F8, K] table, `battery` 0
+// for spheres and 1 for triangles, `split` as above.
+using OccludedStreamFn = decltype(&occluded_stream_kernel<true, 1>);
 
 static OccludedStreamFn occluded_stream_for(int battery, int split) {
   if (battery) {
@@ -1206,30 +1511,6 @@ static OccludedStreamFn occluded_stream_for(int battery, int split) {
          : split == 2 ? occluded_stream_kernel<false, 2>
          : split == 1 ? occluded_stream_kernel<false, 1>
                       : nullptr;
-}
-
-extern "C" int cluster_closest_stream(
-    const int32_t* nvis, const int32_t* visit, const float* entry,
-    const float* root, const float* px, const float* py, const float* pz,
-    const float* dx, const float* dy, const float* dz, const float* tf0,
-    const uint8_t* valid, const float* packed, int battery, int split,
-    int n_rays, int tile_r, int n_clusters, int k_prims, float* tfar_out,
-    int32_t* prim_out, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const ClosestStreamFn kernel = closest_stream_for(battery, split);
-  if (kernel == nullptr || tile_r * split > kMaxBlock) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t shared =
-      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
-  const cudaError_t err = allow_shared(kernel, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, tile_r * split, shared,
-           static_cast<cudaStream_t>(stream)>>>(
-      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tf0, valid, packed,
-      n_rays, tile_r, n_clusters, k_prims, tfar_out, prim_out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int cluster_occluded_stream(

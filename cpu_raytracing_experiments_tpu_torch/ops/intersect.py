@@ -86,17 +86,6 @@ def prepare_stream(policy, scene) -> None:
             _tk._tables_packed(cp)
 
 
-def max_clusters(policy, cp):
-    """The most clusters the planner takes under `policy` for `cp`: where
-    the policy sorts in ``cluster_plan``, its limit at the tile size the
-    policy resolves to (``cluster_traverse.max_plan_clusters``); None (no
-    limit) where ``cluster_plan_rows`` plans."""
-    kw = _tile_for(_pallas_kw(policy), cp)
-    if not _tk.sorts_in_kernel(cp, kw["plan"], kw["sort"], kw["sort_impl"]):
-        return None
-    return _tk.max_plan_clusters(kw["tile_r"])
-
-
 # ---------------------------------------------------------------------------
 # Dense triangle batteries (ops/intersect.py:235-325 of the JAX package)
 # ---------------------------------------------------------------------------

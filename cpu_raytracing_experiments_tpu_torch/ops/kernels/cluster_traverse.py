@@ -47,6 +47,12 @@ planned and sorted by ``cluster_plan``. Every other combination launches
 sorts in PyTorch as the JAX package sorts in XLA (``_sort_tail``,
 ``_unsorted_tail``).
 
+Every closest walk, and the streamed any-hit walk, is a split walk: S
+threads share a ray (``_walk_split``: S = 1, 2 or 4 by the tile count and
+the card's size), a tile's live rays are packed into its first warps, and
+the next visit's rows are copied into shared memory while the battery runs
+on the current visit's. The resident any-hit walk has one thread a ray.
+
 The walks have two more forms each, chosen by the wrappers' keywords as in
 the JAX module:
 
@@ -55,10 +61,8 @@ the JAX module:
   ``_tables_packed`` (cluster c's attribute rows contiguous) and copy each
   visited cluster into one of two shared-memory slots asynchronously, the
   next visit's copy in flight while the battery runs on the current one.
-  S threads share a ray (``_stream_split``: S = 1, 2 or 4 by the tile count
-  and the card's size) and a tile's live rays are packed into its first
-  warps. Results equal the resident walks bit for bit. The plain version is
-  the plain walk on tables unpacked from the packed layout.
+  Results equal the resident walks bit for bit. The plain version is the
+  plain walk on tables unpacked from the packed layout.
 * ``mxu=True``: the triangle battery in product form
   (``_triangle_battery_mxu``; ``cluster_closest[mxu]``,
   ``cluster_occluded[mxu]``): the six ray . constant contractions of a
@@ -404,11 +408,22 @@ def _plan_mode(cp: ClusteredPrims, plan: str) -> str:
 
 def sorts_in_kernel(cp: ClusteredPrims, plan: str, sort: bool,
                     sort_impl: str) -> bool:
-    """Whether ``_plan_visits`` sorts in ``cluster_plan`` (the only planner
-    with a cluster limit, ``max_plan_clusters``): 'ray', 'super' and
-    'group' with ``sort`` and ``sort_impl='kernel'``."""
+    """Whether the policy asks ``_plan_visits`` to sort in ``cluster_plan``:
+    'ray', 'super' and 'group' with ``sort`` and ``sort_impl='kernel'``
+    (it does up to ``max_plan_clusters``)."""
     return (sort and sort_impl == "kernel"
             and _plan_mode(cp, plan) in ("ray", "super", "group"))
+
+
+def plans_in_kernel(cp: ClusteredPrims, plan: str, sort: bool,
+                    sort_impl: str, tile_r: int) -> bool:
+    """Whether ``_plan_visits`` on the card launches ``cluster_plan``: where
+    the policy sorts in the kernel and the pack holds at most
+    ``max_plan_clusters(tile_r)`` clusters. Otherwise it launches
+    ``cluster_plan_rows`` and sorts in PyTorch. The choice is by size, not
+    a fallback: both give the same lists."""
+    return (sorts_in_kernel(cp, plan, sort, sort_impl)
+            and cp.num_clusters <= max_plan_clusters(tile_r))
 
 
 def plan_visits_plain(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
@@ -619,9 +634,9 @@ def _bind(lib: ctypes.CDLL):
                                       + [i32] * 3 + [ptr] * 2)
     for fn in (lib.cluster_plan, lib.cluster_plan_rows):
         fn.restype = i32
-    lib.cluster_closest.argtypes = [ptr] * 13 + [i32] * 5 + [ptr] * 3
+    # the split walks take the split S after the battery code
+    lib.cluster_closest.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 3
     lib.cluster_occluded.argtypes = [ptr] * 12 + [i32] * 5 + [ptr] * 2
-    # the streamed walks take the split S after the battery code
     lib.cluster_closest_stream.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 3
     lib.cluster_occluded_stream.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 2
     for fn in (lib.cluster_closest, lib.cluster_occluded,
@@ -649,19 +664,23 @@ def _check(name: str, device, tensors, dtype, length=None):
                 f"contiguous={a.is_contiguous()}")
 
 
-def walk_shared_bytes(cp: ClusteredPrims, stream: bool) -> int:
+def walk_shared_bytes(cp: ClusteredPrims, stream: bool,
+                      closest: bool = False) -> int:
     """Dynamic shared memory a walk's block stages clusters in: one
-    cluster's attributes for the resident walks, two slots of them for the
-    streamed walks (32 KB at 256 triangles a cluster, 128 KB at 1024; the
-    copies skip the zero rows that pad a packed cluster to F8)."""
-    return cp.cluster_size * _N_ATTRS[cp.kind] * 4 * (2 if stream else 1)
+    cluster's attributes for the resident any-hit walk, two slots of them
+    for the split walks, every closest walk and the streamed any-hit walk
+    (32 KB at 256 triangles a cluster, 128 KB at 1024; the streamed copies
+    skip the zero rows that pad a packed cluster to F8)."""
+    slots = 2 if stream or closest else 1
+    return cp.cluster_size * _N_ATTRS[cp.kind] * 4 * slots
 
 
 def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
-                entry, nvis, stream):
+                entry, nvis, stream, closest):
     """Checks what a walk kernel takes and returns its table: the [C*K, F]
-    rows (planes for triangles) of the resident walks, or the [C*F8, K]
-    packed table of the streamed ones."""
+    rows (planes for triangles) of the resident walks, 16-byte aligned for
+    the closest walk's 16-byte copies, or the [C*F8, K] packed table of the
+    streamed ones."""
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors on {device}, need cuda or cpu")
     if tile_r % 32 or not 32 <= tile_r <= 1024:
@@ -684,7 +703,9 @@ def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
     if table.shape != shape:
         raise ValueError(f"{name}: table of shape {tuple(table.shape)}, "
                          f"need {shape}")
-    if walk_shared_bytes(cp, stream) > MAX_SHARED_BYTES:
+    if not stream and table.data_ptr() % 16:
+        raise ValueError(f"{name}: table not 16-byte aligned")
+    if walk_shared_bytes(cp, stream, closest) > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: cluster_size {k} does not fit one "
                          "block's shared memory")
     if n >= 2 ** 31 or t_tiles * c >= 2 ** 31 or table.numel() >= 2 ** 31:
@@ -692,23 +713,34 @@ def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
     return table
 
 
+def plan_shared_bytes(tile_r: int, c: int) -> int:
+    """Dynamic shared memory of one ``cluster_plan`` block for C = `c`
+    under 'super', the mode that needs the most (``plan_shared_bytes`` of
+    ``csrc/cluster_traverse.cu``): 32 bytes a staged ray, 4 a cluster (its
+    least entry), a union box and a slot of 32 clusters, and a 2-byte id a
+    cluster rounded up to a power of two (the sort)."""
+    keys = 1 << max(c - 1, 0).bit_length()
+    return tile_r * 32 + 4 * (c + -(-c // SUPER) + -(-c // 32)) + 2 * keys
+
+
 def max_plan_clusters(tile_r: int) -> int:
-    """The most clusters ``cluster_plan`` takes. One block sorts a tile's
-    list in shared memory, as a power-of-two array of 8-byte keys beside 28
-    bytes for each staged ray: 16,384 clusters for any tile_r up to 1024.
-    With 256 prims a cluster that is 4,194,304 prims in full clusters, and
-    about 3.1 million at the three-quarter fill of the SAH build.
-    ``cluster_plan_rows`` (every plan that does not sort in the kernel) has
-    no such limit."""
-    keys = (MAX_SHARED_BYTES - tile_r * 28) // 8
-    return 1 << (keys.bit_length() - 1) if keys >= 1 else 0
+    """The most clusters ``cluster_plan`` takes (a power of two): one block
+    keeps a tile's entries and sorts its list in shared memory, beside 1 KB
+    of static shared memory, and ids are 16-bit. 16,384 clusters at
+    tile_r = 1024, 32,768 up to tile_r = 512. ``_plan_visits`` plans a
+    larger pack with ``cluster_plan_rows`` and the PyTorch sort, which give
+    the same lists."""
+    c = 1
+    while (2 * c < 1 << 16
+           and plan_shared_bytes(tile_r, 2 * c) <= MAX_SHARED_BYTES - 1024):
+        c *= 2
+    return c
 
 
 def _plan_args(name: str, cp: ClusteredPrims, mode: str, p: Vec3, d: Vec3,
-               tf, valid, tile_r: int, in_kernel: bool):
-    """Checks what a planner kernel takes (`in_kernel`: ``cluster_plan``,
-    else ``cluster_plan_rows``); returns its arguments before the outputs,
-    and T."""
+               tf, valid, tile_r: int):
+    """Checks what a planner kernel takes; returns its arguments before the
+    outputs, and T."""
     device = tf.device
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors on {device}, need cuda or cpu")
@@ -716,10 +748,6 @@ def _plan_args(name: str, cp: ClusteredPrims, mode: str, p: Vec3, d: Vec3,
     t_tiles = -(-n // tile_r)
     if not 1 <= tile_r <= 1024:
         raise ValueError(f"{name}: tile_r={tile_r} outside [1, 1024]")
-    if in_kernel and c > max_plan_clusters(tile_r):
-        raise ValueError(f"{name}: {c} clusters, more than the "
-                         f"{max_plan_clusters(tile_r)} whose sort keys fit "
-                         "one block's shared memory")
     if n >= 2 ** 31 or t_tiles * c >= 2 ** 31:
         raise ValueError(f"{name}: sizes beyond int32")
     if mode == "group":
@@ -751,7 +779,7 @@ def plan_rows(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid, tile_r: int,
         return plan_rows_plain(cp, p, d, tf, valid, tile_r, mode)
     counter = PLAN_ROWS[mode]
     args, t_tiles = _plan_args(counter.name, cp, mode, p, d, tf, valid,
-                               tile_r, False)
+                               tile_r)
     entry = torch.empty((t_tiles, cp.num_clusters), dtype=torch.float32,
                         device=tf.device)
     build.launch(counter.name, LIBRARY.load().cluster_plan_rows, tf.device,
@@ -770,18 +798,19 @@ def _plan_visits(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
     the planner mode (module docstring); `sort` orders each list front to
     back, else the entered clusters keep cluster-id order under suffix-
     minimum entries; `sort_impl='kernel'` sorts 'ray', 'super' and 'group'
-    lists in ``cluster_plan``, and every other combination takes
-    ``plan_rows`` and sorts in PyTorch. CPU tensors take
+    lists in ``cluster_plan`` up to ``max_plan_clusters``, and every other
+    combination, or a larger pack, takes ``plan_rows`` and sorts in PyTorch
+    (the same lists: the sort is stable). CPU tensors take
     ``plan_visits_plain``."""
     mode = _plan_mode(cp, plan)
     if tf.device.type == "cpu":
         return plan_visits_plain(cp, p, d, tf, valid, tile_r, mode, sort)
-    if not sorts_in_kernel(cp, mode, sort, sort_impl):
+    if not plans_in_kernel(cp, mode, sort, sort_impl, tile_r):
         rows = plan_rows(cp, p, d, tf, valid, tile_r, mode)
         return _sort_tail(rows) if sort else _unsorted_tail(rows)
     counter = {"ray": PLAN, "super": PLAN_SUPER, "group": PLAN_GROUP}[mode]
     args, t_tiles = _plan_args(counter.name, cp, mode, p, d, tf, valid,
-                               tile_r, True)
+                               tile_r)
     shape, device = (t_tiles, cp.num_clusters), tf.device
     entry = torch.empty(shape, dtype=torch.float32, device=device)
     visit = torch.empty(shape, dtype=torch.int32, device=device)
@@ -800,20 +829,20 @@ def _card_threads(index: int) -> int:
     return props.multi_processor_count * props.max_threads_per_multi_processor
 
 
-STREAM_WAVES = 4  # the streamed walks' threads, in the card's resident threads
+STREAM_WAVES = 4  # the split walks' threads, in the card's resident threads
 
 
 def _stream_split(t_tiles: int, tile_r: int, device) -> int:
-    """S of the streamed walks' S-way split (``csrc/cluster_traverse.cu``:
+    """S of the split walks' S-way split (``csrc/cluster_traverse.cu``:
     S threads a ray, each owning every S-th slot of a staged cluster): the
     largest of 1, 2 and 4 at which the launch's T x tile_r x S threads stay
     within STREAM_WAVES times the threads the card holds resident at once,
     in blocks of at most MAX_BLOCK threads. More threads a ray shorten each
     tile's walk S-fold, which trims the tail of long tiles and fills the
     card on a narrow wavefront, and each repeats its ray's setup and joins
-    the reduction; ``chip_smoke.py`` times S = 1, 2 and 4 on every streamed
-    batch. On an H100: S = 4 for the 131,072-lane narrowed batches, S = 2
-    for 2^19 lanes, at tiles of 128 or 256 rays."""
+    the reduction; ``chip_smoke.py`` times S = 1, 2 and 4 on every batch of
+    a split walk. On an H100: S = 4 for the 131,072-lane narrowed batches,
+    S = 2 for 2^19 lanes, at tiles of 128 or 256 rays."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     budget = STREAM_WAVES * _card_threads(index)
@@ -822,6 +851,17 @@ def _stream_split(t_tiles: int, tile_r: int, device) -> int:
            and t_tiles * tile_r * 2 * s <= budget):
         s *= 2
     return s
+
+
+def _walk_split(counter: LaunchCounter, t_tiles: int, tile_r: int,
+                device) -> Optional[int]:
+    """S of a walk kernel's S-way split: ``_stream_split`` for the split
+    walks (every closest walk, resident, product-form or streamed, and the
+    streamed any-hit walk); None for the resident any-hit walks, which have
+    one thread a ray."""
+    if counter in (OCCLUDED, OCCLUDED_MXU):
+        return None
+    return _stream_split(t_tiles, tile_r, device)
 
 
 def _walk_kernel(cp: ClusteredPrims, mxu: bool, stream: bool, resident,
@@ -845,7 +885,8 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     int32 = cluster * K + slot, or (tf0, -1)). CPU tensors take
     ``walk_closest_plain``; CUDA tensors launch ``cluster_closest``, its
     product-form variant (`mxu`, triangle packs) or
-    ``cluster_closest_stream`` (`stream`)."""
+    ``cluster_closest_stream`` (`stream`), each at the S of
+    ``_walk_split``."""
     device = tf0.device
     counter, battery = _walk_kernel(cp, mxu, stream, CLOSEST, CLOSEST_STREAM,
                                     CLOSEST_MXU)
@@ -855,19 +896,19 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
             packed=_tables_packed(cp) if stream else None)
     n = tf0.shape[0]
     table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tf0),
-                        visit, entry, nvis, stream)
+                        visit, entry, nvis, stream, True)
     _check(counter.name, device, (valid,), torch.bool, n)
     root = _root_row(cp)
     lib = LIBRARY.load()
     tfar = torch.empty(n, dtype=torch.float32, device=device)
     prim = torch.empty(n, dtype=torch.int32, device=device)
-    split = [_stream_split(visit.shape[0], tile_r, device)] if stream else []
+    split = _walk_split(counter, visit.shape[0], tile_r, device)
     build.launch(counter.name,
                  lib.cluster_closest_stream if stream else lib.cluster_closest,
                  device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tf0, valid, table)]
-                 + [battery, *split, n, tile_r, cp.num_clusters,
+                 + [battery, split, n, tile_r, cp.num_clusters,
                     cp.cluster_size, tfar.data_ptr(), prim.data_ptr()])
     counter.launches += 1
     return tfar, prim
@@ -888,11 +929,12 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
             packed=_tables_packed(cp) if stream else None)
     n = tfar.shape[0]
     table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tfar),
-                        visit, entry, nvis, stream)
+                        visit, entry, nvis, stream, False)
     root = _root_row(cp)
     lib = LIBRARY.load()
     occ = torch.empty(n, dtype=torch.bool, device=device)
-    split = [_stream_split(visit.shape[0], tile_r, device)] if stream else []
+    split = _walk_split(counter, visit.shape[0], tile_r, device)
+    split = [] if split is None else [split]
     build.launch(counter.name,
                  lib.cluster_occluded_stream if stream
                  else lib.cluster_occluded, device,

@@ -41,7 +41,7 @@ class Renderer:
                  width: int = 256, height: int = 256, device=None):
         self.device = resolve_device(device)
         self.policy = policy or RendererPolicy()
-        check_policy(self.policy, scene)
+        check_policy(self.policy)
         self.width = width
         self.height = height
         self.scene = scene.to(self.device)

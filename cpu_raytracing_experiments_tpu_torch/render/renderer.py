@@ -65,7 +65,7 @@ def narrowing_on(policy: RendererPolicy, scene: Scene) -> bool:
     return bool(nw)
 
 
-def check_policy(policy: RendererPolicy, scene: Scene = None):
+def check_policy(policy: RendererPolicy):
     """Refuse every knob this port does not render, by name and before any
     work, so that no knob silently changes the result.
 
@@ -82,11 +82,10 @@ def check_policy(policy: RendererPolicy, scene: Scene = None):
     planners render: ``pallas_plan`` 'ray', 'auto', 'super', 'group',
     'tilebox' and 'hybrid', ``pallas_sort_impl`` 'kernel' and 'xla' and
     ``pallas_sort_visits`` either way; another ``pallas_plan`` is refused.
-    So is a scene whose spheres or triangles are cut into more clusters
-    than the planner kernel sorts in one block
-    (``cluster_traverse.max_plan_clusters``: 16,384), where the policy
-    sorts there ('ray', 'super' or 'group' with ``pallas_sort_visits`` and
-    ``pallas_sort_impl='kernel'``); the other planners have no limit."""
+    A pack of any cluster count plans: above what the sorting planner
+    kernel holds in one block (``cluster_traverse.max_plan_clusters``) the
+    planner writes the entry matrix and sorts it in PyTorch, with the same
+    lists."""
     accels = {policy.effective_accel, policy.primary_accel or "brute"}
     refused = {
         f"accel={policy.effective_accel!r}":
@@ -102,19 +101,9 @@ def check_policy(policy: RendererPolicy, scene: Scene = None):
         f"samples_per_pixel={policy.samples_per_pixel}":
             policy.samples_per_pixel != 1,
     }
-    plans = "pallas" in accels and policy.pallas_plan in ("auto",) + PLANS
     if "pallas" in accels:
-        refused[f"pallas_plan={policy.pallas_plan!r}"] = not plans
-    if scene is not None and plans:
-        for cp in (scene.sphere_clusters, scene.tri_clusters):
-            if cp is None:
-                continue
-            most = intersect.max_clusters(policy, cp)
-            refused[f"accel='pallas' on {cp.num_clusters} clusters of "
-                    f"{cp.kind}s (the planner kernel takes {most}; build "
-                    "with a larger cluster_size, or plan with "
-                    "pallas_sort_impl='xla')"] = (most is not None
-                                                  and cp.num_clusters > most)
+        refused[f"pallas_plan={policy.pallas_plan!r}"] = \
+            policy.pallas_plan not in ("auto",) + PLANS
     what = [k for k, bad in refused.items() if bad]
     if what:
         raise NotImplementedError(
@@ -611,7 +600,7 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     + k - 1 are traced as one wide wavefront and the radiance comes back as
     [k, npix] rows, each bit-identical to its sequential pass (the counter
     RNG keys every draw by accumulation and pixel)."""
-    check_policy(policy, scene)
+    check_policy(policy)
     device = scene.device
     if npix is None:
         npix = width * height

@@ -49,11 +49,9 @@ def with_pallas_clusters(scene: Scene, cluster_size="auto",
 
     The SAH tree comes from ``csrc/bvh_builder.cpp``, built with g++ at
     first use; without a C++ compiler the build raises (there is no second
-    builder). The planner kernel that sorts in the kernel takes at most
-    16,384 clusters (``cluster_traverse.max_plan_clusters``), which at
-    cluster_size 256 is about 3.1 million prims; the renderer refuses a
-    larger table before any work where a policy takes that sort
-    (``render.renderer.check_policy``)."""
+    builder). Any cluster count plans: above what the sorting planner
+    kernel holds in one block (``cluster_traverse.max_plan_clusters``),
+    ``_plan_visits`` sorts the entry matrix in PyTorch."""
     if cluster_size == "auto":
         p = scene.spheres.count
         if scene.triangles is not None:

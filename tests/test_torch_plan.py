@@ -333,23 +333,84 @@ def test_mesh_render_under_each_planner(how):
 
 def test_cluster_limit_binds_only_the_sort_in_the_kernel(monkeypatch):
     """``max_plan_clusters`` limits only the planner that sorts in the
-    kernel: with the limit patched below the pack's cluster count,
-    check_policy refuses the pack under the default planner and under
-    'super', and accepts it under pallas_sort_impl='xla', under
-    pallas_sort_visits=False and under 'tilebox'."""
+    kernel, and no longer refuses a pack: with the limit patched below the
+    pack's cluster count, check_policy accepts every planner, the route of
+    the policies that sort in the kernel turns to ``cluster_plan_rows`` and
+    the PyTorch sort, and that route's lists (the rows' plain version, then
+    ``_sort_tail``) equal the sorted plain plan: nvis, and below it the ids
+    and the entries."""
     scene = taccel.with_pallas_clusters(
         tbuilders.random_spheres_scene(8, 8, num_spheres=200),
         cluster_size=32)
-    assert scene.sphere_clusters.num_clusters > 4
-    monkeypatch.setattr(ttk, "max_plan_clusters", lambda tile_r: 4)
+    cp = scene.sphere_clusters
+    assert cp.num_clusters > 4
     base = dict(max_bounces=2, accel="pallas")
-    for kw in ({}, {"pallas_plan": "super"}):
-        with pytest.raises(NotImplementedError, match="takes 4"):
-            tr.check_policy(RendererPolicy(**base, **kw), scene)
-    for kw in ({"pallas_sort_impl": "xla"}, {"pallas_sort_visits": False},
-               {"pallas_plan": "tilebox"}):
+    sorted_in_kernel = ({}, {"pallas_plan": "super"},
+                        {"pallas_plan": "group"})
+    for kw in sorted_in_kernel:
         pol = RendererPolicy(**base, **kw)
-        tr.check_policy(pol, scene)
-        assert tint.max_clusters(pol, scene.sphere_clusters) is None
+        k = tint._tile_for(tint._pallas_kw(pol), cp)
+        assert ttk.plans_in_kernel(cp, k["plan"], k["sort"], k["sort_impl"],
+                                   k["tile_r"])
+    monkeypatch.setattr(ttk, "max_plan_clusters", lambda tile_r: 4)
+    for kw in sorted_in_kernel + ({"pallas_sort_impl": "xla"},
+                                  {"pallas_sort_visits": False},
+                                  {"pallas_plan": "tilebox"}):
+        pol = RendererPolicy(**base, **kw)
+        tr.check_policy(pol)
+        k = tint._tile_for(tint._pallas_kw(pol), cp)
+        assert not ttk.plans_in_kernel(cp, k["plan"], k["sort"],
+                                       k["sort_impl"], k["tile_r"])
+    jcp, tcp = _packs("sphere")
+    p, d, tf, valid = _ray_case("scattered", jcp)
+    args = (tcp, _tv(p), _tv(d), torch.from_numpy(tf),
+            torch.from_numpy(valid), TILE_R)
+    for plan in ("ray", "super"):
+        v, e, n = ttk._sort_tail(ttk.plan_rows(*args, plan))
+        pv, pe, pn = ttk.plan_visits_plain(*args, plan)
+        below = torch.arange(tcp.num_clusters)[None] < pn[:, None]
+        assert torch.equal(n, pn) and int(pn.sum()) > 0
+        assert torch.equal(v[below], pv[below])
+        assert torch.equal(e[below], pe[below])
     with pytest.raises(NotImplementedError, match="pallas_plan='bvh'"):
-        tr.check_policy(RendererPolicy(**base, pallas_plan="bvh"), scene)
+        tr.check_policy(RendererPolicy(**base, pallas_plan="bvh"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["ray", "super", "group"])
+def test_plan_kernel_on_box_faces_and_equal_entries_on_card(plan):
+    """cluster_plan on a CUDA card in each mode against its plain version:
+    nvis, and below it the ids and the entries, equal, on rays that start
+    on a box face with a zero direction component (a NaN slab product: the
+    box is not entered) and on a pack in which every cluster box appears
+    twice, so that every entered cluster has an equal entry in another
+    cluster and the lower id must come first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    jcp, tcp = _packs("triangle")
+    src = tcp.to_numpy()
+    twice = dict(src, lo=np.repeat(src["lo"], 2, axis=0),
+                 hi=np.repeat(src["hi"], 2, axis=0),
+                 glo=np.repeat(src["glo"], 2, axis=1),
+                 ghi=np.repeat(src["ghi"], 2, axis=1),
+                 rows=np.repeat(src["rows"].reshape(tcp.num_clusters, -1),
+                                2, axis=0).reshape(-1, src["rows"].shape[1]),
+                 planes=np.repeat(src["planes"].reshape(tcp.num_clusters, -1),
+                                  2, axis=0).reshape(-1, 12),
+                 order=np.repeat(src["order"].reshape(tcp.num_clusters, -1),
+                                 2, axis=0).reshape(-1),
+                 num_clusters=2 * tcp.num_clusters)
+    for case, cp_cpu in (("on_box_faces", tcp), ("scattered", tcp),
+                         ("camera", tcl.ClusteredPrims.from_numpy(twice))):
+        cp = cp_cpu.to("cuda")
+        p, d, tf, valid = _ray_case(case, jcp)
+        args = (cp, _tv(p).to("cuda"), _tv(d).to("cuda"),
+                torch.from_numpy(tf).cuda(), torch.from_numpy(valid).cuda(),
+                TILE_R, plan)
+        kv, ke, kn = ttk._plan_visits(*args)
+        pv, pe, pn = ttk.plan_visits_plain(*args)
+        below = torch.arange(cp.num_clusters, device="cuda")[None] \
+            < pn[:, None]
+        assert torch.equal(kn, pn) and int(pn.sum()) > 0
+        assert torch.equal(kv[below], pv[below])
+        assert torch.equal(ke[below], pe[below])

@@ -385,36 +385,50 @@ def test_schedule_knobs_accepted_and_change_nothing(knob):
     assert torch.equal(buckets(**knob), buckets())
 
 
-def test_too_many_clusters_refused_before_any_work():
-    """The planner kernel sorts a tile's list in one block's shared memory:
-    at most 16,384 clusters at every tile size. A scene cut into more is
-    refused by name when the renderer is made, not at the first launch."""
+def test_too_many_clusters_refused_before_any_work(monkeypatch):
+    """No cluster count is refused any more. The planner kernel that sorts
+    keeps a tile's entries and sorts its list in one block's shared memory
+    (``max_plan_clusters``); a pack above that is planned by
+    ``cluster_plan_rows`` and the PyTorch sort, which give the same lists.
+    So a Renderer is made for a scene of 16,385 clusters (spheres or
+    triangles) under the default policy, and with the limit patched below a
+    real pack's cluster count the route is the rows planner, and the render
+    equals the unpatched one bit for bit."""
     import dataclasses
 
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
 
     assert [ct.max_plan_clusters(t) for t in (32, 128, 256, 1024)] \
-        == [16384] * 4
+        == [32768] * 3 + [16384]
     scene = taccel.with_pallas_clusters(
         tbuilders.random_spheres_scene(8, 8, num_spheres=200),
         cluster_size=32)
     over = dataclasses.replace(scene, sphere_clusters=dataclasses.replace(
-        scene.sphere_clusters, num_clusters=16385))
+        scene.sphere_clusters, num_clusters=1 << 16))
     pol = RendererPolicy(max_bounces=2, accel="pallas")
-    with pytest.raises(NotImplementedError, match="16385 clusters"):
-        Renderer(over, pol, 8, 8, device="cpu")
-    Renderer(scene, pol, 8, 8, device="cpu")
-    Renderer(over, RendererPolicy(max_bounces=2), 8, 8, device="cpu")
-    # the triangle pack of a scene is held to the same limit
+    Renderer(over, pol, 8, 8, device="cpu")
     mesh = taccel.with_pallas_clusters(
         tbuilders.mesh_scene(8, 8, subdivisions=2), cluster_size=32)
-    over = dataclasses.replace(mesh, tri_clusters=dataclasses.replace(
-        mesh.tri_clusters, num_clusters=16385))
-    with pytest.raises(NotImplementedError,
-                       match="16385 clusters of triangles"):
-        Renderer(over, pol, 8, 8, device="cpu")
-    Renderer(mesh, pol, 8, 8, device="cpu")
+    Renderer(dataclasses.replace(mesh, tri_clusters=dataclasses.replace(
+        mesh.tri_clusters, num_clusters=1 << 16)), pol, 8, 8, device="cpu")
+    assert not ct.plans_in_kernel(over.sphere_clusters, "ray", True,
+                                  "kernel", 256)
+    cp = scene.sphere_clusters
+    assert ct.plans_in_kernel(cp, "ray", True, "kernel", 256)
+
+    def render():
+        r = Renderer(scene, RendererPolicy(max_bounces=2, accel="pallas",
+                                           pallas_tile_rays=32), 8, 8,
+                     device="cpu")
+        r.accumulate(2)
+        return r.state.buckets
+
+    want = render()
+    monkeypatch.setattr(ct, "max_plan_clusters", lambda tile_r: 4)
+    assert cp.num_clusters > 4
+    assert not ct.plans_in_kernel(cp, "ray", True, "kernel", 256)
+    assert torch.equal(render(), want)
 
 
 def test_narrowing_auto_and_triangles_raise():

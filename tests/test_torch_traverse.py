@@ -693,6 +693,28 @@ def test_stream_split_rule(monkeypatch, lanes, tile_r, split):
     assert got == split
 
 
+@pytest.mark.parametrize("walk,lanes,tile_r,split", [
+    ("cluster_closest", 131072, 128, 4), ("cluster_closest", 1 << 19, 128, 2),
+    ("cluster_closest[mxu]", 1 << 19, 128, 2),
+    ("cluster_closest_stream", 131072, 256, 4),
+    ("cluster_occluded_stream", 1 << 19, 256, 2),
+    ("cluster_closest", 1 << 21, 256, 1), ("cluster_closest", 4096, 1024, 1),
+    ("cluster_occluded", 131072, 128, None),
+    ("cluster_occluded[mxu]", 131072, 128, None)])
+def test_walk_split_rule(monkeypatch, walk, lanes, tile_r, split):
+    """The S each walk kernel launches with on a card of 132 SMs x 2048
+    threads: every closest walk (resident, product-form, streamed) and the
+    streamed any-hit walk take the streamed walks' rule; the resident
+    any-hit walks have no split."""
+    monkeypatch.setattr(ttk, "_card_threads", lambda index: 132 * 2048)
+    counter = {c.name: c for c in (
+        ttk.CLOSEST, ttk.CLOSEST_MXU, ttk.CLOSEST_STREAM, ttk.OCCLUDED,
+        ttk.OCCLUDED_MXU, ttk.OCCLUDED_STREAM)}[walk]
+    got = ttk._walk_split(counter, -(-lanes // tile_r), tile_r,
+                          torch.device("cuda", 0))
+    assert got == split
+
+
 def _card_batch(cp_cpu, n=4000):
     cp = cp_cpu.to("cuda")
     p, d = _rays(n, 101)
@@ -730,7 +752,7 @@ def test_stream_kernels_match_on_card(stream_packs, kind):
 def test_mxu_kernels_match_on_card(stream_packs):
     """The product-form battery of cluster_closest / cluster_occluded on a
     CUDA card against its plain version: equal ids and occlusion bits, t
-    within 2 ulp."""
+    bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     cp, p, d, tf, valid, plan = _card_batch(stream_packs["triangle"][1])
@@ -738,8 +760,7 @@ def test_mxu_kernels_match_on_card(stream_packs):
     pt, pid = ttk.walk_closest_plain(cp, *plan, p, d, tf, valid, TILE_R,
                                      mxu=True)
     assert torch.equal(kid, pid)
-    ulp = (kt.view(torch.int32) - pt.view(torch.int32)).abs()
-    assert int(ulp.max()) <= 2
+    assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
     assert torch.equal(
         ttk.walk_occluded(cp, *plan, p, d, tf, TILE_R, mxu=True),
         ttk.walk_occluded_plain(cp, *plan, p, d, tf, TILE_R, mxu=True))
@@ -812,3 +833,47 @@ def test_stream_kernels_ties_and_dead_lanes_on_card(tie_packs, stream_packs,
             cp, *splan, p, d, tf, TILE_R, packed=ttk._tables_packed(cp)))
         assert torch.equal(ko, ttk.walk_occluded(cp, *splan, p, d, tf,
                                                  TILE_R))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_closest_kernels_ties_and_dead_lanes_on_card(tie_packs, stream_packs,
+                                                     monkeypatch, split):
+    """cluster_closest on a CUDA card at each S of its S-way split, with
+    each battery (spheres, triangles, the product form): on the tie pack,
+    where the first copy in (visit, slot) order must win every hit, and on
+    batches with half their lanes dead, which keep (tf0, -1); equal to the
+    plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    monkeypatch.setattr(ttk, "_stream_split", lambda *args: split)
+    for cp_cpu, mxu in ((tie_packs[1], False), (tie_packs[1], True),
+                        (stream_packs["triangle"][1], False),
+                        (stream_packs["triangle"][1], True),
+                        (stream_packs["sphere"][1], False)):
+        cp = cp_cpu.to("cuda")
+        k = cp.cluster_size
+        n = 3000
+        p, d = _rays(n, 171, coherent=cp_cpu is tie_packs[1])
+        p, d = _tv(p).to("cuda"), _tv(d).to("cuda")
+        g = np.random.default_rng(172)
+        alive = torch.from_numpy(g.random(n) < 0.5).cuda()
+        tf0 = torch.from_numpy(np.where(
+            g.random(n) < 0.5, FLT_MAX, g.uniform(1.0, 20.0, n)
+        ).astype(np.float32)).cuda()
+        plan = ttk._plan_visits(cp, p, d, torch.where(alive, tf0, 0.0),
+                                alive, TILE_R)
+        kt, kid = ttk.walk_closest(cp, *plan, p, d, tf0, alive, TILE_R,
+                                   mxu=mxu)
+        pt, pid = ttk.walk_closest_plain(cp, *plan, p, d, tf0, alive,
+                                         TILE_R, mxu=mxu)
+        assert torch.equal(kid, pid)
+        assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
+        assert bool((kid[~alive] == -1).all())
+        assert torch.equal(kt[~alive], tf0[~alive])
+        hit = kid >= 0
+        assert int(hit.sum()) > 50
+        if cp_cpu is tie_packs[1]:
+            slot = kid[hit] % k
+            assert bool(((kid[hit] // k) % 2 == 0).all())
+            assert bool(((slot < k // 2) & (slot % 2 == 0)).all())
