@@ -7,10 +7,10 @@ NVIDIA GPU and check it end to end.
 Phases:
   1. device info and the build of csrc/ (the three CUDA sources with nvcc
      for sm_90a and the host tree builder with g++, the four compilers
-     started together); -Xptxas -v of the planner, the split walks and the
+     started together); -Xptxas -v of both planners, every walk and the
      fma kernel (registers, spills, shared memory), the float64 instructions
-     in the SASS of every kernel of the walks and batteries (cuobjdump): the
-     planner or a split walk with any fails the run; the SASS opcodes of the
+     in the SASS of every kernel of the walks and batteries (cuobjdump): a
+     planner or a walk with any fails the run; the SASS opcodes of the
      flat planner and the card's clock, for its issue floor;
   2. the fma kernel against fp.fma's plain form (float64, round-to-odd),
      bit for bit, on 2^22 random triples with wide exponents, the triples on
@@ -32,10 +32,10 @@ Phases:
      launches them with: the 2^19 camera rays of the frame's first chunk,
      2^19 diffuse-like rays with a tfar0 seed and half the lanes dead, and
      the 131,072-lane wavefront the bounce loop narrows that chunk to, with
-     its alive mask; the closest walk bit for bit and timed at every S of its
+     its alive mask; both walks bit for bit and timed at every S of their
      S-way split (1, 2, 4); on the 100,000-sphere and the 20,000-triangle
      table also the streamed walks, against their plain versions and
-     against the resident kernels, bit for bit;
+     against the resident kernels (at every S), bit for bit;
   8. the clustered closest walk against the brute sphere_closest kernel on
      the same rays: equal tfar, equal ids except at exact ties;
   9. the large-scene path at full width: random_spheres_scene(1920, 1088)
@@ -45,19 +45,19 @@ Phases:
      accel='brute': bit-identical buckets;
  11. the triangle-mesh tables: mesh_scene(uv_res=224) (100,352 triangles,
      K = 128, tiles of 128) with the resident walks and the product-form
-     triangle battery (against its plain version at every S: equal ids,
-     occlusion bits and t bits; against the ordinary battery: ids equal and t
-     within rtol 1e-5 / atol 1e-6 on every lane but those that a float64
-     evaluation shows to lie on a decision boundary to within float32
-     rounding), and
+     triangle battery (both walks against their plain version at every S:
+     equal ids, occlusion bits and t bits; against the ordinary battery: ids
+     equal and t within rtol 1e-5 / atol 1e-6 on every lane but those that
+     a float64 evaluation shows to lie on a decision boundary to within
+     float32 rounding), and
      mesh_scene(uv_res=810) (1,312,200 triangles, K = 256, tiles of 256)
      with the planner, the resident and the streamed walks, on camera,
      diffuse and narrowed batches; the streamed walks bit for bit at every
      S of their S-way split (1, 2, 4) and timed at each; then the tie batch:
      a pack made from the 100,352-triangle one in which every prim has 3
      more copies in its cluster and 4 in the next cluster, walked by the
-     closest walk (both triangle batteries) and the streamed walks at every
-     S against the plain version and the resident kernels, the first copy
+     resident walks (the closest one with both triangle batteries) and the
+     streamed walks at every S against the plain version, the first copy
      in (visit, slot) order winning every hit;
  12. goldens on the card: cornell 64x64 and mesh_scene(96, 96,
      subdivisions=3) at the bar of tests/test_goldens.py::_check through the
@@ -73,9 +73,12 @@ Phases:
      and the 100,000-sphere tables, each with a group-box pack beside the
      default one, on camera, narrowed and diffuse batches, every mode of
      cluster_plan and cluster_plan_rows against its plain version bit for
-     bit, 'super' equal to the flat plan, the tilebox and hybrid entries no
-     larger than the flat ones, and the walks each planner feeds equal to
-     the flat plan's walks but for exact ties between clusters; then
+     bit (cluster_plan_rows also with its chunk patched to 96 clusters, below
+     every pack's C), 'super' equal to the flat plan, the tilebox and hybrid
+     entries no larger than the flat ones, the any-hit walk on each pack at
+     every S against its plain version and the streamed walk, and the walks
+     each planner feeds equal to the flat plan's walks but for exact ties
+     between clusters; then
      mesh_scene(uv_res=224) at 1920x1088 under each planner (eight
      renders: the six of the planners and two more that launch the super
      and group modes of cluster_plan_rows), and the mesh golden under
@@ -86,9 +89,9 @@ Phases:
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
 keyed "kernels" lists every kernel: the five of the sphere paths, the fma
-kernel, the closest walks and the streamed any-hit walk with their S, the
-walks with the product-form battery and the seven planner modes of phase
-14), the clusters planned and walked per tile under each planner, the
+kernel, every walk with its S, the walks with the product-form battery and
+the seven planner modes of phase 14), the clusters planned and walked per
+tile under each planner, the
 total time, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
 """
@@ -179,7 +182,8 @@ ROUNDING_TERMS = 2  # float32 epsilons (2^-23) of rounding allowed per summed
 PLAIN_WALK_LIMIT_S = 20.0  # a plain walk predicted to take longer is run on
 # the narrowed width instead
 FMA_TRIPLES = 1 << 22  # random triples the fma kernel is held to fp.fma on
-SPLITS = (1, 2, 4)  # the S of the streamed walks' S-way split
+SPLITS = (1, 2, 4)  # the S of the walks' S-way split
+PATCHED_CHUNK = 96  # cluster_plan_rows' chunk in phase 14's patched run
 
 
 def log(*args):
@@ -255,21 +259,18 @@ def ptxas_report(build_log: str, keys):
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel of csrc/: the streamed walks'
     battery and split, or the function's name."""
-    m = re.search(r"closest_kernelILi(\d)ELb([01])ELi(\d)E", mangled)
-    if m:
-        battery = ("sphere", "triangle", "product form")[int(m.group(1))]
-        return (f"cluster_closest{'_stream' if m.group(2) == '1' else ''}"
-                f"[{battery}, S={m.group(3)}]")
-    m = re.search(r"plan_kernelILi(\d)ELb([01])E", mangled)
-    if m:
-        return (f"cluster_plan[{('ray', 'group', 'super')[int(m.group(1))]}, "
-                f"{'wide' if m.group(2) == '1' else 'narrow'}]")
-    m = re.search(r"(closest|occluded)_stream_kernelILb([01])ELi(\d)E",
+    m = re.search(r"(closest|occluded)_kernelILi(\d)ELb([01])ELi(\d)E",
                   mangled)
     if m:
-        return (f"cluster_{m.group(1)}_stream["
-                f"{'triangle' if m.group(2) == '1' else 'sphere'}, "
-                f"S={m.group(3)}]")
+        battery = ("sphere", "triangle", "product form")[int(m.group(2))]
+        return (f"cluster_{m.group(1)}"
+                f"{'_stream' if m.group(3) == '1' else ''}"
+                f"[{battery}, S={m.group(4)}]")
+    m = re.search(r"plan_kernelILi(\d)ELb([01])ELb([01])E", mangled)
+    if m:
+        mode = ("ray", "group", "super", "tilebox", "hybrid")[int(m.group(1))]
+        return (f"cluster_plan{'_rows' if m.group(3) == '1' else ''}[{mode}, "
+                f"{'wide' if m.group(2) == '1' else 'narrow'}]")
     m = re.search(r"\d+([a-z_]+_kernel)(?:I(?:Li)?(\w)E)?", mangled)
     if not m:
         return mangled
@@ -310,17 +311,18 @@ def sass_report(library) -> dict:
     return counts
 
 
-SPLIT_WALKS = ("stream_kernel", "closest_kernel")  # the split walks' names
+SPLIT_WALKS = ("closest_kernel", "occluded_kernel")  # the walks' names
 CHECKED = SPLIT_WALKS + ("plan_kernel",)  # kernels that must hold no float64
+FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 
 
 def report_kernels(libraries):
-    """Phase 1's reading of what was compiled: -Xptxas -v for the planner,
-    the split walks and the fma kernel, the SASS of every kernel of the two
-    CUDA sources with walks and batteries, and the opcodes of the flat
-    planner (the slab tests of its sweep are unrolled 80 times: 8 octants x
-    (8 + 2) boxes); raises where the planner or a split walk holds float64
-    arithmetic or a float64 conversion."""
+    """Phase 1's reading of what was compiled: -Xptxas -v for both
+    planners, every walk (each a split walk) and the fma kernel, the SASS of
+    every kernel of the two CUDA sources with walks and batteries, and the
+    opcodes of the flat planner (the slab tests of its sweep are unrolled 80
+    times: 8 octants x (8 + 2) boxes); raises where a planner or a walk
+    holds float64 arithmetic or a float64 conversion."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
@@ -341,12 +343,12 @@ def report_kernels(libraries):
             if any(k in fn for k in CHECKED) and (c["f64 arithmetic"]
                                                   or c["f64 conversions"]):
                 bad.append(kernel_name(fn))
-            if "plan_kernelILi0E" in fn:
+            if FLAT_PLANNER in fn:
                 log(f"    SASS opcodes of {kernel_name(fn)}: " + ", ".join(
                     f"{op} {n}" for op, n in sorted(
                         c["opcodes"].items(), key=lambda kv: -kv[1])))
     if bad:
-        raise AssertionError(f"float64 in the planner or a split walk: {bad}")
+        raise AssertionError(f"float64 in a planner or a walk: {bad}")
 
 
 def wide_floats(np, g, n):
@@ -457,11 +459,11 @@ def tie_pack(np, cp):
 
 
 def check_ties(torch, cp, rays, label, tile=CLUSTER_TILE):
-    """The tie batch: the closest walk (with the ordinary and the
-    product-form battery) and both streamed walks on the tie pack `cp` at
-    every S of their split and at the wrapper's own, against the plain
-    version and the resident kernels, bit for bit, and every hit won by the
-    first copy of its prim (slot 2m of the first cluster of a pair)."""
+    """The tie batch: both resident walks (the closest one with the
+    ordinary and the product-form battery) and both streamed walks on the
+    tie pack `cp` at every S of their split and at the wrapper's own,
+    against the plain version, bit for bit, and every hit won by the first
+    copy of its prim (slot 2m of the first cluster of a pair)."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
 
@@ -502,10 +504,12 @@ def check_ties(torch, cp, rays, label, tile=CLUSTER_TILE):
             resident = ct.walk_closest(cp, *plan, p, d, tf0, alive, tile)
             product = ct.walk_closest(cp, *plan, p, d, tf0, alive, tile,
                                       mxu=True)
+            ro = ct.walk_occluded(cp, *splan, p, d, shadow_tf, tile)
         ok[f"S={split or chosen}{'' if split else ' (chosen)'}"] = (
             _same_hits(torch, (st, sid), (pt, pid)) and torch.equal(so, po)
             and _same_hits(torch, resident, (pt, pid))
-            and _same_hits(torch, product, (mt, mid)))
+            and _same_hits(torch, product, (mt, mid))
+            and torch.equal(ro, po))
     log(f"[{label}] tie pack C={cp.num_clusters} K={k}, R={n}: {int(hit.sum())}"
         f" hits, each on a prim with 3 more copies in its cluster and 4 in "
         f"the next; occluded {int(po.sum())}; {ok}")
@@ -790,12 +794,26 @@ def closest_splits(torch, timer, ct, want, label, name, walk):
     """A closest walk `walk()` at every S of its split against the plain
     version's `want` (tfar, id), bit for bit, and timed at each S; the
     times are logged. Returns whether every S agrees."""
+    return _splits(timer, ct, lambda got: _same_hits(torch, got, want),
+                   label, name, walk)
+
+
+def occluded_splits(torch, timer, ct, want, label, name, walk, stream=None):
+    """An any-hit walk `walk()` at every S of its split against the plain
+    version's occlusion bits `want`, bit for bit, and, where `stream` gives
+    the streamed walk on the same plan, against it at the same S; timed at
+    each S. Returns whether every S agrees."""
+    return _splits(timer, ct, lambda got: torch.equal(got, want) and (
+        stream is None or torch.equal(got, stream())), label, name, walk)
+
+
+def _splits(timer, ct, agrees, label, name, walk):
     ok, ms = {}, {}
     for s in SPLITS:
         with forced_split(ct, s):
-            ok[s] = _same_hits(torch, walk(), want)
+            ok[s] = agrees(walk())
             ms[s] = timer(walk, 3, warmup=1)
-    log(f"[{label}] {name} at S = 1, 2, 4: equal to plain {ok}; ms "
+    log(f"[{label}] {name} at S = 1, 2, 4: equal {ok}; ms "
         + ", ".join(f"S={s} {t:.4f}" for s, t in ms.items()))
     return all(ok.values())
 
@@ -805,8 +823,9 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
                           time_plain_apart=True):
     """The cluster kernels against their plain versions on one table and one
     ray batch, and their numbers: the planner and the two resident walks,
-    bit for bit, the closest walk at every S of its split (timed at each);
-    with `stream` also the two streamed walks, bit for bit
+    bit for bit, each walk at every S of its split (timed at each; with
+    `stream` the resident any-hit walk also equal to the streamed one at
+    each S); with `stream` also the two streamed walks, bit for bit
     against their plain version (the plain walk over tables unpacked from
     the packed layout) and against the resident kernels; with `mxu` also the
     walks with the product-form triangle battery, against their plain
@@ -869,6 +888,11 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
         packed=packed))
     torch.cuda.synchronize()
     ok_occ = torch.equal(ko, po) and not bool(po[shadow_tf <= 0].any())
+    ok_occ = ok_occ and occluded_splits(
+        torch, timer, ct, po, label, "cluster_occluded",
+        lambda: ct.walk_occluded(cp, sv, se, sn, p, d, shadow_tf, tile),
+        (lambda: ct.walk_occluded(cp, sv, se, sn, p, d, shadow_tf, tile,
+                                  stream=True)) if stream else None)
     hit = pid >= 0
     err = float((kt[hit] - pt[hit]).abs().max()) if bool(hit.any()) else 0.0
     listed, listed_s = int(pn.sum()), int(sn.sum())
@@ -972,7 +996,10 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
         ok_splits = closest_splits(
             torch, timer, ct, (qt, qid), label, "cluster_closest[mxu]",
             lambda: ct.walk_closest(cp, pv, pe, pn, p, d, tf0, alive, tile,
-                                    mxu=True))
+                                    mxu=True)) and occluded_splits(
+            torch, timer, ct, qo, label, "cluster_occluded[mxu]",
+            lambda: ct.walk_occluded(cp, sv, se, sn, p, d, shadow_tf, tile,
+                                     mxu=True))
         merr = float((mt[mhit] - qt[mhit]).abs().max()) if bool(
             mhit.any()) else 0.0
         # against the ordinary battery: a lane at an edge, at a silhouette
@@ -1017,7 +1044,7 @@ def check_cluster_kernels(torch, np, timer, cp, rays, label,
                     else plain_s[plain_of] * 1e3)
         out[name] = kernel_row(name, CLUSTER_SOURCE, f"{shape}, {label}",
                                None, dt, ms, plain_ms, nbytes, ops)
-        if name.startswith("cluster_closest") or name.endswith("_stream"):
+        if name != "cluster_plan":
             out[name]["split"] = split
         log(f"[{label}] {name}: {ms:.4f} ms (bound "
             f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}; "
@@ -1065,11 +1092,14 @@ def check_planners(torch, timer, cp, gcp, rays, label, tile=CLUSTER_TILE,
                    stats=False):
     """Phase 14 on one table and one ray batch: every planner mode of both
     kernels against its plain version, bit for bit (cluster_plan_rows' whole
-    [T, C] matrix; cluster_plan's nvis and, below it, ids and entries), on
-    the default pack `cp` and, for 'group', on the group-box pack `gcp`;
-    'super' equal to the flat plan; the tilebox and hybrid entries at most
-    the flat entry of every cluster the flat plan enters. Then the walks fed
-    by each planner against the walks fed by the flat plan on the same pack:
+    [T, C] matrix, also with its chunk patched to PATCHED_CHUNK clusters;
+    cluster_plan's nvis and, below it, ids and entries), on the default pack
+    `cp` and, for 'group', on the group-box pack `gcp`; 'super' equal to the
+    flat plan; the tilebox and hybrid entries at most the flat entry of
+    every cluster the flat plan enters. The flat plan's any-hit walk on each
+    pack at every S against its plain version and the streamed walk. Then
+    the walks fed by each planner against the walks fed by the flat plan on
+    the same pack:
     equal occlusion, equal t bits, and equal ids except at lanes where the
     two winners lie in different clusters at exactly the same t. With
     `stats`, the clusters planned and walked (closest) per tile under each
@@ -1095,6 +1125,18 @@ def check_planners(torch, timer, cp, gcp, rays, label, tile=CLUSTER_TILE,
             lambda m=mode: ct.plan_rows(*args(pack_of(m)), m),
             lambda m=mode: ct.plan_rows_plain(*args(pack_of(m)), m),
             plan_bound(torch, ct, pack_of(mode), rays, tile, mode, False))
+    # the sweep's chunk patched below the pack's C (chunks of three slots,
+    # which straddle the union boxes of 'super'): the same matrices
+    chunk_of = ct.plan_rows_chunk
+    ct.plan_rows_chunk = lambda tile_r, c, n_super: PATCHED_CHUNK
+    try:
+        for mode in ct.PLANS:
+            if not torch.equal(ct.plan_rows(*args(pack_of(mode)), mode),
+                               rows[mode]):
+                bad.append(f"cluster_plan_rows[{mode}] in chunks of "
+                           f"{PATCHED_CHUNK} != in one")
+    finally:
+        ct.plan_rows_chunk = chunk_of
     flat = rows["ray"]
     entered = flat < ct.FLT_MAX
     if not torch.equal(rows["super"], flat):
@@ -1125,7 +1167,9 @@ def check_planners(torch, timer, cp, gcp, rays, label, tile=CLUSTER_TILE,
         bad.append("cluster_plan[super] != cluster_plan")
     del rows, flat, entered
 
-    # the walks each planner feeds, against the flat plan's on that pack
+    # the walks each planner feeds, against the flat plan's on that pack;
+    # the flat plan's any-hit walk at every S against its plain version and
+    # the streamed walk
     reference = {}
     for pack in (cp, gcp):
         visits = lists["ray" if pack is cp else "ray on the group pack"]
@@ -1134,9 +1178,16 @@ def check_planners(torch, timer, cp, gcp, rays, label, tile=CLUSTER_TILE,
                             0.999)
         shadow_tf = torch.where(alive, torch.where(i >= 0, t * scale, tf0),
                                 0.0)
-        occ = ct.walk_occluded(pack, *ct._plan_visits(
-            pack, p, d, shadow_tf, shadow_tf > 0, tile), p, d, shadow_tf,
-            tile)
+        splan = ct._plan_visits(pack, p, d, shadow_tf, shadow_tf > 0, tile)
+        occ = ct.walk_occluded(pack, *splan, p, d, shadow_tf, tile)
+        if not occluded_splits(
+                torch, timer, ct, ct.walk_occluded_plain(
+                    pack, *splan, p, d, shadow_tf, tile), label,
+                f"cluster_occluded (C={pack.num_clusters})",
+                lambda: ct.walk_occluded(pack, *splan, p, d, shadow_tf, tile),
+                lambda: ct.walk_occluded(pack, *splan, p, d, shadow_tf, tile,
+                                         stream=True)):
+            bad.append(f"cluster_occluded on C={pack.num_clusters}")
         reference[id(pack)] = (t, i, shadow_tf, occ)
     numbers = {}
     for how, kw in (("ray", {}), ("super", {"plan": "super"}),

@@ -24,7 +24,8 @@
 //                       table of _tables_packed
 //
 // What they compute. Rays are cut into tiles of tile_r consecutive rays; one
-// thread block works on one tile.
+// thread block works on one tile (a tilebox block of cluster_plan_rows on up
+// to eight).
 //   cluster_plan: for every cluster box, the least slab entry distance over
 //   the tile's valid rays (FLT_MAX where no valid ray enters it before its
 //   tfar), then the tile's entered clusters sorted front to back, the lowest
@@ -40,8 +41,8 @@
 //   up by per-axis origin and direction intervals and their largest tfar,
 //   tested against each box once by interval arithmetic (a lower bound of
 //   every ray's entry). 'hybrid': 'tilebox' where the tile's directions are
-//   sign-coherent on all three axes, else 'ray'. It keeps no list in shared
-//   memory and so has no cluster limit.
+//   sign-coherent on all three axes, else 'ray'. It sweeps the clusters in
+//   chunks that fit shared memory and so has no cluster limit.
 //   cluster_closest: every valid ray's nearest primitive over the tile's
 //   visit list, walked while the next entry is below the tile's exit bound
 //   mx = max over valid lanes of min(current tfar, exit distance from the
@@ -66,9 +67,9 @@
 // slab test a NaN (0 * inf: a zero direction component with the origin on
 // that box face) reaches tmin and tmax whichever operand it starts in, and
 // the comparison `tmax >= entry` is then false: the ray does not enter the
-// box. So slab() uses fminf/fmaxf and reports separately whether any of the
-// six products was NaN, and cluster_plan's sweep uses min / max that
-// propagate NaN (nan_min, nan_max), with the same outcome.
+// box. So slab() (the walks' root box test) uses fminf/fmaxf and reports
+// separately whether any of the six products was NaN, and the planners use
+// min / max that propagate NaN (nan_min, nan_max), with the same outcome.
 //
 // Bound on an H100. The planner does tile_r x C slab tests per tile (about
 // 25 operations each) and writes 8 bytes per (tile, cluster): operations
@@ -88,20 +89,21 @@
 // in float32 (fma32). No tensor core: one-pass TF32 would not keep the prim
 // ids. It rounds differently from the ordinary battery by design.
 //
-// The streamed walks. They read the packed table [C * F8, K] (cluster c's
-// attribute rows contiguous, zero rows up to F8 = 8 or 16) and keep two
-// slots of one cluster's rows in shared memory. Before the block waits for
-// visit j's rows it starts the asynchronous copy (cp.async, one commit
-// group per visit) of visit j + 1 into the other slot, so that copy runs
-// under visit j's battery. The zero rows are not copied. A copy started for
-// a visit that the early exit then skips is waited for before the block
-// ends. The copies are 4 bytes each and transpose the attribute rows into
-// the resident tables' layout (a sphere one float4, a triangle three), so
-// that the batteries are the resident walks' own, fed the same values:
-// the results are equal bit for bit.
+// The walks keep two slots of one cluster's rows in shared memory. Before
+// the block waits for visit j's rows it starts the asynchronous copy
+// (cp.async, one commit group per visit) of visit j + 1 into the other slot,
+// so that copy runs under visit j's battery. A copy started for a visit that
+// the early exit then skips is waited for before the block ends. The
+// resident [C * K, F] table is already in the batteries' layout (a sphere
+// one float4, a triangle three) and is copied 16 bytes at a time. The
+// streamed walks read the packed table [C * F8, K] (cluster c's attribute
+// rows contiguous, zero rows up to F8 = 8 or 16; the zero rows are not
+// copied) by 4-byte copies that transpose the attribute rows into the
+// resident layout, so that the batteries are fed the same values: the
+// results are equal bit for bit.
 //
-// What bounds the split walks (the streamed walks and every closest walk),
-// and the design against it. The streamed walks carry the
+// What bounds the walks, and the design against it. The streamed walks carry
+// the
 // large meshes (1.3 M triangles, 127 of 130 planned clusters walked a tile
 // on bounce rays), where a launch is some 4.3e9 (lane, slot) pairs of a
 // float32 battery of about 40 instructions: the SMs' issue rate bounds it.
@@ -129,7 +131,10 @@
 // written to its ray's own index, and a lane that is not live gets its
 // untouched result at the start. The exit bound keeps its meaning: the
 // block's max of every live ray's bound, refreshed after each visit. A
-// block is tile_r * S threads, at most 1024 (__launch_bounds__).
+// block is tile_r * S threads, at most 1024 (__launch_bounds__). Every walk,
+// closest or any-hit, resident or streamed, is this split walk: one kernel
+// template a walk (closest_kernel, occluded_kernel) that differs between
+// its resident and streamed forms only in the fetch.
 //
 // The sorted planner, cluster_plan. A slab test has no multiply-add: 6
 // subtractions and 6 multiplications for the FP32 pipe, and min / max /
@@ -152,21 +157,22 @@
 // in shared memory: by one warp in registers up to 32 keys, else by a
 // block-wide bitonic network. 'super' sweeps the S union boxes first, then
 // the 32-cluster slots of the entered unions; 'group' holds both leaf
-// boxes of a cluster. cluster_plan_rows keeps the first design's loop:
-// each thread owns clusters c, c + 256, ... and loops over the staged
-// rays; 'super' keeps the S union entries in shared memory, each warp's 32
-// consecutive clusters sharing one union. The tilebox bundle is one
-// block-wide reduction (warp shuffles, then one value per warp in shared
-// memory) of min / max that propagate NaN, as the JAX reductions do.
-// The walks. cluster_closest and cluster_closest_stream are one kernel
-// template, the split walk described above, that differs only in the
-// fetch: the resident [C * K, F] table is already in the batteries'
-// layout and is copied 16 bytes at a time. cluster_occluded keeps one
-// thread per ray with its ray in registers, the visited cluster's rows
-// staged in shared memory as float4 and read by broadcast, and the exit
-// bound a block-wide max through warp shuffles; the split is still to come
-// to it. Warp-level culling inside a tile, several clusters per staging
-// step and tensor-core batteries are later work.
+// boxes of a cluster.
+// The unsorted planner, cluster_plan_rows, is the same kernel body: its
+// exact modes (and the incoherent tiles of 'hybrid') take the same sweep
+// and write the tile's row from s_min, coalesced, in place of the sort. Its
+// [T, C] output has no cluster limit: s_min holds `chunk` clusters (the
+// wrapper's plan_rows_chunk, a multiple of 32 that fits shared memory
+// beside the staged rays), and the block sweeps chunk after chunk with its
+// rays staged once; 'super' sweeps the union boxes once a tile and in each
+// chunk the slots of the entered unions. 'tilebox' (and the sign-coherent
+// tiles of 'hybrid') is bound by the bytes of its output, one interval test
+// a (tile, cluster): a box block plans up to eight tiles, one warp
+// reducing each tile's bundle by shuffles (min / max that propagate NaN, as
+// the JAX reductions do), and each thread loads a box once and tests it
+// against every bundle of the block, writing each tile's row coalesced.
+// Warp-level culling inside a tile, several clusters per staging step and
+// tensor-core batteries are later work.
 
 #include <cfloat>
 #include <cmath>
@@ -244,8 +250,8 @@ __device__ __forceinline__ float block_max(float v, float* s_red) {
 }
 
 // ---------------------------------------------------------------------------
-// Planners: cluster_plan (sorted in the kernel), cluster_plan_rows (the
-// unsorted entry matrix)
+// Planners: cluster_plan (sorted in the kernel) and cluster_plan_rows (the
+// unsorted entry matrix), one kernel body
 // ---------------------------------------------------------------------------
 // The `mode` argument of both entry points (_MODES of the wrapper).
 constexpr int kFlat = 0;     // 'ray'
@@ -262,90 +268,21 @@ struct Boxes {
   const float *lox, *loy, *loz, *hix, *hiy, *hiz;
 };
 
-// The tile's rays as staged in shared memory: origin, 1 / direction, tfar;
-// an invalid lane is staged as a ray that enters no box.
-struct Staged {
-  float *px, *py, *pz, *ix, *iy, *iz, *tf;
+// What a planner launch reads and writes.
+struct PlanArgs {
+  Boxes boxes;   // the cluster boxes (the first leaf boxes under kDual)
+  Boxes second;  // the second leaf boxes (kDual), the union boxes (kSuper)
+  int n_super;   // union boxes under kSuper, else 0
+  const float *px, *py, *pz, *dx, *dy, *dz, *tf;
+  const uint8_t* valid;
+  int n_rays, tile_r, n_clusters;
+  int n_keys;     // cluster_plan: C rounded up to a power of two (the sort)
+  int chunk;      // clusters a pass of the sweep (cluster_plan: all C)
+  int box_tiles;  // cluster_plan_rows: tiles a tilebox block plans
+  float* entry_out;
+  int32_t *visit_out, *nvis_out;  // cluster_plan
 };
 
-__device__ __forceinline__ Staged staged_rays(float* base, int tile_r) {
-  return Staged{base,              base + tile_r,     base + 2 * tile_r,
-                base + 3 * tile_r, base + 4 * tile_r, base + 5 * tile_r,
-                base + 6 * tile_r};
-}
-
-__device__ __forceinline__ void stage_rays(
-    const Staged& s, const float* __restrict__ px,
-    const float* __restrict__ py, const float* __restrict__ pz,
-    const float* __restrict__ dx, const float* __restrict__ dy,
-    const float* __restrict__ dz, const float* __restrict__ tf,
-    const uint8_t* __restrict__ valid, int base, int n_rays, int tile_r) {
-  for (int i = threadIdx.x; i < tile_r; i += blockDim.x) {
-    const int r = base + i;
-    const bool ok = r < n_rays && valid[r] != 0;
-    // an invalid lane never enters a box: entry >= 0 is never below tfar 0
-    s.px[i] = ok ? px[r] : 0.0f;
-    s.py[i] = ok ? py[r] : 0.0f;
-    s.pz[i] = ok ? pz[r] : 0.0f;
-    s.ix[i] = ok ? __fdiv_rn(1.0f, dx[r]) : 1.0f;
-    s.iy[i] = ok ? __fdiv_rn(1.0f, dy[r]) : 1.0f;
-    s.iz[i] = ok ? __fdiv_rn(1.0f, dz[r]) : 1.0f;
-    s.tf[i] = ok ? tf[r] : 0.0f;
-  }
-}
-
-// _tile_entry_row for box c: the least slab entry distance over the staged
-// rays, FLT_MAX where no ray enters the box before its tfar.
-__device__ __forceinline__ float tile_entry(const Boxes& b, int c,
-                                            const Staged& s, int tile_r) {
-  const float lx = b.lox[c], ly = b.loy[c], lz = b.loz[c];
-  const float hx = b.hix[c], hy = b.hiy[c], hz = b.hiz[c];
-  float emin = FLT_MAX;
-  for (int i = 0; i < tile_r; ++i) {
-    const Slab sl = slab(lx, ly, lz, hx, hy, hz, s.px[i], s.py[i], s.pz[i],
-                         s.ix[i], s.iy[i], s.iz[i]);
-    const float entry = fmaxf(sl.tmin, 0.0f);
-    const bool hit = !sl.nan && sl.tmax >= entry && entry < s.tf[i];
-    emin = fminf(emin, hit ? entry : FLT_MAX);
-  }
-  return emin;
-}
-
-// Phase A of 'super': the staged rays against the S supercluster boxes,
-// into s_super[S]. Returns after a barrier.
-__device__ __forceinline__ void super_entries(const Boxes& supers,
-                                              int n_super, const Staged& s,
-                                              int tile_r, float* s_super) {
-  for (int k = threadIdx.x; k < n_super; k += blockDim.x) {
-    s_super[k] = tile_entry(supers, k, s, tile_r);
-  }
-  __syncthreads();
-}
-
-// The entry of cluster c under an exact mode. 'group': the lesser of the
-// two leaf boxes' entries (the min over rays and the min of the two rows
-// commute, and no entry is NaN). 'super' (phase B): the flat entry where the
-// cluster's supercluster was entered, else FLT_MAX; a supercluster box
-// contains its members' boxes and the slab test is monotone in the box, so
-// this equals the flat entry bit for bit.
-template <int kMode>
-__device__ __forceinline__ float exact_entry(const Boxes& b,
-                                             const Boxes& second, int c,
-                                             const Staged& s, int tile_r,
-                                             const float* s_super) {
-  if (kMode == kDual) {
-    return fminf(tile_entry(b, c, s, tile_r),
-                 tile_entry(second, c, s, tile_r));
-  }
-  if (kMode == kSuper && !(s_super[c / kSuperSize] < FLT_MAX)) {
-    return FLT_MAX;
-  }
-  return tile_entry(b, c, s, tile_r);
-}
-
-// ---------------------------------------------------------------------------
-// cluster_plan: the sweep of the staged rays against register-held boxes
-// ---------------------------------------------------------------------------
 // min / max that propagate NaN, as jnp.minimum / maximum and jnp.min / max
 // do (fminf / fmaxf drop it): one instruction each on sm_80 and later.
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -370,28 +307,25 @@ constexpr uint16_t kPadId = 0xffffu;         // sorts last
 // the largest float below tfar, so that `entry < tfar` is `entry <= tfp`.
 // Octant o holds rays [s_oct[o], s_oct[o + 1]). Invalid lanes are left out:
 // they enter no box. Returns after a barrier.
-__device__ __forceinline__ void stage_octants(
-    float4* s_ray, int* s_oct, const float* __restrict__ px,
-    const float* __restrict__ py, const float* __restrict__ pz,
-    const float* __restrict__ dx, const float* __restrict__ dy,
-    const float* __restrict__ dz, const float* __restrict__ tf,
-    const uint8_t* __restrict__ valid, int base, int n_rays, int tile_r) {
+__device__ __forceinline__ void stage_octants(float4* s_ray, int* s_oct,
+                                              const PlanArgs& a, int base) {
   __shared__ int s_in_octant[8];
   if (threadIdx.x < 8) s_in_octant[threadIdx.x] = 0;
   __syncthreads();
-  float4 a[kMaxRaysAThread], b[kMaxRaysAThread];
+  float4 ra[kMaxRaysAThread], rb[kMaxRaysAThread];
   int oct[kMaxRaysAThread], at[kMaxRaysAThread];
 #pragma unroll
   for (int k = 0; k < kMaxRaysAThread; ++k) {
     const int i = threadIdx.x + k * kPlanThreads;
     const int r = base + i;
     oct[k] = -1;
-    if (i < tile_r && r < n_rays && valid[r] != 0) {
-      const float ix = __fdiv_rn(1.0f, dx[r]);
-      const float iy = __fdiv_rn(1.0f, dy[r]);
-      const float iz = __fdiv_rn(1.0f, dz[r]);
-      a[k] = make_float4(px[r], py[r], pz[r], nextafterf(tf[r], -INFINITY));
-      b[k] = make_float4(ix, iy, iz, 0.0f);
+    if (i < a.tile_r && r < a.n_rays && __ldg(&a.valid[r]) != 0) {
+      const float ix = __fdiv_rn(1.0f, __ldg(&a.dx[r]));
+      const float iy = __fdiv_rn(1.0f, __ldg(&a.dy[r]));
+      const float iz = __fdiv_rn(1.0f, __ldg(&a.dz[r]));
+      ra[k] = make_float4(__ldg(&a.px[r]), __ldg(&a.py[r]), __ldg(&a.pz[r]),
+                          nextafterf(__ldg(&a.tf[r]), -INFINITY));
+      rb[k] = make_float4(ix, iy, iz, 0.0f);
       oct[k] = static_cast<int>(signbit(ix)) |
                (static_cast<int>(signbit(iy)) << 1) |
                (static_cast<int>(signbit(iz)) << 2);
@@ -412,11 +346,38 @@ __device__ __forceinline__ void stage_octants(
   for (int k = 0; k < kMaxRaysAThread; ++k) {
     if (oct[k] >= 0) {
       const int q = s_oct[oct[k]] + at[k];
-      s_ray[2 * q] = a[k];
-      s_ray[2 * q + 1] = b[k];
+      s_ray[2 * q] = ra[k];
+      s_ray[2 * q + 1] = rb[k];
     }
   }
   __syncthreads();
+}
+
+// Whether the tile's valid directions are sign-coherent on all three axes
+// (_sign_coherent: on each axis every d > 0 or every d < 0; so is a tile
+// without a valid ray), by one block-wide OR of two bits an axis: some d is
+// not > 0, some d is not < 0. Returns after a barrier.
+__device__ __forceinline__ bool tile_coherent(const PlanArgs& a, int base) {
+  __shared__ unsigned s_signs;
+  if (threadIdx.x == 0) s_signs = 0;
+  __syncthreads();
+  unsigned signs = 0;
+  for (int i = threadIdx.x; i < a.tile_r; i += blockDim.x) {
+    const int r = base + i;
+    if (r < a.n_rays && a.valid[r] != 0) {
+      const float d[3] = {a.dx[r], a.dy[r], a.dz[r]};
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        signs |= (static_cast<unsigned>(!(d[ax] > 0.0f)) << (2 * ax)) |
+                 (static_cast<unsigned>(!(d[ax] < 0.0f)) << (2 * ax + 1));
+      }
+    }
+  }
+  signs = __reduce_or_sync(0xffffffffu, signs);
+  if ((threadIdx.x & 31) == 0 && signs) atomicOr(&s_signs, signs);
+  __syncthreads();
+  signs = s_signs;
+  return (signs & 3u) != 3u && (signs & 12u) != 12u && (signs & 48u) != 48u;
 }
 
 // One batch of the sweep: kR slots of 32 clusters, lane l of the warp holding
@@ -498,44 +459,45 @@ __device__ __forceinline__ void load_box(const Boxes& b, int c, int n,
 // One batch of kR slots from list position k: slot_of(k + j) for j below
 // `left` (more positions are padding, NaN boxes). Every warp sweeps the
 // batch on its share of the rays and folds each cluster's least entry into
-// s_min[c] (float bits: entries are >= 0, so they order as unsigned; -0 is
-// made +0 first).
+// s_min[c - c0] (float bits: entries are >= 0, so they order as unsigned;
+// -0 is made +0 first).
 template <int kBoxes, int kR, typename SlotOf>
 __device__ __forceinline__ void sweep_batch(const Boxes& b, const Boxes& b2,
-                                            int n, int k, int left,
+                                            int n, int k, int left, int c0,
                                             SlotOf slot_of,
                                             const float4* s_ray,
                                             const int* s_oct,
                                             unsigned* s_min) {
   const int lane = threadIdx.x & 31;
   Batch<kBoxes, kR> bt;
-  int c[kR];
+  int at[kR];  // s_min index of each box, -1 for padding: one register each
 #pragma unroll
   for (int j = 0; j < kR; ++j) {
-    c[j] = j < left ? 32 * slot_of(k + j) + lane : n;
-    load_box(b, c[j], n, bt.lo[j][0], bt.hi[j][0]);
-    if (kBoxes == 2) load_box(b2, c[j], n, bt.lo[j][kBoxes - 1],
+    const int c = j < left ? 32 * slot_of(k + j) + lane : n;
+    load_box(b, c, n, bt.lo[j][0], bt.hi[j][0]);
+    if (kBoxes == 2) load_box(b2, c, n, bt.lo[j][kBoxes - 1],
                               bt.hi[j][kBoxes - 1]);
     bt.e[j] = FLT_MAX;
+    at[j] = c < n ? c - c0 : -1;
   }
   sweep(s_ray, s_oct, bt);
 #pragma unroll
   for (int j = 0; j < kR; ++j) {
-    if (c[j] < n && bt.e[j] < FLT_MAX) {
-      atomicMin(&s_min[c[j]], __float_as_uint(__fadd_rn(bt.e[j], 0.0f)));
+    if (at[j] >= 0 && bt.e[j] < FLT_MAX) {
+      atomicMin(&s_min[at[j]], __float_as_uint(__fadd_rn(bt.e[j], 0.0f)));
     }
   }
 }
 
 // The least entry over the tile's staged rays of each of the n boxes of
-// the slots slot_of(0 .. n_slots - 1), into s_min (set to kMissBits by the
-// caller). kWide: batches of 8 boxes a lane, the rest in batches of 2;
-// else batches of 2 only, in fewer registers. Every warp takes every batch
-// and an eighth of the rays, so the warps stay even whatever n is. Returns
-// after a barrier.
+// the slots slot_of(0 .. n_slots - 1), into s_min[c - c0] (set to
+// kMissBits by the caller). kWide: batches of 8 boxes a lane, the rest in
+// batches of 2; else batches of 2 only, in fewer registers. Every warp takes
+// every batch and an eighth of the rays, so the warps stay even whatever n
+// is. Returns after a barrier.
 template <int kBoxes, bool kWide, typename SlotOf>
 __device__ __forceinline__ void sweep_slots(const Boxes& b, const Boxes& b2,
-                                            int n, int n_slots,
+                                            int n, int n_slots, int c0,
                                             SlotOf slot_of,
                                             const float4* s_ray,
                                             const int* s_oct,
@@ -543,11 +505,11 @@ __device__ __forceinline__ void sweep_slots(const Boxes& b, const Boxes& b2,
   constexpr int kRest = 2 / kBoxes, kFull = kWide ? 8 / kBoxes : kRest;
   int k = 0;
   for (; k + kFull <= n_slots; k += kFull) {
-    sweep_batch<kBoxes, kFull>(b, b2, n, k, kFull, slot_of, s_ray, s_oct,
+    sweep_batch<kBoxes, kFull>(b, b2, n, k, kFull, c0, slot_of, s_ray, s_oct,
                                s_min);
   }
   for (; k < n_slots; k += kRest) {
-    sweep_batch<kBoxes, kRest>(b, b2, n, k, n_slots - k, slot_of, s_ray,
+    sweep_batch<kBoxes, kRest>(b, b2, n, k, n_slots - k, c0, slot_of, s_ray,
                                s_oct, s_min);
   }
   __syncthreads();
@@ -557,15 +519,15 @@ __device__ __forceinline__ void fill(unsigned* a, int n, unsigned v) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = v;
 }
 
-// Dynamic shared memory of cluster_plan, in this order: the staged rays
-// (2 tile_r float4), s_min (C), s_super (S), the slot list (C / 32 rounded
-// up), the ids to sort (n_keys = C rounded up to a power of two, 2 bytes
-// each).
-__host__ __device__ inline size_t plan_shared_bytes(int tile_r, int n_clusters,
+// Dynamic shared memory of a sweep block, in this order: the staged rays
+// (2 tile_r float4), s_min (the `chunk` clusters swept at once), s_super
+// (S), the chunk's slot list (chunk / 32 rounded up), and for cluster_plan's
+// sort the ids (n_keys = C rounded up to a power of two, 2 bytes each; 0 for
+// cluster_plan_rows). cluster_plan sweeps all C at once.
+__host__ __device__ inline size_t plan_shared_bytes(int tile_r, int chunk,
                                                     int n_super, int n_keys) {
   return static_cast<size_t>(tile_r) * 32 +
-         (static_cast<size_t>(n_clusters) + n_super + (n_clusters + 31) / 32) *
-             4 +
+         (static_cast<size_t>(chunk) + n_super + (chunk + 31) / 32) * 4 +
          static_cast<size_t>(n_keys) * 2;
 }
 
@@ -573,6 +535,178 @@ __device__ __forceinline__ unsigned long long sort_key(const unsigned* s_min,
                                                        uint16_t id) {
   return id == kPadId ? ~0ull
                       : (static_cast<unsigned long long>(s_min[id]) << 32) | id;
+}
+
+// The tile's ray bundle of _tilebox_entry_row: per axis the masked min /
+// max of origin (pl, ph) and direction (dl, dh) over the valid rays, the
+// max of their tfar, whether any ray is valid. Invalid lanes count as
+// +FLT_MAX in a min and -FLT_MAX in a max, as the JAX fills.
+constexpr int kBundle = 14;  // pl.xyz, dl.xyz (mins); ph.xyz, dh.xyz, tfm,
+                             // any (maxes)
+
+// A tile's bundle as the box blocks test it, 16-byte aligned for broadcast
+// loads: per axis the origin interval and the interval of 1 / direction
+// (pl, ph, il, ih); the largest tfar; flags: kMixed << axis where the
+// direction interval holds 0 (the axis then bounds nothing), kAnyValid,
+// kCoherent (the 'hybrid' rule: on each axis dl > 0 or dh < 0).
+struct TileBundle {
+  float4 axis[3];
+  float tfm;
+  unsigned flags;
+};
+constexpr unsigned kMixed = 1, kAnyValid = 8, kCoherent = 16;
+
+// One axis of the bundle from its (pl, ph, dl, dh).
+__device__ __forceinline__ float4 bundle_axis(float pl, float ph, float dl,
+                                              float dh, bool mixed) {
+  const float inv_a = __fdiv_rn(1.0f, mixed ? 1.0f : dh);
+  const float inv_b = __fdiv_rn(1.0f, mixed ? 1.0f : dl);
+  return make_float4(pl, ph, nan_min(inv_a, inv_b), nan_max(inv_a, inv_b));
+}
+
+// The bundle of `tile`, reduced by one warp: each lane folds every 32nd ray
+// with min / max that propagate NaN, as the JAX reductions do, then
+// shuffles fold the lanes. Every lane returns it.
+__device__ __forceinline__ TileBundle tile_bundle(const PlanArgs& a,
+                                                  int tile) {
+  float v[kBundle];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) v[k] = FLT_MAX;
+#pragma unroll
+  for (int k = 6; k < kBundle; ++k) v[k] = -FLT_MAX;
+  const int base = tile * a.tile_r;
+  for (int i = threadIdx.x & 31; i < a.tile_r; i += 32) {
+    const int r = base + i;
+    if (!(r < a.n_rays && __ldg(&a.valid[r]) != 0)) continue;
+    const float x[6] = {__ldg(&a.px[r]), __ldg(&a.py[r]), __ldg(&a.pz[r]),
+                        __ldg(&a.dx[r]), __ldg(&a.dy[r]), __ldg(&a.dz[r])};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      v[k] = nan_min(v[k], x[k]);
+      v[6 + k] = nan_max(v[6 + k], x[k]);
+    }
+    v[12] = nan_max(v[12], __ldg(&a.tf[r]));
+    v[13] = 1.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kBundle; ++k) {
+    for (int o = 16; o > 0; o >>= 1) {
+      const float w = __shfl_xor_sync(0xffffffffu, v[k], o);
+      v[k] = k < 6 ? nan_min(v[k], w) : nan_max(v[k], w);
+    }
+  }
+  TileBundle t;
+  t.tfm = v[12];
+  t.flags = (v[13] > 0.0f ? kAnyValid : 0u) | kCoherent;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float dl = v[3 + ax], dh = v[9 + ax];
+    const bool mixed = dl <= 0.0f && dh >= 0.0f;
+    t.axis[ax] = bundle_axis(v[ax], v[6 + ax], dl, dh, mixed);
+    t.flags |= mixed ? kMixed << ax : 0u;
+    if (!(dl > 0.0f || dh < 0.0f)) t.flags &= ~kCoherent;
+  }
+  return t;
+}
+
+// The axis's bounds (lower bound of tmin, upper bound of tmax) for the box
+// [lo, hi] on that axis, the products of _tilebox_entry_row's axis(); `a`
+// is (pl, ph, il, ih).
+__device__ __forceinline__ void axis_bounds(float4 a, bool mixed, float lo,
+                                            float hi, float* lb, float* ub) {
+  const float lp = __fsub_rn(lo, a.y), ll = __fsub_rn(lo, a.x);
+  const float hp = __fsub_rn(hi, a.y), hl = __fsub_rn(hi, a.x);
+  const float a1 = __fmul_rn(lp, a.z), a2 = __fmul_rn(lp, a.w);
+  const float a3 = __fmul_rn(ll, a.z), a4 = __fmul_rn(ll, a.w);
+  const float b1 = __fmul_rn(hp, a.z), b2 = __fmul_rn(hp, a.w);
+  const float b3 = __fmul_rn(hl, a.z), b4 = __fmul_rn(hl, a.w);
+  const float t_lo_lb = nan_min(nan_min(a1, a2), nan_min(a3, a4));
+  const float t_lo_ub = nan_max(nan_max(a1, a2), nan_max(a3, a4));
+  const float t_hi_lb = nan_min(nan_min(b1, b2), nan_min(b3, b4));
+  const float t_hi_ub = nan_max(nan_max(b1, b2), nan_max(b3, b4));
+  *lb = mixed ? -FLT_MAX : nan_min(t_lo_lb, t_hi_lb);
+  *ub = mixed ? FLT_MAX : nan_max(t_lo_ub, t_hi_ub);
+}
+
+// _tilebox_entry_row for the box [lo, hi]: a lower bound of every valid
+// ray's entry, FLT_MAX where the bundle cannot enter the box before its
+// largest tfar; +0, never -0.
+__device__ __forceinline__ float tilebox_entry(const float* lo,
+                                               const float* hi,
+                                               const TileBundle& t) {
+  float xlb, xub, ylb, yub, zlb, zub;
+  axis_bounds(t.axis[0], t.flags & kMixed, lo[0], hi[0], &xlb, &xub);
+  axis_bounds(t.axis[1], t.flags & kMixed << 1, lo[1], hi[1], &ylb, &yub);
+  axis_bounds(t.axis[2], t.flags & kMixed << 2, lo[2], hi[2], &zlb, &zub);
+  const float entry = nan_max(nan_max(nan_max(xlb, ylb), zlb), 0.0f);
+  const float exit_ub = nan_min(nan_min(xub, yub), zub);
+  const bool hit = exit_ub >= entry && entry < t.tfm && (t.flags & kAnyValid);
+  return hit ? __fadd_rn(entry, 0.0f) : FLT_MAX;
+}
+
+// A box block of cluster_plan_rows: the tilebox rows of tiles [g0, g0 +
+// box_tiles) ('tilebox'; under 'hybrid' those of them that are
+// sign-coherent). Warp w reduces tile g0 + w's bundle; then each thread
+// loads each of its boxes once and tests it against every bundle of the
+// block, and each tile's row is written coalesced.
+template <int kMode>
+__device__ __forceinline__ void tilebox_rows(const PlanArgs& a, int g0,
+                                             int n_tiles) {
+  __shared__ TileBundle s_bundle[kPlanWarps];  // float4s: 16-byte aligned
+  const int warp = threadIdx.x >> 5;
+  const int n_here = min(a.box_tiles, n_tiles - g0);
+  if (warp < n_here) {
+    const TileBundle t = tile_bundle(a, g0 + warp);
+    if ((threadIdx.x & 31) == 0) s_bundle[warp] = t;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < a.n_clusters; c += blockDim.x) {
+    const float lo[3] = {a.boxes.lox[c], a.boxes.loy[c], a.boxes.loz[c]};
+    const float hi[3] = {a.boxes.hix[c], a.boxes.hiy[c], a.boxes.hiz[c]};
+#pragma unroll
+    for (int g = 0; g < kPlanWarps; ++g) {
+      if (g >= n_here) break;
+      const TileBundle t = s_bundle[g];
+      if (kMode == kHybrid && !(t.flags & kCoherent)) continue;
+      a.entry_out[static_cast<size_t>(g0 + g) * a.n_clusters + c] =
+          tilebox_entry(lo, hi, t);
+    }
+  }
+}
+
+// A sweep block's pass over clusters [c0, c1) (c0 on a slot of 32): their
+// least entries over the staged rays into s_min[c - c0]. 'super' takes the
+// 32-cluster slots whose union was entered (s_super), listed in s_list
+// with *s_count as its counter (0 on entry and on return); the other exact
+// modes take every slot. Returns after a barrier.
+template <int kMode, bool kWide>
+__device__ __forceinline__ void sweep_chunk(const PlanArgs& a, int c0, int c1,
+                                            const float4* s_ray,
+                                            const int* s_oct,
+                                            const unsigned* s_super,
+                                            int* s_list, int* s_count,
+                                            unsigned* s_min) {
+  const int s0 = c0 / 32, s1 = (c1 + 31) / 32;  // the chunk's slots
+  fill(s_min, c1 - c0, kMissBits);
+  if (kMode == kSuper) {
+    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
+      if (s_super[s * 32 / kSuperSize] != kMissBits) {
+        s_list[atomicAdd(s_count, 1)] = s;
+      }
+    }
+    __syncthreads();
+    const int n_list = *s_count;
+    __syncthreads();
+    if (threadIdx.x == 0) *s_count = 0;
+    sweep_slots<1, kWide>(a.boxes, a.boxes, a.n_clusters, n_list, c0,
+                          [s_list](int k) { return s_list[k]; }, s_ray, s_oct,
+                          s_min);
+  } else {
+    __syncthreads();  // s_min is filled
+    sweep_slots<kMode == kDual ? 2 : 1, kWide>(
+        a.boxes, a.second, a.n_clusters, s1 - s0, c0,
+        [s0](int k) { return s0 + k; }, s_ray, s_oct, s_min);
+  }
 }
 
 // kWide: register blocks of 8 boxes a lane, for C above kNarrowClusters;
@@ -583,268 +717,140 @@ __device__ __forceinline__ unsigned long long sort_key(const unsigned* s_min,
 // (128: at 80 its two sweeps spill).
 constexpr int kNarrowClusters = 256;
 
-template <int kMode, bool kWide>
+// cluster_plan (kRows false) and cluster_plan_rows (kRows) in one body.
+// A sweep block plans one tile: it stages the tile's valid rays by octant
+// and sweeps the cluster boxes past them `chunk` clusters at a time,
+// folding each cluster's least entry into s_min; cluster_plan (one chunk of
+// all C) then compacts the entered ids and sorts them, cluster_plan_rows
+// writes each chunk's part of the row from s_min, coalesced. 'super' sweeps
+// the S union boxes once a tile, then in each chunk the 32-cluster slots of
+// the entered unions (a chunk starts on a slot, and a slot's 32 clusters
+// lie in one union). Every block of 'ray', 'group' and 'super' is a sweep
+// block; under 'tilebox' every block is a box block (tilebox_rows); under
+// 'hybrid' the first T blocks sweep the tiles that are not sign-coherent
+// and leave the others to the box blocks after them.
+template <int kMode, bool kWide, bool kRows>
 __global__ void __launch_bounds__(kPlanThreads,
                                   kWide ? (kMode == kSuper ? 2 : 3) : 4)
-plan_kernel(Boxes boxes, Boxes second, int n_super,
-            const float* __restrict__ px, const float* __restrict__ py,
-            const float* __restrict__ pz, const float* __restrict__ dx,
-            const float* __restrict__ dy, const float* __restrict__ dz,
-            const float* __restrict__ tf, const uint8_t* __restrict__ valid,
-            int n_rays, int tile_r, int n_clusters, int n_keys,
-            float* __restrict__ entry_out, int32_t* __restrict__ visit_out,
-            int32_t* __restrict__ nvis_out) {
+plan_kernel(const PlanArgs a) {
   extern __shared__ float4 s_ray[];
-  unsigned* s_min = reinterpret_cast<unsigned*>(s_ray + 2 * tile_r);
-  unsigned* s_super = s_min + n_clusters;
-  const int n_slots = (n_clusters + 31) / 32;
-  int* s_list = reinterpret_cast<int*>(s_super + n_super);
-  uint16_t* s_ids = reinterpret_cast<uint16_t*>(s_list + n_slots);
   __shared__ int s_oct[9];
   __shared__ int s_count;
-
-  const int tile = blockIdx.x;
-  if (threadIdx.x == 0) s_count = 0;
-  fill(s_min, n_clusters, kMissBits);
-  fill(s_super, n_super, kMissBits);
-  stage_octants(s_ray, s_oct, px, py, pz, dx, dy, dz, tf, valid,
-                tile * tile_r, n_rays, tile_r);
-  const auto identity = [](int k) { return k; };
-  if (kMode == kSuper) {
-    // phase A: the union boxes; then the slots of the entered unions (a
-    // slot's 32 clusters lie in one union of 128)
-    sweep_slots<1, kWide>(second, second, n_super, (n_super + 31) / 32,
-                          identity, s_ray, s_oct, s_super);
-    for (int s = threadIdx.x; s < n_slots; s += blockDim.x) {
-      if (s_super[s * 32 / kSuperSize] != kMissBits) {
-        s_list[atomicAdd(&s_count, 1)] = s;
-      }
-    }
-    __syncthreads();
-    const int n_list = s_count;
-    __syncthreads();
-    if (threadIdx.x == 0) s_count = 0;
-    sweep_slots<1, kWide>(boxes, boxes, n_clusters, n_list,
-                          [s_list](int k) { return s_list[k]; }, s_ray, s_oct,
-                          s_min);
-  } else {
-    sweep_slots<kMode == kDual ? 2 : 1, kWide>(
-        boxes, second, n_clusters, n_slots, identity, s_ray, s_oct, s_min);
-  }
-
-  // the entered clusters' ids, one atomic a warp and 32 clusters
-  for (int c0 = threadIdx.x & ~31; c0 < n_clusters; c0 += blockDim.x) {
-    const int c = c0 + (threadIdx.x & 31);
-    const bool in = c < n_clusters && s_min[c] != kMissBits;
-    const unsigned ballot = __ballot_sync(0xffffffffu, in);
-    int first = 0;
-    if ((threadIdx.x & 31) == 0 && ballot) {
-      first = atomicAdd(&s_count, __popc(ballot));
-    }
-    first = __shfl_sync(0xffffffffu, first, 0);
-    if (in) {
-      s_ids[first + __popc(ballot & ((1u << (threadIdx.x & 31)) - 1))] =
-          static_cast<uint16_t>(c);
-    }
-  }
-  __syncthreads();
-  const int n_vis = s_count;
-  int n_sort = 1;
-  while (n_sort < n_vis) n_sort <<= 1;
-  // bitonic sort, ascending: by entry, then by cluster id. Up to 32 keys
-  // one warp sorts them in registers, with no block barrier a step.
-  if (n_sort <= 32) {
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      unsigned long long key =
-          sort_key(s_min, lane < n_vis ? s_ids[lane] : kPadId);
-      for (int k = 2; k <= 32; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          const unsigned long long other =
-              __shfl_xor_sync(0xffffffffu, key, j);
-          const bool low = key < other;
-          // the lower lane of a pair keeps the lesser key where ascending
-          key = (((lane & j) == 0) == ((lane & k) == 0)) == low ? key : other;
-        }
-      }
-      if (lane < n_vis) s_ids[lane] = static_cast<uint16_t>(key);
-    }
-    __syncthreads();
-    n_sort = 0;  // sorted
-  }
-  for (int i = n_vis + threadIdx.x; i < n_sort; i += blockDim.x) {
-    s_ids[i] = kPadId;
-  }
-  __syncthreads();
-  for (int k = 2; k <= n_sort; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
-        const int partner = i ^ j;
-        if (partner > i) {
-          const uint16_t a = s_ids[i], b = s_ids[partner];
-          const bool ascending = (i & k) == 0;
-          if ((sort_key(s_min, a) > sort_key(s_min, b)) == ascending) {
-            s_ids[i] = b;
-            s_ids[partner] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const size_t row = static_cast<size_t>(tile) * n_clusters;
-  for (int i = threadIdx.x; i < n_clusters; i += blockDim.x) {
-    const bool seen = i < n_vis;
-    const int id = seen ? s_ids[i] : -1;
-    entry_out[row + i] = seen ? __uint_as_float(s_min[id]) : FLT_MAX;
-    visit_out[row + i] = id;
-  }
-  if (threadIdx.x == 0) nvis_out[tile] = n_vis;
-}
-
-// The tile's ray bundle of _tilebox_entry_row: per axis the masked min /
-// max of origin (pl, ph) and direction (dl, dh) over the valid rays, the
-// max of their tfar, whether any ray is valid. Invalid lanes count as
-// +FLT_MAX in a min and -FLT_MAX in a max, as the JAX fills.
-constexpr int kBundle = 14;  // pl.xyz, dl.xyz (mins); ph.xyz, dh.xyz, tfm,
-                             // any (maxes)
-
-__device__ __forceinline__ void tile_bundle(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tf, const uint8_t* __restrict__ valid,
-    int base, int n_rays, int tile_r, float (*s_part)[32], float* bundle) {
-  float v[kBundle];
-  for (int k = 0; k < 6; ++k) v[k] = FLT_MAX;
-  for (int k = 6; k < kBundle; ++k) v[k] = -FLT_MAX;
-  for (int i = threadIdx.x; i < tile_r; i += blockDim.x) {
-    const int r = base + i;
-    if (!(r < n_rays && valid[r] != 0)) continue;
-    const float a[6] = {px[r], py[r], pz[r], dx[r], dy[r], dz[r]};
-    for (int k = 0; k < 6; ++k) {
-      v[k] = nan_min(v[k], a[k]);
-      v[6 + k] = nan_max(v[6 + k], a[k]);
-    }
-    v[12] = nan_max(v[12], tf[r]);
-    v[13] = 1.0f;
-  }
-  for (int k = 0; k < kBundle; ++k) {
-    for (int o = 16; o > 0; o >>= 1) {
-      const float w = __shfl_xor_sync(0xffffffffu, v[k], o);
-      v[k] = k < 6 ? nan_min(v[k], w) : nan_max(v[k], w);
-    }
-  }
-  const int n_warps = (blockDim.x + 31) >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    for (int k = 0; k < kBundle; ++k) s_part[k][threadIdx.x >> 5] = v[k];
-  }
-  __syncthreads();
-  for (int k = 0; k < kBundle; ++k) {
-    float m = s_part[k][0];
-    for (int w = 1; w < n_warps; ++w) {
-      m = k < 6 ? nan_min(m, s_part[k][w]) : nan_max(m, s_part[k][w]);
-    }
-    bundle[k] = m;
-  }
-}
-
-// One axis of the bundle: its origin interval and the interval of
-// 1 / direction; `mixed` where the direction interval holds 0, and the axis
-// then bounds nothing.
-struct Axis {
-  bool mixed;
-  float pl, ph, il, ih;
-};
-
-__device__ __forceinline__ Axis bundle_axis(float pl, float ph, float dl,
-                                            float dh) {
-  const bool mixed = dl <= 0.0f && dh >= 0.0f;
-  const float inv_a = __fdiv_rn(1.0f, mixed ? 1.0f : dh);
-  const float inv_b = __fdiv_rn(1.0f, mixed ? 1.0f : dl);
-  return Axis{mixed, pl, ph, nan_min(inv_a, inv_b), nan_max(inv_a, inv_b)};
-}
-
-// The axis's bounds (lower bound of tmin, upper bound of tmax) for the box
-// [lo, hi] on that axis, the products of _tilebox_entry_row's axis().
-__device__ __forceinline__ void axis_bounds(const Axis& a, float lo,
-                                            float hi, float* lb, float* ub) {
-  const float lp = __fsub_rn(lo, a.ph), ll = __fsub_rn(lo, a.pl);
-  const float hp = __fsub_rn(hi, a.ph), hl = __fsub_rn(hi, a.pl);
-  const float a1 = __fmul_rn(lp, a.il), a2 = __fmul_rn(lp, a.ih);
-  const float a3 = __fmul_rn(ll, a.il), a4 = __fmul_rn(ll, a.ih);
-  const float b1 = __fmul_rn(hp, a.il), b2 = __fmul_rn(hp, a.ih);
-  const float b3 = __fmul_rn(hl, a.il), b4 = __fmul_rn(hl, a.ih);
-  const float t_lo_lb = nan_min(nan_min(a1, a2), nan_min(a3, a4));
-  const float t_lo_ub = nan_max(nan_max(a1, a2), nan_max(a3, a4));
-  const float t_hi_lb = nan_min(nan_min(b1, b2), nan_min(b3, b4));
-  const float t_hi_ub = nan_max(nan_max(b1, b2), nan_max(b3, b4));
-  *lb = a.mixed ? -FLT_MAX : nan_min(t_lo_lb, t_hi_lb);
-  *ub = a.mixed ? FLT_MAX : nan_max(t_lo_ub, t_hi_ub);
-}
-
-// _tilebox_entry_row for box c: a lower bound of every valid ray's entry,
-// FLT_MAX where the bundle cannot enter the box before its largest tfar.
-__device__ __forceinline__ float tilebox_entry(const Boxes& b, int c,
-                                               const Axis* axes, float tfm,
-                                               bool any_ok) {
-  float xlb, xub, ylb, yub, zlb, zub;
-  axis_bounds(axes[0], b.lox[c], b.hix[c], &xlb, &xub);
-  axis_bounds(axes[1], b.loy[c], b.hiy[c], &ylb, &yub);
-  axis_bounds(axes[2], b.loz[c], b.hiz[c], &zlb, &zub);
-  const float entry = nan_max(nan_max(nan_max(xlb, ylb), zlb), 0.0f);
-  const float exit_ub = nan_min(nan_min(xub, yub), zub);
-  const bool hit = exit_ub >= entry && entry < tfm && any_ok;
-  return hit ? entry : FLT_MAX;
-}
-
-template <int kMode>
-__global__ void __launch_bounds__(kPlanThreads)
-plan_rows_kernel(Boxes boxes, Boxes second, int n_super,
-                 const float* __restrict__ px, const float* __restrict__ py,
-                 const float* __restrict__ pz, const float* __restrict__ dx,
-                 const float* __restrict__ dy, const float* __restrict__ dz,
-                 const float* __restrict__ tf,
-                 const uint8_t* __restrict__ valid, int n_rays, int tile_r,
-                 int n_clusters, float* __restrict__ entry_out) {
-  extern __shared__ float rays[];  // 7 ray rows, then n_super entries
-  const Staged staged = staged_rays(rays, tile_r);
-  float* s_super = rays + 7 * tile_r;
-  __shared__ float s_part[kBundle][32];
-  const int tile = blockIdx.x;
-  const size_t row = static_cast<size_t>(tile) * n_clusters;
-
-  if (kMode == kTilebox || kMode == kHybrid) {
-    float v[kBundle];
-    tile_bundle(px, py, pz, dx, dy, dz, tf, valid, tile * tile_r, n_rays,
-                tile_r, s_part, v);
-    // one block plans one tile: the branch is uniform over the block
-    const bool coherent = (v[3] > 0.0f || v[9] < 0.0f) &&
-                          (v[4] > 0.0f || v[10] < 0.0f) &&
-                          (v[5] > 0.0f || v[11] < 0.0f);
-    if (kMode == kTilebox || coherent) {
-      const Axis axes[3] = {bundle_axis(v[0], v[6], v[3], v[9]),
-                            bundle_axis(v[1], v[7], v[4], v[10]),
-                            bundle_axis(v[2], v[8], v[5], v[11])};
-      for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
-        float e = tilebox_entry(boxes, c, axes, v[12], v[13] > 0.0f);
-        if (e == 0.0f) e = 0.0f;
-        entry_out[row + c] = e;
-      }
+  const int n_tiles = (a.n_rays + a.tile_r - 1) / a.tile_r;
+  if constexpr (kMode == kTilebox || kMode == kHybrid) {
+    const int box_block = static_cast<int>(blockIdx.x) -
+                          (kMode == kHybrid ? n_tiles : 0);
+    if (box_block >= 0) {
+      tilebox_rows<kMode>(a, box_block * a.box_tiles, n_tiles);
       return;
     }
   }
-  stage_rays(staged, px, py, pz, dx, dy, dz, tf, valid, tile * tile_r,
-             n_rays, tile_r);
-  __syncthreads();
-  if (kMode == kSuper) {
-    super_entries(second, n_super, staged, tile_r, s_super);
-  }
-  for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
-    float e = exact_entry<kMode == kHybrid ? kFlat : kMode>(
-        boxes, second, c, staged, tile_r, s_super);
-    if (e == 0.0f) e = 0.0f;
-    entry_out[row + c] = e;
+  if constexpr (kMode != kTilebox) {
+    const int tile = blockIdx.x;
+    const int chunk = kRows ? a.chunk : a.n_clusters;
+    const int n_super = kMode == kSuper ? a.n_super : 0;
+    unsigned* s_min = reinterpret_cast<unsigned*>(s_ray + 2 * a.tile_r);
+    unsigned* s_super = s_min + chunk;
+    int* s_list = reinterpret_cast<int*>(s_super + n_super);
+    if (kMode == kHybrid && tile_coherent(a, tile * a.tile_r)) {
+      return;  // a box block writes this tile's row
+    }
+    if (threadIdx.x == 0) s_count = 0;
+    fill(s_super, n_super, kMissBits);
+    stage_octants(s_ray, s_oct, a, tile * a.tile_r);
+    if (kMode == kSuper) {  // phase A: the union boxes
+      sweep_slots<1, kWide>(a.second, a.second, n_super, (n_super + 31) / 32,
+                            0, [](int k) { return k; }, s_ray, s_oct,
+                            s_super);
+    }
+    const size_t row = static_cast<size_t>(tile) * a.n_clusters;
+    if constexpr (kRows) {
+      for (int c0 = 0; c0 < a.n_clusters; c0 += a.chunk) {
+        const int c1 = min(c0 + a.chunk, a.n_clusters);
+        sweep_chunk<kMode, kWide>(a, c0, c1, s_ray, s_oct, s_super, s_list,
+                                  &s_count, s_min);
+        for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+          // kMissBits are FLT_MAX's bits
+          a.entry_out[row + c] = __uint_as_float(s_min[c - c0]);
+        }
+        __syncthreads();  // before s_min is filled again
+      }
+    }
+    if constexpr (!kRows) {
+      const int n_clusters = a.n_clusters;
+      sweep_chunk<kMode, kWide>(a, 0, n_clusters, s_ray, s_oct, s_super,
+                                s_list, &s_count, s_min);
+      uint16_t* s_ids =
+          reinterpret_cast<uint16_t*>(s_list + (n_clusters + 31) / 32);
+      // the entered clusters' ids, one atomic a warp and 32 clusters
+      for (int c0 = threadIdx.x & ~31; c0 < n_clusters; c0 += blockDim.x) {
+        const int c = c0 + (threadIdx.x & 31);
+        const bool in = c < n_clusters && s_min[c] != kMissBits;
+        const unsigned ballot = __ballot_sync(0xffffffffu, in);
+        int first = 0;
+        if ((threadIdx.x & 31) == 0 && ballot) {
+          first = atomicAdd(&s_count, __popc(ballot));
+        }
+        first = __shfl_sync(0xffffffffu, first, 0);
+        if (in) {
+          s_ids[first + __popc(ballot & ((1u << (threadIdx.x & 31)) - 1))] =
+              static_cast<uint16_t>(c);
+        }
+      }
+      __syncthreads();
+      const int n_vis = s_count;
+      int n_sort = 1;
+      while (n_sort < n_vis) n_sort <<= 1;
+      // bitonic sort, ascending: by entry, then by cluster id. Up to 32 keys
+      // one warp sorts them in registers, with no block barrier a step.
+      if (n_sort <= 32) {
+        if (threadIdx.x < 32) {
+          const int lane = threadIdx.x;
+          unsigned long long key =
+              sort_key(s_min, lane < n_vis ? s_ids[lane] : kPadId);
+          for (int k = 2; k <= 32; k <<= 1) {
+            for (int j = k >> 1; j > 0; j >>= 1) {
+              const unsigned long long other =
+                  __shfl_xor_sync(0xffffffffu, key, j);
+              const bool low = key < other;
+              // the lower lane of a pair keeps the lesser key where ascending
+              key =
+                  (((lane & j) == 0) == ((lane & k) == 0)) == low ? key : other;
+            }
+          }
+          if (lane < n_vis) s_ids[lane] = static_cast<uint16_t>(key);
+        }
+        __syncthreads();
+        n_sort = 0;  // sorted
+      }
+      for (int i = n_vis + threadIdx.x; i < n_sort; i += blockDim.x) {
+        s_ids[i] = kPadId;
+      }
+      __syncthreads();
+      for (int k = 2; k <= n_sort; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
+            const int partner = i ^ j;
+            if (partner > i) {
+              const uint16_t x = s_ids[i], y = s_ids[partner];
+              const bool ascending = (i & k) == 0;
+              if ((sort_key(s_min, x) > sort_key(s_min, y)) == ascending) {
+                s_ids[i] = y;
+                s_ids[partner] = x;
+              }
+            }
+          }
+          __syncthreads();
+        }
+      }
+      for (int i = threadIdx.x; i < n_clusters; i += blockDim.x) {
+        const bool seen = i < n_vis;
+        const int id = seen ? s_ids[i] : -1;
+        a.entry_out[row + i] = seen ? __uint_as_float(s_min[id]) : FLT_MAX;
+        a.visit_out[row + i] = id;
+      }
+      if (threadIdx.x == 0) a.nvis_out[tile] = n_vis;
+    }
   }
 }
 
@@ -954,16 +960,6 @@ __device__ __forceinline__ float prim_t(const Ray& r, const float4* rows,
   return sphere_t(r, rows[k]);
 }
 
-// Stage cluster c's rows (K prims of 1 or 3 float4 each) into shared memory.
-template <int kBattery>
-__device__ __forceinline__ void stage(float4* rows,
-                                      const float4* __restrict__ table, int c,
-                                      int k_prims) {
-  const int n = k_prims * (kBattery == kSphere ? 1 : 3);
-  const float4* src = table + static_cast<size_t>(c) * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) rows[k] = src[k];
-}
-
 // cp.async: a 4-byte copy from global to shared memory that the thread
 // does not wait for; copies are grouped by commit and awaited by group.
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -1030,71 +1026,18 @@ __device__ __forceinline__ Ray load_ray(const float* px, const float* py,
 }
 
 // ---------------------------------------------------------------------------
-// cluster_occluded
-// ---------------------------------------------------------------------------
-template <int kBattery>
-__global__ void occluded_kernel(
-    const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
-    const float* __restrict__ entry, const float* __restrict__ root,
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tfar, const float4* __restrict__ table,
-    int n_rays, int n_clusters, int k_prims, uint8_t* __restrict__ occ_out) {
-  extern __shared__ float4 rows[];
-  __shared__ float s_red[32];
-  const int tile = blockIdx.x;
-  const int i = tile * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r{};
-  float tf = 0.0f;
-  if (in_range) {
-    r = load_ray(px, py, pz, dx, dy, dz, i);
-    tf = tfar[i];
-  }
-  const bool live = in_range && tf > 0.0f;  // tfar <= 0 (or NaN): invalid
-  const float bound = live ? fminf(tf, root_exit(root, r)) : -FLT_MAX;
-  // the farthest a still-unoccluded lane can be hit: clusters entirely
-  // beyond it cannot occlude
-  float mx = block_max(bound, s_red);
-  bool occ = false;
-  const int n = nvis[tile];
-  const size_t row = static_cast<size_t>(tile) * n_clusters;
-  for (int j = 0; j < n; ++j) {
-    if (!(entry[row + j] < mx)) break;
-    const int c = visit[row + j];
-    stage<kBattery>(rows, table, c, k_prims);
-    __syncthreads();
-    if (live && !occ) {
-      for (int k = 0; k < k_prims; ++k) {
-        const bool hit = kBattery == kSphere
-                             ? sphere_occludes(r, tf, rows[k])
-                             : prim_t<kBattery>(r, rows, k) < tf;
-        if (hit) {
-          occ = true;
-          break;
-        }
-      }
-    }
-    mx = block_max((live && !occ) ? bound : -FLT_MAX, s_red);
-  }
-  if (in_range) occ_out[i] = occ ? 1 : 0;
-}
-
-// ---------------------------------------------------------------------------
-// cluster_closest_stream, cluster_occluded_stream
+// The split walks: cluster_closest, cluster_occluded and their streamed forms
 // ---------------------------------------------------------------------------
 constexpr int kMaxBlock = 1024;  // threads a block: tile_r * S at most
 
-// The loop of the split walks (cluster_closest, and both streamed walks).
-// Visit j's rows are in slot j & 1. The copy of visit j + 1 is started
-// before the wait for visit j, into the slot that visit j - 1 used: the two
-// barriers of that visit's block_max lie between its reads and this
-// overwrite. One commit group per trip, empty where there is no next visit,
-// so that "all but the newest group" is always "visit j has landed".
-// `fetch(slot, c)` starts the copies of cluster c's n4 float4 into a slot;
-// `visit_fn(c, rows)` runs the battery on the staged rows (prim k at
-// rows[k * n4 / K]) and returns the tile's new exit bound.
+// The loop of the split walks. Visit j's rows are in slot j & 1. The copy of
+// visit j + 1 is started before the wait for visit j, into the slot that
+// visit j - 1 used: the two barriers of that visit's block_max lie between
+// its reads and this overwrite. One commit group per trip, empty where there
+// is no next visit, so that "all but the newest group" is always "visit j
+// has landed". `fetch(slot, c)` starts the copies of cluster c's n4 float4
+// into a slot; `visit_fn(c, rows)` runs the battery on the staged rows
+// (prim k at rows[k * n4 / K]) and returns the tile's new exit bound.
 template <typename Fetch, typename Visit>
 __device__ __forceinline__ void stream_walk(
     const int32_t* __restrict__ visit_row, const float* __restrict__ entry_row,
@@ -1112,12 +1055,30 @@ __device__ __forceinline__ void stream_walk(
   cp_async_wait<0>();  // a copy started for a visit the exit skipped
 }
 
+// Start the copy of cluster c's rows into a slot: 16-byte copies of the
+// resident [C * K, F] table, already in the batteries' layout, or the
+// transposing 4-byte copies of the packed [C * F8, K] table (kPacked).
+template <int kBattery, bool kPacked>
+__device__ __forceinline__ void fetch_visit(float4* slot,
+                                            const float* __restrict__ table,
+                                            int c, int k_prims) {
+  constexpr int kAttrs = kBattery == kSphere ? 4 : 12;
+  if (kPacked) {
+    fetch_cluster<kAttrs>(slot, table, c, k_prims,
+                          (kBattery == kSphere ? 8 : 16) * k_prims);
+  } else {
+    fetch_rows(slot, reinterpret_cast<const float4*>(table), c,
+               kAttrs / 4 * k_prims);
+  }
+}
+
 // The tile's live rays packed to the front: thread t < tile_r says in `live`
-// whether ray t of the tile is live; afterwards s_rays[q] is the tile index
-// of the q-th live ray, in ray order, and the count is returned. One ballot
-// per warp, then one warp scans the warps' counts (s_scan: 33 ints).
-// Returns after a barrier.
-__device__ __forceinline__ int pack_live(bool live, int* s_rays,
+// whether position t is live and gives its `value`; afterwards s_rays[q] is
+// the value of the q-th live position, in order, and the count is returned.
+// One ballot per warp, then one warp scans the warps' counts (s_scan: 33
+// ints). The caller's reads of s_rays may precede the call: the first write
+// follows two barriers. Returns after a barrier.
+__device__ __forceinline__ int pack_live(bool live, int value, int* s_rays,
                                          int* s_scan) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned ballot = __ballot_sync(0xffffffffu, live);
@@ -1136,7 +1097,7 @@ __device__ __forceinline__ int pack_live(bool live, int* s_rays,
   }
   __syncthreads();
   if (live) {
-    s_rays[s_scan[warp] + __popc(ballot & ((1u << lane) - 1))] = threadIdx.x;
+    s_rays[s_scan[warp] + __popc(ballot & ((1u << lane) - 1))] = value;
   }
   __syncthreads();
   return s_scan[32];
@@ -1144,11 +1105,12 @@ __device__ __forceinline__ int pack_live(bool live, int* s_rays,
 
 // The S-way split, for S = kS in {1, 2, 4}: thread t works on the live ray
 // q = t / S of the packed order, and owns the slots k = t % S (mod S) of
-// each staged cluster, walked in ascending order. The S threads of a ray are adjacent lanes of one
-// warp. A warp whose first ray position is past the live count holds no
-// live ray and skips the battery on a uniform branch (it still joins the
-// barriers); in a warp that holds one, every lane runs the battery, so the
-// shuffles see all 32 lanes, and a thread without a ray discards its result.
+// each staged cluster, walked in ascending order. The S threads of a ray
+// are adjacent lanes of one warp. A warp whose first ray position is past
+// the live count holds no live ray and skips the battery on a uniform
+// branch (it still joins the barriers); in a warp that holds one, every lane
+// runs the battery, so the shuffles see all 32 lanes, and a thread without
+// a ray discards its result.
 struct Split {
   int q, s;        // ray position in the packed order, slot residue
   bool has_ray;    // q < the tile's live count
@@ -1162,10 +1124,36 @@ __device__ __forceinline__ Split split_of(int n_live) {
                static_cast<int>(threadIdx.x & ~31u) / kS < n_live};
 }
 
-// cluster_closest (kPacked false: the resident [C * K, F] table, copied 16
-// bytes at a time) and cluster_closest_stream (kPacked: the packed table,
-// transposed by 4-byte copies) in one body: they differ only in how a
-// cluster's rows reach shared memory.
+// A split walk's thread: its share of the split, and its ray (the q-th live
+// ray of the tile): index, origin and direction, starting tfar and the exit
+// bound it holds the tile to, min(tfar, exit from the root box), or
+// -FLT_MAX without a ray.
+struct Lane {
+  Split sp;
+  int i;
+  Ray r;
+  float tf, bound;
+};
+
+template <int kS>
+__device__ __forceinline__ Lane lane_of(
+    int n_live, int base, const int* s_rays, const float* __restrict__ root,
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ tf) {
+  Lane l{split_of<kS>(n_live), 0, Ray{}, 0.0f, -FLT_MAX};
+  if (l.sp.has_ray) {
+    l.i = base + s_rays[l.sp.q];
+    l.r = load_ray(px, py, pz, dx, dy, dz, l.i);
+    l.tf = tf[l.i];
+    l.bound = fminf(l.tf, root_exit(root, l.r));
+  }
+  return l;
+}
+
+// cluster_closest (kPacked false: the resident [C * K, F] table) and
+// cluster_closest_stream (kPacked: the packed table) in one body.
 template <int kBattery, bool kPacked, int kS>
 __global__ void __launch_bounds__(kMaxBlock) closest_kernel(
     const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
@@ -1180,8 +1168,6 @@ __global__ void __launch_bounds__(kMaxBlock) closest_kernel(
   __shared__ float s_red[32];
   __shared__ int s_rays[kMaxBlock];
   __shared__ int s_scan[33];
-  constexpr int kAttrs = kBattery == kSphere ? 4 : 12;
-  constexpr int kPackedRows = kBattery == kSphere ? 8 : 16;
   const int tile = blockIdx.x;
   const int base = tile * tile_r;
   bool own_live = false;
@@ -1194,35 +1180,24 @@ __global__ void __launch_bounds__(kMaxBlock) closest_kernel(
       prim_out[i] = -1;
     }
   }
-  const Split sp = split_of<kS>(pack_live(own_live, s_rays, s_scan));
-  int i = 0;
-  Ray r{};
-  float best = 0.0f;
-  if (sp.has_ray) {
-    i = base + s_rays[sp.q];
-    r = load_ray(px, py, pz, dx, dy, dz, i);
-    best = tf0[i];
-  }
-  const float bound = sp.has_ray ? fminf(best, root_exit(root, r)) : -FLT_MAX;
-  const float mx = block_max(bound, s_red);
+  const Lane l = lane_of<kS>(pack_live(own_live, t, s_rays, s_scan), base,
+                             s_rays, root, px, py, pz, dx, dy, dz, tf0);
+  const Split& sp = l.sp;
+  float best = l.tf;
   int32_t best_id = -1;
   const size_t row = static_cast<size_t>(tile) * n_clusters;
-  const int n4 = kAttrs / 4 * k_prims;
-  const auto fetch = [&](float4* slot, int c) {
-    if (kPacked) {
-      fetch_cluster<kAttrs>(slot, table, c, k_prims, kPackedRows * k_prims);
-    } else {
-      fetch_rows(slot, reinterpret_cast<const float4*>(table), c, n4);
-    }
-  };
   stream_walk(
-      visit + row, entry + row, nvis[tile], mx, n4, slots, fetch,
+      visit + row, entry + row, nvis[tile], block_max(l.bound, s_red),
+      (kBattery == kSphere ? 1 : 3) * k_prims, slots,
+      [&](float4* slot, int c) {
+        fetch_visit<kBattery, kPacked>(slot, table, c, k_prims);
+      },
       [&](int c, const float4* rows) {
         if (sp.warp_live) {
           float tl = INFINITY;  // this thread's slots: least t, first slot
           int kl = k_prims;
           for (int k = sp.s; k < k_prims; k += kS) {
-            const float t = prim_t<kBattery>(r, rows, k);
+            const float t = prim_t<kBattery>(l.r, rows, k);
             if (t < tl) {
               tl = t;
               kl = k;
@@ -1243,78 +1218,92 @@ __global__ void __launch_bounds__(kMaxBlock) closest_kernel(
             best_id = c * k_prims + kl;
           }
         }
-        return block_max(sp.has_ray ? fminf(best, bound) : -FLT_MAX, s_red);
+        return block_max(sp.has_ray ? fminf(best, l.bound) : -FLT_MAX,
+                         s_red);
       });
   if (sp.has_ray && sp.s == 0) {
-    tfar_out[i] = best;
-    prim_out[i] = best_id;
+    tfar_out[l.i] = best;
+    prim_out[l.i] = best_id;
   }
 }
 
-template <bool kTri, int kS>
-__global__ void __launch_bounds__(kMaxBlock) occluded_stream_kernel(
+// The any-hit test of one staged prim: the sqrt-free sphere predicate, or
+// the triangle battery's t below tfar.
+template <int kBattery>
+__device__ __forceinline__ bool occludes(const Ray& r, float tf,
+                                         const float4* rows, int k) {
+  if (kBattery == kSphere) return sphere_occludes(r, tf, rows[k]);
+  return prim_t<kBattery>(r, rows, k) < tf;
+}
+
+// Whether one of the staged cluster's prims occludes this thread's ray,
+// over its S threads (an OR: any schedule of the slots gives the same
+// bits). Each thread leaves its slots at its first hit. (A vote of the
+// ray's S threads every 4 slots, so that they leave together, was slower
+// on every table and batch at the wrapper's S, by 0.3-23%: PERF.md.)
+template <int kBattery, int kS>
+__device__ __forceinline__ bool any_hit(const Lane& l, const float4* rows,
+                                        int k_prims, bool need) {
+  bool hit = false;
+  for (int k = l.sp.s; need && k < k_prims; k += kS) {
+    hit = occludes<kBattery>(l.r, l.tf, rows, k);
+    if (hit) break;
+  }
+  for (int o = 1; o < kS; o <<= 1) {
+    hit = __shfl_xor_sync(0xffffffffu, static_cast<int>(hit), o) || hit;
+  }
+  return hit;
+}
+
+// cluster_occluded (kPacked false) and cluster_occluded_stream (kPacked) in
+// one body: whether any prim lies at t in [0, tfar). A lane with tfar <= 0
+// (or NaN) is invalid and never occluded. The block's exit bound counts the
+// unoccluded rays only, so the walk ends once every ray is occluded.
+// (Re-packing the unoccluded rays to the front once their count halved won
+// up to 8% on 100,000 spheres' bounce batches and lost up to 3% on the
+// triangle tables, which carry the any-hit time: PERF.md.)
+template <int kBattery, bool kPacked, int kS>
+__global__ void __launch_bounds__(kMaxBlock) occluded_kernel(
     const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
     const float* __restrict__ entry, const float* __restrict__ root,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tfar, const float* __restrict__ packed,
+    const float* __restrict__ tfar, const float* __restrict__ table,
     int n_rays, int tile_r, int n_clusters, int k_prims,
     uint8_t* __restrict__ occ_out) {
-  extern __shared__ float4 slots[];
+  extern __shared__ float4 slots[];  // two slots of n4 float4
   __shared__ float s_red[32];
   __shared__ int s_rays[kMaxBlock];
   __shared__ int s_scan[33];
-  constexpr int kAttrs = kTri ? 12 : 4;
-  constexpr int kPackedRows = kTri ? 16 : 8;
   const int tile = blockIdx.x;
   const int base = tile * tile_r;
   bool own_live = false;
   const int t = threadIdx.x;
   if (t < tile_r && base + t < n_rays) {
-    const int i = base + t;
-    own_live = tfar[i] > 0.0f;  // tfar <= 0 (or NaN): invalid, never occluded
-    if (!own_live) occ_out[i] = 0;
+    own_live = tfar[base + t] > 0.0f;
+    if (!own_live) occ_out[base + t] = 0;
   }
-  const Split sp = split_of<kS>(pack_live(own_live, s_rays, s_scan));
-  int i = 0;
-  Ray r{};
-  float tf = 0.0f;
-  if (sp.has_ray) {
-    i = base + s_rays[sp.q];
-    r = load_ray(px, py, pz, dx, dy, dz, i);
-    tf = tfar[i];
-  }
-  const float bound = sp.has_ray ? fminf(tf, root_exit(root, r)) : -FLT_MAX;
-  // the farthest a still-unoccluded lane can be hit: clusters entirely
-  // beyond it cannot occlude
-  const float mx = block_max(bound, s_red);
+  const Lane l = lane_of<kS>(pack_live(own_live, t, s_rays, s_scan), base,
+                             s_rays, root, px, py, pz, dx, dy, dz, tfar);
   bool occ = false;
   const size_t row = static_cast<size_t>(tile) * n_clusters;
   stream_walk(
-      visit + row, entry + row, nvis[tile], mx, kAttrs / 4 * k_prims, slots,
+      visit + row, entry + row, nvis[tile], block_max(l.bound, s_red),
+      (kBattery == kSphere ? 1 : 3) * k_prims, slots,
       [&](float4* slot, int c) {
-        fetch_cluster<kAttrs>(slot, packed, c, k_prims,
-                              kPackedRows * k_prims);
+        fetch_visit<kBattery, kPacked>(slot, table, c, k_prims);
       },
       [&](int /*c*/, const float4* rows) {
-        if (sp.warp_live) {
-          const bool need = sp.has_ray && !occ;
-          bool hit = false;
-          for (int k = sp.s; need && k < k_prims; k += kS) {
-            hit = kTri ? prim_t<kTriangle>(r, rows, k) < tf
-                       : sphere_occludes(r, tf, rows[k]);
-            if (hit) break;
-          }
-          for (int o = 1; o < kS; o <<= 1) {  // any of the ray's S threads
-            hit = __shfl_xor_sync(0xffffffffu, static_cast<int>(hit), o) ||
-                  hit;
-          }
+        if (l.sp.warp_live) {
+          // every lane of the warp joins any_hit's shuffles
+          const bool need = l.sp.has_ray && !occ;
+          const bool hit = any_hit<kBattery, kS>(l, rows, k_prims, need);
           occ = occ || (need && hit);
         }
-        return block_max((sp.has_ray && !occ) ? bound : -FLT_MAX, s_red);
+        return block_max((l.sp.has_ray && !occ) ? l.bound : -FLT_MAX, s_red);
       });
-  if (sp.has_ray && sp.s == 0) occ_out[i] = occ ? 1 : 0;
+  if (l.sp.has_ray && l.sp.s == 0) occ_out[l.i] = occ ? 1 : 0;
 }
 
 // Shared memory above 48 KB has to be asked for; the limit counts the
@@ -1347,113 +1336,157 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
       const float *dx, const float *dy, const float *dz, const float *tf,  \
       const uint8_t *valid, int n_rays, int tile_r, int n_clusters
 
+// The planners' common arguments as a PlanArgs.
+#define PLAN_INPUTS                                                          \
+  Boxes{lox, loy, loz, hix, hiy, hiz},                                       \
+      Boxes{slox, sloy, sloz, shix, shiy, shiz},                             \
+      mode == kSuper ? n_second : 0, px, py, pz, dx, dy, dz, tf, valid,      \
+      n_rays, tile_r, n_clusters
+
+using PlanFn = decltype(&plan_kernel<kFlat, false, false>);
+
+// The sweep kernel of an exact mode (or 'hybrid') for C clusters.
+template <bool kRows>
+static PlanFn sweep_kernel(int mode, int n_clusters) {
+  const bool wide = n_clusters > kNarrowClusters;
+  switch (mode) {
+    case kFlat:
+      return wide ? plan_kernel<kFlat, true, kRows>
+                  : plan_kernel<kFlat, false, kRows>;
+    case kDual:
+      return wide ? plan_kernel<kDual, true, kRows>
+                  : plan_kernel<kDual, false, kRows>;
+    case kSuper:
+      return wide ? plan_kernel<kSuper, true, kRows>
+                  : plan_kernel<kSuper, false, kRows>;
+    case kHybrid:
+      if (kRows) {
+        return wide ? plan_kernel<kHybrid, true, true>
+                    : plan_kernel<kHybrid, false, true>;
+      }
+  }
+  return nullptr;
+}
+
+static int launch_plan(PlanFn kernel, int blocks, size_t shared,
+                       const PlanArgs& a, void* stream) {
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_shared(kernel, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kPlanThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // cluster_plan: modes kFlat, kDual and kSuper, each tile's list sorted.
 extern "C" int cluster_plan(PLAN_ARGS, float* entry_out, int32_t* visit_out,
                             int32_t* nvis_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  if (mode != kFlat && mode != kDual && mode != kSuper) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n_clusters > kPadId) return static_cast<int>(cudaErrorInvalidValue);
   int n_keys = 1;
   while (n_keys < n_clusters) n_keys <<= 1;
-  if (n_clusters > kPadId) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_super = mode == kSuper ? n_second : 0;
-  const size_t shared =
-      plan_shared_bytes(tile_r, n_clusters, n_super, n_keys);
-  const bool wide = n_clusters > kNarrowClusters;
-  auto kernel = mode == kDual
-                    ? (wide ? plan_kernel<kDual, true> : plan_kernel<kDual, false>)
-                : mode == kSuper
-                    ? (wide ? plan_kernel<kSuper, true>
-                            : plan_kernel<kSuper, false>)
-                    : (wide ? plan_kernel<kFlat, true> : plan_kernel<kFlat, false>);
-  const cudaError_t err = allow_shared(kernel, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, kPlanThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-      Boxes{lox, loy, loz, hix, hiy, hiz},
-      Boxes{slox, sloy, sloz, shix, shiy, shiz}, n_super, px, py, pz, dx, dy,
-      dz, tf, valid, n_rays, tile_r, n_clusters, n_keys, entry_out, visit_out,
-      nvis_out);
-  return static_cast<int>(cudaGetLastError());
+  const PlanArgs a{PLAN_INPUTS, n_keys, n_clusters, 0,
+                   entry_out,   visit_out, nvis_out};
+  return launch_plan(sweep_kernel<false>(mode, n_clusters),
+                     (n_rays + tile_r - 1) / tile_r,
+                     plan_shared_bytes(tile_r, n_clusters, a.n_super, n_keys),
+                     a, stream);
 }
 
-// cluster_plan_rows: every mode, the unsorted [T, C] entry matrix.
-extern "C" int cluster_plan_rows(PLAN_ARGS, float* entry_out, void* stream) {
+// cluster_plan_rows: every mode, the unsorted [T, C] entry matrix. The
+// sweep takes `chunk` clusters at a time (a positive multiple of 32: the
+// wrapper's plan_rows_chunk). A box block plans the most tiles, up to one a
+// warp, at which the launch keeps two box blocks an SM.
+extern "C" int cluster_plan_rows(PLAN_ARGS, int chunk, float* entry_out,
+                                 void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  if (mode < kFlat || mode > kHybrid) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int n_super = mode == kSuper ? n_second : 0;
-  const size_t shared =
-      (static_cast<size_t>(tile_r) * 7 + n_super) * sizeof(float);
-  auto kernel = mode == kDual      ? plan_rows_kernel<kDual>
-                : mode == kSuper   ? plan_rows_kernel<kSuper>
-                : mode == kTilebox ? plan_rows_kernel<kTilebox>
-                : mode == kHybrid  ? plan_rows_kernel<kHybrid>
-                                   : plan_rows_kernel<kFlat>;
-  const cudaError_t err = allow_shared(kernel, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (chunk <= 0 || chunk % 32) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, kPlanThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-      Boxes{lox, loy, loz, hix, hiy, hiz},
-      Boxes{slox, sloy, sloz, shix, shiy, shiz}, n_super, px, py, pz, dx, dy,
-      dz, tf, valid, n_rays, tile_r, n_clusters, entry_out);
-  return static_cast<int>(cudaGetLastError());
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int box_tiles = kPlanWarps;
+  while (box_tiles > 1 && (tiles + box_tiles - 1) / box_tiles < 2 * sms) {
+    box_tiles >>= 1;
+  }
+  const int box_blocks = (tiles + box_tiles - 1) / box_tiles;
+  const PlanArgs a{PLAN_INPUTS, 0, chunk, box_tiles, entry_out, nullptr,
+                   nullptr};
+  if (mode == kTilebox) {
+    return launch_plan(plan_kernel<kTilebox, false, true>, box_blocks, 0, a,
+                       stream);
+  }
+  return launch_plan(sweep_kernel<true>(mode, n_clusters),
+                     tiles + (mode == kHybrid ? box_blocks : 0),
+                     plan_shared_bytes(tile_r, chunk, a.n_super, 0), a,
+                     stream);
 }
 
+#undef PLAN_INPUTS
 #undef PLAN_ARGS
 
-extern "C" int cluster_occluded(
-    const int32_t* nvis, const int32_t* visit, const float* entry,
-    const float* root, const float* px, const float* py, const float* pz,
-    const float* dx, const float* dy, const float* dz, const float* tfar,
-    const float* table, int battery, int n_rays, int tile_r, int n_clusters,
-    int k_prims, uint8_t* occ_out, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t shared =
-      static_cast<size_t>(k_prims) * (battery ? 3 : 1) * sizeof(float4);
-  auto kernel = battery == kTriangleProduct
-                    ? occluded_kernel<kTriangleProduct>
-                : battery == kTriangle ? occluded_kernel<kTriangle>
-                                       : occluded_kernel<kSphere>;
-  const cudaError_t err = allow_shared(kernel, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, tile_r, shared, static_cast<cudaStream_t>(stream)>>>(
-      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tfar,
-      reinterpret_cast<const float4*>(table), n_rays, n_clusters, k_prims,
-      occ_out);
-  return static_cast<int>(cudaGetLastError());
-}
+// The walks: `battery` 0 (spheres), 1 (triangles) or 2 (the product form,
+// resident table only), `split` the S of the S-way split (1, 2 or 4;
+// tile_r * S threads a block, at most 1024). Two slots of one cluster's
+// rows. cluster_closest and cluster_occluded read the resident [C * K, F]
+// table (16-byte aligned), the _stream forms the packed [C * F8, K] one.
+// A walk's kernel template, for walk_for.
+struct ClosestWalk {
+  template <int kBattery, bool kPacked, int kS>
+  static auto kernel() {
+    return &closest_kernel<kBattery, kPacked, kS>;
+  }
+};
 
-// The closest walks: `battery` 0 (spheres), 1 (triangles) or 2 (the
-// product form, resident table only), `split` the S of the S-way split (1,
-// 2 or 4; tile_r * S threads a block, at most 1024). Two slots of one
-// cluster's rows. cluster_closest reads the resident [C * K, F] table
-// (16-byte aligned), cluster_closest_stream the packed [C * F8, K] one.
-using ClosestFn = decltype(&closest_kernel<kSphere, false, 1>);
+struct OccludedWalk {
+  template <int kBattery, bool kPacked, int kS>
+  static auto kernel() {
+    return &occluded_kernel<kBattery, kPacked, kS>;
+  }
+};
 
-template <int kBattery, bool kPacked>
-static ClosestFn closest_split(int split) {
-  return split == 4   ? closest_kernel<kBattery, kPacked, 4>
-         : split == 2 ? closest_kernel<kBattery, kPacked, 2>
-         : split == 1 ? closest_kernel<kBattery, kPacked, 1>
+template <typename Walk>
+using WalkFn = decltype(Walk::template kernel<kSphere, false, 1>());
+
+template <typename Walk, int kBattery, bool kPacked>
+static WalkFn<Walk> walk_split(int split) {
+  return split == 4   ? Walk::template kernel<kBattery, kPacked, 4>()
+         : split == 2 ? Walk::template kernel<kBattery, kPacked, 2>()
+         : split == 1 ? Walk::template kernel<kBattery, kPacked, 1>()
                       : nullptr;
 }
 
 // The kernel of (battery, table, split), or nullptr where there is none.
-static ClosestFn closest_for(int battery, bool packed, int split) {
+template <typename Walk>
+static WalkFn<Walk> walk_for(int battery, bool packed, int split) {
   if (packed) {
-    return battery == kTriangle ? closest_split<kTriangle, true>(split)
-           : battery == kSphere ? closest_split<kSphere, true>(split)
+    return battery == kTriangle ? walk_split<Walk, kTriangle, true>(split)
+           : battery == kSphere ? walk_split<Walk, kSphere, true>(split)
                                 : nullptr;
   }
   return battery == kTriangleProduct
-             ? closest_split<kTriangleProduct, false>(split)
-         : battery == kTriangle ? closest_split<kTriangle, false>(split)
-         : battery == kSphere   ? closest_split<kSphere, false>(split)
+             ? walk_split<Walk, kTriangleProduct, false>(split)
+         : battery == kTriangle ? walk_split<Walk, kTriangle, false>(split)
+         : battery == kSphere   ? walk_split<Walk, kSphere, false>(split)
                                 : nullptr;
+}
+
+// Launch walk `Walk` on every tile, `args` the kernel's arguments.
+template <typename Walk, typename... Args>
+static int launch_walk(bool packed, int battery, int split, int n_rays,
+                       int tile_r, int k_prims, void* stream, Args... args) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const WalkFn<Walk> kernel = walk_for<Walk>(battery, packed, split);
+  if (kernel == nullptr || tile_r * split > kMaxBlock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t shared =
+      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
+  const cudaError_t err = allow_shared(kernel, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(n_rays + tile_r - 1) / tile_r, tile_r * split, shared,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #define CLOSEST_ARGS                                                        \
@@ -1463,75 +1496,40 @@ static ClosestFn closest_for(int battery, bool packed, int split) {
       const uint8_t *valid, const float *table, int battery, int split,     \
       int n_rays, int tile_r, int n_clusters, int k_prims, float *tfar_out, \
       int32_t *prim_out, void *stream
+#define CLOSEST_LAUNCH(packed)                                               \
+  launch_walk<ClosestWalk>(packed, battery, split, n_rays, tile_r, k_prims, \
+                           stream, nvis, visit, entry, root, px, py, pz, dx, \
+                           dy, dz, tf0, valid, table, n_rays, tile_r,        \
+                           n_clusters, k_prims, tfar_out, prim_out)
 
-static int launch_closest(bool packed, CLOSEST_ARGS) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const ClosestFn kernel = closest_for(battery, packed, split);
-  if (kernel == nullptr || tile_r * split > kMaxBlock) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t shared =
-      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
-  const cudaError_t err = allow_shared(kernel, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, tile_r * split, shared,
-           static_cast<cudaStream_t>(stream)>>>(
-      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tf0, valid, table,
-      n_rays, tile_r, n_clusters, k_prims, tfar_out, prim_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int cluster_closest(CLOSEST_ARGS) {
-  return launch_closest(false, nvis, visit, entry, root, px, py, pz, dx, dy,
-                        dz, tf0, valid, table, battery, split, n_rays, tile_r,
-                        n_clusters, k_prims, tfar_out, prim_out, stream);
-}
+extern "C" int cluster_closest(CLOSEST_ARGS) { return CLOSEST_LAUNCH(false); }
 
 extern "C" int cluster_closest_stream(CLOSEST_ARGS) {
-  return launch_closest(true, nvis, visit, entry, root, px, py, pz, dx, dy,
-                        dz, tf0, valid, table, battery, split, n_rays, tile_r,
-                        n_clusters, k_prims, tfar_out, prim_out, stream);
+  return CLOSEST_LAUNCH(true);
 }
 
+#undef CLOSEST_LAUNCH
 #undef CLOSEST_ARGS
 
-// The streamed any-hit walk: `packed` is the [C * F8, K] table, `battery` 0
-// for spheres and 1 for triangles, `split` as above.
-using OccludedStreamFn = decltype(&occluded_stream_kernel<true, 1>);
+#define OCCLUDED_ARGS                                                       \
+  const int32_t *nvis, const int32_t *visit, const float *entry,            \
+      const float *root, const float *px, const float *py, const float *pz, \
+      const float *dx, const float *dy, const float *dz, const float *tfar, \
+      const float *table, int battery, int split, int n_rays, int tile_r,   \
+      int n_clusters, int k_prims, uint8_t *occ_out, void *stream
+#define OCCLUDED_LAUNCH(packed)                                               \
+  launch_walk<OccludedWalk>(packed, battery, split, n_rays, tile_r, k_prims, \
+                            stream, nvis, visit, entry, root, px, py, pz,    \
+                            dx, dy, dz, tfar, table, n_rays, tile_r,         \
+                            n_clusters, k_prims, occ_out)
 
-static OccludedStreamFn occluded_stream_for(int battery, int split) {
-  if (battery) {
-    return split == 4   ? occluded_stream_kernel<true, 4>
-           : split == 2 ? occluded_stream_kernel<true, 2>
-           : split == 1 ? occluded_stream_kernel<true, 1>
-                        : nullptr;
-  }
-  return split == 4   ? occluded_stream_kernel<false, 4>
-         : split == 2 ? occluded_stream_kernel<false, 2>
-         : split == 1 ? occluded_stream_kernel<false, 1>
-                      : nullptr;
+extern "C" int cluster_occluded(OCCLUDED_ARGS) {
+  return OCCLUDED_LAUNCH(false);
 }
 
-extern "C" int cluster_occluded_stream(
-    const int32_t* nvis, const int32_t* visit, const float* entry,
-    const float* root, const float* px, const float* py, const float* pz,
-    const float* dx, const float* dy, const float* dz, const float* tfar,
-    const float* packed, int battery, int split, int n_rays, int tile_r,
-    int n_clusters, int k_prims, uint8_t* occ_out, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const OccludedStreamFn kernel = occluded_stream_for(battery, split);
-  if (kernel == nullptr || tile_r * split > kMaxBlock) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t shared =
-      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
-  const cudaError_t err = allow_shared(kernel, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n_rays + tile_r - 1) / tile_r;
-  kernel<<<tiles, tile_r * split, shared,
-           static_cast<cudaStream_t>(stream)>>>(
-      nvis, visit, entry, root, px, py, pz, dx, dy, dz, tfar, packed, n_rays,
-      tile_r, n_clusters, k_prims, occ_out);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int cluster_occluded_stream(OCCLUDED_ARGS) {
+  return OCCLUDED_LAUNCH(true);
 }
+
+#undef OCCLUDED_LAUNCH
+#undef OCCLUDED_ARGS

@@ -43,15 +43,15 @@ there and here:
 
 With ``sort`` and ``sort_impl='kernel'``, 'ray', 'super' and 'group' are
 planned and sorted by ``cluster_plan``. Every other combination launches
-``cluster_plan_rows``, which writes the unsorted [T, C] entry matrix, and
-sorts in PyTorch as the JAX package sorts in XLA (``_sort_tail``,
-``_unsorted_tail``).
+``cluster_plan_rows``, which writes the unsorted [T, C] entry matrix (its
+sweep takes ``plan_rows_chunk`` clusters at a time, so it has no cluster
+limit), and sorts in PyTorch as the JAX package sorts in XLA
+(``_sort_tail``, ``_unsorted_tail``).
 
-Every closest walk, and the streamed any-hit walk, is a split walk: S
-threads share a ray (``_walk_split``: S = 1, 2 or 4 by the tile count and
-the card's size), a tile's live rays are packed into its first warps, and
-the next visit's rows are copied into shared memory while the battery runs
-on the current visit's. The resident any-hit walk has one thread a ray.
+Every walk is a split walk: S threads share a ray (``_walk_split``: S = 1,
+2 or 4 by the tile count and the card's size), a tile's live rays are
+packed into its first warps, and the next visit's rows are copied into
+shared memory while the battery runs on the current visit's.
 
 The walks have two more forms each, chosen by the wrappers' keywords as in
 the JAX module:
@@ -630,13 +630,14 @@ def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_plan.argtypes = ([i32] + [ptr] * 12 + [i32] + [ptr] * 8
                                  + [i32] * 3 + [ptr] * 4)
+    # cluster_plan_rows takes the chunk of its sweep after the cluster count
     lib.cluster_plan_rows.argtypes = ([i32] + [ptr] * 12 + [i32] + [ptr] * 8
-                                      + [i32] * 3 + [ptr] * 2)
+                                      + [i32] * 4 + [ptr] * 2)
     for fn in (lib.cluster_plan, lib.cluster_plan_rows):
         fn.restype = i32
-    # the split walks take the split S after the battery code
+    # the walks take the split S after the battery code
     lib.cluster_closest.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 3
-    lib.cluster_occluded.argtypes = [ptr] * 12 + [i32] * 5 + [ptr] * 2
+    lib.cluster_occluded.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 2
     lib.cluster_closest_stream.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 3
     lib.cluster_occluded_stream.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 2
     for fn in (lib.cluster_closest, lib.cluster_occluded,
@@ -664,28 +665,25 @@ def _check(name: str, device, tensors, dtype, length=None):
                 f"contiguous={a.is_contiguous()}")
 
 
-def walk_shared_bytes(cp: ClusteredPrims, stream: bool,
-                      closest: bool = False) -> int:
-    """Dynamic shared memory a walk's block stages clusters in: one
-    cluster's attributes for the resident any-hit walk, two slots of them
-    for the split walks, every closest walk and the streamed any-hit walk
-    (32 KB at 256 triangles a cluster, 128 KB at 1024; the streamed copies
-    skip the zero rows that pad a packed cluster to F8)."""
-    slots = 2 if stream or closest else 1
-    return cp.cluster_size * _N_ATTRS[cp.kind] * 4 * slots
+def walk_shared_bytes(cp: ClusteredPrims) -> int:
+    """Dynamic shared memory a walk's block stages clusters in: two slots
+    of one cluster's attributes (32 KB at 256 triangles a cluster, 128 KB at
+    1024; the streamed copies skip the zero rows that pad a packed cluster
+    to F8)."""
+    return 2 * cp.cluster_size * _N_ATTRS[cp.kind] * 4
 
 
 def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
-                entry, nvis, stream, closest):
+                entry, nvis, stream):
     """Checks what a walk kernel takes and returns its table: the [C*K, F]
     rows (planes for triangles) of the resident walks, 16-byte aligned for
-    the closest walk's 16-byte copies, or the [C*F8, K] packed table of the
-    streamed ones."""
+    their 16-byte copies, or the [C*F8, K] packed table of the streamed
+    ones."""
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors on {device}, need cuda or cpu")
     if tile_r % 32 or not 32 <= tile_r <= 1024:
         raise ValueError(f"{name}: tile_r={tile_r} must be a multiple of 32 "
-                         "in [32, 1024] (one thread per ray of a tile)")
+                         "in [32, 1024] (a tile's rays fill whole warps)")
     t_tiles, c, k = -(-n // tile_r), cp.num_clusters, cp.cluster_size
     _check(name, device, rays, torch.float32, n)
     if stream:
@@ -705,7 +703,7 @@ def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
                          f"need {shape}")
     if not stream and table.data_ptr() % 16:
         raise ValueError(f"{name}: table not 16-byte aligned")
-    if walk_shared_bytes(cp, stream, closest) > MAX_SHARED_BYTES:
+    if walk_shared_bytes(cp) > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: cluster_size {k} does not fit one "
                          "block's shared memory")
     if n >= 2 ** 31 or t_tiles * c >= 2 ** 31 or table.numel() >= 2 ** 31:
@@ -713,14 +711,16 @@ def _check_walk(name, cp: ClusteredPrims, device, n, tile_r, rays, visit,
     return table
 
 
-def plan_shared_bytes(tile_r: int, c: int) -> int:
-    """Dynamic shared memory of one ``cluster_plan`` block for C = `c`
-    under 'super', the mode that needs the most (``plan_shared_bytes`` of
-    ``csrc/cluster_traverse.cu``): 32 bytes a staged ray, 4 a cluster (its
-    least entry), a union box and a slot of 32 clusters, and a 2-byte id a
-    cluster rounded up to a power of two (the sort)."""
-    keys = 1 << max(c - 1, 0).bit_length()
-    return tile_r * 32 + 4 * (c + -(-c // SUPER) + -(-c // 32)) + 2 * keys
+def plan_shared_bytes(tile_r: int, chunk: int, n_super: int,
+                      n_keys: int) -> int:
+    """Dynamic shared memory of a sweep block of ``cluster_plan`` or
+    ``cluster_plan_rows`` (``plan_shared_bytes`` of
+    ``csrc/cluster_traverse.cu``): 32 bytes a staged ray, 4 a cluster of the
+    chunk swept at once (its least entry), a union box ('super') and a slot
+    of 32 clusters of the chunk, and 2 a sort key (``cluster_plan``: C
+    rounded up to a power of two; none for ``cluster_plan_rows``)."""
+    return (tile_r * 32 + 4 * (chunk + n_super + -(-chunk // 32))
+            + 2 * n_keys)
 
 
 def max_plan_clusters(tile_r: int) -> int:
@@ -732,9 +732,36 @@ def max_plan_clusters(tile_r: int) -> int:
     the same lists."""
     c = 1
     while (2 * c < 1 << 16
-           and plan_shared_bytes(tile_r, 2 * c) <= MAX_SHARED_BYTES - 1024):
+           and plan_shared_bytes(tile_r, 2 * c, -(-2 * c // SUPER), 2 * c)
+           <= MAX_SHARED_BYTES - 1024):
         c *= 2
     return c
+
+
+# dynamic shared memory a cluster_plan_rows block aims at: three blocks an
+# SM, as many as the registers of its wide sweep allow
+PLAN_ROWS_SHARED_BYTES = 72 * 1024
+
+
+def plan_rows_chunk(tile_r: int, c: int, n_super: int) -> int:
+    """Clusters one pass of ``cluster_plan_rows``' sweep takes, a multiple
+    of 32, so that every chunk starts on a slot of 32 clusters (under
+    'super' a slot lies in one union box): all C where they fit
+    PLAN_ROWS_SHARED_BYTES beside the staged rays and the `n_super` union
+    entries, else C cut into the fewest chunks of one size that fit (the
+    most a block can have beside 1 KB of static shared memory where the
+    rays and unions alone leave no room in that aim). The kernel sweeps
+    [c0, c0 + chunk) for c0 = 0, chunk, 2 chunk, ... below C."""
+    fixed = plan_shared_bytes(tile_r, 0, n_super, 0)
+    slot = plan_shared_bytes(0, 32, 0, 0)  # a slot's entries and list entry
+    room = (PLAN_ROWS_SHARED_BYTES if fixed + slot <= PLAN_ROWS_SHARED_BYTES
+            else MAX_SHARED_BYTES - 1024)
+    most = (room - fixed) // slot
+    if most < 1:
+        raise ValueError(f"cluster_plan_rows: {tile_r} rays and {n_super} "
+                         "union boxes leave no shared memory for a slot")
+    slots = -(-c // 32)
+    return 32 * -(-slots // -(-slots // most))
 
 
 def _plan_args(name: str, cp: ClusteredPrims, mode: str, p: Vec3, d: Vec3,
@@ -773,17 +800,20 @@ def _plan_args(name: str, cp: ClusteredPrims, mode: str, p: Vec3, d: Vec3,
 def plan_rows(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid, tile_r: int,
               plan: str = "ray"):
     """The unsorted [T, C] entry matrix of planner mode `plan`. CPU tensors
-    take ``plan_rows_plain``; CUDA tensors launch ``cluster_plan_rows``."""
+    take ``plan_rows_plain``; CUDA tensors launch ``cluster_plan_rows``,
+    whose sweep takes ``plan_rows_chunk`` clusters at a time."""
     mode = _plan_mode(cp, plan)
     if tf.device.type == "cpu":
         return plan_rows_plain(cp, p, d, tf, valid, tile_r, mode)
     counter = PLAN_ROWS[mode]
     args, t_tiles = _plan_args(counter.name, cp, mode, p, d, tf, valid,
                                tile_r)
-    entry = torch.empty((t_tiles, cp.num_clusters), dtype=torch.float32,
-                        device=tf.device)
+    c = cp.num_clusters
+    chunk = plan_rows_chunk(tile_r, c, -(-c // SUPER) if mode == "super"
+                            else 0)
+    entry = torch.empty((t_tiles, c), dtype=torch.float32, device=tf.device)
     build.launch(counter.name, LIBRARY.load().cluster_plan_rows, tf.device,
-                 args + [entry.data_ptr()])
+                 args + [chunk, entry.data_ptr()])
     counter.launches += 1
     return entry
 
@@ -829,11 +859,11 @@ def _card_threads(index: int) -> int:
     return props.multi_processor_count * props.max_threads_per_multi_processor
 
 
-STREAM_WAVES = 4  # the split walks' threads, in the card's resident threads
+STREAM_WAVES = 4  # the walks' threads, in the card's resident threads
 
 
 def _stream_split(t_tiles: int, tile_r: int, device) -> int:
-    """S of the split walks' S-way split (``csrc/cluster_traverse.cu``:
+    """S of the walks' S-way split (``csrc/cluster_traverse.cu``:
     S threads a ray, each owning every S-th slot of a staged cluster): the
     largest of 1, 2 and 4 at which the launch's T x tile_r x S threads stay
     within STREAM_WAVES times the threads the card holds resident at once,
@@ -841,7 +871,7 @@ def _stream_split(t_tiles: int, tile_r: int, device) -> int:
     tile's walk S-fold, which trims the tail of long tiles and fills the
     card on a narrow wavefront, and each repeats its ray's setup and joins
     the reduction; ``chip_smoke.py`` times S = 1, 2 and 4 on every batch of
-    a split walk. On an H100: S = 4 for the 131,072-lane narrowed batches,
+    every walk. On an H100: S = 4 for the 131,072-lane narrowed batches,
     S = 2 for 2^19 lanes, at tiles of 128 or 256 rays."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -854,13 +884,10 @@ def _stream_split(t_tiles: int, tile_r: int, device) -> int:
 
 
 def _walk_split(counter: LaunchCounter, t_tiles: int, tile_r: int,
-                device) -> Optional[int]:
-    """S of a walk kernel's S-way split: ``_stream_split`` for the split
-    walks (every closest walk, resident, product-form or streamed, and the
-    streamed any-hit walk); None for the resident any-hit walks, which have
-    one thread a ray."""
-    if counter in (OCCLUDED, OCCLUDED_MXU):
-        return None
+                device) -> int:
+    """S of the S-way split of the walk kernel `counter` counts: every walk,
+    closest or any-hit, resident, product-form or streamed, is a split walk
+    and takes ``_stream_split``'s S."""
     return _stream_split(t_tiles, tile_r, device)
 
 
@@ -896,7 +923,7 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
             packed=_tables_packed(cp) if stream else None)
     n = tf0.shape[0]
     table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tf0),
-                        visit, entry, nvis, stream, True)
+                        visit, entry, nvis, stream)
     _check(counter.name, device, (valid,), torch.bool, n)
     root = _root_row(cp)
     lib = LIBRARY.load()
@@ -919,7 +946,8 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     """Any hit over each tile's visit list: [R] bool. CPU tensors take
     ``walk_occluded_plain``; CUDA tensors launch ``cluster_occluded``, its
     product-form variant (`mxu`, triangle packs) or
-    ``cluster_occluded_stream`` (`stream`)."""
+    ``cluster_occluded_stream`` (`stream`), each at the S of
+    ``_walk_split``."""
     device = tfar.device
     counter, battery = _walk_kernel(cp, mxu, stream, OCCLUDED,
                                     OCCLUDED_STREAM, OCCLUDED_MXU)
@@ -929,18 +957,17 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
             packed=_tables_packed(cp) if stream else None)
     n = tfar.shape[0]
     table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tfar),
-                        visit, entry, nvis, stream, False)
+                        visit, entry, nvis, stream)
     root = _root_row(cp)
     lib = LIBRARY.load()
     occ = torch.empty(n, dtype=torch.bool, device=device)
     split = _walk_split(counter, visit.shape[0], tile_r, device)
-    split = [] if split is None else [split]
     build.launch(counter.name,
                  lib.cluster_occluded_stream if stream
                  else lib.cluster_occluded, device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tfar, table)]
-                 + [battery, *split, n, tile_r, cp.num_clusters,
+                 + [battery, split, n, tile_r, cp.num_clusters,
                     cp.cluster_size, occ.data_ptr()])
     counter.launches += 1
     return occ

@@ -414,3 +414,88 @@ def test_plan_kernel_on_box_faces_and_equal_entries_on_card(plan):
         assert torch.equal(kn, pn) and int(pn.sum()) > 0
         assert torch.equal(kv[below], pv[below])
         assert torch.equal(ke[below], pe[below])
+
+
+def _chunks(c, chunk):
+    """How many times cluster_plan_rows' sweep takes each cluster: it sweeps
+    [c0, c0 + chunk) for c0 = 0, chunk, 2 chunk, ... below C."""
+    taken = np.zeros(c, np.int64)
+    for c0 in range(0, c, chunk):
+        taken[c0:c0 + chunk] += 1
+    return taken
+
+
+@pytest.mark.parametrize("tile_r", [1, 32, 64, 128, 256, 512, 1024])
+def test_plan_rows_chunk_fits_and_covers(tile_r):
+    """cluster_plan_rows' chunk at tiles of 1 to 1024 rays and up to 2^20
+    clusters, with and without the union entries of 'super': the shared
+    memory the kernel asks for (plan_shared_bytes, as the .cu computes it)
+    fits one block beside 1 KB of static shared memory, and the chunks take
+    every cluster exactly once."""
+    for c in (1, 31, 32, 33, 1130, 7384, 16385, 100_000, 1 << 20):
+        for n_super in (0, -(-c // tcl.SUPER)):
+            chunk = ttk.plan_rows_chunk(tile_r, c, n_super)
+            assert chunk >= 32 and chunk % 32 == 0
+            assert ttk.plan_shared_bytes(tile_r, chunk, n_super, 0) \
+                <= ttk.MAX_SHARED_BYTES - 1024
+            assert (_chunks(c, chunk) == 1).all()
+            # all C at once where they fit the aim of three blocks an SM
+            if ttk.plan_shared_bytes(tile_r, 32 * -(-c // 32), n_super, 0) \
+                    <= ttk.PLAN_ROWS_SHARED_BYTES:
+                assert chunk >= c
+
+
+@pytest.mark.parametrize("c", [1130, 7384, 100_000, 1 << 20])
+def test_plan_rows_super_chunks_start_on_slots(c):
+    """Under 'super' every chunk of cluster_plan_rows starts on a slot of
+    32 clusters, so that each slot the sweep takes lies in one union box of
+    SUPER clusters, at every tile size and at a chunk patched small."""
+    n_super = -(-c // tcl.SUPER)
+    for chunk in [ttk.plan_rows_chunk(t, c, n_super)
+                  for t in (1, 128, 256, 1024)] + [32, 64, 96]:
+        for c0 in range(0, c, chunk):
+            assert c0 % 32 == 0
+            slots = np.arange(c0 // 32, -(-min(c0 + chunk, c) // 32))
+            assert ((32 * slots) // tcl.SUPER
+                    == (32 * slots + 31) // tcl.SUPER).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["ray", "super", "group", "tilebox",
+                                  "hybrid"])
+def test_plan_rows_kernel_matches_plain_on_card(plan, monkeypatch):
+    """cluster_plan_rows on a CUDA card in each mode against plan_rows_plain,
+    the whole [T, C] matrix bit for bit: on rays that start on a box face
+    with a zero direction component, on sign-coherent tiles, on scattered
+    rays, on a pack in which every cluster box appears twice, and with the
+    sweep's chunk patched below C (a chunk of 32 and of 64 clusters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    jcp, tcp = _packs("triangle")
+    src = tcp.to_numpy()
+    twice = tcl.ClusteredPrims.from_numpy(dict(
+        src, lo=np.repeat(src["lo"], 2, axis=0),
+        hi=np.repeat(src["hi"], 2, axis=0),
+        glo=np.repeat(src["glo"], 2, axis=1),
+        ghi=np.repeat(src["ghi"], 2, axis=1),
+        rows=np.repeat(src["rows"].reshape(tcp.num_clusters, -1), 2,
+                       axis=0).reshape(-1, src["rows"].shape[1]),
+        planes=np.repeat(src["planes"].reshape(tcp.num_clusters, -1), 2,
+                         axis=0).reshape(-1, 12),
+        order=np.repeat(src["order"].reshape(tcp.num_clusters, -1), 2,
+                        axis=0).reshape(-1),
+        num_clusters=2 * tcp.num_clusters))
+    chunk = ttk.plan_rows_chunk
+    for chunk_of in (chunk, lambda *args: 32, lambda *args: 64):
+        monkeypatch.setattr(ttk, "plan_rows_chunk", chunk_of)
+        for case, cp_cpu in (("on_box_faces", tcp), ("coherent", tcp),
+                             ("scattered", tcp), ("camera", twice)):
+            cp = cp_cpu.to("cuda")
+            p, d, tf, valid = _ray_case(case, jcp)
+            args = (cp, _tv(p).to("cuda"), _tv(d).to("cuda"),
+                    torch.from_numpy(tf).cuda(),
+                    torch.from_numpy(valid).cuda(), TILE_R, plan)
+            got = ttk.plan_rows(*args)
+            want = ttk.plan_rows_plain(*args)
+            assert torch.equal(got, want), (case, int((got != want).sum()))
+            assert bool((want < FLT_MAX).any())

@@ -398,7 +398,7 @@ def test_tables_packed_equals_jax(stream_packs, kind):
     assert want.shape == (jcp.num_clusters * f8, 128)
     for a, b in zip(ttk._tables_unpacked(tcp, got), ttk._tables(tcp)):
         assert torch.equal(a, b)
-    assert ttk.walk_shared_bytes(tcp, stream=True) \
+    assert ttk.walk_shared_bytes(tcp) \
         == 2 * 128 * 4 * (12 if kind == "triangle" else 4)
 
 
@@ -699,13 +699,14 @@ def test_stream_split_rule(monkeypatch, lanes, tile_r, split):
     ("cluster_closest_stream", 131072, 256, 4),
     ("cluster_occluded_stream", 1 << 19, 256, 2),
     ("cluster_closest", 1 << 21, 256, 1), ("cluster_closest", 4096, 1024, 1),
-    ("cluster_occluded", 131072, 128, None),
-    ("cluster_occluded[mxu]", 131072, 128, None)])
+    ("cluster_occluded", 131072, 128, 4),
+    ("cluster_occluded[mxu]", 131072, 128, 4),
+    ("cluster_occluded", 1 << 19, 128, 2),
+    ("cluster_occluded[mxu]", 1 << 19, 128, 2)])
 def test_walk_split_rule(monkeypatch, walk, lanes, tile_r, split):
     """The S each walk kernel launches with on a card of 132 SMs x 2048
-    threads: every closest walk (resident, product-form, streamed) and the
-    streamed any-hit walk take the streamed walks' rule; the resident
-    any-hit walks have no split."""
+    threads: every walk, closest or any-hit (resident, product-form,
+    streamed), takes the streamed walks' rule."""
     monkeypatch.setattr(ttk, "_card_threads", lambda index: 132 * 2048)
     counter = {c.name: c for c in (
         ttk.CLOSEST, ttk.CLOSEST_MXU, ttk.CLOSEST_STREAM, ttk.OCCLUDED,
@@ -877,3 +878,44 @@ def test_closest_kernels_ties_and_dead_lanes_on_card(tie_packs, stream_packs,
             slot = kid[hit] % k
             assert bool(((kid[hit] // k) % 2 == 0).all())
             assert bool(((slot < k // 2) & (slot % 2 == 0)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_occluded_kernels_at_each_split_on_card(stream_packs, monkeypatch,
+                                                split):
+    """cluster_occluded on a CUDA card at each S of its S-way split, with
+    each battery (spheres, triangles, the product form), on a batch with
+    half its lanes dead and shadow distances just before and just behind
+    each ray's closest hit: equal to walk_occluded_plain and, where the
+    streamed walk runs (not the product form), to cluster_occluded_stream,
+    bit for bit; dead lanes are never occluded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    monkeypatch.setattr(ttk, "_stream_split", lambda *args: split)
+    for cp_cpu, mxu in ((stream_packs["sphere"][1], False),
+                        (stream_packs["triangle"][1], False),
+                        (stream_packs["triangle"][1], True)):
+        cp = cp_cpu.to("cuda")
+        n = 3000
+        p, d = _rays(n, 181)
+        p, d = _tv(p).to("cuda"), _tv(d).to("cuda")
+        g = np.random.default_rng(182)
+        alive = torch.from_numpy(g.random(n) < 0.5).cuda()
+        tf0 = torch.full((n,), float(FLT_MAX), device="cuda")
+        plan = ttk._plan_visits(cp, p, d, torch.where(alive, tf0, 0.0),
+                                alive, TILE_R)
+        kt, kid = ttk.walk_closest(cp, *plan, p, d, tf0, alive, TILE_R,
+                                   mxu=mxu)
+        scale = torch.where(torch.arange(n, device="cuda") % 2 == 0, 1.001,
+                            0.999)
+        tf = torch.where(alive, torch.where(kid >= 0, kt * scale, 5.0), 0.0)
+        splan = ttk._plan_visits(cp, p, d, tf, tf > 0, TILE_R)
+        ko = ttk.walk_occluded(cp, *splan, p, d, tf, TILE_R, mxu=mxu)
+        assert torch.equal(ko, ttk.walk_occluded_plain(
+            cp, *splan, p, d, tf, TILE_R, mxu=mxu))
+        assert not bool(ko[~alive].any())
+        assert 0 < int(ko.sum()) < int(alive.sum())
+        if not mxu:
+            assert torch.equal(ko, ttk.walk_occluded(
+                cp, *splan, p, d, tf, TILE_R, stream=True))
