@@ -1,18 +1,17 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's cluster kernels of one checkout on the card, at
-the widths the full-width renders launch them with, after checking each
+"""Time the PyTorch port's kernels of one checkout on the card, at the
+widths the full-width renders launch them with, after checking each
 against its plain version.
 
     python3 benchmarks/torch_kernel_probe.py TREE LABEL [--kernels K,...]
+        [--out DIR]
 
 TREE is the root of a checkout of this repository (its chip_smoke.py and
 its cpu_raytracing_experiments_tpu_torch package are imported from there),
 LABEL a name for its lines. To compare two versions of a kernel, unpack
 both into directories that .gitignore lists and run them in turns in one
-call on one card (A, B, B, A). For each table (1000 and 100,000 spheres,
-the 100,352- and the 1,312,200-triangle mesh) and batch (camera, diffuse,
-narrowed) it prints one JSON line with, for each kernel asked for (all by
-default):
+call on one card (A, B, B, A). For each kernel asked for (all by default)
+it prints JSON lines:
   plan      cluster_plan in modes 'ray' and 'super' (equal to plain, ms);
   rows      cluster_plan_rows in every mode, 'group' on a group-box pack
             (not made for the 1.3 M-triangle table), equal to plain and ms;
@@ -23,18 +22,47 @@ default):
             (even lanes) or just before (odd lanes) each closest hit,
             equal to plain and, on tables of 128 or more prims a cluster,
             to cluster_occluded_stream at the same S; ms; the product form
-            too on the 100,352-triangle mesh.
-Where the checkout built its kernels in this process it first prints
--Xptxas -v of the planners and the walks.
+            too on the 100,352-triangle mesh;
+  fma       fp.fma on 2^19 contiguous lanes and each contraction that
+            core/ chains from it (fp.dot3, the three lanes of hit_pt =
+            d * t + p, sampling.to_local and to_world) on 2^19 lanes:
+            equal to the chain of fp.fma_plain, kernel launches a call, ms,
+            and the host microseconds a call takes (2000 calls on 1024
+            lanes, no synchronize between them); fp.fma on 2^19 lanes with
+            c a column of an [n, 8] table (the hero's light sampler):
+            kernels launched, equal to plain, ms; as yardsticks of the
+            card's elementwise rate, torch.add and torch.addcmul on the
+            same 2^19 lanes and fp.fma on 1024;
+  sphere    sphere_closest and sphere_occluded at 2^19 rays x the hero's 9
+            spheres and 262,144 and 2^19 rays x the 1000-sphere field
+            (equal to plain, ms), and sphere_closest at 2^19 rays on
+            tables of 1-256 spheres (equal to plain, ms); the SASS of
+            csrc/sphere_battery.cu into DIR;
+  hero      the hero scene at 256x256, 8 bounces, 2 passes through
+            Renderer.accumulate: the buckets' SHA-256 and their equality
+            with every other checkout's buckets saved in DIR, the kernel
+            launches a pass by the wrappers' counters, and one profiled
+            pass's kernel launches; then at 1920x1088 its ms/pass (median of
+            three windows of three passes) and one profiled pass's kernel
+            launches and device busy time.
+DIR (--out, default probe_out) holds the saved buckets and SASS. Every
+time is a CUDA-event time with the L2 cache emptied before each launch:
+"ms" by writing 64 MB (chip_smoke.Timer), "clean_ms" by reading them.
+Where the checkout built its cluster kernels in this process it first
+prints -Xptxas -v of the planners and the walks.
 """
 import argparse
+import hashlib
 import importlib
 import json
 import re
+import subprocess
 import sys
 import time
+from pathlib import Path
 
-KERNELS = ("plan", "rows", "closest", "occluded")
+KERNELS = ("plan", "rows", "closest", "occluded", "fma", "sphere", "hero")
+CLUSTER = ("plan", "rows", "closest", "occluded")
 
 
 def plan_equal(torch, got, want, c):
@@ -104,43 +132,298 @@ def probe(m, timer, label, name, cp, gcp, rays, tile, kernels, mxu=False,
     print(f"[{label}] {name}: {json.dumps(res)}", flush=True)
 
 
+def wide(np, g, n):
+    """Random float32 of either sign with exponents from -30 to 30."""
+    return (g.uniform(1.0, 2.0, n) * 2.0 ** g.integers(-30, 31, n)
+            * g.choice([-1.0, 1.0], n)).astype(np.float32)
+
+
+def fma_forms(m):
+    """(name, operand count, kernel call, plain chain) of fp.fma and each
+    contraction core/ chains from it, through the checkout's public
+    functions: a checkout without a fused form runs its chain of fp.fma."""
+    fp, sampling, Vec3, Quat = m["fp"], m["sampling"], m["Vec3"], m["Quat"]
+    f, fpl = fp.fma, fp.fma_plain
+    fma3 = getattr(fp, "fma3", None) or (
+        lambda a, b, c: Vec3(*(f(ac, b, cc) for ac, cc in zip(a, c))))
+
+    def local(g, t, v):
+        temp = 2.0 * g(-t.x, v.y, g(v.z, t.w, v.x * t.y))
+        return (g(-t.y, temp, v.x), g(t.x, temp, v.y), g(temp, t.w, -v.z))
+
+    def world(g, t, v):
+        temp = 2.0 * g(t.x, v.y, g(v.z, t.w, -(v.x * t.y)))
+        return (g(t.y, temp, v.x), g(-t.x, temp, v.y), g(temp, t.w, -v.z))
+
+    quat = lambda x: Quat(x[0], x[1], None, x[2])
+    return (
+        ("fma", 3, lambda x: (f(*x),), lambda x: (fpl(*x),)),
+        ("dot3", 6, lambda x: (fp.dot3(*x),),
+         lambda x: (fpl(x[2], x[5], fpl(x[0], x[3], x[1] * x[4])),)),
+        ("fma3", 7, lambda x: tuple(fma3(Vec3(*x[:3]), x[3], Vec3(*x[4:]))),
+         lambda x: tuple(fpl(x[i], x[3], x[4 + i]) for i in range(3))),
+        ("to_local", 6,
+         lambda x: tuple(sampling.to_local(quat(x), Vec3(*x[3:]))),
+         lambda x: local(fpl, quat(x), Vec3(*x[3:]))),
+        ("to_world", 6,
+         lambda x: tuple(sampling.to_world(quat(x), Vec3(*x[3:]))),
+         lambda x: world(fpl, quat(x), Vec3(*x[3:]))),
+    )
+
+
+def clean_timer(cs, torch):
+    """cs.Timer with the L2 cache emptied by reading its 64 MB buffer, which
+    leaves clean lines, in place of writing it: the time of a memory-bound
+    kernel without the write-back of the flush's dirty lines."""
+
+    class Clean(cs.Timer):
+        def __call__(self, fn, iters, warmup=2):
+            for _ in range(warmup):
+                fn()
+            torch.cuda.synchronize()
+            total = 0.0
+            for _ in range(iters):
+                self.flush.view(torch.int64).sum()
+                torch.cuda._sleep(self.HOST_SLACK_CYCLES)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                total += start.elapsed_time(end)
+            return total / iters
+
+    return Clean(torch)
+
+
+def probe_fma(m, timer, label):
+    torch, np, build = m["torch"], m["np"], m["build"]
+    g = np.random.default_rng(3)
+    n = 1 << 19
+    cols = [torch.tensor(wide(np, g, n), device="cuda") for _ in range(7)]
+    res = {}
+    for name, arity, kern, plain in fma_forms(m):
+        x = tuple(cols[:arity])
+        before = sum(build.launch_counts().values())
+        got = kern(x)
+        res[f"{name}_launches_a_call"] = (sum(build.launch_counts().values())
+                                          - before)
+        res[f"{name}_equal"] = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got, plain(x)))
+        res[f"{name}_ms"] = timer(lambda: kern(x), 20)
+        res[f"{name}_clean_ms"] = m["clean"](lambda: kern(x), 20)
+        small = tuple(c[:1024] for c in x)
+        for _ in range(20):
+            kern(small)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            kern(small)
+        res[f"{name}_host_us"] = (time.perf_counter() - t0) * 1e6 / 2000
+        torch.cuda.synchronize()
+    # fp.fma as the hero's light sampler calls it: c a column of an
+    # [n, 8] table (the strided form where the checkout has one)
+    col = torch.stack([cols[j % 7] for j in range(8)], 1)[:, 4]
+    ops = (cols[0], cols[1], col)
+    before = build.launch_counts()
+    got = m["fp"].fma(*ops)
+    res["fma_column_launches"] = {k: v - before[k] for k, v in
+                                  build.launch_counts().items()
+                                  if v != before[k]}
+    res["fma_column_equal"] = torch.equal(
+        got.view(torch.int32), m["fp"].fma_plain(*ops).view(torch.int32))
+    res["fma_column_ms"] = timer(lambda: m["fp"].fma(*ops), 20)
+    # yardsticks, not the same function: PyTorch's elementwise kernels on
+    # the same bytes (addcmul rounds a*b before adding), and the fma at
+    # 1024 lanes, where the time is the launch's
+    a, b, c = cols[:3]
+    res["torch_add_ms"] = timer(lambda: torch.add(a, b), 20)
+    res["torch_addcmul_ms"] = timer(lambda: torch.addcmul(c, a, b), 20)
+    res["fma_1024_ms"] = timer(lambda: m["fp"].fma(a[:1024], b[:1024],
+                                                   c[:1024]), 20)
+    print(f"[{label}] fma 2^19: {json.dumps(res)}", flush=True)
+
+
+def probe_sphere(m, timer, label, out):
+    torch, np, cs, crt = m["torch"], m["np"], m["cs"], m["crt"]
+    sb = m["sb"]
+    for tname, scene, n in (
+            ("hero 9", crt.builders.default_scene(*cs.FRAME), 1 << 19),
+            ("field 1000", crt.builders.random_spheres_scene(*cs.FRAME),
+             262144),
+            ("field 1000", crt.builders.random_spheres_scene(*cs.FRAME),
+             1 << 19)):
+        sph = scene.to("cuda").spheres
+        center, rsq = sph.center, sph.radius_sq
+        p, d, tf = cs.ray_batch(torch, np, center, rsq, n, 1)
+        want = sb.intersect_spheres(p, d, center, rsq)
+        res = {}
+        got = sb.closest_hit(p, d, center, rsq)
+        res["closest_equal"] = cs._same_hits(torch, got, want)
+        res["closest_ms"] = timer(lambda: sb.closest_hit(p, d, center, rsq),
+                                  20)
+        res["closest_clean_ms"] = m["clean"](
+            lambda: sb.closest_hit(p, d, center, rsq), 20)
+        tf = torch.where(torch.arange(n, device="cuda") % 2 == 0, tf,
+                         torch.where(want[1] >= 0, want[0] * 0.999, tf))
+        res["occluded_equal"] = torch.equal(
+            sb.any_hit(p, d, tf, center, rsq),
+            sb.occluded_spheres(p, d, tf, center, rsq))
+        res["occluded_ms"] = timer(lambda: sb.any_hit(p, d, tf, center, rsq),
+                                   20)
+        res["occluded_clean_ms"] = m["clean"](
+            lambda: sb.any_hit(p, d, tf, center, rsq), 20)
+        print(f"[{label}] sphere {tname} x {n} rays: {json.dumps(res)}",
+              flush=True)
+    probe_tables(m, timer, label)
+    tool = Path(m["build"].nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(sb.LIBRARY.path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    (out / f"sass_{label}_sphere_battery.txt").write_text(sass)
+
+
+SWEEP_TABLES = (1, 4, 9, 12, 16, 32, 64, 128, 256)  # spheres
+
+
+def probe_tables(m, timer, label):
+    """sphere_closest at 2^19 rays on tables of SWEEP_TABLES spheres (the
+    hero's 9, and the first k spheres of the 1000-sphere field): equal to
+    the plain version, and ms of 20 launches. One JSON line a table."""
+    torch, np, cs, crt, sb = m["torch"], m["np"], m["cs"], m["crt"], m["sb"]
+    hero = crt.builders.default_scene(*cs.FRAME).to("cuda").spheres
+    field = crt.builders.random_spheres_scene(*cs.FRAME).to("cuda").spheres
+    n = 1 << 19
+    for k in SWEEP_TABLES:
+        sph = hero if k == 9 else field
+        center = m["Vec3"](*(c[:k].contiguous() for c in sph.center))
+        rsq = sph.radius_sq[:k].contiguous()
+        p, d, _ = cs.ray_batch(torch, np, center, rsq, n, 100 + k)
+        want = sb.intersect_spheres(p, d, center, rsq)
+        call = lambda: sb.closest_hit(p, d, center, rsq)
+        res = {"hits": int((want[1] >= 0).sum()),
+               "equal": cs._same_hits(torch, call(), want),
+               "ms": timer(call, 20)}
+        print(f"[{label}] sphere_closest, {k} spheres x {n} rays: "
+              f"{json.dumps(res)}", flush=True)
+
+
+def probe_hero(m, label, out):
+    """The hero at 256x256, 2 passes: buckets against the other
+    checkouts' saved in `out`, launches a pass; then at 1920x1088: ms/pass
+    (the median of three windows of three passes, after a warm-up pass)
+    and one profiled pass's device busy time and kernel launches."""
+    torch, crt, build, cs = m["torch"], m["crt"], m["build"], m["cs"]
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(r):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r.accumulate(1)
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0]
+        return (sum(ev.count for ev in rows),
+                sum(ev.self_device_time_total for ev in rows) / 1e3)
+
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
+    r = crt.Renderer(crt.builders.default_scene(256, 256), policy, 256, 256)
+    build.reset_counts()
+    r.accumulate(2)
+    torch.cuda.synchronize()
+    counts = {k: v / 2 for k, v in build.launch_counts().items() if v}
+    buckets = r.state.buckets.cpu().numpy()
+    mine = out / f"hero_buckets_{label}.npy"
+    m["np"].save(mine, buckets)
+    equal = {f.stem[len("hero_buckets_"):]:
+             m["np"].load(f).tobytes() == buckets.tobytes()
+             for f in sorted(out.glob("hero_buckets_*.npy")) if f != mine}
+    launches, _ = profiled(r)
+    fma = sum(v for k, v in counts.items() if k.startswith("fma"))
+    print(f"[{label}] hero 256x256, 2 passes: buckets sha256 "
+          f"{hashlib.sha256(buckets.tobytes()).hexdigest()[:16]}, equal to "
+          f"{equal}; launches a pass by the counters: fma kernels {fma} "
+          f"{counts}; kernel launches of one profiled pass {launches}",
+          flush=True)
+    r = crt.Renderer(crt.builders.default_scene(*cs.FRAME), policy,
+                     *cs.FRAME)
+    r.accumulate(1)
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r.accumulate(3)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / 3)
+    launches, busy = profiled(r)
+    print(f"[{label}] hero 1920x1088: {sorted(windows)[1]:.2f} ms/pass "
+          f"(windows {[round(w, 2) for w in windows]}); one profiled pass: "
+          f"{launches} kernel launches, device busy {busy:.2f} ms",
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("tree", help="root of the checkout to measure")
     ap.add_argument("label", help="name of its output lines")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help=f"comma-separated, of {', '.join(KERNELS)}")
+    ap.add_argument("--out", default="probe_out",
+                    help="directory of the saved buckets and SASS")
     opt = ap.parse_args()
     kernels = set(opt.kernels.split(","))
     if not kernels <= set(KERNELS):
         ap.error(f"--kernels: {sorted(kernels - set(KERNELS))} unknown")
+    out = Path(opt.out)
+    out.mkdir(parents=True, exist_ok=True)
     sys.path.insert(0, opt.tree)
+    pkg = "cpu_raytracing_experiments_tpu_torch"
     m = {name: importlib.import_module(mod) for name, mod in (
         ("torch", "torch"), ("np", "numpy"), ("cs", "chip_smoke"),
-        ("crt", "cpu_raytracing_experiments_tpu_torch"),
-        ("intersect", "cpu_raytracing_experiments_tpu_torch.ops.intersect"),
-        ("build", "cpu_raytracing_experiments_tpu_torch.ops.kernels.build"),
-        ("ct", "cpu_raytracing_experiments_tpu_torch.ops.kernels."
-               "cluster_traverse"))}
+        ("crt", pkg), ("fp", pkg + ".core.fp"),
+        ("sampling", pkg + ".core.sampling"), ("vec", pkg + ".core.vec"),
+        ("intersect", pkg + ".ops.intersect"),
+        ("build", pkg + ".ops.kernels.build"),
+        ("sb", pkg + ".ops.kernels.sphere_battery"),
+        ("kf", pkg + ".ops.kernels.fma"),
+        ("ct", pkg + ".ops.kernels.cluster_traverse"))}
+    m["Vec3"], m["Quat"] = m["vec"].Vec3, m["vec"].Quat
     torch, cs, crt, ct = m["torch"], m["cs"], m["crt"], m["ct"]
     label = opt.label
+    print(f"[{label}] {cs.gpu_name_power()}", flush=True)
     t0 = time.perf_counter()
-    m["build"].load_all((ct.LIBRARY,))
+    libraries = (m["sb"].LIBRARY, m["kf"].LIBRARY) + (
+        (ct.LIBRARY,) if kernels & set(CLUSTER) else ())
+    m["build"].load_all(libraries)
     print(f"[{label}] built in {time.perf_counter() - t0:.1f} s", flush=True)
-    for fn, regs, (st, ld), smem in cs.ptxas_report(
-            ct.LIBRARY.build_log, ("plan_kernel", "closest_kernel",
-                                   "occluded_kernel", "stream_kernel")):
-        print(f"    ptxas {cs.kernel_name(fn)}: {regs} registers, spill "
-              f"{st} / {ld} B, {smem} B static shared", flush=True)
-    fn = None
-    for line in ct.LIBRARY.build_log.splitlines():
-        hit = re.search(r"Function properties for (\w+)", line)
-        fn = hit.group(1) if hit else fn
-        frame = re.search(r"(\d+) bytes stack frame", line)
-        if frame and fn and int(frame.group(1)):
-            print(f"    ptxas {cs.kernel_name(fn)}: {frame.group(1)} B stack "
-                  "frame", flush=True)
+    for lib in libraries:
+        for fn, regs, (st, ld), smem in cs.ptxas_report(
+                lib.build_log, ("plan_kernel", "closest_kernel",
+                                "occluded_kernel", "stream_kernel",
+                                "fma_kernel", "flat_kernel",
+                                "strided_kernel")):
+            print(f"    ptxas {cs.kernel_name(fn)}: {regs} registers, spill "
+                  f"{st} / {ld} B, {smem} B static shared", flush=True)
+        fn = None
+        for line in lib.build_log.splitlines():
+            hit = re.search(r"Function properties for (\w+)", line)
+            fn = hit.group(1) if hit else fn
+            frame = re.search(r"(\d+) bytes stack frame", line)
+            if frame and fn and int(frame.group(1)):
+                print(f"    ptxas {cs.kernel_name(fn)}: {frame.group(1)} B "
+                      "stack frame", flush=True)
     timer = cs.Timer(torch)
+    m["clean"] = clean_timer(cs, torch)
+    if "fma" in kernels:
+        probe_fma(m, timer, label)
+    if "sphere" in kernels:
+        probe_sphere(m, timer, label, out)
+    if "hero" in kernels:
+        probe_hero(m, label, out)
+    if not kernels & set(CLUSTER):
+        return
     tables = []
     for n in (1000, 100_000):
         scene = crt.builders.random_spheres_scene(*cs.FRAME, num_spheres=n)

@@ -7,23 +7,38 @@ NVIDIA GPU and check it end to end.
 Phases:
   1. device info and the build of csrc/ (the three CUDA sources with nvcc
      for sm_90a and the host tree builder with g++, the four compilers
-     started together); -Xptxas -v of both planners, every walk and the
-     fma kernel (registers, spills, shared memory), the float64 instructions
-     in the SASS of every kernel of the walks and batteries (cuobjdump): a
-     planner or a walk with any fails the run; the SASS opcodes of the
-     flat planner and the card's clock, for its issue floor;
-  2. the fma kernel against fp.fma's plain form (float64, round-to-odd),
-     bit for bit, on 2^22 random triples with wide exponents, the triples on
-     which a float64 sum rounds twice, specials and broadcast operands; each
-     sphere-battery kernel against its plain PyTorch version, bit for
-     bit, on seeded batches with tangent/grazing rays, duplicate spheres on
-     both sides of a staging-chunk boundary and shadow lanes with tfar <= 0;
-     their CUDA-event times beside the bound and the plain version's time;
+     started together); -Xptxas -v of both planners, every walk, both
+     sphere batteries and the fma kernels
+     (registers, spills, shared memory), the float64 instructions in the
+     SASS of every kernel of the three CUDA sources (cuobjdump): a planner,
+     a walk, a battery or an fma kernel with any fails the run; the SASS
+     opcodes of the flat planner and of sphere_closest, and
+     the card's clock, for their issue floors;
+  2. every form of the fma kernels against its plain version (fp.fma_plain
+     and its chains in core/), bit for bit: the flat kernel's five
+     expressions (fp.fma, fp.dot3, fp.fma3, sampling.to_local and
+     to_world) on seven columns of 2^22 random floats with wide exponents,
+     the triples on which a float64 sum rounds twice and specials; on
+     operands 1-3 elements off a 16-byte boundary, with n % 4 = 1, 2, 3,
+     with 0-d and Python-float operands, and broadcast (the strided kernel
+     or the chain of fma calls), the strided kernel on 4-D operands and on
+     2^19 lanes with an operand a column of a table (the hero's light
+     sampler); their times at 2^19 lanes and the host microseconds a call
+     takes;
+     sphere_closest on tables of 1, 9 and 1000
+     spheres and of 9, 1024 and 1025 with duplicated spheres, on ray slices
+     at offsets 0-3 with n % 4 = 0-3; each sphere-battery kernel against its
+     plain PyTorch version, bit for bit, on seeded batches with
+     tangent/grazing rays, duplicate spheres on both sides of a
+     staging-chunk boundary and shadow lanes with tfar <= 0; their
+     CUDA-event times beside the bound and the plain version's time;
   3. white furnace, 256x256, 25 spp: every pixel of the linear resolve is 1;
   4. hero scene, 64x64, 10 spp, against tests/goldens/hero_64x64_10spp.npy
      at the bar of tests/test_goldens.py::_check;
   5. the hero path: the hero scene at 1920x1088, 8 bounces, 2^19 rays per
-     chunk, through Renderer.accumulate, with the kernels' launch counts;
+     chunk, through Renderer.accumulate, with the kernels' launch counts
+     (every fma form among them) and, over one profiled pass, the kernel
+     launches of the pass and those of the fma kernels;
   6. the 1000-sphere random_spheres_scene at 512x512, 8 bounces, brute;
   7. the three cluster kernels (planner, closest walk, any-hit walk)
      against their plain versions, bit for bit, with their times: tables of
@@ -88,12 +103,12 @@ Phases:
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
-keyed "kernels" lists every kernel: the five of the sphere paths, the fma
-kernel, every walk with its S, the walks with the product-form battery and
-the seven planner modes of phase 14), the clusters planned and walked per
-tile under each planner, the
-total time, and {"ok": true, "device": {...}}. Without a
-CUDA device it exits 2 and prints no result.
+keyed "kernels" lists every kernel: the five of the sphere paths, the six
+forms of the fma kernels, every walk with its S, the walks with the
+product-form battery and the seven planner modes of phase 14), the
+clusters planned and walked per tile under each planner, the total time,
+and {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
+prints no result.
 """
 from __future__ import annotations
 
@@ -120,8 +135,10 @@ CLUSTER_SOURCE = \
 FMA_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/fma.cu"
 _TK = "cpu_raytracing_experiments_tpu/ops/pallas/traverse_kernel.py"
 REPLACES = {
-    "fma": "none: the single-rounding a*b + c that XLA contracts in the JAX "
-           "package's elementwise code (core/fp.py)",
+    **{name: "none: the single-rounding a*b + c that XLA contracts in the "
+              "JAX package's elementwise code (core/fp.py)"
+       for name in ("fma", "fma[strided]", "fma[dot3]", "fma[fma3]",
+                    "fma[to_local]", "fma[to_world]")},
     "sphere_closest":
         "cpu_raytracing_experiments_tpu/ops/pallas/sphere_kernel.py:72",
     "sphere_occluded":
@@ -266,6 +283,12 @@ def kernel_name(mangled: str) -> str:
         return (f"cluster_{m.group(1)}"
                 f"{'_stream' if m.group(3) == '1' else ''}"
                 f"[{battery}, S={m.group(4)}]")
+    m = re.search(r"flat_kernelILi(\d)E([jx])E", mangled)
+    if m:
+        form = ("fma", "dot3", "fma3", "to_local", "to_world")[
+            int(m.group(1))]
+        return (f"fma flat_kernel[{form}, "
+                f"{'32' if m.group(2) == 'j' else '64'}-bit index]")
     m = re.search(r"plan_kernelILi(\d)ELb([01])ELb([01])E", mangled)
     if m:
         mode = ("ray", "group", "super", "tilebox", "hybrid")[int(m.group(1))]
@@ -312,29 +335,36 @@ def sass_report(library) -> dict:
 
 
 SPLIT_WALKS = ("closest_kernel", "occluded_kernel")  # the walks' names
-CHECKED = SPLIT_WALKS + ("plan_kernel",)  # kernels that must hold no float64
+# (and the sphere batteries')
+FMA_KERNELS = ("flat_kernel", "strided_kernel")  # csrc/fma.cu
+CHECKED = SPLIT_WALKS + ("plan_kernel",) + FMA_KERNELS  # kernels that must
+# hold no float64
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
+SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
+# templates)
 
 
 def report_kernels(libraries):
     """Phase 1's reading of what was compiled: -Xptxas -v for both
-    planners, every walk (each a split walk) and the fma kernel, the SASS of
-    every kernel of the two CUDA sources with walks and batteries, and the
+    planners, every walk (each a split walk), the sphere batteries and the
+    fma kernels, the SASS of every kernel of the three CUDA sources, and the
     opcodes of the flat planner (the slab tests of its sweep are unrolled 80
-    times: 8 octants x (8 + 2) boxes); raises where a planner or a walk
-    holds float64 arithmetic or a float64 conversion."""
+    times: 8 octants x (8 + 2) boxes) and of sphere_closest;
+    raises where a planner, a walk, a battery or an fma kernel holds float64
+    arithmetic or a float64 conversion."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import fma as kf
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
 
     for lib in libraries:
         for fn, regs, (st, ld), smem in ptxas_report(
-                lib.build_log, CHECKED + ("fma_kernel",)):
+                lib.build_log, CHECKED):
             log(f"    ptxas {kernel_name(fn)}: {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B, {smem} B static shared")
     bad = []
-    for lib in (ct.LIBRARY, sb.LIBRARY):
+    for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY):
         for fn, c in sass_report(lib).items():
             log(f"    SASS {lib.source.name} {kernel_name(fn)}: "
                 f"{c['instructions']} instructions, {c['f64 arithmetic']} "
@@ -343,12 +373,13 @@ def report_kernels(libraries):
             if any(k in fn for k in CHECKED) and (c["f64 arithmetic"]
                                                   or c["f64 conversions"]):
                 bad.append(kernel_name(fn))
-            if FLAT_PLANNER in fn:
+            if FLAT_PLANNER in fn or SPHERE_CLOSEST in fn:
                 log(f"    SASS opcodes of {kernel_name(fn)}: " + ", ".join(
                     f"{op} {n}" for op, n in sorted(
                         c["opcodes"].items(), key=lambda kv: -kv[1])))
     if bad:
-        raise AssertionError(f"float64 in a planner or a walk: {bad}")
+        raise AssertionError(f"float64 in a planner, a walk, a battery or "
+                             f"an fma kernel: {bad}")
 
 
 def wide_floats(np, g, n):
@@ -357,64 +388,211 @@ def wide_floats(np, g, n):
             * g.choice([-1.0, 1.0], n)).astype(np.float32)
 
 
-def check_fma(torch, np, timer):
-    """The fma kernel against fp.fma's plain form (float64 with
-    round-to-odd) on the card: FMA_TRIPLES random triples with exponents
-    from -30 to 30, the triples on which a float64 sum rounds twice
-    (a = 1 + k 2^-23, b = 2^-24 (1 - (k - 1) 2^-23), c = 1, k = 2800-2959)
-    and specials (NaN, inf, signed zeros, subnormal results), bit for bit
-    (NaN lanes: both NaN); then broadcast operands and a Python-float c.
-    Returns its row, timed at the hero chunk's 2^19 lanes."""
-    from cpu_raytracing_experiments_tpu_torch.core import fp
+FMA_FORMS = ("fma", "fma[dot3]", "fma[fma3]", "fma[to_local]",
+             "fma[to_world]")  # the flat kernel's expressions
+# per element of each form: (operands read, outputs written, FLOP)
+FMA_WORK = {"fma": (3, 1, 2), "fma[strided]": (3, 1, 2),
+            "fma[dot3]": (6, 1, 5), "fma[fma3]": (7, 3, 6),
+            "fma[to_local]": (6, 3, 12), "fma[to_world]": (6, 3, 12)}
 
-    g = np.random.default_rng(23)
+
+def fma_forms(torch):
+    """Each flat form as (kernel call, plain version), both on a tuple of
+    operands and returning a tuple of outputs."""
+    from cpu_raytracing_experiments_tpu_torch.core import fp, sampling
+    from cpu_raytracing_experiments_tpu_torch.core.vec import Quat, Vec3
+
+    def rotation(f):
+        return lambda x: tuple(f(Quat(x[0], x[1], None, x[2]),
+                                 Vec3(*x[3:])))
+
+    return {
+        "fma": (lambda x: (fp.fma(*x),), lambda x: (fp.fma_plain(*x),)),
+        "fma[dot3]": (lambda x: (fp.dot3(*x),),
+                      lambda x: (fp.dot3_plain(*x),)),
+        "fma[fma3]": (lambda x: tuple(fp.fma3(Vec3(*x[:3]), x[3],
+                                              Vec3(*x[4:]))),
+                      lambda x: tuple(fp.fma3_plain(Vec3(*x[:3]), x[3],
+                                                    Vec3(*x[4:])))),
+        "fma[to_local]": (rotation(sampling.to_local),
+                          rotation(sampling.to_local_plain)),
+        "fma[to_world]": (rotation(sampling.to_world),
+                          rotation(sampling.to_world_plain)),
+    }
+
+
+def same_bits(torch, x, y):
+    """Per lane: equal bits, or both NaN."""
+    return ((x.view(torch.int32) == y.view(torch.int32))
+            | (torch.isnan(x) & torch.isnan(y)))
+
+
+def fma_columns(torch, np, g):
+    """Seven operand columns: FMA_TRIPLES wide random floats, then the
+    triples on which a float64 sum rounds twice (a = 1 + k 2^-23, b = 2^-24
+    (1 - (k - 1) 2^-23), c = 1, k = 2800-2959) as (a, b, c) in columns 0-2
+    (fp.fma's operands) and as (a, b, c) in columns 0, 3, 4 (the x lane of
+    fp.fma3), then rows of specials (NaN, inf, signed zeros, subnormal
+    results), each row a triple (a, b, c) in columns 0-2 and rotated
+    through the others."""
     k = np.arange(2800, 2960)
-    twice = ((1.0 + k * 2.0 ** -23).astype(np.float32),
-             (2.0 ** -24 * (1.0 - (k - 1) * 2.0 ** -23)).astype(np.float32),
-             np.ones(k.size, np.float32))
+    a = (1.0 + k * 2.0 ** -23).astype(np.float32)
+    b = (2.0 ** -24 * (1.0 - (k - 1) * 2.0 ** -23)).astype(np.float32)
+    c = np.ones(k.size, np.float32)
+    twice = (a, b, c, b, c, a, b)
     nan, inf = float("nan"), float("inf")
     specials = [(nan, 1, 1), (1, 1, nan), (inf, 1, 1), (inf, 0, 1),
                 (inf, 1, -inf), (1e30, 1e30, 0), (-0.0, 1, 0.0),
                 (-0.0, 1, -0.0), (2, 3, -6), (2.0 ** -75, 2.0 ** -75, 0),
                 (2.0 ** -75, 1.5 * 2.0 ** -75, 0),
                 (2.0 ** -100, 2.0 ** -50, 2.0 ** -149)]
-    cols = [np.concatenate([wide_floats(np, g, FMA_TRIPLES), twice[j],
-                            np.array([r[j] for r in specials], np.float32)])
-            for j in range(3)]
-    a, b, c = (torch.tensor(x, device=DEVICE) for x in cols)
+    cols = []
+    for j in range(7):
+        rows = [r[j] if j < 3 else r[(j + i) % 3]
+                for i, r in enumerate(specials)]
+        cols.append(torch.tensor(np.concatenate([
+            wide_floats(np, g, FMA_TRIPLES), twice[j],
+            np.array(rows, np.float32)]), device=DEVICE))
+    return cols
 
-    def same(x, y):
-        return ((x.view(torch.int32) == y.view(torch.int32))
-                | (torch.isnan(x) & torch.isnan(y)))
 
-    got = fp.fma(a, b, c)
-    want = fp.fma_plain(a, b, c)
-    bits = same(got, want)
-    rounded_twice = (a.double() * b.double() + c.double()).float()
-    fixed = int((~same(rounded_twice, want)).sum())
-    x, y = a[:4096].reshape(64, 64), b[:64].reshape(1, 64)
-    broadcast = bool(same(fp.fma(x, y, 0.75), fp.fma_plain(x, y, 0.75)).all())
-    n_bad = int((~bits).sum())
-    log(f"[2 fma] {a.numel()} triples: kernel equal to the plain form on "
-        f"{a.numel() - n_bad} (the float64 sum rounded to float32 differs "
-        f"from it on {fixed}); broadcast [64, 64] x [1, 64] + 0.75 equal "
-        f"{broadcast}")
-    if n_bad or not broadcast:
-        idx = torch.nonzero(~bits)[:5, 0].tolist()
-        for i in idx:
-            log(f"  lane {i}: ({float(a[i])!r}, {float(b[i])!r}, "
-                f"{float(c[i])!r}) kernel {float(got[i])!r} plain "
-                f"{float(want[i])!r}")
-        raise AssertionError("the fma kernel disagrees with fp.fma_plain")
+def check_fma_forms(torch, np, timer):
+    """Every form of the fma kernels against its plain version (fp.fma_plain
+    and the chains of it in core/), bit for bit (NaN lanes: both NaN), on
+    the card: the flat kernel's five expressions on seven columns of
+    FMA_TRIPLES wide random floats with the double-rounding triples and
+    specials (16-byte groups); on slices that start 1-3 elements off a
+    16-byte boundary, each operand at its own offset (scalar loads); with
+    n % 4 = 1, 2, 3 (a scalar tail); with each operand in turn a 0-d tensor
+    and a Python float; and on broadcast operands, which the flat kernel
+    does not take (fp.fma: the strided kernel, also on 4-D operands with a
+    transposed one and on the hero's 2^19 lanes with one operand a column
+    of a table; the fused forms: their chain of fma calls). Each call must
+    launch its form once, the chains aside. Returns the forms' rows, timed
+    at the hero chunk's 2^19 lanes (the strided form with c a column of a
+    [2^19, 8] table, as the hero's light sampler gives it), and the host
+    microseconds a call of each takes."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import fma as kf
+
+    g = np.random.default_rng(23)
+    cols = fma_columns(torch, np, g)
+    forms = fma_forms(torch)
+    arity = {name: kf.ARITY[op][0] for name, op in zip(FMA_FORMS, range(5))}
+    failures = []
+
+    def check(name, operands, label, form=None):
+        kern, plain = forms[name]
+        before = build.launch_counts()
+        got, want = kern(operands), plain(operands)
+        launched = {k: v - before[k] for k, v in build.launch_counts().items()
+                    if v != before[k]}
+        bad = sum(int((~same_bits(torch, x, y)).sum())
+                  for x, y in zip(got, want))
+        if bad or (form is not None and launched != {form: 1}):
+            failures.append(f"{name} {label}: {bad} lanes differ; launches "
+                            f"{launched}")
+        return bad
+
+    n = cols[0].numel()
+    for name in FMA_FORMS:
+        k = arity[name]
+        x = cols[:k] if name != "fma[fma3]" else cols
+        check(name, tuple(x), "aligned", name)
+        for off in ((1, 1, 1, 1, 1, 1, 1), (2, 3, 1, 2, 3, 1, 2),
+                    (3, 0, 2, 1, 0, 3, 3)):
+            m = n - 8
+            check(name, tuple(c[o:o + m] for c, o in zip(x, off)),
+                  f"offsets {off[:k]}", name)
+        for tail in (1, 2, 3):
+            m = (1 << 16) + tail
+            check(name, tuple(c[:m] for c in x), f"n % 4 = {tail}", name)
+        for j in range(k):
+            for kind in ("0-d", "float")[:1 if (name, j) == ("fma", 0)
+                                         else 2]:
+                # fp.fma's `a` is a tensor
+                scalar = (x[j][12345] if kind == "0-d"
+                          else float(x[j][12345]))
+                y = tuple(scalar if i == j else c[:1 << 16]
+                          for i, c in enumerate(x))
+                check(name, y, f"operand {j} a {kind}", name)
+        # broadcast [256, 1] / [1, 64] / [256, 64] operands: not flat
+        shapes = ((256, 1), (1, 64), (256, 64))
+        y = tuple(c[:shapes[i % 3][0] * shapes[i % 3][1]].reshape(
+            shapes[i % 3]) for i, c in enumerate(x))
+        check(name, y, "broadcast", "fma[strided]" if name == "fma" else None)
+    # the strided kernel over four dimensions, a transposed operand among
+    # them, and a Python-float c
+    a4 = cols[0][:3 * 5 * 7 * 9].reshape(3, 5, 7, 9).transpose(1, 2)
+    b4 = cols[1][:5 * 9].reshape(1, 5, 1, 9).transpose(1, 2)
+    check("fma", (a4, b4, 0.75), "strided 4-D", "fma[strided]")
+    check("fma", (a4, b4, cols[2][0]), "strided 4-D, 0-d c", "fma[strided]")
+    # the hero's light sampler, fma(-temp, temp, radius_sq): 2^19 lanes, c
+    # a column of the contiguous [n, 8] light-row table (the strided kernel
+    # over one dimension of stride 8); the last 2^19 lanes of the columns,
+    # so the double-rounding triples and the specials are among them
+    m = 1 << 19
+    table = torch.stack([cols[2][-m:] if j == 4 else cols[j % 7][-m:]
+                         for j in range(8)], 1)
+    check("fma", (cols[0][-m:], cols[1][-m:], table[:, 4]),
+          "2^19 lanes, c a column of an [n, 8] table", "fma[strided]")
+    log(f"[2 fma] {len(FMA_FORMS)} flat forms on {n} lanes of 7 columns "
+        f"(wide random floats, double-rounding triples, specials), aligned, "
+        f"offset, ragged, with 0-d and Python-float operands and broadcast; "
+        f"the strided kernel on 4-D operands and on 2^19 lanes with c a "
+        f"column of an [n, 8] table: "
+        + ("every one equal to its plain version" if not failures
+           else str(failures)))
+    if failures:
+        raise AssertionError(f"an fma form disagrees with its plain version: "
+                             f"{failures}")
+
     n = 1 << 19
-    a, b, c = a[:n].clone(), b[:n].clone(), c[:n].clone()
-    ms = timer(lambda: fp.fma(a, b, c), 20)
-    plain_ms = timer(lambda: fp.fma_plain(a, b, c), 5, warmup=1)
-    row = kernel_row("fma", FMA_SOURCE, f"n={n}", None, 0.0, ms, plain_ms,
-                     n * 16, n * 2)
-    log(f"[2 fma] {ms:.4f} ms (bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']}; plain {plain_ms:.4f} ms)")
-    return row
+    x = [c[:n].clone() for c in cols]
+    rows, host_us = {}, {}
+    for name in FMA_FORMS:
+        kern, plain = forms[name]
+        ops = tuple(x[:arity[name]]) if name != "fma[fma3]" else tuple(x)
+        ms = timer(lambda: kern(ops), 20)
+        plain_ms = timer(lambda: plain(ops), 5, warmup=1)
+        rows[name] = fma_row(name, n, ms, plain_ms)
+        small = tuple(c[:1024] for c in ops)
+        host_us[name] = host_microseconds(torch, lambda: kern(small))
+    # the strided form at the shape the hero path gives it: c a column of
+    # the [2^19, 8] light-row table
+    a2, b2 = x[0], x[1]
+    c2 = torch.stack([x[j % 7] for j in range(8)], 1)[:, 4]
+    ms = timer(lambda: kf.fma(a2, b2, c2), 20)
+    plain_ms = timer(lambda: forms["fma"][1]((a2, b2, c2)), 5, warmup=1)
+    rows["fma[strided]"] = fma_row("fma[strided]", n, ms, plain_ms,
+                                   shape=f"n={n}, c a column of [{n}, 8]")
+    host_us["fma[strided]"] = host_microseconds(
+        torch, lambda: kf.fma(a2[:1024], b2[:1024], c2[:1024]))
+    for name, row in rows.items():
+        log(f"[2 {name}] 2^19 lanes: {row['ms']:.4f} ms (bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}; plain "
+            f"{row['plain_ms']:.4f} ms); host {host_us[name]:.2f} us a call")
+    return rows, host_us
+
+
+def fma_row(name, n, ms, plain_ms, shape=None):
+    reads, writes, flop = FMA_WORK[name]
+    return kernel_row(name, FMA_SOURCE, shape or f"n={n}", None, 0.0, ms,
+                      plain_ms, (reads + writes) * 4 * n, flop * n)
+
+
+def host_microseconds(torch, fn, calls=2000):
+    """Host time of one call of `fn`, over `calls` calls with no
+    synchronize between them (the device runs behind)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 @contextlib.contextmanager
@@ -621,6 +799,59 @@ def check_kernels(torch, np, timer, center, radius_sq, n_rays, seed, label):
             f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}; "
             f"plain {plain_ms:.4f} ms)")
     return out
+
+
+def check_closest_tables(torch, np, hero, field):
+    """sphere_closest against the plain version, bit for bit (t bits and
+    ids): tables of 1, 9 (the hero's) and 1000 spheres (the 1000-sphere
+    field), the hero's 9 with ties (spheres 5-8 are copies of 0-3), and
+    1024 and 1025 spheres
+    with ties across the staging chunk (the field and copies of its first
+    24 or 25 spheres); on 65,543 rays sliced at offsets 0-3 from a 16-byte
+    boundary, with 65,543 - offset - {0, 1, 2} rays (every n % 4)."""
+    from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        sphere_battery as sb
+
+    def table(sph, idx):
+        idx = torch.tensor(idx, device=DEVICE)
+        return (Vec3(*(c[idx] for c in sph.center)), sph.radius_sq[idx])
+
+    nf = field.radius_sq.shape[0]
+    tables = {
+        "1 sphere": table(hero, [0]),
+        "9 spheres (hero)": table(hero, list(range(9))),
+        "9 with ties": table(hero, [0, 1, 2, 3, 4, 0, 1, 2, 3]),
+        "1000 spheres": table(field, list(range(nf))),
+        "1024 with ties": table(field, list(range(nf)) + list(range(24))),
+        "1025 with ties": table(field, list(range(nf)) + list(range(25))),
+    }
+    n = 65536 + 7
+    failures, calls = [], 0
+    for seed, (tname, (center, rsq)) in enumerate(tables.items()):
+        p, d, _ = ray_batch(torch, np, center, rsq, n, 40 + seed)
+        wt, wid = sb.intersect_spheres(p, d, center, rsq)
+        hits = int((wid >= 0).sum())
+        for off in range(4):
+            for cut in range(3):
+                m = n - off - cut
+                lanes = slice(off, off + m)
+                ps = Vec3(*(c[lanes] for c in p))
+                ds = Vec3(*(c[lanes] for c in d))
+                kt, kid = sb.closest_hit(ps, ds, center, rsq)
+                calls += 1
+                if not (torch.equal(kt.view(torch.int32),
+                                    wt[lanes].view(torch.int32))
+                        and torch.equal(kid, wid[lanes])):
+                    failures.append((tname, off, m))
+        log(f"[2 sphere_closest tables] {tname}: {n} rays, {hits} hits")
+    log(f"[2 sphere_closest tables] {calls} launches over {len(tables)} "
+        f"tables, ray offsets 0-3, n % 4 = 0-3: "
+        + ("every one equal to the plain version" if not failures
+           else str(failures)))
+    if failures:
+        raise AssertionError(f"sphere_closest disagrees with the plain "
+                             f"version: {failures[:10]}")
 
 
 def kernel_row(name, source, shape, launches, err, ms, plain_ms, nbytes,
@@ -1396,28 +1627,41 @@ def render(torch, crt, scene, policy, width, height, passes, label, expect,
 
 def profile_pass(torch, r, label):
     """One more pass under torch.profiler: device busy time against the
-    pass's wall time, and the kernels that take the most device time."""
+    pass's wall time, the kernel launches of the pass (all, and those of the
+    fma kernels by their counters and the profiler), and the kernels that
+    take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+
     torch.cuda.synchronize()
+    build.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         r.accumulate(1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    fma_counts = {k: v for k, v in build.launch_counts().items()
+                  if k.startswith("fma") and v}
     # device-side events only: a CPU op's row repeats its kernels' time
     rows = [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
             and ev.self_device_time_total > 0]
     if not rows:
-        log(f"[{label}] profiler: no device time recorded (not measured)")
+        log(f"[{label}] profiler: no device time recorded (not measured); "
+            f"fma launches {sum(fma_counts.values())} {fma_counts}")
         return
     busy_ms = sum(us for us, _, _ in rows) / 1e3
+    fma_rows = [(us, c) for us, c, key in rows
+                if any(k in key for k in FMA_KERNELS)]
     log(f"[{label}] profiled pass: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(c for _, c, _ in rows)} kernel launches")
+        f"{sum(c for _, c, _ in rows)} kernel launches; fma kernels "
+        f"{sum(c for _, c in fma_rows)} launches, "
+        f"{sum(us for us, _ in fma_rows) / 1e3:.3f} ms (counters: "
+        f"{sum(fma_counts.values())} {fma_counts})")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
 
@@ -1479,7 +1723,7 @@ def main() -> int:
     report_kernels(libraries)
 
     timer = Timer(torch)
-    fma_row = check_fma(torch, np, timer)
+    fma_rows, fma_host = check_fma_forms(torch, np, timer)
     pol = crt.RendererPolicy
     sphere_kernels = ("sphere_closest", "sphere_occluded")
     cluster_kernels = ("cluster_plan", "cluster_closest", "cluster_occluded")
@@ -1492,6 +1736,7 @@ def main() -> int:
     field_rows = check_kernels(
         torch, np, timer, field.spheres.center, field.spheres.radius_sq,
         262144, 2, "2 1k table")
+    check_closest_tables(torch, np, hero.spheres, field.spheres)
     # duplicates across the 1024-sphere staging chunk (spheres j and
     # j + 1000): the first occurrence must win every tie
     dup = Vec3(*(torch.cat([c, c]) for c in field.spheres.center))
@@ -1512,7 +1757,7 @@ def main() -> int:
     _, hero_path = render(torch, crt, hero,
                           pol(max_bounces=8, rays_per_chunk=1 << 19),
                           1920, 1088, PASSES, "5 hero",
-                          sphere_kernels + ("fma",))
+                          sphere_kernels + FMA_FORMS + ("fma[strided]",))
     _, field_path = render(torch, crt, field, pol(max_bounces=8), 512, 512,
                            PASSES, "6 random_spheres 1k brute",
                            sphere_kernels)
@@ -1732,7 +1977,8 @@ def main() -> int:
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
             row["launches"] = path["launches"][name]
-    fma_row["launches"] = hero_path["launches"]["fma"]
+    for name, row in fma_rows.items():
+        row["launches"] = hero_path["launches"][name]
     for (tname, _), rows in cluster_rows.items():
         path = big_pallas if tname == "100k spheres" else field_pallas
         for name, row in rows.items():
@@ -1774,7 +2020,9 @@ def main() -> int:
         for row in rows.values()]}))
     log(json.dumps({"planners_per_tile": {
         f"{tname}, {kind}": v for (tname, kind), v in plan_numbers.items()}}))
-    log(json.dumps({"kernels": list(hero_rows.values()) + [fma_row]
+    log(json.dumps({"fma_host_us_a_call": fma_host}))
+    log(json.dumps({"kernels": list(hero_rows.values())
+                    + list(fma_rows.values())
                     + list(main_rows.values()) + list(new_rows.values())}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

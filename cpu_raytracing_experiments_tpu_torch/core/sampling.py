@@ -68,18 +68,40 @@ def tangent_space(n: Vec3) -> Quat:
     )
 
 
+def _to_local(f, t: Quat, v: Vec3) -> Vec3:
+    temp = 2.0 * f(-t.x, v.y, f(v.z, t.w, v.x * t.y))
+    return Vec3(f(-t.y, temp, v.x), f(t.x, temp, v.y), f(temp, t.w, -v.z))
+
+
+def _to_world(f, t: Quat, v: Vec3) -> Vec3:
+    temp = 2.0 * f(t.x, v.y, f(v.z, t.w, -(v.x * t.y)))
+    return Vec3(f(t.y, temp, v.x), f(-t.x, temp, v.y), f(temp, t.w, -v.z))
+
+
 def to_local(t: Quat, v: Vec3) -> Vec3:
-    """Rotate by conj(T) assuming T.z == 0 (Sampling.hpp:161-169)."""
-    temp = 2.0 * fma(-t.x, v.y, fma(v.z, t.w, v.x * t.y))
-    return Vec3(fma(-t.y, temp, v.x), fma(t.x, temp, v.y),
-                fma(temp, t.w, -v.z))
+    """Rotate by conj(T) assuming T.z == 0 (Sampling.hpp:161-169); on the
+    card one launch where the operands are flat."""
+    out = fp.contract(fp.fma_kernel.TO_LOCAL, (t.x, t.y, t.w, *v))
+    return Vec3(*out) if out is not None else _to_local(fma, t, v)
 
 
 def to_world(t: Quat, v: Vec3) -> Vec3:
-    """Rotate by T assuming T.z == 0 (Sampling.hpp:171-179)."""
-    temp = 2.0 * fma(t.x, v.y, fma(v.z, t.w, -(v.x * t.y)))
-    return Vec3(fma(t.y, temp, v.x), fma(-t.x, temp, v.y),
-                fma(temp, t.w, -v.z))
+    """Rotate by T assuming T.z == 0 (Sampling.hpp:171-179); on the card
+    one launch where the operands are flat."""
+    out = fp.contract(fp.fma_kernel.TO_WORLD, (t.x, t.y, t.w, *v))
+    return Vec3(*out) if out is not None else _to_world(fma, t, v)
+
+
+def to_local_plain(t: Quat, v: Vec3) -> Vec3:
+    """``to_local`` from ``fp.fma_plain``: the plain version of its
+    kernel."""
+    return _to_local(fp.fma_plain, t, v)
+
+
+def to_world_plain(t: Quat, v: Vec3) -> Vec3:
+    """``to_world`` from ``fp.fma_plain``: the plain version of its
+    kernel."""
+    return _to_world(fp.fma_plain, t, v)
 
 
 # Light sampling (Sampling.hpp:192-247)

@@ -96,8 +96,7 @@ class Quat(NamedTuple):
         qv = Vec3(self.x, self.y, self.z)
         t = qv.cross(v) * 2.0
         # (v + t*w) + cross(q, t): the first sum contracts, the second adds
-        return Vec3(*(fp.fma(tc, self.w, vc) for tc, vc in zip(t, v))) \
-            + qv.cross(t)
+        return fp.fma3(t, self.w, v) + qv.cross(t)
 
     def to(self, device) -> "Quat":
         return Quat(*(c.to(device) for c in self))

@@ -35,13 +35,26 @@
 // operations (262144 x 1000 pairs x 20 ops = 5.2 GFLOP, about 78 us at
 // 67 TFLOP/s).
 //
-// The simple design: one thread per ray, its ray in registers, so each ray
+// sphere_closest: one ray a thread, its ray in registers. The sqrt and the
+// root selection run only where disc >= 0 (false for NaN): the candidate
+// elsewhere is FLT_MAX, which never passes the strict `<` against a best
+// that starts at FLT_MAX, so skipping it changes no bit. Blocks stage the
+// table through shared memory in chunks of 1024 spheres (16 KB) that the
+// block's rays then read by broadcast (4 loads a sphere, against 15-30
+// instructions a pair for each of the block's rays, so the table is not
+// packed into 16-byte rows). The grid is at most one wave of blocks (the
+// wrapper passes the card's SM count), grid-stride beyond it. Measured and
+// dropped (PERF.md section 6): two and four rays a thread, slower at every
+// shape (262,144 rays at 4 a thread are 15.5 warps an SM, too few to hide
+// the pairs' latency); small tables read straight from device memory with
+// no staging, faster only below the hero's 9 spheres.
+//
+// sphere_occluded: one thread per ray, its ray in registers, so each ray
 // byte is read once and each result written once, coalesced. Blocks stage
-// the sphere table (cx, cy, cz, rsq) through shared memory in chunks of 1024
-// spheres (16 KB) that every thread of the block then reads by broadcast;
-// the ragged last chunk is masked by index, never padded. Any-hit lanes stop
-// at their first occluder, and a block stops staging once all its lanes are
-// done. Warp-level broadcast and several rays per thread are later work.
+// the sphere table through shared memory in chunks of 1024 spheres that
+// every thread of the block then reads by broadcast; the ragged last chunk
+// is masked by index, never padded. Any-hit lanes stop at their first
+// occluder, and a block stops staging once all its lanes are done.
 
 #include <cfloat>
 #include <cstdint>
@@ -96,7 +109,28 @@ __device__ __forceinline__ int stage(float4* tile, const float* cx,
   return n;
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kClosestThreads = 128;
+constexpr int kClosestBlocksPerSm = 2048 / kClosestThreads;  // one wave
+
+// One sphere against the thread's ray: the nearest root >= 0 where
+// disc >= 0, kept where strictly below the ray's best.
+__device__ __forceinline__ void closest_pair(const Ray& r, float4 s, int id,
+                                             float& best, int32_t& best_id) {
+  const PairTerms pt = pair_terms(r, s);
+  const float b = pt.b;
+  const float disc = fma32(b, b, pt.rsq_minus_len2);
+  if (disc >= 0.0f) {
+    const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
+    const float t_near = __fsub_rn(b, sq);
+    const float t = t_near < 0.0f ? __fadd_rn(b, sq) : t_near;
+    if (t >= 0.0f && t < best) {  // strict: the first occurrence wins
+      best = t;
+      best_id = id;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kClosestThreads)
 closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ pz, const float* __restrict__ dx,
                const float* __restrict__ dy, const float* __restrict__ dz,
@@ -105,34 +139,28 @@ closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
                int n_rays, int n_prims, float* __restrict__ tfar_out,
                int32_t* __restrict__ prim_out) {
   __shared__ float4 tile[kChunk];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  Ray r{};
-  if (live) r = load_ray(px, py, pz, dx, dy, dz, i);
-  float best = FLT_MAX;
-  int32_t best_id = -1;
-  for (int start = 0; start < n_prims; start += kChunk) {
-    __syncthreads();  // the previous chunk has been read by every thread
-    const int n = stage(tile, cx, cy, cz, rsq, start, n_prims);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      const PairTerms pt = pair_terms(r, tile[j]);
-      const float b = pt.b;
-      const float disc = fma32(b, b, pt.rsq_minus_len2);
-      const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
-      const float t_near = __fsub_rn(b, sq);
-      const float t = t_near < 0.0f ? __fadd_rn(b, sq) : t_near;
-      const float cand = (disc >= 0.0f && t >= 0.0f) ? t : FLT_MAX;
-      if (cand < best) {  // strict: the first occurrence keeps a tie
-        best = cand;
-        best_id = start + j;
+  const int step = gridDim.x * blockDim.x;
+  // block-uniform trip count: every thread reaches every barrier
+  for (int i0 = blockIdx.x * blockDim.x; i0 < n_rays; i0 += step) {
+    const int i = i0 + threadIdx.x;
+    const bool live = i < n_rays;
+    Ray r{};
+    if (live) r = load_ray(px, py, pz, dx, dy, dz, i);
+    float best = FLT_MAX;
+    int32_t best_id = -1;
+    for (int start = 0; start < n_prims; start += kChunk) {
+      __syncthreads();  // the previous chunk has been read by every thread
+      const int n = stage(tile, cx, cy, cz, rsq, start, n_prims);
+      __syncthreads();
+      if (!live) continue;
+      for (int j = 0; j < n; ++j) {
+        closest_pair(r, tile[j], start + j, best, best_id);
       }
     }
-  }
-  if (live) {
-    tfar_out[i] = best;
-    prim_out[i] = best_id;
+    if (live) {
+      tfar_out[i] = best;
+      prim_out[i] = best_id;
+    }
   }
 }
 
@@ -189,16 +217,24 @@ occluded_kernel(const float* __restrict__ px, const float* __restrict__ py,
 
 // C entry points, bound with ctypes. Each launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
+// sphere_closest: `sms` is the card's SM count, which caps the grid at one
+// wave.
 extern "C" int sphere_closest(const float* px, const float* py,
                               const float* pz, const float* dx,
                               const float* dy, const float* dz,
                               const float* cx, const float* cy,
                               const float* cz, const float* rsq, int n_rays,
-                              int n_prims, float* tfar_out, int32_t* prim_out,
-                              void* stream) {
+                              int n_prims, int sms, float* tfar_out,
+                              int32_t* prim_out, void* stream) {
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays > 0) {
-    const int blocks = (n_rays + kThreads - 1) / kThreads;
-    closest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const long long wanted =
+        (static_cast<long long>(n_rays) + kClosestThreads - 1) /
+        kClosestThreads;
+    const long long cap = static_cast<long long>(kClosestBlocksPerSm) * sms;
+    const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
+    closest_kernel<<<blocks, kClosestThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
         px, py, pz, dx, dy, dz, cx, cy, cz, rsq, n_rays, n_prims, tfar_out,
         prim_out);
   }

@@ -8,6 +8,7 @@ ctypes. Nothing is compiled when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,13 +113,28 @@ def launch_counts() -> dict:
     return {c.name: c.launches for c in COUNTERS}
 
 
-def launch(name: str, fn, device, args):
-    """Call the C entry point `fn` on `device`'s current stream; raise on a
-    refused launch (the entry point returns cudaGetLastError())."""
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (132 on an H100
+    SXM), which the kernels' grids are sized from."""
     import torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(name: str, fn, device, args):
+    """Call the C entry point `fn` on `device`'s current stream; raise on a
+    refused launch (the entry point returns cudaGetLastError()). The device
+    is made current for the call only where it is not already; the stream is
+    passed as its raw handle."""
+    import torch
+
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")

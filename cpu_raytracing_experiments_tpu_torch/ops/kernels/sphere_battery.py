@@ -131,7 +131,7 @@ def occluded_spheres(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
 # ---------------------------------------------------------------------------
 def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sphere_closest.argtypes = [ptr] * 10 + [i32, i32] + [ptr] * 3
+    lib.sphere_closest.argtypes = [ptr] * 10 + [i32] * 3 + [ptr] * 3
     lib.sphere_closest.restype = i32
     lib.sphere_occluded.argtypes = [ptr] * 11 + [i32, i32] + [ptr] * 2
     lib.sphere_occluded.restype = i32
@@ -174,7 +174,8 @@ def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq):
     prim = torch.empty(n, dtype=torch.int32, device=device)
     build.launch(CLOSEST.name, lib.sphere_closest, device,
                  [a.data_ptr() for a in (*p, *d, *prims)]
-                 + [n, radius_sq.shape[0], tfar.data_ptr(), prim.data_ptr()])
+                 + [n, radius_sq.shape[0], build.sm_count(device.index),
+                    tfar.data_ptr(), prim.data_ptr()])
     CLOSEST.launches += 1
     return tfar, prim
 

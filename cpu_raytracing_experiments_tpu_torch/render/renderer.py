@@ -168,7 +168,7 @@ def _closest_hit_frame(scene: Scene, state: PathState, tfar, prim_id, is_tri):
     backface-flipped normal, tangent quat, local view vector, material id.
     Ids are clamped before the gather: a miss (-1) must not index."""
     safe_sphere = torch.clamp_min(torch.where(is_tri, 0, prim_id), 0)
-    hit_pt = Vec3(*(fma(dc, tfar, pc) for dc, pc in zip(state.d, state.p)))
+    hit_pt = fp.fma3(state.d, tfar, state.p)
     sp = scene.spheres
     scx, scy, scz, s_rsq, mat_id = fast_gather.gather_cols(
         safe_sphere, sp.center.x, sp.center.y, sp.center.z, sp.radius_sq,
@@ -193,7 +193,7 @@ def _closest_hit_frame(scene: Scene, state: PathState, tfar, prim_id, is_tri):
     eps = torch.clamp_min(3e-5 * torch.maximum(
         torch.abs(hit_pt.x),
         torch.maximum(torch.abs(hit_pt.y), torch.abs(hit_pt.z))), 1e-4)
-    p_offset = Vec3(*(fma(nc, eps, hc) for nc, hc in zip(n, hit_pt)))
+    p_offset = fp.fma3(n, eps, hit_pt)
     return p_offset, n, t, v_local, mat_id, backface, hit_pt, prim_extra
 
 
