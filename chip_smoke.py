@@ -15,9 +15,10 @@ Phases:
      opcodes of the flat planner and of sphere_closest, and
      the card's clock, for their issue floors;
   2. every form of the fma kernels against its plain version (fp.fma_plain
-     and its chains in core/), bit for bit: the flat kernel's five
-     expressions (fp.fma, fp.dot3, fp.fma3, sampling.to_local and
-     to_world) on seven columns of 2^22 random floats with wide exponents,
+     and its chains in core/), bit for bit: the flat kernel's six
+     expressions (fp.fma, fp.dot3, fp.fma3, sampling.to_local with either
+     contraction of its inner sum, and to_world) on seven columns of 2^22
+     random floats with wide exponents,
      the triples on which a float64 sum rounds twice and specials; on
      operands 1-3 elements off a 16-byte boundary, with n % 4 = 1, 2, 3,
      with 0-d and Python-float operands, and broadcast (the strided kernel
@@ -99,13 +100,28 @@ Phases:
      and group modes of cluster_plan_rows), and the mesh golden under
      'group' and 'tilebox'; then the cluster limit: with max_plan_clusters
      patched below the mesh pack's C, the sorted plan comes from
-     cluster_plan_rows and the PyTorch sort, equal to cluster_plan's.
+     cluster_plan_rows and the PyTorch sort, equal to cluster_plan's;
+ 15. benchmarks/diag_stream2.py's path at its own size through the port's
+     diag/stream2.py (100,000 random triangles, K = 256, C = 391, 262,144
+     rays, tiles of 256): repro (the resident against the streamed walk
+     over every ray, ids and tfar bits, then tile 0 and the tile with the
+     most visits alone), dma (the stream_replay kernel on those two tiles,
+     every visit's rows equal to the packed table), trace (the prefix walk
+     against the plain replay on the busiest tile, no diverging visit) and
+     trace2 (its four variants), the launch counts from 0 before the
+     stages; then stream_replay against its plain version bit for bit, each
+     one-tile plan against the full plan's row, the prefix walk
+     (cluster_closest_stream with nvis clamped to m) against the plain
+     prefix walk at m = 1, nv/4, nv/2, nv, the trace2 variants against each
+     other, and the times of stream_replay (beside an index_select of the
+     same rows) and of the prefix launch.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
-keyed "kernels" lists every kernel: the five of the sphere paths, the six
+keyed "kernels" lists every kernel: the five of the sphere paths, the seven
 forms of the fma kernels, every walk with its S, the walks with the
-product-form battery and the seven planner modes of phase 14), the
+product-form battery, the seven planner modes of phase 14, and phase 15's
+stream_replay and prefix launch), the
 clusters planned and walked per tile under each planner, the total time,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result.
@@ -113,6 +129,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import re
@@ -138,7 +155,7 @@ REPLACES = {
     **{name: "none: the single-rounding a*b + c that XLA contracts in the "
               "JAX package's elementwise code (core/fp.py)"
        for name in ("fma", "fma[strided]", "fma[dot3]", "fma[fma3]",
-                    "fma[to_local]", "fma[to_world]")},
+                    "fma[to_local]", "fma[to_world]", "fma[to_local_xy]")},
     "sphere_closest":
         "cpu_raytracing_experiments_tpu/ops/pallas/sphere_kernel.py:72",
     "sphere_occluded":
@@ -150,6 +167,10 @@ REPLACES = {
     "cluster_occluded_stream": _TK + ":1174",
     "cluster_closest[mxu]": _TK + ":198",
     "cluster_occluded[mxu]": _TK + ":198",
+    "stream_replay": "benchmarks/diag_stream2.py:152",
+    # the streamed walk over one tile's first m visits (_TK:1174)
+    "cluster_closest_stream[prefix]": "benchmarks/diag_stream2.py:327",
+    # the planner modes last: phase 14 takes them as tuple(REPLACES)[-7:]
     "cluster_plan[super]": _TK + ":420",
     "cluster_plan[group]": _TK + ":420",
     "cluster_plan_rows[ray]": _TK + ":420",
@@ -285,8 +306,8 @@ def kernel_name(mangled: str) -> str:
                 f"[{battery}, S={m.group(4)}]")
     m = re.search(r"flat_kernelILi(\d)E([jx])E", mangled)
     if m:
-        form = ("fma", "dot3", "fma3", "to_local", "to_world")[
-            int(m.group(1))]
+        form = ("fma", "dot3", "fma3", "to_local", "to_world",
+                "to_local_xy")[int(m.group(1))]
         return (f"fma flat_kernel[{form}, "
                 f"{'32' if m.group(2) == 'j' else '64'}-bit index]")
     m = re.search(r"plan_kernelILi(\d)ELb([01])ELb([01])E", mangled)
@@ -337,8 +358,8 @@ def sass_report(library) -> dict:
 SPLIT_WALKS = ("closest_kernel", "occluded_kernel")  # the walks' names
 # (and the sphere batteries')
 FMA_KERNELS = ("flat_kernel", "strided_kernel")  # csrc/fma.cu
-CHECKED = SPLIT_WALKS + ("plan_kernel",) + FMA_KERNELS  # kernels that must
-# hold no float64
+CHECKED = SPLIT_WALKS + ("plan_kernel", "replay_kernel") + FMA_KERNELS
+# (the kernels that must hold no float64)
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
 # templates)
@@ -389,11 +410,13 @@ def wide_floats(np, g, n):
 
 
 FMA_FORMS = ("fma", "fma[dot3]", "fma[fma3]", "fma[to_local]",
-             "fma[to_world]")  # the flat kernel's expressions
+             "fma[to_world]", "fma[to_local_xy]")  # the flat kernel's
+# expressions, in the order of csrc/fma.cu's enum Op
 # per element of each form: (operands read, outputs written, FLOP)
 FMA_WORK = {"fma": (3, 1, 2), "fma[strided]": (3, 1, 2),
             "fma[dot3]": (6, 1, 5), "fma[fma3]": (7, 3, 6),
-            "fma[to_local]": (6, 3, 12), "fma[to_world]": (6, 3, 12)}
+            "fma[to_local]": (6, 3, 12), "fma[to_world]": (6, 3, 12),
+            "fma[to_local_xy]": (6, 3, 12)}
 
 
 def fma_forms(torch):
@@ -418,6 +441,10 @@ def fma_forms(torch):
                           rotation(sampling.to_local_plain)),
         "fma[to_world]": (rotation(sampling.to_world),
                           rotation(sampling.to_world_plain)),
+        "fma[to_local_xy]": (
+            rotation(lambda t, v: sampling.to_local(t, v, fuse_xy=True)),
+            rotation(lambda t, v: sampling.to_local_plain(t, v,
+                                                          fuse_xy=True))),
     }
 
 
@@ -459,7 +486,7 @@ def fma_columns(torch, np, g):
 def check_fma_forms(torch, np, timer):
     """Every form of the fma kernels against its plain version (fp.fma_plain
     and the chains of it in core/), bit for bit (NaN lanes: both NaN), on
-    the card: the flat kernel's five expressions on seven columns of
+    the card: the flat kernel's six expressions on seven columns of
     FMA_TRIPLES wide random floats with the double-rounding triples and
     specials (16-byte groups); on slices that start 1-3 elements off a
     16-byte boundary, each operand at its own offset (scalar loads); with
@@ -478,7 +505,7 @@ def check_fma_forms(torch, np, timer):
     g = np.random.default_rng(23)
     cols = fma_columns(torch, np, g)
     forms = fma_forms(torch)
-    arity = {name: kf.ARITY[op][0] for name, op in zip(FMA_FORMS, range(5))}
+    arity = {name: kf.ARITY[op][0] for op, name in enumerate(FMA_FORMS)}
     failures = []
 
     def check(name, operands, label, form=None):
@@ -1681,6 +1708,178 @@ def golden_check(np, img, name, want=None):
         raise AssertionError(f"{name} misses the golden bar")
 
 
+def staged(label, fn, *args):
+    """Run a stage of diag/stream2.py, its printed lines logged under
+    `label`."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            return fn(*args)
+    finally:
+        for line in out.getvalue().splitlines():
+            log(f"[{label}] {line}")
+
+
+def check_stream2(torch, timer):
+    """Phase 15: benchmarks/diag_stream2.py's path on the card, at the
+    script's size, through the port's diag/stream2.py: its stages with the
+    launch counts set to 0 before them and read after, then each kernel of
+    the path against its plain version and the two launches timed. Returns
+    the kernels' rows (stream_replay, the prefix launch of
+    cluster_closest_stream) and the launch counts of the stages."""
+    from cpu_raytracing_experiments_tpu_torch.diag import stream2 as s2
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        cluster_traverse as ct
+
+    t0 = time.perf_counter()
+    cp, p, d = s2.build(DEVICE)
+    n, c, k = p.x.shape[0], cp.num_clusters, cp.cluster_size
+    tiles = -(-n // s2.TILE)
+    device = torch.device(DEVICE)
+    tf = torch.full((n,), s2.FLT_MAX, dtype=torch.float32, device=DEVICE)
+    valid = torch.ones((n,), dtype=torch.bool, device=DEVICE)
+    full_plan = ct._plan_visits(cp, p, d, tf, valid, s2.TILE)
+    nvis_all = full_plan[2]
+    busiest = int(torch.argmax(nvis_all))
+    log(f"[15] diag_stream2's pack: {s2.P} triangles, C={c}, K={k}, {n} "
+        f"rays in {tiles} tiles of {s2.TILE}, built in "
+        f"{time.perf_counter() - t0:.1f} s; visits a tile: mean "
+        f"{float(nvis_all.float().mean()):.1f}, most {int(nvis_all.max())} "
+        f"(tile {busiest}); the walks' S: "
+        f"{ct._stream_split(tiles, s2.TILE, device)} over all tiles, "
+        f"{ct._stream_split(1, s2.TILE, device)} on one tile")
+
+    # ---- the path: every stage through its entry point ----
+    build.reset_counts()
+    bad, _ = staged("15 repro", s2.full_repro, cp, p, d)
+    chosen = (0, busiest)
+    sub = {t: staged(f"15 repro tile {t}", s2.tile_repro, cp, p, d, t)
+           for t in chosen}
+    dmas = {t: staged(f"15 dma tile {t}", s2.dma, cp, p, d, t)
+            for t in chosen}
+    tr = staged(f"15 trace tile {busiest}", s2.trace, cp, p, d, busiest)
+    t2 = {v: staged(f"15 trace2 tile {busiest}", s2.trace2, cp, p, d,
+                    busiest, v) for v in s2.VARIANTS}
+    torch.cuda.synchronize()
+    counts = {k_: v for k_, v in build.launch_counts().items() if v}
+    log(f"[15] launches of the stages: {counts}")
+    need = ("cluster_plan", "cluster_closest", "cluster_closest_stream",
+            "stream_replay")
+    if min(counts.get(name, 0) for name in need) <= 0:
+        raise AssertionError(f"[15] a kernel of the path never launched: "
+                             f"{counts}")
+    if bad or any(sub.values()):
+        raise AssertionError(f"[15] the streamed walk differs from the "
+                             f"resident: {bad} lanes, tiles {sub}")
+    if any(r["bad"] or r["pad_nonzero"] for r in dmas.values()):
+        raise AssertionError("[15] the replay's rows are not the packed "
+                             "table's")
+    if tr["first"] is not None:
+        raise AssertionError(f"[15] the prefix walk parts from the plain "
+                             f"replay at visit {tr['first']}")
+
+    # ---- each kernel against its plain version ----
+    failures = []
+    pv, pe, pn = ct.plan_visits_plain(cp, p, d, tf, valid, s2.TILE)
+    below = torch.arange(c, device=DEVICE)[None, :] < pn[:, None]
+    if not (torch.equal(nvis_all, pn)
+            and torch.equal(full_plan[0][below], pv[below])
+            and torch.equal(full_plan[1][below].view(torch.int32),
+                            pe[below].view(torch.int32))):
+        failures.append("cluster_plan, every tile")
+    del below
+    for stream in (False, True):
+        want = ct.walk_closest_plain(
+            cp, *full_plan, p, d, tf, valid, s2.TILE,
+            packed=ct._tables_packed(cp) if stream else None)
+        got = ct.walk_closest(cp, *full_plan, p, d, tf, valid, s2.TILE,
+                              stream=stream)
+        if not _same_hits(torch, got, want):
+            failures.append(("cluster_closest_stream" if stream
+                             else "cluster_closest") + ", every ray")
+    for t in chosen:
+        visit, entry, nvis = dmas[t]["plan"]
+        nv = int(nvis[0])
+        want = ct.stream_replay_plain(cp, visit, nvis, 0)
+        if not torch.equal(dmas[t]["out"].view(torch.int32),
+                           want.view(torch.int32)):
+            failures.append(f"stream_replay tile {t}")
+        # the one-tile plan: the full plan's row, and the plain planner's
+        ps, ds = s2.tile_rays(p, d, t)
+        qv, qe, qn = ct.plan_visits_plain(cp, ps, ds, tf[:s2.TILE],
+                                          valid[:s2.TILE], s2.TILE)
+        row_ok = all(int(n_) == nv and torch.equal(v_[:nv], visit[0, :nv])
+                     and torch.equal(e_[:nv].view(torch.int32),
+                                     entry[0, :nv].view(torch.int32))
+                     for v_, e_, n_ in ((full_plan[0][t], full_plan[1][t],
+                                         nvis_all[t]), (qv[0], qe[0], qn[0])))
+        if not row_ok:
+            failures.append(f"one-tile plan of tile {t}")
+    ps, ds = s2.tile_rays(p, d, busiest)
+    plan, nv = tr["plan"], tr["nv"]
+    prefixes = sorted({m for m in (1, nv // 4, nv // 2, nv) if m > 0})
+    for m in prefixes:
+        got = s2.prefix_walk(cp, ps, ds, plan, m)
+        want = s2.prefix_walk_plain(cp, ps, ds, plan, m)
+        if not _same_hits(torch, got, want):
+            failures.append(f"prefix walk m={m}")
+    base = t2["full"]
+    for v, out in t2.items():
+        if not all(_same_hits(torch, out[m], base[m]) for m in out):
+            failures.append(f"trace2 {v}")
+    log(f"[15] cluster_plan and both closest walks on every ray, "
+        f"stream_replay on tiles {chosen} (nv "
+        f"{[dmas[t]['nv'] for t in chosen]}), the one-tile plans, the "
+        f"prefix walk at m = {prefixes} of tile {busiest} and the trace2 "
+        "variants: " + ("every one equal to its plain version"
+                        if not failures else str(failures)))
+    if failures:
+        raise AssertionError(f"[15] {failures}")
+
+    # ---- times ----
+    visit, entry, nvis = dmas[busiest]["plan"]
+    nv, f8 = dmas[busiest]["nv"], ct._stream_rows(cp.kind)
+    n_out = ct.replay_visits(nv)
+    packed = ct._tables_packed(cp)
+    rows = (visit[0, :nv].to(torch.int64)[:, None] * f8
+            + torch.arange(f8, device=DEVICE)).reshape(-1)
+    ms = timer(lambda: ct.replay_launch(cp, visit, nvis, 0, n_out), 20)
+    plain_ms = timer(lambda: ct.stream_replay_plain(cp, visit, nvis, 0), 5,
+                     warmup=1)
+    library_ms = timer(lambda: packed.index_select(0, rows), 20)
+    replay = kernel_row(
+        "stream_replay", CLUSTER_SOURCE, f"{nv} x {f8} x {k} (tile "
+        f"{busiest}, C={c})", counts["stream_replay"], 0.0, ms, plain_ms,
+        2 * nv * f8 * k * 4, 0)
+    replay["library_ms"] = library_ms
+    stats = {}
+    tf0 = torch.full((ps.x.shape[0],), s2.FLT_MAX, dtype=torch.float32,
+                     device=DEVICE)
+    ok = torch.ones_like(tf0, dtype=torch.bool)
+    ct.walk_closest_plain(cp, visit, entry, torch.clamp(nvis, max=nv), ps,
+                          ds, tf0, ok, s2.TILE, stats=stats, packed=packed)
+    walk_ms = timer(lambda: s2.prefix_walk(cp, ps, ds, plan, nv), 20)
+    walk_plain_ms = timer(lambda: s2.prefix_walk_plain(cp, ps, ds, plan, nv),
+                          2, warmup=0)
+    r = ps.x.shape[0]
+    prefix = kernel_row(
+        "cluster_closest_stream[prefix]", CLUSTER_SOURCE,
+        f"R={r} tile_r={s2.TILE} C={c} K={k} triangles, one tile, m=nv={nv}",
+        counts["cluster_closest_stream"], 0.0, walk_ms, walk_plain_ms,
+        r * (7 * 4 + 1) + r * 8 + nv * 8 + 4
+        + stats.get("visits", 0) * k * 12 * 4,
+        stats.get("pairs", 0) * TRI_CLOSEST_OPS)
+    prefix["split"] = ct._stream_split(1, s2.TILE, device)
+    for row in (replay, prefix):
+        log(f"[15] {row['name']} {row['shape']}: {row['ms']:.4f} ms (bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}; plain "
+            f"{row['plain_ms']:.4f} ms"
+            + (f"; index_select of the rows {row['library_ms']:.4f} ms"
+               if row["library_ms"] is not None else "") + ")")
+    return {"stream_replay": replay, "cluster_closest_stream[prefix]": prefix}
+
+
 def main() -> int:
     import torch
 
@@ -1974,6 +2173,9 @@ def main() -> int:
             raise AssertionError(f"[14 mesh {name}] {kernel} never launched")
         golden_check(np, r.render(tonemap=False), f"mesh pallas {name}")
 
+    log(f"[15] phases 1-14 done at {time.perf_counter() - t_start:.1f} s")
+    stream2_rows = check_stream2(torch, timer)
+
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
             row["launches"] = path["launches"][name]
@@ -2023,7 +2225,8 @@ def main() -> int:
     log(json.dumps({"fma_host_us_a_call": fma_host}))
     log(json.dumps({"kernels": list(hero_rows.values())
                     + list(fma_rows.values())
-                    + list(main_rows.values()) + list(new_rows.values())}))
+                    + list(main_rows.values()) + list(new_rows.values())
+                    + list(stream2_rows.values())}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

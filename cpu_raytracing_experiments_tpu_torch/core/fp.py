@@ -78,9 +78,9 @@ def fma(a, b, c):
 
 def contract(op: int, operands):
     """One launch of the fma kernel's expression `op`
-    (``ops/kernels/fma.py``: DOT3, FMA3, TO_LOCAL, TO_WORLD) where an
-    operand lies on the card and the operands are flat: the tuple of its
-    outputs. None otherwise: the caller then chains ``fma``."""
+    (``ops/kernels/fma.py``: DOT3, FMA3, TO_LOCAL, TO_LOCAL_XY, TO_WORLD)
+    where an operand lies on the card and the operands are flat: the tuple
+    of its outputs. None otherwise: the caller then chains ``fma``."""
     if any(isinstance(x, torch.Tensor) and x.is_cuda for x in operands):
         return fma_kernel.contract(op, operands)
     return None

@@ -68,8 +68,9 @@ def tangent_space(n: Vec3) -> Quat:
     )
 
 
-def _to_local(f, t: Quat, v: Vec3) -> Vec3:
-    temp = 2.0 * f(-t.x, v.y, f(v.z, t.w, v.x * t.y))
+def _to_local(f, t: Quat, v: Vec3, fuse_xy: bool) -> Vec3:
+    inner = f(v.x, t.y, v.z * t.w) if fuse_xy else f(v.z, t.w, v.x * t.y)
+    temp = 2.0 * f(-t.x, v.y, inner)
     return Vec3(f(-t.y, temp, v.x), f(t.x, temp, v.y), f(temp, t.w, -v.z))
 
 
@@ -78,11 +79,17 @@ def _to_world(f, t: Quat, v: Vec3) -> Vec3:
     return Vec3(f(t.y, temp, v.x), f(-t.x, temp, v.y), f(temp, t.w, -v.z))
 
 
-def to_local(t: Quat, v: Vec3) -> Vec3:
+def to_local(t: Quat, v: Vec3, fuse_xy: bool = False) -> Vec3:
     """Rotate by conj(T) assuming T.z == 0 (Sampling.hpp:161-169); on the
-    card one launch where the operands are flat."""
-    out = fp.contract(fp.fma_kernel.TO_LOCAL, (t.x, t.y, t.w, *v))
-    return Vec3(*out) if out is not None else _to_local(fma, t, v)
+    card one launch where the operands are flat.
+
+    temp's inner sum v.z*t.w + v.x*t.y is one fused multiply-add, and XLA
+    picks which product it fuses by the context of the call: the caller
+    passes the JAX renderer's choice at its call site. fma(v.z, t.w,
+    v.x*t.y) by default; with `fuse_xy`, fma(v.x, t.y, v.z*t.w)."""
+    op = fp.fma_kernel.TO_LOCAL_XY if fuse_xy else fp.fma_kernel.TO_LOCAL
+    out = fp.contract(op, (t.x, t.y, t.w, *v))
+    return Vec3(*out) if out is not None else _to_local(fma, t, v, fuse_xy)
 
 
 def to_world(t: Quat, v: Vec3) -> Vec3:
@@ -92,10 +99,10 @@ def to_world(t: Quat, v: Vec3) -> Vec3:
     return Vec3(*out) if out is not None else _to_world(fma, t, v)
 
 
-def to_local_plain(t: Quat, v: Vec3) -> Vec3:
+def to_local_plain(t: Quat, v: Vec3, fuse_xy: bool = False) -> Vec3:
     """``to_local`` from ``fp.fma_plain``: the plain version of its
     kernel."""
-    return _to_local(fp.fma_plain, t, v)
+    return _to_local(fp.fma_plain, t, v, fuse_xy)
 
 
 def to_world_plain(t: Quat, v: Vec3) -> Vec3:

@@ -22,6 +22,9 @@
 //   cluster_closest_stream, cluster_occluded_stream <- _stream_kernels
 //                       (stream=True): the same walks over the row-packed
 //                       table of _tables_packed
+//   stream_replay    <- the DMA replay of benchmarks/diag_stream2.py (:152):
+//                       one tile's visited clusters copied out through the
+//                       streamed walks' staging
 //
 // What they compute. Rays are cut into tiles of tile_r consecutive rays; one
 // thread block works on one tile (a tilebox block of cluster_plan_rows on up
@@ -1038,14 +1041,16 @@ constexpr int kMaxBlock = 1024;  // threads a block: tile_r * S at most
 // has landed". `fetch(slot, c)` starts the copies of cluster c's n4 float4
 // into a slot; `visit_fn(c, rows)` runs the battery on the staged rows
 // (prim k at rows[k * n4 / K]) and returns the tile's new exit bound.
-template <typename Fetch, typename Visit>
+// Without kExit (stream_replay) the loop takes every visit j < n in order
+// and reads neither `entry_row` nor the bound.
+template <bool kExit = true, typename Fetch, typename Visit>
 __device__ __forceinline__ void stream_walk(
     const int32_t* __restrict__ visit_row, const float* __restrict__ entry_row,
     int n, float mx, int n4, float4* slots, Fetch fetch, Visit visit_fn) {
   if (n > 0) fetch(slots, visit_row[0]);
   cp_async_commit();
   for (int j = 0; j < n; ++j) {
-    if (!(entry_row[j] < mx)) break;  // uniform: mx is the block's
+    if (kExit && !(entry_row[j] < mx)) break;  // uniform: mx is the block's
     if (j + 1 < n) fetch(slots + ((j + 1) & 1) * n4, visit_row[j + 1]);
     cp_async_commit();
     cp_async_wait<1>();  // this thread's part of visit j has landed
@@ -1306,6 +1311,61 @@ __global__ void __launch_bounds__(kMaxBlock) occluded_kernel(
   if (l.sp.has_ray && l.sp.s == 0) occ_out[l.i] = occ ? 1 : 0;
 }
 
+// stream_replay: the streamed walks' staging of one tile's visit list,
+// written back out. The port of the double-buffered DMA replay of the JAX
+// package's benchmarks/diag_stream2.py (its kernel at :118, launched at
+// :152), which copies every visited cluster's F8 packed rows of the TPU's
+// stream walk out through its two VMEM slots. Here the copy is the walks'
+// own: stream_walk's loop without its exit, fetch_visit's transposing
+// cp.async copies of the packed table into the two shared-memory slots, one
+// commit group per visit, the next visit's copy in flight while this one is
+// written out. The write-back undoes the transposition (attribute a of prim
+// k sits at float k * kAttrs + a of the slot) into visit j's F8 rows of
+// out[ceil(nv / 8) * 8 * F8, K], in packed order, coalesced; the F8 - kAttrs
+// rows that pad a cluster (never staged, never read by a walk) are written
+// as the zeros the packed table holds there, and so are the rows of the
+// visits [nv, n_out) that pad the output to a multiple of 8 visits. One
+// block walks the tile, as a walk's block does. Bound by bytes: each
+// visited cluster's F8 * K floats are read once and written once; one
+// block's copies run far below the card's rate, which a diagnostic of the
+// staging does not need.
+constexpr int kReplayThreads = 256;
+
+template <int kBattery>
+__global__ void __launch_bounds__(kReplayThreads) replay_kernel(
+    const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
+    const float* __restrict__ packed, int tile, int n_clusters, int k_prims,
+    int n_out, float* __restrict__ out) {
+  extern __shared__ float4 slots[];  // two slots of n4 float4
+  constexpr int kAttrs = kBattery == kSphere ? 4 : 12;
+  constexpr int kRows = kBattery == kSphere ? 8 : 16;  // F8
+  const int nv = min(nvis[tile], n_out);
+  const int visit_floats = kRows * k_prims;
+  int j = 0;  // stream_walk hands over every visit j < nv, in order
+  stream_walk<false>(
+      visit + static_cast<size_t>(tile) * n_clusters, nullptr, nv, 0.0f,
+      kAttrs / 4 * k_prims, slots,
+      [&](float4* slot, int c) {
+        fetch_visit<kBattery, true>(slot, packed, c, k_prims);
+      },
+      [&](int /*c*/, const float4* rows) {
+        const float* staged = reinterpret_cast<const float*>(rows);
+        float* dst = out + static_cast<size_t>(j) * visit_floats;
+        for (int i = threadIdx.x; i < visit_floats; i += blockDim.x) {
+          const int a = i / k_prims;
+          dst[i] = a < kAttrs ? staged[(i - a * k_prims) * kAttrs + a] : 0.0f;
+        }
+        ++j;
+        __syncthreads();  // next trip starts the copy two visits on here
+        return 0.0f;
+      });
+  const size_t end = static_cast<size_t>(n_out) * visit_floats;
+  for (size_t i = static_cast<size_t>(nv) * visit_floats + threadIdx.x;
+       i < end; i += blockDim.x) {
+    out[i] = 0.0f;
+  }
+}
+
 // Shared memory above 48 KB has to be asked for; the limit counts the
 // kernel's static shared memory too (at most 4.4 KB: the split walks'
 // packed ray order), so ask from 40 KB on.
@@ -1533,3 +1593,28 @@ extern "C" int cluster_occluded_stream(OCCLUDED_ARGS) {
 
 #undef OCCLUDED_LAUNCH
 #undef OCCLUDED_ARGS
+
+// stream_replay: tile `tile`'s visit list (visit [T, C], nvis [T]) replayed
+// through the streamed walks' staging from the packed [C * F8, K] table of
+// battery 0 (spheres, F8 = 8) or 1 (triangles, F8 = 16), into out
+// [n_out * F8, K]; n_out, the visits the output holds, is at least the
+// tile's nvis (the wrapper's ceil(nv / 8) * 8).
+extern "C" int stream_replay(const int32_t* nvis, const int32_t* visit,
+                             const float* packed, int battery, int tile,
+                             int n_clusters, int k_prims, int n_out,
+                             float* out, void* stream) {
+  if (n_out <= 0) return static_cast<int>(cudaGetLastError());
+  const auto kernel = battery == kTriangle ? &replay_kernel<kTriangle>
+                      : battery == kSphere ? &replay_kernel<kSphere>
+                                           : nullptr;
+  if (kernel == nullptr || tile < 0 || k_prims <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t shared =
+      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
+  const cudaError_t err = allow_shared(kernel, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<1, kReplayThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      nvis, visit, packed, tile, n_clusters, k_prims, n_out, out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -18,6 +18,8 @@
 //                       kDot3     fma(az, bz, fma(ax, bx, ay*by))  (fp.dot3)
 //                       kFma3     fma(a_i, b, c_i), i = x, y, z    (fp.fma3)
 //                       kToLocal  sampling.to_local's rotation by conj(T)
+//                       kToLocalXY  the same, the other product of temp's
+//                                 inner sum fused (to_local(fuse_xy=True))
 //                       kToWorld  sampling.to_world's rotation by T
 //                     Each rounds every product, sum and difference exactly
 //                     where the PyTorch composition of fp.fma rounds it:
@@ -48,7 +50,14 @@ constexpr int kMaxIn = 7;
 constexpr int kMaxOut = 3;
 constexpr int kBlocksPerSm = 2048 / kThreads;  // one wave
 
-enum Op { kFma = 0, kDot3 = 1, kFma3 = 2, kToLocal = 3, kToWorld = 4 };
+enum Op {
+  kFma = 0,
+  kDot3 = 1,
+  kFma3 = 2,
+  kToLocal = 3,
+  kToWorld = 4,
+  kToLocalXY = 5
+};
 
 // ---------------------------------------------------------------------------
 // The flat kernel
@@ -67,12 +76,13 @@ template <> struct Arity<kDot3> { static constexpr int in = 6, out = 1; };
 template <> struct Arity<kFma3> { static constexpr int in = 7, out = 3; };
 template <> struct Arity<kToLocal> { static constexpr int in = 6, out = 3; };
 template <> struct Arity<kToWorld> { static constexpr int in = 6, out = 3; };
+template <> struct Arity<kToLocalXY> { static constexpr int in = 6, out = 3; };
 
 // The expression, on one element. Operands in the order of the wrapper:
 //   kFma     a, b, c
 //   kDot3    ax, ay, az, bx, by, bz
 //   kFma3    ax, ay, az, b, cx, cy, cz
-//   kToLocal, kToWorld  t.x, t.y, t.w, v.x, v.y, v.z  (t.z == 0)
+//   kToLocal, kToLocalXY, kToWorld  t.x, t.y, t.w, v.x, v.y, v.z  (t.z == 0)
 template <int kOp>
 __device__ __forceinline__ void eval(const float* x, float* y) {
   if constexpr (kOp == kFma) {
@@ -86,10 +96,13 @@ __device__ __forceinline__ void eval(const float* x, float* y) {
   } else {
     const float tx = x[0], ty = x[1], tw = x[2];
     const float vx = x[3], vy = x[4], vz = x[5];
-    if constexpr (kOp == kToLocal) {
-      // temp = 2 * fma(-t.x, v.y, fma(v.z, t.w, v.x * t.y))
-      const float temp = __fmul_rn(
-          2.0f, __fmaf_rn(-tx, vy, __fmaf_rn(vz, tw, __fmul_rn(vx, ty))));
+    if constexpr (kOp == kToLocal || kOp == kToLocalXY) {
+      // temp = 2 * fma(-t.x, v.y, inner), inner = fma(v.z, t.w, v.x * t.y)
+      // or, kToLocalXY, fma(v.x, t.y, v.z * t.w)
+      const float inner = kOp == kToLocal
+                              ? __fmaf_rn(vz, tw, __fmul_rn(vx, ty))
+                              : __fmaf_rn(vx, ty, __fmul_rn(vz, tw));
+      const float temp = __fmul_rn(2.0f, __fmaf_rn(-tx, vy, inner));
       y[0] = __fmaf_rn(-ty, temp, vx);
       y[1] = __fmaf_rn(tx, temp, vy);
       y[2] = __fmaf_rn(temp, tw, -vz);
@@ -277,7 +290,8 @@ Operand operand(const float* ptr, float value, const long long* strides,
 extern "C" int fma_flat(int op, const void* const* ptrs, const float* value,
                         unsigned stride_one, long long n, long long n_vec,
                         int sms, void* stream) {
-  if (op < kFma || op > kToWorld || n_vec < 0 || 4 * n_vec > n || sms < 1) {
+  if (op < kFma || op > kToLocalXY || n_vec < 0 || 4 * n_vec > n ||
+      sms < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return static_cast<int>(cudaGetLastError());
@@ -296,6 +310,7 @@ extern "C" int fma_flat(int op, const void* const* ptrs, const float* value,
     case kDot3: launch_flat<kDot3>(args, n, n_vec, sms, st); break;
     case kFma3: launch_flat<kFma3>(args, n, n_vec, sms, st); break;
     case kToLocal: launch_flat<kToLocal>(args, n, n_vec, sms, st); break;
+    case kToLocalXY: launch_flat<kToLocalXY>(args, n, n_vec, sms, st); break;
     default: launch_flat<kToWorld>(args, n, n_vec, sms, st); break;
   }
   return static_cast<int>(cudaGetLastError());

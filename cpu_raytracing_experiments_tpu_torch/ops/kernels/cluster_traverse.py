@@ -72,6 +72,12 @@ the JAX module:
   rounding). It applies to triangle packs of 128 or more prims a cluster
   and not under ``stream``.
 
+``stream_replay`` (the DMA replay of ``benchmarks/diag_stream2.py``)
+replays one tile's visit list through the streamed walks' staging and
+writes the staged rows back out in the packed layout: the check that the
+streamed walks stage the rows they should. Its plain version,
+``stream_replay_plain``, is an index gather of those rows.
+
 What is TPU schedule in the JAX module and has no counterpart here: the
 lane packing of clusters below 128 prims, ``fuse`` / ``unroll`` /
 ``trav_block`` / ``exit_refresh`` / ``prefetch`` / ``plan_block``, the 8-row
@@ -114,6 +120,7 @@ CLOSEST_STREAM = LaunchCounter("cluster_closest_stream")
 OCCLUDED_STREAM = LaunchCounter("cluster_occluded_stream")
 CLOSEST_MXU = LaunchCounter("cluster_closest[mxu]")
 OCCLUDED_MXU = LaunchCounter("cluster_occluded[mxu]")
+REPLAY = LaunchCounter("stream_replay")
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +650,8 @@ def _bind(lib: ctypes.CDLL):
     for fn in (lib.cluster_closest, lib.cluster_occluded,
                lib.cluster_closest_stream, lib.cluster_occluded_stream):
         fn.restype = i32
+    lib.stream_replay.argtypes = [ptr] * 3 + [i32] * 5 + [ptr] * 2
+    lib.stream_replay.restype = i32
 
 
 LIBRARY = build.Library("cluster_traverse.cu", build.nvcc, build.NVCC_FLAGS,
@@ -971,6 +980,76 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
                     cp.cluster_size, occ.data_ptr()])
     counter.launches += 1
     return occ
+
+
+# ---------------------------------------------------------------------------
+# The streamed walks' staging, replayed (benchmarks/diag_stream2.py's DMA
+# replay)
+# ---------------------------------------------------------------------------
+def replay_visits(nv: int) -> int:
+    """Visits the replay's output holds: nv rounded up to a multiple of 8,
+    the JAX kernel's output block."""
+    return -(-nv // 8) * 8
+
+
+def stream_replay_plain(cp: ClusteredPrims, visit, nvis, tile: int):
+    """Tile `tile`'s visited clusters copied out of the packed table: the
+    F8 rows of cluster visit[tile, j] at rows [j * F8, (j + 1) * F8) of a
+    [replay_visits(nv) * F8, K] float32 table, nv = nvis[tile], the rows of
+    the visits at or past nv zero. An index gather of ``_tables_packed``."""
+    packed = _tables_packed(cp)
+    f8, nv = _stream_rows(cp.kind), int(nvis[tile])
+    out = packed.new_zeros((replay_visits(nv) * f8, cp.cluster_size))
+    rows = (visit[tile, :nv].to(torch.int64)[:, None] * f8
+            + torch.arange(f8, device=packed.device))
+    out[:nv * f8] = packed[rows.reshape(-1)]
+    return out
+
+
+def stream_replay(cp: ClusteredPrims, visit, nvis, tile: int):
+    """``stream_replay_plain``'s table through the streamed walks' own
+    staging (``csrc/cluster_traverse.cu``: ``stream_replay``, counted in
+    ``REPLAY``): every visit of the tile's list copied into the two
+    shared-memory slots as ``cluster_closest_stream`` copies it, and
+    written back out. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise. Reads nv = nvis[tile] to the host to size
+    the output."""
+    if visit.device.type == "cpu":
+        return stream_replay_plain(cp, visit, nvis, tile)
+    return replay_launch(cp, visit, nvis, tile,
+                         replay_visits(int(nvis[tile])))
+
+
+def replay_launch(cp: ClusteredPrims, visit, nvis, tile: int, n_out: int):
+    """One launch of the ``stream_replay`` kernel into a new [n_out * F8,
+    K] table, n_out at least nvis[tile] (``stream_replay`` reads it; this
+    form leaves the host read out of a timed launch)."""
+    device = visit.device
+    if device.type != "cuda":
+        raise ValueError(f"stream_replay: tensors on {device}, need cuda or "
+                         "cpu")
+    t_tiles, c, k = visit.shape[0], cp.num_clusters, cp.cluster_size
+    packed = _tables_packed(cp)
+    f8 = _stream_rows(cp.kind)
+    _check(REPLAY.name, device, (packed,), torch.float32)
+    _check(REPLAY.name, device, (visit, nvis), torch.int32)
+    if (visit.shape != (t_tiles, c) or nvis.shape != (t_tiles,)
+            or packed.shape != (c * f8, k) or not 0 <= tile < t_tiles):
+        raise ValueError(f"stream_replay: tile {tile} of a plan "
+                         f"{tuple(visit.shape)} over a table "
+                         f"{tuple(packed.shape)}")
+    if walk_shared_bytes(cp) > MAX_SHARED_BYTES:
+        raise ValueError(f"stream_replay: cluster_size {k} does not fit one "
+                         "block's shared memory")
+    out = torch.empty((n_out * f8, k), dtype=torch.float32, device=device)
+    if n_out == 0:
+        return out
+    build.launch(REPLAY.name, LIBRARY.load().stream_replay, device,
+                 [nvis.data_ptr(), visit.data_ptr(), packed.data_ptr(),
+                  int(cp.kind == "triangle"), tile, c, k, n_out,
+                  out.data_ptr()])
+    REPLAY.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ hand-written CUDA kernels (``csrc/fma.cu``, ``__fmaf_rn``):
 * ``contract(op, operands)``: one launch of ``flat_kernel`` for one of the
   contraction expressions that ``core/`` chains from fp.fma, each rounded
   as that chain rounds it: ``DOT3`` (``fp.dot3``), ``FMA3`` (``fp.fma3``),
-  ``TO_LOCAL`` and ``TO_WORLD`` (``sampling.to_local`` / ``to_world``),
+  ``TO_LOCAL``, ``TO_LOCAL_XY`` and ``TO_WORLD`` (``sampling.to_local``
+  with either contraction of its inner sum, ``sampling.to_world``),
   counted in ``COUNTERS[op]``. It returns None where the operands are not
   flat, and the caller then composes ``fma``.
 
@@ -32,9 +33,10 @@ from .build import LaunchCounter
 
 MAX_DIMS = 4  # dimensions the strided kernel indexes, after merging
 MAX_IN, MAX_OUT = 7, 3  # operands and outputs of the flat kernel
-OP_FMA, DOT3, FMA3, TO_LOCAL, TO_WORLD = range(5)  # csrc/fma.cu's enum Op
+# csrc/fma.cu's enum Op
+OP_FMA, DOT3, FMA3, TO_LOCAL, TO_WORLD, TO_LOCAL_XY = range(6)
 ARITY = {OP_FMA: (3, 1), DOT3: (6, 1), FMA3: (7, 3), TO_LOCAL: (6, 3),
-         TO_WORLD: (6, 3)}  # (operands, outputs)
+         TO_WORLD: (6, 3), TO_LOCAL_XY: (6, 3)}  # (operands, outputs)
 VECTOR = 4  # elements of one 16-byte group
 
 FMA = LaunchCounter("fma")  # flat_kernel<kFma>
@@ -42,7 +44,7 @@ FMA_STRIDED = LaunchCounter("fma[strided]")
 COUNTERS = {OP_FMA: FMA}
 COUNTERS.update({op: LaunchCounter(f"fma[{name}]") for op, name in (
     (DOT3, "dot3"), (FMA3, "fma3"), (TO_LOCAL, "to_local"),
-    (TO_WORLD, "to_world"))})
+    (TO_WORLD, "to_world"), (TO_LOCAL_XY, "to_local_xy"))})
 
 
 def _bind(lib: ctypes.CDLL):
@@ -161,9 +163,9 @@ def _lib():
 
 
 def contract(op: int, operands):
-    """Expression `op` (DOT3, FMA3, TO_LOCAL, TO_WORLD; OP_FMA) over its
-    operands in one launch of the flat kernel: a tuple of its outputs, or
-    None where the operands are not flat."""
+    """Expression `op` (DOT3, FMA3, TO_LOCAL, TO_LOCAL_XY, TO_WORLD;
+    OP_FMA) over its operands in one launch of the flat kernel: a tuple of
+    its outputs, or None where the operands are not flat."""
     if len(operands) != ARITY[op][0]:
         raise ValueError(f"fma: op {op} takes {ARITY[op][0]} operands")
     first = _device_of(operands)

@@ -188,7 +188,8 @@ def _closest_hit_frame(scene: Scene, state: PathState, tfar, prim_id, is_tri):
     backface = n.dot(state.d) >= 0.0
     n = (-n).where(backface, n)
     t = sampling.tangent_space(n)
-    v_local = sampling.to_local(t, -state.d)
+    # rounded as the JAX renderer's jitted _closest_hit_frame contracts it
+    v_local = sampling.to_local(t, -state.d, fuse_xy=True)
     # scale-aware normal offset against self-intersection
     eps = torch.clamp_min(3e-5 * torch.maximum(
         torch.abs(hit_pt.x),
@@ -241,8 +242,9 @@ def _sphere_light_sample(scene: Scene, selected, n_lights: int, hit, prim_id,
     center_dist = fp.sqrt(center_dist2)
     wc = wc * (1.0 / torch.clamp_min(center_dist, 1e-20))
     sin_theta_max2 = lr_sq / torch.clamp_min(center_dist2, 1e-20)
-    # entire cone below the hemisphere (:270-273)
-    n_dot_w = sampling.to_local(t_quat, wc).z
+    # entire cone below the hemisphere (:270-273); rounded as the JAX
+    # renderer's jitted bounce_step contracts this call
+    n_dot_w = sampling.to_local(t_quat, wc, fuse_xy=True).z
     ok = ok & ~((n_dot_w < 0.0) & (sin_theta_max2 < n_dot_w * n_dot_w))
     dir_s, dist_s, pdf_s = sampling.sample_direction_to_sphere(
         wc, sin_theta_max2, center_dist, lr_sq, t_draw, s_draw)
@@ -327,6 +329,8 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
         l_emission = em_k.where(ok, l_emission)
         valid = valid | ok
 
+    # fma(v.z, t.w, v.x*t.y) here, as the JAX renderer's jitted bounce_step
+    # contracts this call
     l_local = sampling.to_local(t_quat, l_dir)
     valid = valid & (l_local.z >= 0.0)  # sample below the hemisphere (:276)
     shadow_radiance = (l_emission * state.throughput

@@ -1,9 +1,10 @@
 """The contraction expressions that the port chains from its single-rounding
 multiply-add (``core/fp.py``): ``fp.dot3`` (``Vec3.dot``), ``fp.fma3`` (the
 three lanes of a*b + c with one b), ``sampling.to_local`` and
-``sampling.to_world``. On the card each is one launch of the fma kernel's
-flat form (``ops/kernels/fma.py::contract``); on the CPU each is its chain of
-``fp.fma`` calls.
+``sampling.to_world``, and ``to_local`` with the other contraction of its
+inner sum (``fuse_xy=True``). On the card each is one launch of the fma
+kernel's flat form (``ops/kernels/fma.py::contract``); on the CPU each is its
+chain of ``fp.fma`` calls.
 
 Tolerance: equal bits (NaN lanes: both NaN), against the JAX package's
 functions under ``jax.jit`` (XLA on the CPU contracts a*b + c into one fused
@@ -76,6 +77,16 @@ def _same(x, y):
 _t = torch.from_numpy
 
 
+def _rotation(form, module, plain=False):
+    """The port's to_local (either contraction of temp's inner sum) or
+    to_world, or its plain version, as f(t, v)."""
+    suffix = "_plain" if plain else ""
+    if form == "to_world":
+        return getattr(module, "to_world" + suffix)
+    f = getattr(module, "to_local" + suffix)
+    return lambda t, v: f(t, v, fuse_xy=form == "to_local_xy")
+
+
 def _port(form, cols, scalar_b=False):
     """The port's form on CPU tensors: a tuple of numpy outputs."""
     x = [_t(c) for c in cols]
@@ -85,8 +96,8 @@ def _port(form, cols, scalar_b=False):
         b = x[3][0] if scalar_b else x[3]
         out = fp.fma3(Vec3(*x[:3]), b, Vec3(*x[4:]))
     else:
-        f = sampling.to_local if form == "to_local" else sampling.to_world
-        out = f(Quat(x[0], x[1], torch.zeros_like(x[0]), x[2]), Vec3(*x[3:]))
+        out = _rotation(form, sampling)(
+            Quat(x[0], x[1], torch.zeros_like(x[0]), x[2]), Vec3(*x[3:]))
     return tuple(o.numpy() for o in out)
 
 
@@ -99,9 +110,8 @@ def _plain(form, cols, scalar_b=False):
         b = x[3][0] if scalar_b else x[3]
         out = fp.fma3_plain(Vec3(*x[:3]), b, Vec3(*x[4:]))
     else:
-        f = (sampling.to_local_plain if form == "to_local"
-             else sampling.to_world_plain)
-        out = f(Quat(x[0], x[1], None, x[2]), Vec3(*x[3:]))
+        out = _rotation(form, sampling, plain=True)(
+            Quat(x[0], x[1], None, x[2]), Vec3(*x[3:]))
     return tuple(o.numpy() for o in out)
 
 
@@ -113,36 +123,56 @@ def _jax_form(form, scalar_b=False):
         return jax.jit(lambda ax, ay, az, b, cx, cy, cz: tuple(
             a * (b[0] if scalar_b else b) + c
             for a, c in ((ax, cx), (ay, cy), (az, cz))))
-    f = jsampling.to_local if form == "to_local" else jsampling.to_world
+    f = jsampling.to_world if form == "to_world" else jsampling.to_local
     return jax.jit(lambda tx, ty, tw, vx, vy, vz: tuple(
         f(JQuat(tx, ty, jnp.zeros_like(tx), tw), JVec3(vx, vy, vz))))
 
 
-ARITY = {"dot3": 6, "fma3": 7, "to_local": 6, "to_world": 6}
+ARITY = {"dot3": 6, "fma3": 7, "to_local": 6, "to_world": 6,
+         "to_local_xy": 6}
 CASES = [("dot3", False), ("fma3", False), ("fma3", True), ("to_local", False),
-         ("to_world", False)]
+         ("to_world", False), ("to_local_xy", False)]
+
+
+def _to_local_chain(cols, fuse_xy):
+    """to_local as the chain of fp.fma with temp's inner sum contracted as
+    fma(v.z, t.w, v.x t.y), or with `fuse_xy` as fma(v.x, t.y, v.z t.w):
+    the witness of how XLA rounds each lane."""
+    tx, ty, tw, vx, vy, vz = (_t(c) for c in cols)
+    inner = fp.fma(vx, ty, vz * tw) if fuse_xy else fp.fma(vz, tw, vx * ty)
+    temp = 2.0 * fp.fma(-tx, vy, inner)
+    return tuple(o.numpy() for o in (fp.fma(-ty, temp, vx),
+                                     fp.fma(tx, temp, vy),
+                                     fp.fma(temp, tw, -vz)))
 
 
 @pytest.mark.parametrize("form,scalar_b", CASES)
 def test_form_matches_jitted_jax(form, scalar_b):
-    """The port's form on the CPU equals the JAX package's function under
-    jax.jit bit for bit (fma3: three a*b + c, with b an array or a 0-d
-    value), but for the z lane of to_local: XLA computes each output of
-    to_local in its own fusion, recomputing temp = 2 (v.z t.w + v.x t.y -
-    t.x v.y) in each, and in the z output's fusion LLVM fuses the other
-    product of v.z t.w + v.x t.y. That lane of the JAX function is held to
-    the chain with that contraction, bit for bit; the port's z lane keeps
-    the x and y lanes' order (ROADMAP queue 3)."""
+    """The port's form on the CPU against the JAX package's function under
+    jax.jit, bit for bit (fma3: three a*b + c, with b an array or a 0-d
+    value). to_local: XLA computes each output of the standalone function
+    in its own fusion, recomputing temp = 2 (v.z t.w + v.x t.y - t.x v.y)
+    in each, and fuses fma(v.z, t.w, v.x t.y) into the x and y outputs and
+    fma(v.x, t.y, v.z t.w) into z: each lane is held to the witness chain
+    of its contraction. The port follows the JAX renderer, which picks the
+    contraction by call site (test_torch_to_local_sites.py): to_local takes
+    the first in all three lanes (l_local), to_local_xy (fuse_xy=True) the
+    second (v_local, n_dot_w); each equals its chain, and so the JAX
+    function on the lanes it contracts alike."""
+    jform = "to_local" if form == "to_local_xy" else form
     cols = _columns(11, ARITY[form])
     got = _port(form, cols, scalar_b)
     want = [np.asarray(y) for y in
-            _jax_form(form, scalar_b)(*(jnp.asarray(c) for c in cols))]
+            _jax_form(jform, scalar_b)(*(jnp.asarray(c) for c in cols))]
     assert len(got) == len(want)
-    if form == "to_local":
-        tx, ty, tw, vx, vy, vz = (_t(c) for c in cols)
-        temp = 2.0 * fp.fma(-tx, vy, fp.fma(vx, ty, vz * tw))
-        assert _same(fp.fma(temp, tw, -vz).numpy(), want[2])
-        got, want = got[:2], want[:2]
+    if jform == "to_local":
+        zw, xy = _to_local_chain(cols, False), _to_local_chain(cols, True)
+        assert all(_same(x, y) for x, y in zip(zw[:2], want[:2]))
+        assert _same(xy[2], want[2])
+        for x, y in zip(got, xy if form == "to_local_xy" else zw):
+            assert _same(x, y)
+        lanes = (2,) if form == "to_local_xy" else (0, 1)
+        got, want = [got[i] for i in lanes], [want[i] for i in lanes]
     for x, y in zip(got, want):
         assert _same(x, y)
 
@@ -152,9 +182,8 @@ def test_renderer_frame_v_local_contraction():
     _closest_hit_frame (the shading frame bounce_step computes) under
     jax.jit, on the hit lanes of the hero's 64x64 camera rays, gives
     v_local = to_local(t, -d) with temp's inner sum contracted as
-    fma(v.x, t.y, v.z t.w) in all three lanes, bit for bit. The port's
-    to_local, like the standalone jitted function's x and y lanes,
-    contracts fma(v.z, t.w, v.x t.y) (ROADMAP queue 3)."""
+    fma(v.x, t.y, v.z t.w) in all three lanes, bit for bit; so does the
+    port's to_local(fuse_xy=True), the form its _closest_hit_frame takes."""
     from cpu_raytracing_experiments_tpu.ops import intersect as jint
     from cpu_raytracing_experiments_tpu.render import renderer as jr
     from cpu_raytracing_experiments_tpu.scene import builders as jbuilders
@@ -189,8 +218,11 @@ def test_renderer_frame_v_local_contraction():
     temp = 2.0 * fp.fma(-tx, vy, fp.fma(vx, ty, vz * tw))
     witness = (fp.fma(-ty, temp, vx), fp.fma(tx, temp, vy),
                fp.fma(temp, tw, -vz))
-    for x, y in zip(witness, v_local):
+    port = sampling.to_local(Quat(tx, ty, None, tw), Vec3(vx, vy, vz),
+                             fuse_xy=True)
+    for x, p, y in zip(witness, port, v_local):
         assert _same(x.numpy()[hit], np.asarray(y)[hit])
+        assert _same(p.numpy()[hit], np.asarray(y)[hit])
 
 
 @pytest.mark.parametrize("form,scalar_b", CASES)
@@ -318,7 +350,8 @@ def test_fused_form_matches_plain_on_card(form, scalar_b):
         x = [_t(c[lanes]).cuda() for c in cols]
         counter = kfma.COUNTERS[{"dot3": kfma.DOT3, "fma3": kfma.FMA3,
                                  "to_local": kfma.TO_LOCAL,
-                                 "to_world": kfma.TO_WORLD}[form]]
+                                 "to_world": kfma.TO_WORLD,
+                                 "to_local_xy": kfma.TO_LOCAL_XY}[form]]
         before = counter.launches
         if form == "dot3":
             got = (fp.dot3(*x),)
@@ -326,8 +359,8 @@ def test_fused_form_matches_plain_on_card(form, scalar_b):
             got = fp.fma3(Vec3(*x[:3]), x[3][0] if scalar_b else x[3],
                           Vec3(*x[4:]))
         else:
-            f = sampling.to_local if form == "to_local" else sampling.to_world
-            got = f(Quat(x[0], x[1], None, x[2]), Vec3(*x[3:]))
+            got = _rotation(form, sampling)(Quat(x[0], x[1], None, x[2]),
+                                            Vec3(*x[3:]))
         assert counter.launches == before + 1
         want = _plain(form, [c[lanes] for c in cols], scalar_b)
         for a, b in zip(got, want):
