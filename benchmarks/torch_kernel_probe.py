@@ -35,9 +35,19 @@ it prints JSON lines:
             same 2^19 lanes and fp.fma on 1024;
   sphere    sphere_closest and sphere_occluded at 2^19 rays x the hero's 9
             spheres and 262,144 and 2^19 rays x the 1000-sphere field
-            (equal to plain, ms), and sphere_closest at 2^19 rays on
-            tables of 1-256 spheres (equal to plain, ms); the SASS of
-            csrc/sphere_battery.cu into DIR;
+            (equal to plain, ms), sphere_occluded also on the table sorted
+            by radius, largest first (the any-hit result does not depend
+            on the order), with the pairs the rays need and the warp pairs
+            (chip_smoke.any_hit_pairs, where the checkout has it); both
+            kernels at 2^19 rays on tables of 1-256 spheres (equal to
+            plain, ms); the SASS of csrc/sphere_battery.cu into DIR;
+  replay    stream_replay on diag/stream2.py's pack (100,000 triangles,
+            K = 256), planned over all its rays: at tile 0 and the tile
+            with the most visits equal to plain, its grid (where the
+            checkout has replay_blocks), ms, and an index_select of the
+            same rows (ms); ms also at the tile with the fewest visits, on
+            the busiest tile into an output of exactly nv visits, and on
+            the grids of a one- and a four-SM card;
   hero      the hero scene at 256x256, 8 bounces, 2 passes through
             Renderer.accumulate: the buckets' SHA-256 and their equality
             with every other checkout's buckets saved in DIR, the kernel
@@ -61,7 +71,8 @@ import sys
 import time
 from pathlib import Path
 
-KERNELS = ("plan", "rows", "closest", "occluded", "fma", "sphere", "hero")
+KERNELS = ("plan", "rows", "closest", "occluded", "fma", "sphere",
+           "replay", "hero")
 CLUSTER = ("plan", "rows", "closest", "occluded")
 
 
@@ -268,13 +279,24 @@ def probe_sphere(m, timer, label, out):
             lambda: sb.closest_hit(p, d, center, rsq), 20)
         tf = torch.where(torch.arange(n, device="cuda") % 2 == 0, tf,
                          torch.where(want[1] >= 0, want[0] * 0.999, tf))
+        occ = sb.occluded_spheres(p, d, tf, center, rsq)
         res["occluded_equal"] = torch.equal(
-            sb.any_hit(p, d, tf, center, rsq),
-            sb.occluded_spheres(p, d, tf, center, rsq))
+            sb.any_hit(p, d, tf, center, rsq), occ)
         res["occluded_ms"] = timer(lambda: sb.any_hit(p, d, tf, center, rsq),
                                    20)
         res["occluded_clean_ms"] = m["clean"](
             lambda: sb.any_hit(p, d, tf, center, rsq), 20)
+        order = torch.argsort(rsq, descending=True, stable=True)
+        scenter = m["Vec3"](*(c[order].contiguous() for c in center))
+        srsq = rsq[order].contiguous()
+        call = lambda: sb.any_hit(p, d, tf, scenter, srsq)
+        res["occluded_largest_first_equal"] = torch.equal(call(), occ)
+        res["occluded_largest_first_ms"] = timer(call, 20)
+        if hasattr(cs, "any_hit_pairs"):
+            for key, (c_, r_) in (("", (center, rsq)),
+                                  ("largest_first_", (scenter, srsq))):
+                pairs, warp = cs.any_hit_pairs(torch, sb, p, d, tf, c_, r_)
+                res[f"{key}pairs"], res[f"{key}warp_pairs"] = pairs, warp
         print(f"[{label}] sphere {tname} x {n} rays: {json.dumps(res)}",
               flush=True)
     probe_tables(m, timer, label)
@@ -288,9 +310,10 @@ SWEEP_TABLES = (1, 4, 9, 12, 16, 32, 64, 128, 256)  # spheres
 
 
 def probe_tables(m, timer, label):
-    """sphere_closest at 2^19 rays on tables of SWEEP_TABLES spheres (the
-    hero's 9, and the first k spheres of the 1000-sphere field): equal to
-    the plain version, and ms of 20 launches. One JSON line a table."""
+    """sphere_closest and sphere_occluded at 2^19 rays on tables of
+    SWEEP_TABLES spheres (the hero's 9, and the first k spheres of the
+    1000-sphere field): equal to the plain version, and ms of 20 launches.
+    One JSON line a table."""
     torch, np, cs, crt, sb = m["torch"], m["np"], m["cs"], m["crt"], m["sb"]
     hero = crt.builders.default_scene(*cs.FRAME).to("cuda").spheres
     field = crt.builders.random_spheres_scene(*cs.FRAME).to("cuda").spheres
@@ -299,14 +322,81 @@ def probe_tables(m, timer, label):
         sph = hero if k == 9 else field
         center = m["Vec3"](*(c[:k].contiguous() for c in sph.center))
         rsq = sph.radius_sq[:k].contiguous()
-        p, d, _ = cs.ray_batch(torch, np, center, rsq, n, 100 + k)
+        p, d, tf = cs.ray_batch(torch, np, center, rsq, n, 100 + k)
         want = sb.intersect_spheres(p, d, center, rsq)
         call = lambda: sb.closest_hit(p, d, center, rsq)
+        tf = torch.where(torch.arange(n, device="cuda") % 2 == 0, tf,
+                         torch.where(want[1] >= 0, want[0] * 0.999, tf))
+        occ = sb.occluded_spheres(p, d, tf, center, rsq)
+        any_hit = lambda: sb.any_hit(p, d, tf, center, rsq)
         res = {"hits": int((want[1] >= 0).sum()),
                "equal": cs._same_hits(torch, call(), want),
-               "ms": timer(call, 20)}
-        print(f"[{label}] sphere_closest, {k} spheres x {n} rays: "
+               "ms": timer(call, 20),
+               "occluded": int(occ.sum()),
+               "occluded_equal": torch.equal(any_hit(), occ),
+               "occluded_ms": timer(any_hit, 20)}
+        print(f"[{label}] sphere batteries, {k} spheres x {n} rays: "
               f"{json.dumps(res)}", flush=True)
+
+
+def probe_replay(m, timer, label):
+    """stream_replay on diag/stream2.py's pack, planned over all its rays
+    (the docstring's `replay`)."""
+    torch, ct = m["torch"], m["ct"]
+    s2 = importlib.import_module(
+        "cpu_raytracing_experiments_tpu_torch.diag.stream2")
+    cp, p, d = s2.build("cuda")
+    n = p.x.shape[0]
+    tf = torch.full((n,), s2.FLT_MAX, dtype=torch.float32, device="cuda")
+    valid = torch.ones((n,), dtype=torch.bool, device="cuda")
+    visit, _, nvis = ct._plan_visits(cp, p, d, tf, valid, s2.TILE)
+    f8 = ct._stream_rows(cp.kind)
+    packed = ct._tables_packed(cp)
+    sms = m["build"].sm_count(0)
+    busiest = int(torch.argmax(nvis))
+    empty = torch.nonzero(nvis == 0)[:1, 0].tolist()
+    fewest = int(torch.where(nvis > 0, nvis, nvis.max() + 1).argmin())
+    # where the time goes: a tile with no visit (the launch, the read of
+    # nv and the zero rows), the fewest visits, the busiest tile with no
+    # pad visit, and the busiest on the grids of a one- and a four-SM card
+    # (long slices: the visits one block walks in turn)
+    for tile in empty + [fewest]:
+        nv = int(nvis[tile])
+        call = lambda: ct.replay_launch(cp, visit, nvis, tile,
+                                        ct.replay_visits(max(nv, 1)))
+        print(f"[{label}] stream_replay tile {tile} (nv {nv}): "
+              f"{json.dumps({'ms': timer(call, 20)})}", flush=True)
+    nv = int(nvis[busiest])
+    call = lambda: ct.replay_launch(cp, visit, nvis, busiest, nv)
+    print(f"[{label}] stream_replay tile {busiest} into {nv} visits (no pad "
+          f"visit): {json.dumps({'ms': timer(call, 20)})}", flush=True)
+    if hasattr(ct, "replay_blocks"):
+        n_out = ct.replay_visits(nv)
+        for on in (1, 4):
+            call = lambda: ct.replay_launch(cp, visit, nvis, busiest, n_out,
+                                            sms=on)
+            print(f"[{label}] stream_replay tile {busiest}, grid "
+                  f"{ct.replay_blocks(n_out, on)}: "
+                  f"{json.dumps({'ms': timer(call, 20)})}", flush=True)
+    for tile in (0, busiest):
+        nv = int(nvis[tile])
+        n_out = ct.replay_visits(nv)
+        want = ct.stream_replay_plain(cp, visit, nvis, tile)
+        rows = (visit[tile, :nv].to(torch.int64)[:, None] * f8
+                + torch.arange(f8, device="cuda")).reshape(-1)
+        res = {"nv": nv}
+        if hasattr(ct, "replay_blocks"):
+            res["grid"] = ct.replay_blocks(n_out, sms)
+            res["owners"] = ct.replay_blocks(nv, sms)
+            res["blocks_an_sm"] = ct.replay_occupancy(cp)
+        call = lambda: ct.replay_launch(cp, visit, nvis, tile, n_out)
+        res["equal"] = torch.equal(call().view(torch.int32),
+                                   want.view(torch.int32))
+        res["ms"] = timer(call, 20)
+        res["index_select_ms"] = timer(lambda: packed.index_select(0, rows),
+                                       20)
+        print(f"[{label}] stream_replay tile {tile}: {json.dumps(res)}",
+              flush=True)
 
 
 def probe_hero(m, label, out):
@@ -395,7 +485,7 @@ def main():
     print(f"[{label}] {cs.gpu_name_power()}", flush=True)
     t0 = time.perf_counter()
     libraries = (m["sb"].LIBRARY, m["kf"].LIBRARY) + (
-        (ct.LIBRARY,) if kernels & set(CLUSTER) else ())
+        (ct.LIBRARY,) if kernels & set(CLUSTER + ("replay",)) else ())
     m["build"].load_all(libraries)
     print(f"[{label}] built in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libraries:
@@ -403,7 +493,7 @@ def main():
                 lib.build_log, ("plan_kernel", "closest_kernel",
                                 "occluded_kernel", "stream_kernel",
                                 "fma_kernel", "flat_kernel",
-                                "strided_kernel")):
+                                "strided_kernel", "replay_kernel")):
             print(f"    ptxas {cs.kernel_name(fn)}: {regs} registers, spill "
                   f"{st} / {ld} B, {smem} B static shared", flush=True)
         fn = None
@@ -420,6 +510,8 @@ def main():
         probe_fma(m, timer, label)
     if "sphere" in kernels:
         probe_sphere(m, timer, label, out)
+    if "replay" in kernels:
+        probe_replay(m, timer, label)
     if "hero" in kernels:
         probe_hero(m, label, out)
     if not kernels & set(CLUSTER):

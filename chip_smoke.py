@@ -12,7 +12,7 @@ Phases:
      (registers, spills, shared memory), the float64 instructions in the
      SASS of every kernel of the three CUDA sources (cuobjdump): a planner,
      a walk, a battery or an fma kernel with any fails the run; the SASS
-     opcodes of the flat planner and of sphere_closest, and
+     opcodes of the flat planner, sphere_closest and sphere_occluded, and
      the card's clock, for their issue floors;
   2. every form of the fma kernels against its plain version (fp.fma_plain
      and its chains in core/), bit for bit: the flat kernel's six
@@ -28,11 +28,16 @@ Phases:
      takes;
      sphere_closest on tables of 1, 9 and 1000
      spheres and of 9, 1024 and 1025 with duplicated spheres, on ray slices
-     at offsets 0-3 with n % 4 = 0-3; each sphere-battery kernel against its
+     at offsets 0-3 with n % 4 = 0-3; sphere_occluded on tables of 1, 9 and
+     1000 spheres and of 1024-1026 with one occluder at the staging chunk's
+     edge (index 1023, 1024, 1025), on the same slices, with NaN shadow
+     lanes among +inf, 0 and -1; each sphere-battery kernel against its
      plain PyTorch version, bit for bit, on seeded batches with
      tangent/grazing rays, duplicate spheres on both sides of a
      staging-chunk boundary and shadow lanes with tfar <= 0; their
-     CUDA-event times beside the bound and the plain version's time;
+     CUDA-event times beside the bound and the plain version's time, the
+     any-hit battery's also beside its warp pairs (what one ray a thread
+     must do when a warp runs as long as its slowest lane);
   3. white furnace, 256x256, 25 spp: every pixel of the linear resolve is 1;
   4. hero scene, 64x64, 10 spp, against tests/goldens/hero_64x64_10spp.npy
      at the bar of tests/test_goldens.py::_check;
@@ -109,12 +114,17 @@ Phases:
      every visit's rows equal to the packed table), trace (the prefix walk
      against the plain replay on the busiest tile, no diverging visit) and
      trace2 (its four variants), the launch counts from 0 before the
-     stages; then stream_replay against its plain version bit for bit, each
+     stages; then stream_replay against its plain version bit for bit (on
+     those tiles of the one-tile plans, and on the full plan's tile 0, its
+     busiest tile, the tile with the fewest nonzero visits and one with an
+     odd nv, the busiest on the grid of a one-SM card and the fewest-visit
+     tile into 64 visits, each launch's grid printed), each
      one-tile plan against the full plan's row, the prefix walk
      (cluster_closest_stream with nvis clamped to m) against the plain
      prefix walk at m = 1, nv/4, nv/2, nv, the trace2 variants against each
-     other, and the times of stream_replay (beside an index_select of the
-     same rows) and of the prefix launch.
+     other, and the times of stream_replay on the busiest tile (beside an
+     index_select of the same rows) and on tile 0, and of the prefix
+     launch.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
@@ -304,6 +314,9 @@ def kernel_name(mangled: str) -> str:
         return (f"cluster_{m.group(1)}"
                 f"{'_stream' if m.group(3) == '1' else ''}"
                 f"[{battery}, S={m.group(4)}]")
+    m = re.search(r"replay_kernelILi(\d)EE", mangled)
+    if m:
+        return f"stream_replay[{('sphere', 'triangle')[int(m.group(1))]}]"
     m = re.search(r"flat_kernelILi(\d)E([jx])E", mangled)
     if m:
         form = ("fma", "dot3", "fma3", "to_local", "to_world",
@@ -363,6 +376,7 @@ CHECKED = SPLIT_WALKS + ("plan_kernel", "replay_kernel") + FMA_KERNELS
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
 # templates)
+SPHERE_OCCLUDED = "occluded_kernelE"  # sphere_occluded
 
 
 def report_kernels(libraries):
@@ -370,7 +384,8 @@ def report_kernels(libraries):
     planners, every walk (each a split walk), the sphere batteries and the
     fma kernels, the SASS of every kernel of the three CUDA sources, and the
     opcodes of the flat planner (the slab tests of its sweep are unrolled 80
-    times: 8 octants x (8 + 2) boxes) and of sphere_closest;
+    times: 8 octants x (8 + 2) boxes), of sphere_closest and of
+    sphere_occluded;
     raises where a planner, a walk, a battery or an fma kernel holds float64
     arithmetic or a float64 conversion."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
@@ -394,7 +409,8 @@ def report_kernels(libraries):
             if any(k in fn for k in CHECKED) and (c["f64 arithmetic"]
                                                   or c["f64 conversions"]):
                 bad.append(kernel_name(fn))
-            if FLAT_PLANNER in fn or SPHERE_CLOSEST in fn:
+            if any(k in fn for k in (FLAT_PLANNER, SPHERE_CLOSEST,
+                                     SPHERE_OCCLUDED)):
                 log(f"    SASS opcodes of {kernel_name(fn)}: " + ", ".join(
                     f"{op} {n}" for op, n in sorted(
                         c["opcodes"].items(), key=lambda kv: -kv[1])))
@@ -789,18 +805,8 @@ def check_kernels(torch, np, timer, center, radius_sq, n_rays, seed, label):
     if bool((tf <= 0).any()) and bool(po[tf <= 0].any()):
         raise AssertionError("plain any-hit occludes a lane with tfar <= 0")
 
-    # pairs the any-hit run needs: up to the first occluder, none at tfar<=0
-    first = torch.full((n_rays,), n_prims, dtype=torch.int64, device=DEVICE)
-    for start in range(0, n_prims, 256):
-        end = min(start + 256, n_prims)
-        pairs = sb._sphere_occluded_pairs(
-            p, d, tf, center.x[start:end], center.y[start:end],
-            center.z[start:end], radius_sq[start:end])
-        idx = torch.where(pairs.any(1), pairs.int().argmax(1) + start,
-                          n_prims)
-        first = torch.minimum(first, idx)
-    occ_pairs = int(torch.where(tf > 0, torch.clamp_max(first + 1, n_prims),
-                                0).sum())
+    occ_pairs, warp_pairs = any_hit_pairs(torch, sb, p, d, tf, center,
+                                          radius_sq)
 
     iters = 20
     out = {}
@@ -818,14 +824,47 @@ def check_kernels(torch, np, timer, center, radius_sq, n_rays, seed, label):
     ):
         ms = timer(kern, iters)
         plain_ms = timer(plain, 5, warmup=1)
-        out[name] = kernel_row(
+        out[name] = row = kernel_row(
             name, KERNEL_SOURCE, f"R={n_rays} P={n_prims}", None,
             err if name == "sphere_closest" else 0.0, ms, plain_ms, nbytes,
             ops)
+        extra = ""
+        if name == "sphere_occluded":
+            # the least work one ray a thread can do: a warp runs until its
+            # slowest lane is done
+            row["pairs"], row["warp_pairs"] = occ_pairs, warp_pairs
+            row["warp_pairs_bound_ms"] = max(
+                nbytes / HBM_BYTES_PER_S,
+                warp_pairs * OCCLUDED_OPS_PER_PAIR / FP32_OPS_PER_S) * 1e3
+            extra = (f"; pairs {occ_pairs}, warp pairs {warp_pairs}, "
+                     f"bound by warp pairs {row['warp_pairs_bound_ms']:.4f} "
+                     "ms")
         log(f"[{label}] {name}: {ms:.4f} ms (bound "
-            f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}; "
-            f"plain {plain_ms:.4f} ms)")
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}; "
+            f"plain {plain_ms:.4f} ms{extra})")
     return out
+
+
+def any_hit_pairs(torch, sb, p, d, tf, center, radius_sq):
+    """(pairs, warp pairs) of the any-hit battery on these rays: each ray's
+    spheres up to and including its first occluder (the whole table where
+    none occludes, none at tfar <= 0 or NaN), summed; and the sum over
+    warps of 32 consecutive rays of 32 x the most pairs a lane of the warp
+    needs, the least work one ray a thread can do."""
+    n_rays, n_prims = tf.shape[0], radius_sq.shape[0]
+    first = torch.full((n_rays,), n_prims, dtype=torch.int64,
+                       device=tf.device)
+    for start in range(0, n_prims, 256):
+        end = min(start + 256, n_prims)
+        pairs = sb._sphere_occluded_pairs(
+            p, d, tf, center.x[start:end], center.y[start:end],
+            center.z[start:end], radius_sq[start:end])
+        idx = torch.where(pairs.any(1), pairs.int().argmax(1) + start,
+                          n_prims)
+        first = torch.minimum(first, idx)
+    need = torch.where(tf > 0, torch.clamp_max(first + 1, n_prims), 0)
+    warps = torch.nn.functional.pad(need, (0, -n_rays % 32)).view(-1, 32)
+    return int(need.sum()), int(warps.max(1).values.sum()) * 32
 
 
 def check_closest_tables(torch, np, hero, field):
@@ -878,6 +917,97 @@ def check_closest_tables(torch, np, hero, field):
            else str(failures)))
     if failures:
         raise AssertionError(f"sphere_closest disagrees with the plain "
+                             f"version: {failures[:10]}")
+
+
+def check_occluded_tables(torch, np, hero, field):
+    """sphere_occluded against the plain version, bit for bit: tables of 1,
+    9 (the hero's) and 1000 spheres (the field), and tables of 1024-1026
+    spheres with one occluder at the edge of the 1024-sphere staging chunk
+    (index 1023, 1024 or 1025; a ragged last chunk of 1 or 2 spheres) among
+    fillers that lie 10^5 away, alone or after the field's 1000 spheres;
+    on 65,543 rays sliced at offsets 0-3 from a 16-byte boundary, with
+    65,543 - offset - {0, 1, 2} rays (every n % 4), shadow distances mixing
+    hit distances, +inf, 0, -1 and NaN. Each edge table must have lanes
+    that only its edge sphere occludes."""
+    from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        sphere_battery as sb
+
+    fc = torch.stack(list(field.center), 1)
+    mid = (fc.min(0).values + fc.max(0).values) / 2
+    span = float((fc.max(0).values - fc.min(0).values).max())
+
+    def table(rows):
+        c = torch.cat([r[0] for r in rows])
+        return (Vec3(*(c[:, j].contiguous() for j in range(3))),
+                torch.cat([r[1] for r in rows]).contiguous())
+
+    def fillers(k):  # k unit spheres 10^5 from the field, along +y
+        c = mid + torch.tensor([0.0, 1e5, 0.0], device=DEVICE)
+        return (c.repeat(k, 1) + torch.arange(k, device=DEVICE)[:, None]
+                * torch.tensor([3.0, 0.0, 0.0], device=DEVICE),
+                torch.ones(k, device=DEVICE))
+
+    edge = (mid[None], torch.tensor([(0.5 * span) ** 2], device=DEVICE))
+    hc = torch.stack(list(hero.center), 1)
+    tables = {
+        "1 sphere": (table([(hc[:1], hero.radius_sq[:1])]), None),
+        "9 spheres (hero)": (table([(hc, hero.radius_sq)]), None),
+        "1000 spheres": (table([(fc, field.radius_sq)]), None),
+        "1024, occluder at 1023": (table([fillers(1023), edge]), 1023),
+        "1025, occluder at 1023": (table([fillers(1023), edge, fillers(1)]),
+                                   1023),
+        "1025, occluder at 1024": (table([fillers(1024), edge]), 1024),
+        "1026, occluder at 1025": (table([fillers(1025), edge]), 1025),
+        "field, 1025, occluder at 1024": (
+            table([(fc, field.radius_sq), fillers(24), edge]), 1024),
+    }
+    n = 65536 + 7
+    failures, calls = [], 0
+    for seed, (tname, ((center, rsq), at)) in enumerate(tables.items()):
+        sph = (hero if tname.endswith("(hero)") or tname == "1 sphere"
+               else field)
+        p, d, tf = ray_batch(torch, np, sph.center, sph.radius_sq, n,
+                             60 + seed)
+        # odd lanes stop just short of their closest hit on this table
+        kt, kid = sb.intersect_spheres(p, d, center, rsq)
+        tf = torch.where((torch.arange(n, device=DEVICE) % 2 == 1)
+                         & (kid >= 0), kt * 0.999, tf)
+        g = np.random.default_rng(80 + seed)
+        tf[torch.tensor(g.random(n) < 0.05, device=DEVICE)] = float("nan")
+        want = sb.occluded_spheres(p, d, tf, center, rsq)
+        alone = 0
+        if at is not None:
+            keep = torch.arange(rsq.shape[0], device=DEVICE) != at
+            without = sb.occluded_spheres(
+                p, d, tf, Vec3(*(c[keep] for c in center)), rsq[keep])
+            alone = int((want & ~without).sum())
+            if alone == 0:
+                failures.append((tname, "no lane that only the edge "
+                                 "sphere occludes"))
+        if bool(want[torch.isnan(tf) | (tf <= 0)].any()):
+            failures.append((tname, "plain occludes a lane with tfar <= 0 "
+                             "or NaN"))
+        for off in range(4):
+            for cut in range(3):
+                m = n - off - cut
+                lanes = slice(off, off + m)
+                got = sb.any_hit(Vec3(*(c[lanes] for c in p)),
+                                 Vec3(*(c[lanes] for c in d)), tf[lanes],
+                                 center, rsq)
+                calls += 1
+                if not torch.equal(got, want[lanes]):
+                    failures.append((tname, off, m))
+        log(f"[2 sphere_occluded tables] {tname}: {n} rays, "
+            f"{int(want.sum())} occluded"
+            + (f", {alone} by sphere {at} alone" if at is not None else ""))
+    log(f"[2 sphere_occluded tables] {calls} launches over {len(tables)} "
+        f"tables, ray offsets 0-3, n % 4 = 0-3: "
+        + ("every one equal to the plain version" if not failures
+           else str(failures)))
+    if failures:
+        raise AssertionError(f"sphere_occluded disagrees with the plain "
                              f"version: {failures[:10]}")
 
 
@@ -1816,6 +1946,35 @@ def check_stream2(torch, timer):
                                          nvis_all[t]), (qv[0], qe[0], qn[0])))
         if not row_ok:
             failures.append(f"one-tile plan of tile {t}")
+    # the replay's partitions, on the full plan: tiles 0 and the busiest,
+    # the tile with the fewest nonzero visits, a tile with an odd nv (the
+    # busiest may be one), the busiest on the grid of a one-SM card (long
+    # slices) and the fewest-visit tile into an output of 64 visits (a grid
+    # larger than its list: blocks that own no visit)
+    sms = build.sm_count(torch.cuda.current_device())
+    fewest = int(torch.where(nvis_all > 0, nvis_all,
+                             torch.iinfo(torch.int32).max).argmin())
+    odd = [t for t in torch.nonzero(nvis_all % 2 == 1)[:, 0].tolist()
+           if t not in (0, busiest, fewest)][:1]
+    log(f"[15 stream_replay] blocks an SM at K={k} with its shared memory: "
+        f"{ct.replay_occupancy(cp)}")
+    for t, n_out, on in ([(t, None, None) for t in (0, busiest, fewest, *odd)]
+                         + [(busiest, None, 1), (fewest, 64, None)]):
+        nv = int(nvis_all[t])
+        n_out = max(n_out or 0, ct.replay_visits(nv))
+        want = ct.stream_replay_plain(cp, full_plan[0], nvis_all, t)
+        got = ct.replay_launch(cp, full_plan[0], nvis_all, t, n_out, sms=on)
+        ok = (torch.equal(got[:want.shape[0]].view(torch.int32),
+                          want.view(torch.int32))
+              and not bool(got[want.shape[0]:].any()))
+        lengths = [b - a for a, b in ct.replay_slices(nv, on or sms)]
+        log(f"[15 stream_replay] tile {t}: nv {nv}, n_out {n_out}, grid "
+            f"{ct.replay_blocks(n_out, on or sms)} blocks ({on or sms} SMs), "
+            f"{len(lengths)} of them own {min(lengths)}-{max(lengths)} "
+            f"visits: equal to the plain version {ok}")
+        if not ok:
+            failures.append(f"stream_replay tile {t}, n_out {n_out}, "
+                            f"{on or sms} SMs")
     ps, ds = s2.tile_rays(p, d, busiest)
     plan, nv = tr["plan"], tr["nv"]
     prefixes = sorted({m for m in (1, nv // 4, nv // 2, nv) if m > 0})
@@ -1845,6 +2004,9 @@ def check_stream2(torch, timer):
     rows = (visit[0, :nv].to(torch.int64)[:, None] * f8
             + torch.arange(f8, device=DEVICE)).reshape(-1)
     ms = timer(lambda: ct.replay_launch(cp, visit, nvis, 0, n_out), 20)
+    v0, _, n0 = dmas[0]["plan"]
+    out0 = ct.replay_visits(dmas[0]["nv"])
+    tile0_ms = timer(lambda: ct.replay_launch(cp, v0, n0, 0, out0), 20)
     plain_ms = timer(lambda: ct.stream_replay_plain(cp, visit, nvis, 0), 5,
                      warmup=1)
     library_ms = timer(lambda: packed.index_select(0, rows), 20)
@@ -1853,6 +2015,8 @@ def check_stream2(torch, timer):
         f"{busiest}, C={c})", counts["stream_replay"], 0.0, ms, plain_ms,
         2 * nv * f8 * k * 4, 0)
     replay["library_ms"] = library_ms
+    replay["grid"] = ct.replay_blocks(n_out, sms)
+    replay["tile0_ms"] = tile0_ms
     stats = {}
     tf0 = torch.full((ps.x.shape[0],), s2.FLT_MAX, dtype=torch.float32,
                      device=DEVICE)
@@ -1875,7 +2039,9 @@ def check_stream2(torch, timer):
         log(f"[15] {row['name']} {row['shape']}: {row['ms']:.4f} ms (bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']}; plain "
             f"{row['plain_ms']:.4f} ms"
-            + (f"; index_select of the rows {row['library_ms']:.4f} ms"
+            + (f"; index_select of the rows {row['library_ms']:.4f} ms; "
+               f"grid {row['grid']} blocks; tile 0 ({dmas[0]['nv']} visits) "
+               f"{row['tile0_ms']:.4f} ms"
                if row["library_ms"] is not None else "") + ")")
     return {"stream_replay": replay, "cluster_closest_stream[prefix]": prefix}
 
@@ -1936,6 +2102,7 @@ def main() -> int:
         torch, np, timer, field.spheres.center, field.spheres.radius_sq,
         262144, 2, "2 1k table")
     check_closest_tables(torch, np, hero.spheres, field.spheres)
+    check_occluded_tables(torch, np, hero.spheres, field.spheres)
     # duplicates across the 1024-sphere staging chunk (spheres j and
     # j + 1000): the first occurrence must win every tie
     dup = Vec3(*(torch.cat([c, c]) for c in field.spheres.center))

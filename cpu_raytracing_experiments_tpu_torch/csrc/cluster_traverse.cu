@@ -1002,6 +1002,11 @@ __device__ __forceinline__ void fetch_cluster(float4* slot,
   }
 }
 
+// Start bringing the line of `p` into L1; nothing waits for it.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
 // cp.async of 16 bytes (both addresses 16-byte aligned), past L1.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -1319,16 +1324,30 @@ __global__ void __launch_bounds__(kMaxBlock) occluded_kernel(
 // own: stream_walk's loop without its exit, fetch_visit's transposing
 // cp.async copies of the packed table into the two shared-memory slots, one
 // commit group per visit, the next visit's copy in flight while this one is
-// written out. The write-back undoes the transposition (attribute a of prim
-// k sits at float k * kAttrs + a of the slot) into visit j's F8 rows of
-// out[ceil(nv / 8) * 8 * F8, K], in packed order, coalesced; the F8 - kAttrs
-// rows that pad a cluster (never staged, never read by a walk) are written
-// as the zeros the packed table holds there, and so are the rows of the
-// visits [nv, n_out) that pad the output to a multiple of 8 visits. One
-// block walks the tile, as a walk's block does. Bound by bytes: each
-// visited cluster's F8 * K floats are read once and written once; one
-// block's copies run far below the card's rate, which a diagnostic of the
-// staging does not need.
+// written out. The first nb = min(grid, max(1, nv / 2)) blocks of the grid
+// each walk a contiguous slice of the list, nv / nb visits or one more (the
+// longer slices last), in block order (the rest own no visit), so that every
+// slice holds at least two visits where nv has them and runs the
+// double-buffered sequence; block b's slice starts at visit 2b whenever nv
+// <= 2 * grid + 1, so its first ids are fetched into L1 while nv =
+// nvis[tile] is read on the card. stream_walk is handed the slice's visits
+// only, so its prefetch of visit j + 1 never reads past the slice. The grid
+// is sized by the wrapper from the card's SM count and the output's n_out >=
+// nv visits (ops/kernels/cluster_traverse.py: replay_blocks, replay_slices).
+// Slot reuse, as in the walks: the copy of visit j + 2 starts at the top of
+// trip j + 1, into the slot that visit j was written out from; the barrier
+// that ends visit j's write-back (every thread's reads of the slot are done)
+// and stream_walk's own barrier of trip j lie between those reads and that
+// copy. The write-back undoes the transposition into visit j's F8 rows of
+// out[n_out * F8, K], in packed order, a thread a prim k (a column): its
+// kAttrs / 4 float4 read from the slot (at a stride of kAttrs / 4 float4
+// across a quarter warp: no bank conflict), each float stored to row a at
+// column k (coalesced). The F8 - kAttrs rows that pad a cluster (never
+// staged, never read by a walk) are written as the zeros the packed table
+// holds there, by the block that owns the visit; the visits [nv, n_out) that
+// pad the output to a multiple of 8 visits are zeroed by every block,
+// grid-stride. Bound by bytes: each visited cluster's F8 * K floats are read
+// once and written once.
 constexpr int kReplayThreads = 256;
 
 template <int kBattery>
@@ -1338,31 +1357,52 @@ __global__ void __launch_bounds__(kReplayThreads) replay_kernel(
     int n_out, float* __restrict__ out) {
   extern __shared__ float4 slots[];  // two slots of n4 float4
   constexpr int kAttrs = kBattery == kSphere ? 4 : 12;
+  constexpr int kGroups = kAttrs / 4;  // float4 a prim in a slot
   constexpr int kRows = kBattery == kSphere ? 8 : 16;  // F8
+  const int32_t* row = visit + static_cast<size_t>(tile) * n_clusters;
+  const int b = blockIdx.x;
+  // most lists give block b the visits from 2b on: their ids start on
+  // their way to L1 while nv is read
+  if (threadIdx.x == 0 && 2 * b < n_clusters) prefetch_l1(row + 2 * b);
   const int nv = min(nvis[tile], n_out);
-  const int visit_floats = kRows * k_prims;
-  int j = 0;  // stream_walk hands over every visit j < nv, in order
-  stream_walk<false>(
-      visit + static_cast<size_t>(tile) * n_clusters, nullptr, nv, 0.0f,
-      kAttrs / 4 * k_prims, slots,
-      [&](float4* slot, int c) {
-        fetch_visit<kBattery, true>(slot, packed, c, k_prims);
-      },
-      [&](int /*c*/, const float4* rows) {
-        const float* staged = reinterpret_cast<const float*>(rows);
-        float* dst = out + static_cast<size_t>(j) * visit_floats;
-        for (int i = threadIdx.x; i < visit_floats; i += blockDim.x) {
-          const int a = i / k_prims;
-          dst[i] = a < kAttrs ? staged[(i - a * k_prims) * kAttrs + a] : 0.0f;
-        }
-        ++j;
-        __syncthreads();  // next trip starts the copy two visits on here
-        return 0.0f;
-      });
-  const size_t end = static_cast<size_t>(n_out) * visit_floats;
-  for (size_t i = static_cast<size_t>(nv) * visit_floats + threadIdx.x;
-       i < end; i += blockDim.x) {
-    out[i] = 0.0f;
+  const int owners = min(static_cast<int>(gridDim.x), max(1, nv / 2));
+  const size_t visit_floats = static_cast<size_t>(kRows) * k_prims;
+  if (b < owners) {  // uniform over the block
+    // per or per + 1 visits a block, the longer slices last
+    const int per = nv / owners, longer = nv - per * owners;
+    const int first = b * per + max(0, b - (owners - longer));
+    const int last = first + per + (b >= owners - longer ? 1 : 0);
+    int j = first;  // stream_walk hands over the slice's visits in order
+    stream_walk<false>(
+        row + first, nullptr, last - first, 0.0f, kGroups * k_prims, slots,
+        [&](float4* slot, int c) {
+          fetch_visit<kBattery, true>(slot, packed, c, k_prims);
+        },
+        [&](int /*c*/, const float4* rows) {
+          float* dst = out + static_cast<size_t>(j) * visit_floats;
+          for (int k = threadIdx.x; k < k_prims; k += blockDim.x) {
+#pragma unroll
+            for (int g = 0; g < kGroups; ++g) {
+              const float4 v = rows[k * kGroups + g];
+              dst[(4 * g) * k_prims + k] = v.x;
+              dst[(4 * g + 1) * k_prims + k] = v.y;
+              dst[(4 * g + 2) * k_prims + k] = v.z;
+              dst[(4 * g + 3) * k_prims + k] = v.w;
+            }
+#pragma unroll
+            for (int a = kAttrs; a < kRows; ++a) dst[a * k_prims + k] = 0.0f;
+          }
+          ++j;
+          __syncthreads();  // next trip starts the copy two visits on here
+          return 0.0f;
+        });
+  }
+  // the pad visits, F8 * K floats each (a multiple of 4: float4 stores)
+  float4* pad = reinterpret_cast<float4*>(out + nv * visit_floats);
+  const size_t n4 = (n_out - nv) * visit_floats / 4;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n4; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    pad[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
@@ -1597,24 +1637,54 @@ extern "C" int cluster_occluded_stream(OCCLUDED_ARGS) {
 // stream_replay: tile `tile`'s visit list (visit [T, C], nvis [T]) replayed
 // through the streamed walks' staging from the packed [C * F8, K] table of
 // battery 0 (spheres, F8 = 8) or 1 (triangles, F8 = 16), into out
-// [n_out * F8, K]; n_out, the visits the output holds, is at least the
-// tile's nvis (the wrapper's ceil(nv / 8) * 8).
+// [n_out * F8, K] (16-byte aligned); n_out, the visits the output holds, is
+// at least the tile's nvis (the wrapper's ceil(nv / 8) * 8). `blocks` is the
+// grid (the wrapper's replay_blocks).
+using ReplayFn = decltype(&replay_kernel<kSphere>);
+
+static ReplayFn replay_for(int battery) {
+  return battery == kTriangle ? &replay_kernel<kTriangle>
+         : battery == kSphere ? &replay_kernel<kSphere>
+                              : nullptr;
+}
+
+static size_t replay_shared(int battery, int k_prims) {
+  return 2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) *
+         sizeof(float);
+}
+
 extern "C" int stream_replay(const int32_t* nvis, const int32_t* visit,
                              const float* packed, int battery, int tile,
                              int n_clusters, int k_prims, int n_out,
-                             float* out, void* stream) {
+                             int blocks, float* out, void* stream) {
   if (n_out <= 0) return static_cast<int>(cudaGetLastError());
-  const auto kernel = battery == kTriangle ? &replay_kernel<kTriangle>
-                      : battery == kSphere ? &replay_kernel<kSphere>
-                                           : nullptr;
-  if (kernel == nullptr || tile < 0 || k_prims <= 0) {
+  const auto kernel = replay_for(battery);
+  if (kernel == nullptr || tile < 0 || k_prims <= 0 || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t shared =
-      2 * static_cast<size_t>(k_prims) * (battery ? 12 : 4) * sizeof(float);
+  const size_t shared = replay_shared(battery, k_prims);
   const cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<1, kReplayThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-      nvis, visit, packed, tile, n_clusters, k_prims, n_out, out);
+  kernel<<<blocks, kReplayThreads, shared,
+           static_cast<cudaStream_t>(stream)>>>(nvis, visit, packed, tile,
+                                                n_clusters, k_prims, n_out,
+                                                out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The replay's blocks an SM can hold at K = k_prims (its shared memory
+// asked for as a launch asks), into *per_sm.
+extern "C" int stream_replay_occupancy(int battery, int k_prims,
+                                       int* per_sm) {
+  const auto kernel = replay_for(battery);
+  if (kernel == nullptr || k_prims <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t shared = replay_shared(battery, k_prims);
+  cudaError_t err = allow_shared(kernel, shared);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, kReplayThreads, shared);
+  }
+  return static_cast<int>(err);
 }

@@ -12,8 +12,8 @@
 // strict `<`, so the first occurrence wins a tie, across staging chunks too.
 // sphere_occluded: per ray, whether any sphere lies at t in [0, tfar), by the
 // sqrt-free predicate of ops/intersect.py::_sphere_occluded_pairs; a lane
-// with tfar <= 0 never occludes (the predicate is false there, so such lanes
-// skip the loop).
+// with tfar <= 0 or NaN never occludes (the predicate is false there, so
+// such lanes skip the loop).
 //
 // Rounding contract: both kernels equal the plain PyTorch versions in
 // ops/kernels/sphere_battery.py bit for bit, on the card. PyTorch evaluates
@@ -49,12 +49,24 @@
 // the pairs' latency); small tables read straight from device memory with
 // no staging, faster only below the hero's 9 spheres.
 //
-// sphere_occluded: one thread per ray, its ray in registers, so each ray
-// byte is read once and each result written once, coalesced. Blocks stage
-// the sphere table through shared memory in chunks of 1024 spheres that
-// every thread of the block then reads by broadcast; the ragged last chunk
-// is masked by index, never padded. Any-hit lanes stop at their first
-// occluder, and a block stops staging once all its lanes are done.
+// sphere_occluded: the same one-wave grid-stride grid of 128-thread blocks,
+// one ray a thread. A table of one chunk (the hero's 9 spheres) is staged
+// once a block, before its first trip, and read by every trip with no
+// barrier; a larger one chunk by chunk, each trip, and a block stops
+// staging once all its lanes are done (__syncthreads_or, reached by every
+// thread on every trip). The pair tests disc >= 0 first, on a branch. The
+// result is an OR over the table, so neither the order in which spheres are
+// tested nor the pairs tested after a ray's first occluder change a bit:
+// a lane sweeps a whole chunk, the loop unrolled 8 times with no exit test,
+// and skips the chunks after the one where it found its occluder. A warp
+// runs until its slowest lane is done in any case: the least work one ray
+// a thread can do is the warp pairs (the sum over warps of 32 x the most
+// pairs a lane of the warp needs), which chip_smoke.py reports beside the
+// per-ray bound. Measured and dropped (PERF.md section 6): an exit test
+// after every pair, every 8 or every 32 pairs, each lane's or the warp's
+// (__any_sync); a warp-uniform branch on disc >= 0 (__any_sync); two rays a
+// thread; the next trip's ray loaded before this one is tested; the loop
+// unrolled 16 times (faster at 1000 spheres, slower at 9).
 
 #include <cfloat>
 #include <cstdint>
@@ -62,7 +74,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kChunk = 1024;  // spheres staged per pass: 1024 x 16 B = 16 KB
 
 struct Ray {
@@ -164,7 +175,44 @@ closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kOccludedThreads = 128;
+constexpr int kOccludedBlocksPerSm = 2048 / kOccludedThreads;  // one wave
+
+// One pair of the any-hit predicate (ops/intersect.py's
+// _sphere_occluded_pairs, sqrt-free): `hit` is set where the root the
+// closest battery would select lies in [0, tf). Its first term, disc >= 0,
+// is tested first, on a branch (false for NaN too), so a miss, most pairs
+// of a large table, costs the same 12 operations as sphere_closest's.
+__device__ __forceinline__ void test_pair(const Ray& r, float tf, float4 s,
+                                          bool& hit) {
+  const PairTerms pt = pair_terms(r, s);
+  const float b = pt.b;
+  // b*b has three uses here, so it is not fused into disc
+  const float bb = __fmul_rn(b, b);
+  const float disc = __fadd_rn(pt.rsq_minus_len2, bb);
+  if (disc >= 0.0f) {
+    const float e = __fsub_rn(b, tf);
+    const float q = __fmul_rn(e, e);
+    const bool near_ge0 = (b >= 0.0f) && (bb >= disc);
+    const bool hit_near = (e < 0.0f) || (q < disc);
+    const bool far_ge0 = (b >= 0.0f) || (bb <= disc);
+    const bool hit_far = (e < 0.0f) && (disc < q);
+    if (near_ge0 ? hit_near : (far_ge0 && hit_far)) hit = true;
+  }
+}
+
+// Whether one of the n staged spheres occludes the ray. Every pair is
+// tested: the result is an OR, so the pairs after the first occluder
+// change no bit, and the loop carries no exit test.
+__device__ __forceinline__ bool chunk_hit(const Ray& r, float tf,
+                                          const float4* tile, int n) {
+  bool hit = false;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) test_pair(r, tf, tile[j], hit);
+  return hit;
+}
+
+__global__ void __launch_bounds__(kOccludedThreads)
 occluded_kernel(const float* __restrict__ px, const float* __restrict__ py,
                 const float* __restrict__ pz, const float* __restrict__ dx,
                 const float* __restrict__ dy, const float* __restrict__ dz,
@@ -173,44 +221,39 @@ occluded_kernel(const float* __restrict__ px, const float* __restrict__ py,
                 const float* __restrict__ rsq, int n_rays, int n_prims,
                 uint8_t* __restrict__ occ_out) {
   __shared__ float4 tile[kChunk];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  Ray r{};
-  float tf = 0.0f;
-  if (live) {
-    r = load_ray(px, py, pz, dx, dy, dz, i);
-    tf = tfar[i];
-  }
-  // tfar <= 0 (or NaN) never occludes: the predicate is false there
-  bool todo = live && tf > 0.0f;
-  bool occ = false;
-  for (int start = 0; start < n_prims; start += kChunk) {
-    // also the barrier after the previous chunk's reads; a block whose
-    // lanes are all done stops staging
-    if (!__syncthreads_or(todo)) break;
-    const int n = stage(tile, cx, cy, cz, rsq, start, n_prims);
+  const int step = gridDim.x * kOccludedThreads;
+  // a table of one chunk is staged once for all the block's trips
+  const bool resident = n_prims <= kChunk;
+  if (resident) {
+    stage(tile, cx, cy, cz, rsq, 0, n_prims);
     __syncthreads();
-    if (!todo) continue;
-    for (int j = 0; j < n; ++j) {
-      const PairTerms pt = pair_terms(r, tile[j]);
-      const float b = pt.b;
-      // b*b has three uses here, so it is not fused into disc
-      const float bb = __fmul_rn(b, b);
-      const float disc = __fadd_rn(pt.rsq_minus_len2, bb);
-      const float e = __fsub_rn(b, tf);
-      const float q = __fmul_rn(e, e);
-      const bool near_ge0 = (b >= 0.0f) && (bb >= disc);
-      const bool hit_near = (e < 0.0f) || (q < disc);
-      const bool far_ge0 = (b >= 0.0f) || (bb <= disc);
-      const bool hit_far = (e < 0.0f) && (disc < q);
-      if (disc >= 0.0f && (near_ge0 ? hit_near : (far_ge0 && hit_far))) {
-        occ = true;
-        todo = false;
-        break;
+  }
+  // block-uniform trip count: every thread reaches every barrier
+  for (int i0 = blockIdx.x * kOccludedThreads; i0 < n_rays; i0 += step) {
+    const int i = i0 + threadIdx.x;
+    Ray r{};
+    float tf = 0.0f;
+    if (i < n_rays) {
+      r = load_ray(px, py, pz, dx, dy, dz, i);
+      tf = tfar[i];
+    }
+    // tfar <= 0 (or NaN) never occludes: the predicate is false there
+    const bool valid = tf > 0.0f;
+    bool todo = valid;
+    if (resident) {
+      if (todo && chunk_hit(r, tf, tile, n_prims)) todo = false;
+    } else {
+      for (int start = 0; start < n_prims; start += kChunk) {
+        // also the barrier after the previous chunk's reads; a block
+        // whose lanes are all done stops staging
+        if (!__syncthreads_or(todo)) break;
+        const int n = stage(tile, cx, cy, cz, rsq, start, n_prims);
+        __syncthreads();
+        if (todo && chunk_hit(r, tf, tile, n)) todo = false;
       }
     }
+    if (i < n_rays) occ_out[i] = valid && !todo;
   }
-  if (live) occ_out[i] = occ ? 1 : 0;
 }
 
 }  // namespace
@@ -241,16 +284,23 @@ extern "C" int sphere_closest(const float* px, const float* py,
   return static_cast<int>(cudaGetLastError());
 }
 
+// sphere_occluded: `sms` caps the grid at one wave, as sphere_closest's.
 extern "C" int sphere_occluded(const float* px, const float* py,
                                const float* pz, const float* dx,
                                const float* dy, const float* dz,
                                const float* tfar, const float* cx,
                                const float* cy, const float* cz,
                                const float* rsq, int n_rays, int n_prims,
-                               uint8_t* occ_out, void* stream) {
+                               int sms, uint8_t* occ_out, void* stream) {
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays > 0) {
-    const int blocks = (n_rays + kThreads - 1) / kThreads;
-    occluded_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const long long wanted =
+        (static_cast<long long>(n_rays) + kOccludedThreads - 1) /
+        kOccludedThreads;
+    const long long cap = static_cast<long long>(kOccludedBlocksPerSm) * sms;
+    const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
+    occluded_kernel<<<blocks, kOccludedThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
         px, py, pz, dx, dy, dz, tfar, cx, cy, cz, rsq, n_rays, n_prims,
         occ_out);
   }

@@ -76,7 +76,9 @@ the JAX module:
 replays one tile's visit list through the streamed walks' staging and
 writes the staged rows back out in the packed layout: the check that the
 streamed walks stage the rows they should. Its plain version,
-``stream_replay_plain``, is an index gather of those rows.
+``stream_replay_plain``, is an index gather of those rows. A grid of
+blocks shares the list, each block a contiguous slice of at least two
+visits where the list has them (``replay_blocks``, ``replay_slices``).
 
 What is TPU schedule in the JAX module and has no counterpart here: the
 lane packing of clusters below 128 prims, ``fuse`` / ``unroll`` /
@@ -650,8 +652,10 @@ def _bind(lib: ctypes.CDLL):
     for fn in (lib.cluster_closest, lib.cluster_occluded,
                lib.cluster_closest_stream, lib.cluster_occluded_stream):
         fn.restype = i32
-    lib.stream_replay.argtypes = [ptr] * 3 + [i32] * 5 + [ptr] * 2
-    lib.stream_replay.restype = i32
+    lib.stream_replay.argtypes = [ptr] * 3 + [i32] * 6 + [ptr] * 2
+    lib.stream_replay_occupancy.argtypes = [i32] * 2 + [ptr]
+    for fn in (lib.stream_replay, lib.stream_replay_occupancy):
+        fn.restype = i32
 
 
 LIBRARY = build.Library("cluster_traverse.cu", build.nvcc, build.NVCC_FLAGS,
@@ -1020,10 +1024,48 @@ def stream_replay(cp: ClusteredPrims, visit, nvis, tile: int):
                          replay_visits(int(nvis[tile])))
 
 
-def replay_launch(cp: ClusteredPrims, visit, nvis, tile: int, n_out: int):
+REPLAY_BLOCKS_PER_SM = 8  # 256-thread blocks: 2048 threads an SM
+
+
+def replay_blocks(n: int, sms: int) -> int:
+    """Blocks that share a list of n visits on a card of `sms` SMs: two
+    visits a block at least where n has two, at most REPLAY_BLOCKS_PER_SM
+    an SM. The replay's grid is ``replay_blocks(n_out, sms)``; on the card
+    the kernel reads nv <= n_out and splits the list over
+    ``min(grid, max(1, nv // 2)) = replay_blocks(nv, sms)`` of them."""
+    return max(1, min(REPLAY_BLOCKS_PER_SM * sms, n // 2))
+
+
+def replay_slices(nv: int, sms: int):
+    """The [first, last) visits of each block that owns some of a list of
+    nv visits, in block order: contiguous, together the list, nv // blocks
+    visits or one more (the longer slices last), so that block b starts at
+    visit 2b wherever nv // 2 blocks fit on the card."""
+    blocks = replay_blocks(nv, sms)
+    per, longer = divmod(nv, blocks)
+    firsts = [b * per + max(0, b - (blocks - longer)) for b in range(blocks)]
+    return list(zip(firsts, firsts[1:] + [nv]))
+
+
+def replay_occupancy(cp: ClusteredPrims) -> int:
+    """Blocks of the replay one SM holds at this pack's cluster size, with
+    the shared memory a launch asks for (CUDA's occupancy calculator)."""
+    per_sm = ctypes.c_int(0)
+    err = LIBRARY.load().stream_replay_occupancy(
+        int(cp.kind == "triangle"), cp.cluster_size, ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"stream_replay: occupancy query failed with "
+                           f"cudaError {err}")
+    return per_sm.value
+
+
+def replay_launch(cp: ClusteredPrims, visit, nvis, tile: int, n_out: int,
+                  sms: Optional[int] = None):
     """One launch of the ``stream_replay`` kernel into a new [n_out * F8,
     K] table, n_out at least nvis[tile] (``stream_replay`` reads it; this
-    form leaves the host read out of a timed launch)."""
+    form leaves the host read out of a timed launch), on a grid of
+    ``replay_blocks(n_out, sms)`` blocks; `sms` defaults to the card's SM
+    count (a smaller one forces longer slices)."""
     device = visit.device
     if device.type != "cuda":
         raise ValueError(f"stream_replay: tensors on {device}, need cuda or "
@@ -1044,9 +1086,11 @@ def replay_launch(cp: ClusteredPrims, visit, nvis, tile: int, n_out: int):
     out = torch.empty((n_out * f8, k), dtype=torch.float32, device=device)
     if n_out == 0:
         return out
+    blocks = replay_blocks(
+        n_out, build.sm_count(device.index) if sms is None else sms)
     build.launch(REPLAY.name, LIBRARY.load().stream_replay, device,
                  [nvis.data_ptr(), visit.data_ptr(), packed.data_ptr(),
-                  int(cp.kind == "triangle"), tile, c, k, n_out,
+                  int(cp.kind == "triangle"), tile, c, k, n_out, blocks,
                   out.data_ptr()])
     REPLAY.launches += 1
     return out

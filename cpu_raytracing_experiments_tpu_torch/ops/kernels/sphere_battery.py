@@ -133,7 +133,7 @@ def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sphere_closest.argtypes = [ptr] * 10 + [i32] * 3 + [ptr] * 3
     lib.sphere_closest.restype = i32
-    lib.sphere_occluded.argtypes = [ptr] * 11 + [i32, i32] + [ptr] * 2
+    lib.sphere_occluded.argtypes = [ptr] * 11 + [i32] * 3 + [ptr] * 2
     lib.sphere_occluded.restype = i32
 
 
@@ -194,6 +194,7 @@ def any_hit(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
     occ = torch.empty(n, dtype=torch.bool, device=device)
     build.launch(OCCLUDED.name, lib.sphere_occluded, device,
                  [a.data_ptr() for a in (*p, *d, tfar, *prims)]
-                 + [n, radius_sq.shape[0], occ.data_ptr()])
+                 + [n, radius_sq.shape[0], build.sm_count(device.index),
+                    occ.data_ptr()])
     OCCLUDED.launches += 1
     return occ

@@ -291,11 +291,36 @@ def test_stream_replay_refuses_what_it_cannot_launch(packs):
         ct.replay_launch(tcp, visit, nvis, 0, 8)
 
 
+@pytest.mark.parametrize("sms", (1, 4, 132))
+def test_replay_slices_cover_the_list(sms):
+    """The replay's partition (replay_blocks, replay_slices) for lists of 0
+    to 300 visits: the blocks' slices take every visit once, in order, none
+    past nv, each at least two visits where nv has two, at most
+    REPLAY_BLOCKS_PER_SM blocks an SM, block b's slice from visit 2b on
+    wherever nv // 2 blocks fit; and on a grid sized from any output
+    of n_out >= nv visits, the blocks the kernel lets own visits,
+    min(grid, max(1, nv // 2)), are the partition's."""
+    for nv in range(301):
+        slices = ct.replay_slices(nv, sms)
+        assert len(slices) == ct.replay_blocks(nv, sms)
+        assert len(slices) <= ct.REPLAY_BLOCKS_PER_SM * sms
+        assert [j for a, b in slices for j in range(a, b)] == list(range(nv))
+        assert all(a <= b <= nv for a, b in slices)
+        if nv >= 2:
+            assert min(b - a for a, b in slices) >= 2, (nv, slices)
+        if nv // 2 <= ct.REPLAY_BLOCKS_PER_SM * sms:  # the L1 prefetch
+            assert [a for a, _ in slices] == [2 * b for b in
+                                              range(len(slices))]
+        for n_out in {nv, ct.replay_visits(nv), nv + 9, 64 + nv}:
+            grid = ct.replay_blocks(n_out, sms)
+            assert min(grid, max(1, nv // 2)) == len(slices)
+
+
 @pytest.mark.cuda
 def test_stream_replay_and_prefix_walk_match_plain_on_card(packs):
     """On a card: the stream_replay kernel equals its plain version bit for
-    bit on two tiles (one launch each), and the prefix walk equals the
-    plain prefix walk at m = 1, nv / 2 and nv."""
+    bit on two tiles (one launch each, and on forced partitions), and the
+    prefix walk equals the plain prefix walk at m = 1, nv / 2 and nv."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     *_, tcp, tp, td = packs
@@ -310,6 +335,14 @@ def test_stream_replay_and_prefix_walk_match_plain_on_card(packs):
         want = ct.stream_replay_plain(cp, visit, nvis, 0)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         nv = int(nvis[0])
+        # forced partitions: long slices on the grid of a one-SM card, and
+        # a grid larger than the list
+        rows = want.shape[0]
+        for n_out, sms in ((ct.replay_visits(nv), 1), (64 + nv, None)):
+            got = ct.replay_launch(cp, visit, nvis, 0, n_out, sms=sms)
+            assert torch.equal(got[:rows].view(torch.int32),
+                               want.view(torch.int32))
+            assert not bool(got[rows:].any())
         for m in (1, nv // 2, nv):
             kt, kid = s2.prefix_walk(cp, ps, ds, plan, m)
             pt, pid = s2.prefix_walk_plain(cp, ps, ds, plan, m)

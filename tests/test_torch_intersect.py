@@ -114,12 +114,38 @@ def test_closest_matches_pallas_interpret(case):
     _check_closest(want_t, want_id, got_t, got_id)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# the any-hit cases add: NaN shadow distances, and 1025-sphere tables
+# whose one occluder sits at the edge of the CUDA kernel's 1024-sphere
+# staging chunk (the last of the first chunk, the first of the ragged
+# second), the other spheres 10^5 away
+OCCLUDED_CASES = {**{name: (*case, None) for name, case in CASES.items()},
+                  "nan_tfar_field_300": (2048, 300, False, "nan"),
+                  "edge_1023_of_1025": (1024, 1025, False, 1023),
+                  "edge_1024_of_1025": (1024, 1025, False, 1024)}
+
+
+def _occluded_batch(case):
+    n, p, dup, extra = OCCLUDED_CASES[case]
+    o, d, c, rsq, tf = _batch(n, p, seed=10 + len(case), dup=dup)
+    g = np.random.default_rng(len(case))
+    if extra == "nan":
+        tf[g.random(n) < 0.1] = np.nan
+    elif extra is not None:
+        far = np.arange(p, dtype=np.float32) * 3.0
+        c = [far, np.full(p, 1e5, np.float32), np.zeros(p, np.float32)]
+        rsq = np.ones(p, np.float32)
+        for col in c:
+            col[extra] = 0.0
+        rsq[extra] = 15.0 ** 2
+    return o, d, c, rsq, tf
+
+
+@pytest.mark.parametrize("case", sorted(OCCLUDED_CASES))
 def test_occluded_matches_jax(case):
     """ops/intersect.py::occluded_spheres and occluded_spheres_pallas
-    (interpret): the same bits, and lanes with tfar <= 0 never occluded."""
-    n, p, dup = CASES[case]
-    arrays = _batch(n, p, seed=10 + len(case), dup=dup)
+    (interpret): the same bits, and lanes with tfar <= 0 or NaN never
+    occluded; on the edge tables, by the edge sphere alone."""
+    arrays = _occluded_batch(case)
     jo, jd, jc, jr, jt = _jax(*arrays)
     to, td, tc, tr, tt = _torch(*arrays)
     got = sb.occluded_spheres(to, td, tt, tc, tr).numpy()
@@ -128,7 +154,16 @@ def test_occluded_matches_jax(case):
     np.testing.assert_array_equal(
         got, np.asarray(jpk.occluded_spheres_pallas(jo, jd, jt, jc, jr,
                                                     interpret=True)))
-    assert got.any() and not got[arrays[4] <= 0].any()
+    tf = arrays[4]
+    assert got.any() and not got[(tf <= 0) | np.isnan(tf)].any()
+    at = OCCLUDED_CASES[case][3]
+    if isinstance(at, int):
+        keep = np.arange(len(arrays[3])) != at
+        _, _, c, rsq, _ = arrays
+        without = sb.occluded_spheres(
+            to, td, tt, TVec3(*(torch.from_numpy(a[keep]) for a in c)),
+            torch.from_numpy(rsq[keep]))
+        assert not without.numpy().any()
 
 
 def test_occluded_pairs_false_at_nonpositive_tfar():
@@ -201,7 +236,9 @@ def test_wrapper_refuses_other_devices_and_accels():
 @pytest.mark.cuda
 def test_cuda_kernels_equal_plain_versions():
     """On the card: both kernels equal their plain versions bit for bit,
-    across a staging-chunk boundary (the full check is chip_smoke.py)."""
+    across a staging-chunk boundary, the any-hit kernel also on NaN shadow
+    distances and with its only occluder at the chunk's edge (the full
+    check is chip_smoke.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
     o, d, c, rsq, tf = _batch(65536, 600, seed=5, dup=True)
@@ -214,3 +251,12 @@ def test_cuda_kernels_equal_plain_versions():
     assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
     assert torch.equal(sb.any_hit(to, td, tt, tc, tr),
                        sb.occluded_spheres(to, td, tt, tc, tr))
+    # sphere_occluded on NaN shadow distances and with the only occluder
+    # at the staging chunk's edge
+    for case in ("nan_tfar_field_300", "edge_1023_of_1025",
+                 "edge_1024_of_1025"):
+        to, td, tc, tr, tt = (x.to("cuda") if isinstance(x, torch.Tensor)
+                              else TVec3(*(a.to("cuda") for a in x))
+                              for x in _torch(*_occluded_batch(case)))
+        assert torch.equal(sb.any_hit(to, td, tt, tc, tr),
+                           sb.occluded_spheres(to, td, tt, tc, tr)), case
