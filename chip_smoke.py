@@ -132,7 +132,8 @@ keyed "kernels" lists every kernel: the five of the sphere paths, the seven
 forms of the fma kernels, every walk with its S, the walks with the
 product-form battery, the seven planner modes of phase 14, and phase 15's
 stream_replay and prefix launch), the
-clusters planned and walked per tile under each planner, the total time,
+clusters planned and walked per tile under each planner, phase 16's numbers
+(keyed "shading_paths"), the total time,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -1775,10 +1776,9 @@ def render(torch, crt, scene, policy, width, height, passes, label, expect,
         if launches[name] != 0:
             raise AssertionError(f"[{label}] {name} was launched "
                                  f"{launches[name]} times on this path")
-    if profiled:
-        profile_pass(torch, r, label)
+    profile = profile_pass(torch, r, label) if profiled else None
     return img, {"ms_per_pass": ms, "rays_per_pass": rays,
-                 "launches": launches,
+                 "launches": launches, "profile": profile,
                  "probe": None if probe is None else probe(r)}
 
 
@@ -1809,7 +1809,8 @@ def profile_pass(torch, r, label):
     if not rows:
         log(f"[{label}] profiler: no device time recorded (not measured); "
             f"fma launches {sum(fma_counts.values())} {fma_counts}")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None, "launches": None,
+                "fma_launches": sum(fma_counts.values())}
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     fma_rows = [(us, c) for us, c, key in rows
                 if any(k in key for k in FMA_KERNELS)]
@@ -1821,6 +1822,9 @@ def profile_pass(torch, r, label):
         f"{sum(fma_counts.values())} {fma_counts})")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "launches": sum(c for _, c, _ in rows),
+            "fma_launches": sum(fma_counts.values())}
 
 
 def golden_check(np, img, name, want=None):
@@ -2044,6 +2048,91 @@ def check_stream2(torch, timer):
                f"{row['tile0_ms']:.4f} ms"
                if row["library_ms"] is not None else "") + ")")
     return {"stream_replay": replay, "cluster_closest_stream[prefix]": prefix}
+
+
+# phase 16: (label, scene, policy knobs) of the shading paths
+SHADING_PATHS = (
+    ("hero principled f80", "hero", {"brdf": "principled",
+                                     "shade_f80": True}),
+    ("brdf_test ggx", "brdf_test", {"brdf": "ggx"}),
+    ("hero dof stratify scramble", "dof", {
+        "enable_dof": True, "stratify_camera": True, "rng_scramble": True}),
+    ("hero spp2", "hero", {"samples_per_pixel": 2}),
+)
+
+
+def shading_scene(crt, kind, width, height):
+    """The scene of a phase-16 path, on the host: the hero, the brdf_test
+    roughness lineup, or the hero with the `dof` golden's camera
+    (``builders.dof_scene``)."""
+    builder = {"brdf_test": crt.builders.brdf_test_scene,
+               "dof": crt.builders.dof_scene}.get(kind,
+                                                   crt.builders.default_scene)
+    return builder(width, height)
+
+
+def check_shading_knobs(torch, np, crt):
+    """Phase 16: (a) the four SHADING_PATHS at full width (1920x1088, 8
+    bounces, 2^19-ray chunks, brute), one timed pass a window, each
+    launching both sphere batteries and the fma kernel; (b) each at 64x64,
+    6 bounces, 2 passes on the CPU (the plain versions) and on the card:
+    buckets equal bit for bit, or else at tests/test_goldens.py::_check's
+    bar with the differing entries counted; (c) the brdf_ggx and dof
+    goldens on the card. Returns the numbers of (a) and (b)."""
+    import hashlib
+
+    expect = ("sphere_closest", "sphere_occluded", "fma")
+    numbers = {}
+    for label, kind, knobs in SHADING_PATHS:
+        policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19,
+                                    **knobs)
+        _, path = render(torch, crt, shading_scene(crt, kind, *FRAME),
+                         policy, *FRAME, 1, f"16 {label}", expect)
+        timed = WINDOWS
+        fma = {k: v / timed for k, v in path["launches"].items()
+               if k.startswith("fma") and v}
+        prof = path["profile"]
+        log(f"[16 {label}] a pass: {path['ms_per_pass']:.2f} ms, "
+            f"{path['rays_per_pass'] / path['ms_per_pass'] / 1e3:.2f} "
+            f"Mrays/s, busy {prof['busy_ms']} ms of {prof['wall_ms']:.2f}, "
+            f"{prof['launches']} kernel launches, counted launches "
+            f"{sum(path['launches'].values()) / timed:.1f}, fma launches "
+            f"{sum(fma.values()):.1f} {fma}")
+        numbers[label] = {"ms_per_pass": path["ms_per_pass"],
+                          "rays_per_pass": path["rays_per_pass"],
+                          "profile": prof, "fma_launches_a_pass": fma,
+                          "launches": {k: v for k, v in
+                                       path["launches"].items() if v}}
+    for label, kind, knobs in SHADING_PATHS:
+        policy = crt.RendererPolicy(max_bounces=6, rays_per_chunk=4096,
+                                    **knobs)
+        scene = shading_scene(crt, kind, 64, 64)
+        renders = []
+        for device in ("cpu", DEVICE):
+            r = crt.Renderer(scene, policy, 64, 64, device=device)
+            r.accumulate(2)
+            renders.append(r)
+        cpu, card = (r.state.buckets.cpu() for r in renders)
+        differ = int((cpu.view(torch.int32) != card.view(torch.int32)).sum())
+        digest = hashlib.sha256(card.numpy().tobytes()).hexdigest()[:16]
+        log(f"[16 {label}] 64x64, 2 passes: card buckets {digest}, "
+            f"{differ} of {card.numel()} entries differ from the CPU's")
+        numbers[label]["cpu_card_differing"] = differ
+        numbers[label]["buckets_sha256"] = digest
+        if differ:
+            golden_check(np, renders[1].render(tonemap=False),
+                         f"{label} card vs cpu",
+                         want=renders[0].render(tonemap=False))
+    gpol = crt.RendererPolicy(max_bounces=6, rays_per_chunk=4096)
+    for name, kind, knobs in (("brdf_ggx", "brdf_test", {"brdf": "ggx"}),
+                              ("dof", "dof", {"enable_dof": True})):
+        import dataclasses
+
+        r = crt.Renderer(shading_scene(crt, kind, 64, 64),
+                         dataclasses.replace(gpol, **knobs), 64, 64)
+        r.accumulate(10)
+        golden_check(np, r.render(tonemap=False), name)
+    return numbers
 
 
 def main() -> int:
@@ -2342,6 +2431,10 @@ def main() -> int:
 
     log(f"[15] phases 1-14 done at {time.perf_counter() - t_start:.1f} s")
     stream2_rows = check_stream2(torch, timer)
+    log(f"[16] phases 1-15 done at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    shading = check_shading_knobs(torch, np, crt)
+    log(f"[16] shading knobs checked in {time.perf_counter() - t0:.1f} s")
 
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
@@ -2390,6 +2483,7 @@ def main() -> int:
     log(json.dumps({"planners_per_tile": {
         f"{tname}, {kind}": v for (tname, kind), v in plan_numbers.items()}}))
     log(json.dumps({"fma_host_us_a_call": fma_host}))
+    log(json.dumps({"shading_paths": shading}))
     log(json.dumps({"kernels": list(hero_rows.values())
                     + list(fma_rows.values())
                     + list(main_rows.values()) + list(new_rows.values())

@@ -1,11 +1,13 @@
 """Sampling and shading math of the main path: the counterparts of the JAX
 package's ``core/sampling.py`` functions (median networks, the
-hemisphere and sphere-cone samplers, tangent frames, MIS heuristics), in
-the same operation order and with the multiply-adds fused where XLA fuses
-them (``core/fp.py``), so that both packages round alike."""
+hemisphere, disk and sphere-cone samplers, tangent frames, MIS heuristics,
+the GGX microfacet terms), in the same operation order and with the
+multiply-adds fused where XLA fuses them (``core/fp.py``), so that both
+packages round alike."""
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -38,10 +40,19 @@ def spherical_to_cartesian(phi_over_2pi, sin_theta, cos_theta) -> Vec3:
     return Vec3(sin_theta * fp.cos(phi), sin_theta * fp.sin(phi), cos_theta)
 
 
+def polar_to_cartesian(phi_over_2pi, rho):
+    phi = phi_over_2pi * TWO_PI
+    return rho * fp.cos(phi), rho * fp.sin(phi)
+
+
 def cosine_hemisphere(t, s) -> Vec3:
     """+Z-oriented cosine-weighted hemisphere (Sampling.hpp:92-94)."""
     return spherical_to_cartesian(s, fp.sqrt(t),
                                   fp.sqrt(torch.clamp_min(1.0 - t, 0.0)))
+
+
+def disk(t, s):
+    return polar_to_cartesian(s, fp.sqrt(t))
 
 
 # Tangent space (Sampling.hpp:108-187)
@@ -156,3 +167,148 @@ def power_heuristic(f, g):
 
 def power_heuristic_over_f(f, g):
     return f / torch.clamp_min(fma(f, f, g * g), 1e-6)
+
+
+# Microfacet / GGX math (Sampling.hpp:252-309)
+class VndfParts(NamedTuple):
+    """The terms of one VNDF sample: the stretched view vector `vv` and its
+    basis, the disk point (dx, and dy in hz's form), hz, and the
+    half-vector before normalization with the reciprocal of its length."""
+
+    vv: Vec3
+    x_axis: Vec3
+    y_axis: Vec3
+    dx: torch.Tensor
+    dy_hz: torch.Tensor
+    hz: torch.Tensor
+    h: Vec3  # (alpha * h.x, alpha * h.y, max(h.z, 0))
+    inv: torch.Tensor
+
+    def z_hz(self):
+        """The normalized half-vector's z recomputed from the terms,
+        x_axis.z*dx + y_axis.z*dy + vv.z*hz, with hz's form of dy."""
+        z = fp.dot3(self.x_axis.z, self.y_axis.z, self.vv.z, self.dx,
+                    self.dy_hz, self.hz)
+        return torch.clamp_min(z, 0.0) * self.inv
+
+
+def vndf_parts(v_local: Vec3, alpha, u, v) -> VndfParts:
+    """Heitz VNDF sampling of the GGX half-vector (Sampling.hpp:254-270),
+    term by term.
+
+    The warped dy = sqrt(t) * (1 - lerp_t) + dy * lerp_t is recomputed in
+    each of XLA's fusions that reads it, and LLVM fuses the product that
+    comes first in each one's IR: sqrt(t) * (1 - lerp_t) where dy makes
+    the half-vector, dy * lerp_t where it makes hz (`dy_hz`)."""
+    vv = Vec3(alpha * v_local.x, alpha * v_local.y, v_local.z).normalize()
+    dx, dy = disk(u, v)
+    t = fma(-dx, dx, 1.0)
+    lerp_t = fma(vv.z, 0.5, 0.5)
+    root_t, one_lerp = fp.sqrt(torch.clamp_min(t, 0.0)), 1.0 - lerp_t
+    dy_h = fma(root_t, one_lerp, dy * lerp_t)
+    dy_hz = fma(dy, lerp_t, root_t * one_lerp)
+    x_axis, y_axis = orthonormal_basis(vv)
+    hz = fp.sqrt(torch.clamp_min(fma(-dy_hz, dy_hz, t), 0.0))
+    # x_axis*dx + y_axis*dy + vv*hz, each lane as fp.dot3 contracts it
+    h = Vec3(*(fp.dot3(xa, ya, va, dx, dy_h, hz)
+               for xa, ya, va in zip(x_axis, y_axis, vv)))
+    h = Vec3(alpha * h.x, alpha * h.y, torch.clamp_min(h.z, 0.0))
+    inv = fp.rsqrt(torch.clamp_min(h.length_sq(), 1e-30))
+    return VndfParts(vv, x_axis, y_axis, dx, dy_hz, hz, h, inv)
+
+
+def distribution_visible_normals(v_local: Vec3, alpha, u, v) -> Vec3:
+    """Heitz VNDF sampling of the GGX half-vector (Sampling.hpp:254-270);
+    ``vndf_parts`` gives its terms."""
+    p = vndf_parts(v_local, alpha, u, v)
+    return p.h * p.inv
+
+
+def pow5(x):
+    t = x * x
+    t = t * t
+    return x * t
+
+
+def fresnel_schlick(f0: Vec3, h_dot_v, f80: Vec3 = None,
+                    fuse_f0: bool = False) -> Vec3:
+    """Schlick Fresnel (Sampling.hpp:272-275); with `f80` the grazing
+    reflectance is the material's F80 color: lerp(f0, f80, (1-cos)^5).
+
+    XLA picks which product of f0*(1 - w) + f80*w it fuses by context:
+    f80*w jitted alone and in the sampled estimator, f0*(1 - w) in the JAX
+    renderer's NEE (`fuse_f0`)."""
+    w = pow5(torch.clamp(1.0 - h_dot_v, 0.0, 1.0))
+    one_w = 1.0 - w
+    if f80 is None:
+        return Vec3(*(fma(c, one_w, w) for c in f0))
+    if fuse_f0:
+        return Vec3(*(fma(c, one_w, g * w) for c, g in zip(f0, f80)))
+    return Vec3(*(fma(g, w, c * one_w) for c, g in zip(f0, f80)))
+
+
+def ggx_d(alpha2, n_dot_h2):
+    temp = fma(alpha2 - 1.0, n_dot_h2, 1.0)
+    return alpha2 / (math.pi * temp * temp)
+
+
+def _lagarde_root(alpha2, n_dot):
+    # sqrt(alpha2 + n*(n - alpha2*n)), both products fused
+    return fp.sqrt(fma(n_dot, fma(-alpha2, n_dot, n_dot), alpha2))
+
+
+def smith_g2_lagarde(alpha2, n_dot_l, n_dot_v):
+    """Height-correlated Smith G2 pre-divided by 4*NdotL*NdotV
+    (Sampling.hpp:287-291): 0.5 / (a + b) with a = n_dot_v *
+    sqrt(...n_dot_l...) and b = n_dot_l * sqrt(...n_dot_v...). The sum
+    fuses b's product, as the JAX renderer's NEE contracts it."""
+    total = fma(n_dot_l, _lagarde_root(alpha2, n_dot_v),
+                n_dot_v * _lagarde_root(alpha2, n_dot_l))
+    return torch.div(0.5, torch.clamp_min(total, 1e-20))
+
+
+def microfacet_brdf(f0: Vec3, alpha, n_dot_v, n_dot_l, n_dot_h, h_dot_v,
+                    f80: Vec3 = None) -> Vec3:
+    """NdotL * F*D*G2/(4 NdotL NdotV) (Sampling.hpp:293-296), rounded as
+    the JAX renderer's NEE contracts it (``fresnel_schlick``'s `fuse_f0`,
+    ``smith_g2_lagarde``)."""
+    alpha2 = alpha * alpha
+    scalar = (n_dot_l * ggx_d(torch.clamp_min(alpha2, 1e-5), n_dot_h * n_dot_h)
+              * smith_g2_lagarde(alpha2, n_dot_l, n_dot_v))
+    return fresnel_schlick(f0, h_dot_v, f80, fuse_f0=True) * scalar
+
+
+def _g1_denominator(alpha2, n_dot_s2):
+    return 1.0 + fp.sqrt(fma(alpha2, 1.0 - n_dot_s2, n_dot_s2)
+                         / torch.clamp_min(n_dot_s2, 1e-20))
+
+
+def g1_ggx(alpha2, n_dot_s2):
+    return torch.div(2.0, _g1_denominator(alpha2, n_dot_s2))
+
+
+def smith_g2_over_g1(alpha2, n_dot_l, n_dot_v):
+    """G1(L) / (G1(V) + G1(L) - G1(V) G1(L)). XLA rewrites (2 / a) / b as
+    2 / (a * b), so G1(L)'s division is folded into the last one."""
+    g1v = g1_ggx(alpha2, n_dot_v * n_dot_v)
+    den_l = _g1_denominator(alpha2, n_dot_l * n_dot_l)
+    g1l = torch.div(2.0, den_l)
+    return torch.div(2.0, den_l * torch.clamp_min(
+        fma(-g1v, g1l, g1v + g1l), 1e-20))
+
+
+def vndf_estimator(f0: Vec3, alpha, n_dot_v, n_dot_l, h_dot_v,
+                   f80: Vec3 = None) -> Vec3:
+    """F * G2/G1: the estimator of the VNDF-sampled GGX lobe
+    (Sampling.hpp:307-309)."""
+    return fresnel_schlick(f0, h_dot_v, f80) * smith_g2_over_g1(
+        alpha * alpha, n_dot_l, n_dot_v)
+
+
+def ggx_vndf_pdf(alpha, n_dot_v, n_dot_h, h_dot_v):
+    """pdf of the reflected direction under VNDF sampling,
+    G1(V) * D(H) / (4 NdotV) (the reference's TODO, DataStreams.hpp:196)."""
+    alpha2 = torch.clamp_min(alpha * alpha, 1e-7)
+    g1 = g1_ggx(alpha2, n_dot_v * n_dot_v)
+    d = ggx_d(alpha2, n_dot_h * n_dot_h)
+    return g1 * d / torch.clamp_min(4.0 * n_dot_v, 1e-6)

@@ -118,7 +118,11 @@ def resolve(state: RenderState, policy: RendererPolicy, exposure, width: int,
         channels = [buckets[:, c, :].median(dim=0).values * scale
                     for c in range(3)]
     else:  # average-of-buckets variant (Renderer.hpp:457-459)
-        channels = [buckets[:, c, :].mean(dim=0) * scale for c in range(3)]
+        # XLA folds jnp.mean's division into the scale: the bucket sum
+        # times scale * float32(1/B)
+        scale_b = scale * torch.tensor(1.0 / b, dtype=torch.float32)
+        channels = [_renderer.sum_rows(buckets[:, c, :]) * scale_b
+                    for c in range(3)]
     r, g, bl = channels
     if tonemap:
         r, g, bl = color.tonemap_aces(r, g, bl)

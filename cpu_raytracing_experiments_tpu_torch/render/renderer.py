@@ -4,14 +4,16 @@
 
 Structure of one bounce (``bounce_step``, Renderer.hpp:131-432): intersect
 (the closest-hit battery, or the clustered traversal) -> closest-hit frame
--> NEE with MIS and a shadow any-hit -> emissive hit with MIS -> lambertian
-sample + Russian roulette -> miss/sky. ``trace_rays`` runs bounces over one
-chunk of rays as a Python loop with mask-based termination: it stops at
+-> NEE with MIS and a shadow any-hit -> emissive hit with MIS -> BSDF
+sample (lambertian, GGX or principled) + Russian roulette -> miss/sky.
+``trace_rays`` runs bounces over one chunk of rays as a Python loop with
+mask-based termination: it stops at
 ``max_bounces`` or when no lane is alive, and with narrowing on it compacts
 the live lanes to the front of a narrower wavefront once they fit.
-``render_pass`` generates camera rays in raster or screen-tile order and
-walks ``rays_per_chunk`` chunks; the padding lanes of the last chunk are
-dead from bounce 0.
+``render_pass`` generates camera rays (pinhole or thin lens, jittered or
+stratified) in raster or screen-tile order, samples_per_pixel of them a
+pixel, and walks ``rays_per_chunk`` chunks; the padding lanes of the last
+chunk are dead from bounce 0.
 
 RNG is the counter scheme of ``core/rng.py``, bit for bit the JAX package's,
 so both packages draw the same numbers at every decision point. Knobs
@@ -69,6 +71,11 @@ def check_policy(policy: RendererPolicy):
     """Refuse every knob this port does not render, by name and before any
     work, so that no knob silently changes the result.
 
+    Every ``brdf`` renders ('lambertian', 'ggx', 'principled', with
+    ``shade_f80``), as do ``enable_dof``, ``stratify_camera``,
+    ``rng_scramble`` and any ``samples_per_pixel``; ``light_sampling``
+    must be 'uniform'.
+
     ``accel`` / ``primary_accel`` may be 'brute' or 'pallas'. Of the pallas_*
     knobs, ``pallas_tile_rays``, ``pallas_compact``, ``pallas_stream`` and
     ``pallas_mxu`` act as in the JAX package (``RendererPolicy`` itself
@@ -92,14 +99,8 @@ def check_policy(policy: RendererPolicy):
             policy.effective_accel not in ("brute", "pallas"),
         f"primary_accel={policy.primary_accel!r}":
             policy.primary_accel not in (None, "brute", "pallas"),
-        f"brdf={policy.brdf!r}": policy.brdf != "lambertian",
         f"light_sampling={policy.light_sampling!r}":
             policy.light_sampling != "uniform",
-        "enable_dof": policy.enable_dof,
-        "stratify_camera": policy.stratify_camera,
-        "rng_scramble": policy.rng_scramble,
-        f"samples_per_pixel={policy.samples_per_pixel}":
-            policy.samples_per_pixel != 1,
     }
     if "pallas" in accels:
         refused[f"pallas_plan={policy.pallas_plan!r}"] = \
@@ -137,30 +138,84 @@ def pixel_seeds(width: int, height: int, policy: RendererPolicy, device=None):
     return pixel_seeds_from_index(i, width, policy)
 
 
-def _site_state(accumulation, counter):
-    """RNG site state (Renderer.hpp:117/255/362)."""
-    return rng.hash_2d(accumulation, counter)
+def _site_state(accumulation, counter, policy: RendererPolicy):
+    """RNG site state (Renderer.hpp:117/255/362), avalanche-scrambled under
+    ``policy.rng_scramble`` to break hash_2d's lattice structure."""
+    state = rng.hash_2d(accumulation, counter)
+    if policy.rng_scramble:
+        state = rng.hash_u32(state)
+    return state
+
+
+GOLDEN_RATIO_CONJUGATE = 0.6180339887498949
+
+
+def _stratified_jitter(accumulation, seeds, device):
+    """The pixel jitter of ``stratify_camera``: van der Corput in base 2 over
+    the accumulation index (the bitreverse the reference computes but never
+    uses, Renderer.hpp:80) and a golden-ratio second dimension, rotated per
+    pixel (Cranley-Patterson) by hashed-pixel offsets. All sums are >= 0,
+    where ``torch.remainder`` and the JAX package's ``jnp.mod`` are exact."""
+    acc = rng.u32(accumulation, device)
+    vdc = rng.make_unit_float(rng.bitreverse32(acc))
+    gr = torch.remainder(acc.to(torch.float32) * GOLDEN_RATIO_CONJUGATE, 1.0)
+    ox = rng.make_unit_float(rng.hash_u32(seeds))
+    oy = rng.make_unit_float(rng.hash_u32(seeds ^ 0x9E3779B9))
+    return torch.remainder(vdc + ox, 1.0), torch.remainder(gr + oy, 1.0)
 
 
 def generate_camera_rays(camera, x, y, accumulation, seeds, enable_dof: bool,
-                         policy=None) -> Tuple[Vec3, Vec3]:
-    """Primary rays (Camera.hpp:80-88 + Renderer.hpp:113-127), pinhole.
-    Returns contiguous [R] components, the layout the batteries take."""
-    if enable_dof or (policy is not None and (policy.stratify_camera
-                                              or policy.rng_scramble)):
-        raise NotImplementedError(
-            "enable_dof / stratify_camera / rng_scramble are not ported yet")
-    state = _site_state(accumulation, seeds)
-    state, ds = rng.draws(state, 2)
+                         policy: RendererPolicy = None) -> Tuple[Vec3, Vec3]:
+    """Primary rays (Camera.hpp:80-88 + Renderer.hpp:113-127): pinhole, or
+    with `enable_dof` the thin lens the reference declares but never wires
+    (Camera.hpp:17-26): a point of the aperture disk, retargeted through the
+    focus plane. ``policy.stratify_camera`` replaces the pixel jitter by
+    ``_stratified_jitter``; ``policy.rng_scramble`` scrambles the site
+    state. Returns contiguous [R] components, the layout the batteries
+    take."""
+    policy = policy or RendererPolicy()
+    state = _site_state(accumulation, seeds, policy)
+    state, ds = rng.draws(state, 4 if enable_dof else 2)
+    if policy.stratify_camera:
+        ds[:2] = _stratified_jitter(accumulation, seeds, ds[0].device)
     vx = x.to(torch.float32) + ds[0] - camera.half_width
     vy = y.to(torch.float32) + ds[1] - camera.half_height
+    origin = Vec3(*(c.expand(vx.shape).contiguous() for c in camera.pos))
+    if enable_dof:
+        return _thin_lens(camera, vx, vy, origin, ds[2], ds[3])
     # view_dir.z is one scalar for the whole batch: XLA squares it once,
     # outside the elementwise loop, so only x*x + y*y of |v|^2 contracts
     len_sq = fma(vx, vx, vy * vy) + camera.z * camera.z
     inv = fp.rsqrt(torch.clamp_min(len_sq, 1e-30))
     view_dir = Vec3(vx * inv, vy * inv, camera.z * inv)
-    origin = Vec3(*(c.expand(vx.shape).contiguous() for c in camera.pos))
     return origin, camera.orient.rotate(view_dir)
+
+
+def _thin_lens(camera, vx, vy, origin: Vec3, u2, u3):
+    """The thin-lens ray of ``generate_camera_rays`` from the camera's third
+    and fourth draws: the focus plane lies at view-space depth
+    focus_distance along -Z; the view direction is not normalized before it
+    is scaled onto that plane."""
+    scale = camera.focus_distance / torch.clamp_min(-camera.z, 1e-6)
+    lx, ly = sampling.disk(u3, u2)
+    lens_x = lx * camera.aperture_radius
+    lens_y = ly * camera.aperture_radius
+    zero = torch.zeros_like(lens_x)
+    # focal_pt - lens: the focal product fuses; z is one scalar
+    dx = fma(vx, scale, -lens_x)
+    dy = fma(vy, scale, -lens_y)
+    dz = camera.z * scale
+    inv = fp.rsqrt(torch.clamp_min(fma(dx, dx, dy * dy) + dz * dz, 1e-30))
+    local_dir = Vec3(dx * inv, dy * inv, dz * inv)
+    # orient.rotate(lens) with lens.z = 0: XLA drops v.z + t.z*w's zero
+    # addend, and the product t.z*w then fuses with the cross term
+    q = camera.orient
+    qv = Vec3(q.x, q.y, q.z)
+    t = qv.cross(Vec3(lens_x, lens_y, zero)) * 2.0
+    turn = qv.cross(t)
+    world_lens = Vec3(fma(t.x, q.w, lens_x) + turn.x,
+                      fma(t.y, q.w, lens_y) + turn.y, fma(t.z, q.w, turn.z))
+    return origin + world_lens, camera.orient.rotate(local_dir)
 
 
 def _closest_hit_frame(scene: Scene, state: PathState, tfar, prim_id, is_tri):
@@ -196,6 +251,66 @@ def _closest_hit_frame(scene: Scene, state: PathState, tfar, prim_id, is_tri):
         torch.maximum(torch.abs(hit_pt.y), torch.abs(hit_pt.z))), 1e-4)
     p_offset = fp.fma3(n, eps, hit_pt)
     return p_offset, n, t, v_local, mat_id, backface, hit_pt, prim_extra
+
+
+def _closure_eval(policy: RendererPolicy, mat: dict, l_local: Vec3,
+                  v_local: Vec3) -> Vec3:
+    """The policy's BSDF times NdotL for light direction `l_local`."""
+    if policy.brdf == "lambertian":
+        return closures.lambert_eval(mat["albedo"], l_local, v_local)
+    if policy.brdf == "ggx":
+        return closures.ggx_eval(mat["f0"], mat["alpha"], l_local, v_local,
+                                 mat.get("f80"))
+    return closures.principled_eval(
+        mat["albedo"], mat["f0"], mat["transmission"], mat["alpha"],
+        l_local, v_local, mat.get("f80"))
+
+
+def _closure_pdf(policy: RendererPolicy, mat: dict, l_local: Vec3,
+                 v_local: Vec3):
+    """The solid-angle pdf with which the policy's BSDF samples `l_local`."""
+    if policy.brdf == "lambertian":
+        return closures.lambert_pdf(l_local)
+    if policy.brdf == "ggx":
+        return closures.ggx_pdf(mat["alpha"], l_local, v_local)
+    return closures.principled_pdf(
+        mat["albedo"], mat["f0"], mat["transmission"], mat["alpha"],
+        l_local, v_local)
+
+
+def _gather_material(scene: Scene, policy: RendererPolicy, mat_id) -> dict:
+    """One packed gather of the material columns the bounce reads
+    (renderer.py:1062-1100 of the JAX package): albedo and emission; f0 and
+    alpha = roughness^2 under a specular closure; transmission and ior
+    under 'principled'; f80 under ``shade_f80`` with a specular closure
+    (the reference declares F80 but never shades it, Primitives.hpp:22).
+    The JAX package gathers f0 and roughness for lambertian too; nothing
+    reads them there."""
+    mt = scene.materials
+    cols = [*mt.albedo, *mt.emission]
+    specular = policy.brdf in ("ggx", "principled")
+    if specular:
+        cols += [*mt.f0, mt.roughness]
+    if policy.brdf == "principled":
+        cols += [*mt.transmission, mt.ior_minus_one]
+    if specular and policy.shade_f80:
+        cols += list(mt.f80)
+    mv = iter(fast_gather.gather_cols(mat_id, *cols))
+
+    def take3():
+        return Vec3(next(mv), next(mv), next(mv))
+
+    mat = {"albedo": take3(), "emission": take3()}
+    if specular:
+        mat["f0"] = take3()
+        rough = next(mv)
+        mat["alpha"] = rough * rough
+    if policy.brdf == "principled":
+        mat["transmission"] = take3()
+        mat["ior"] = next(mv) + 1.0
+    if specular and policy.shade_f80:
+        mat["f80"] = take3()
+    return mat
 
 
 def _select_light(scene: Scene, policy: RendererPolicy, point: Vec3, f,
@@ -305,7 +420,7 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     zero3 = Vec3(zeros, zeros, zeros)
     if light_count == 0:
         return zero3, torch.zeros_like(hit)
-    site = _site_state(accumulation, add32(seeds, 2 * state.bounce))
+    site = _site_state(accumulation, add32(seeds, 2 * state.bounce), policy)
     site, (t_draw, s_draw) = rng.draws(site, 2)
     site, sel_draw = rng.rand_unit_float(site)
     selected, light_selection_pdf = _select_light(scene, policy, p_offset,
@@ -334,9 +449,9 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     l_local = sampling.to_local(t_quat, l_dir)
     valid = valid & (l_local.z >= 0.0)  # sample below the hemisphere (:276)
     shadow_radiance = (l_emission * state.throughput
-                       * closures.lambert_eval(mat["albedo"], l_local, v_local))
+                       * _closure_eval(policy, mat, l_local, v_local))
     l_pdf = l_pdf * light_selection_pdf  # (:282)
-    brdf_pdf = closures.lambert_pdf(l_local)
+    brdf_pdf = _closure_pdf(policy, mat, l_local, v_local)
     shadow_radiance = shadow_radiance * sampling.power_heuristic_over_f(
         l_pdf, brdf_pdf)
     valid = valid & (shadow_radiance.max_component() > 0.0)  # (:285)
@@ -397,11 +512,7 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     # ---- CLOSEST HIT (:169-214) ----
     p_offset, n, t_quat, v_local, mat_id, backface, hit_pt, prim_extra = (
         _closest_hit_frame(scene, state, tfar, prim_id, is_tri))
-    mt = scene.materials
-    ax, ay, az, ex, ey, ez = fast_gather.gather_cols(
-        mat_id, mt.albedo.x, mt.albedo.y, mt.albedo.z,
-        mt.emission.x, mt.emission.y, mt.emission.z)
-    mat = {"albedo": Vec3(ax, ay, az), "emission": Vec3(ex, ey, ez)}
+    mat = _gather_material(scene, policy, mat_id)
 
     radiance = state.radiance
 
@@ -419,11 +530,27 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
         em=mat["emission"], prim_extra=prim_extra)
 
     # ---- BRDF SAMPLE + RUSSIAN ROULETTE (:357-404) ----
-    site = _site_state(accumulation, add32(seeds, 2 * state.bounce + 1))
-    site, (u_draw, v_draw, rr_draw) = rng.draws(site, 3)
-    bs = closures.lambert_sample(mat["albedo"], v_local, u_draw, v_draw)
+    site = _site_state(accumulation, add32(seeds, 2 * state.bounce + 1),
+                       policy)
+    if policy.brdf == "principled":
+        # draw order: lobe, u, v, fresnel, rr
+        site, (lobe_draw, u_draw, v_draw, fres_draw, rr_draw) = rng.draws(
+            site, 5)
+        bs = closures.principled_sample(
+            mat["albedo"], mat["f0"], mat["transmission"], mat["alpha"],
+            mat["ior"], ~backface, v_local, lobe_draw, u_draw, v_draw,
+            fres_draw, mat.get("f80"))
+        bsdf_delta = bs.is_delta
+    else:
+        site, (u_draw, v_draw, rr_draw) = rng.draws(site, 3)
+        if policy.brdf == "lambertian":
+            bs = closures.lambert_sample(mat["albedo"], v_local, u_draw,
+                                         v_draw)
+        else:
+            bs = closures.ggx_sample(mat["f0"], mat["alpha"], v_local, u_draw,
+                                     v_draw, mat.get("f80"))
+        bsdf_delta = torch.zeros_like(hit)
     bsdf_dir, bsdf_est = bs.direction, bs.estimator
-    bsdf_delta = torch.zeros_like(hit)
     new_throughput = state.throughput * bsdf_est
     if policy.russian_roulette:
         q = 1.0 - new_throughput.max_component()
@@ -433,8 +560,19 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     else:
         rr_kill = torch.zeros_like(hit)
     world_dir = sampling.to_world(t_quat, bsdf_dir)
+    if policy.brdf == "principled":
+        # XLA recomputes the sample in the fusion of each world lane, and
+        # the x lane's rounds the specular lobe otherwise
+        world_dir = Vec3(sampling.to_world(t_quat, bs.direction_x).x,
+                         world_dir.y, world_dir.z)
     # pdf of the sampled direction in the local frame, for next-bounce MIS
-    next_pdf = closures.lambert_pdf(bsdf_dir)
+    next_pdf = _closure_pdf(policy, mat, bsdf_dir, v_local)
+    p_next = p_offset
+    if policy.brdf == "principled":
+        # transmitted rays leave from below the surface: the scale-aware
+        # offset mirrored to the other side
+        p_below = hit_pt - (p_offset - hit_pt)
+        p_next = p_below.where(bsdf_dir.z < 0.0, p_offset)
 
     # ---- MISS / SKY (:408-420) ----
     sky = scene.sky.sample(state.d)
@@ -454,7 +592,7 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     rays_this_bounce = state.alive.sum() + shadow_traced.sum()
     return PathState(
         bounce=state.bounce + 1,
-        p=p_offset.where(alive_next, state.p),
+        p=p_next.where(alive_next, state.p),
         d=world_dir.where(alive_next, state.d),
         throughput=new_throughput.where(alive_next, state.throughput),
         radiance=radiance,
@@ -589,6 +727,15 @@ def _tile_pixel_order(width: int, npix: int, tile: int, device):
             torch.from_numpy(np.argsort(perm)).to(device))
 
 
+def sum_rows(rows):
+    """The rows of `rows` (its first dimension) added in order, as XLA
+    reduces a short axis."""
+    total = rows[0]
+    for row in rows[1:]:
+        total = total + row
+    return total
+
+
 def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
                 width: int, height: int, pixel_start: int = 0,
                 npix: int = None, k_passes: int = 1):
@@ -598,8 +745,11 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     ``ray_order='tile'`` ('auto' under accel='pallas'), in screen-tile order,
     and the radiance is put back into raster order.
 
-    Rays go through ``trace_rays`` in ``rays_per_chunk`` chunks; the last
-    chunk is padded with lanes that are dead from bounce 0. With
+    With ``samples_per_pixel`` = spp > 1 each pixel traces spp rays on
+    consecutive lanes, seeded by path * spp + sample, and the radiance is
+    their sum. Rays go through ``trace_rays`` in ``rays_per_chunk``
+    chunks; the last chunk is padded with lanes that are dead from bounce
+    0. With
     ``k_passes > 1`` the k consecutive passes accumulation .. accumulation
     + k - 1 are traced as one wide wavefront and the radiance comes back as
     [k, npix] rows, each bit-identical to its sequential pass (the counter
@@ -608,7 +758,9 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     device = scene.device
     if npix is None:
         npix = width * height
-    nrays = npix * k_passes
+    spp = policy.samples_per_pixel
+    per_pass = npix * spp
+    nrays = per_pass * k_passes
     ray = torch.arange(nrays, dtype=torch.int64, device=device)
     ray_order = policy.ray_order
     if ray_order == "auto":
@@ -623,15 +775,19 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
         edge = (16 if tile_rays == "auto"
                 else max(8, math.isqrt(max(tile_rays, 64))))
         order = _tile_pixel_order(width, npix, edge, torch.device(device))
-    pos = ray % npix if k_passes > 1 else ray
+    # lane = (pass, position, sample): the spp samples of a pixel are
+    # consecutive lanes
+    r_in_pass = ray % per_pass if k_passes > 1 else ray
+    pos = r_in_pass // spp
     if order is not None:
         pos = order[0][pos]
     i = (pixel_start + pos) & MASK
     x = i % width
     y = i // width
-    seeds = pixel_seeds_from_index(i, width, policy)
+    seeds = pixel_seeds_from_index(i, width, policy, r_in_pass % spp)
     accumulation = accumulation & MASK
-    acc_lane = (add32(accumulation, ray // npix) if k_passes > 1 else None)
+    acc_lane = (add32(accumulation, ray // per_pass) if k_passes > 1
+                else None)
 
     chunk = min(policy.rays_per_chunk, nrays)
     padded = -(-nrays // chunk) * chunk
@@ -656,6 +812,10 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     flat = Vec3(*(torch.cat([r[k] for r in rads])[:nrays] for k in range(3)))
     if policy.clamp_radiance:
         flat = Vec3(*(torch.clamp_max(c, policy.max_radiance) for c in flat))
+    if spp > 1:
+        # the per-pixel sum over the pass's spp samples, in lane order as
+        # XLA reduces them; the resolve divides by spp
+        flat = Vec3(*(sum_rows(c.reshape(-1, spp).T) for c in flat))
     if k_passes > 1:
         flat = Vec3(*(c.reshape(k_passes, npix) for c in flat))
     if order is not None:  # back to raster pixel order

@@ -1,16 +1,15 @@
 """Scene builders of the JAX package's ``scene/builders.py``, as host-side
 constructors: the same values, the same float32 rounding and the same seeded
 generators, so the port's tensors equal the JAX builders' arrays exactly.
-Scenes are built on the CPU; ``Renderer`` moves them to its device.
-
-The GGX/principled lineup (``brdf_test_scene``) belongs to a later port
-slice."""
+Scenes are built on the CPU; ``Renderer`` moves them to its device."""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from . import meshes
-from .scene import Camera, Scene, Sky, make_scene
+from .scene import Camera, Scene, Sky, _f32, make_scene
 
 
 class _SceneBuilder:
@@ -103,6 +102,16 @@ def default_scene(width: int = 256, height: int = 256) -> Scene:
     return b.build(cam, Sky.constant((0.0, 0.0, 0.0)))
 
 
+def dof_scene(width: int = 256, height: int = 256) -> Scene:
+    """The hero through a thin lens focused 1.3 away with an aperture
+    radius of 0.05: the camera of the `dof` golden (the JAX package's
+    tests/goldens/regen.py). Render it with ``enable_dof=True``."""
+    scene = default_scene(width, height)
+    return dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, focus_distance=_f32(1.3),
+        aperture_radius=_f32(0.05)))
+
+
 def white_furnace_scene(width: int = 256, height: int = 256) -> Scene:
     """Energy-conservation test (Application.cpp:218-223): unit-albedo sphere
     in a uniform white sky; a correct integrator renders it invisible."""
@@ -134,6 +143,64 @@ def bvh_test_scene(width: int = 512, height: int = 512, num_spheres: int = 255,
             palette[int(rng.integers(0, len(palette)))],
         )
     cam = Camera.create(eye=(0, 60, 300), forward=(0, 0, -1), width=width, height=height)
+    return b.build(cam, Sky.constant((1.0, 1.0, 1.0)))
+
+
+BRDF_TEST_PROPERTIES = (
+    "roughness", "roughness_diffuse", "ior_reflection", "ior_refraction",
+    "roughness_glass", "absorption", "absorption_roughness",
+    "refraction_to_diffuse",
+)
+
+
+def brdf_test_scene(width: int = 512, height: int = 512, gradations: int = 10,
+                    prop: str = "roughness") -> Scene:
+    """Parameter-gradation lineup (Application.cpp:123-217): `gradations`
+    spheres sweeping one material property over a giant floor sphere with
+    a sphere light. The reference enumerates eight Properties cases but
+    hard-codes Roughness (:159); all eight render here (the glass and
+    absorption cases under brdf='principled'). Material values per case are
+    the reference's (:161-215)."""
+    if prop not in BRDF_TEST_PROPERTIES:
+        raise ValueError(f"unknown brdf_test property {prop!r}")
+    b = _SceneBuilder()
+    floor = b.material(albedo=(0.1, 0.1, 0.1), roughness=1.0)
+    b.sphere((0.0, -1001.0, 0.0), 1000.0, floor)
+    light = b.material(emission=(100.0, 100.0, 100.0))
+    b.sphere((0.0, 10.0, 0.0), np.sqrt(5.0), light)  # radius_sq = 5.0 in ref
+
+    def lerp(a, c, t):
+        return tuple((1 - t) * np.asarray(a) + t * np.asarray(c))
+
+    glassy = dict(f0=(0.04,) * 3, f80=(0.5,) * 3)
+    for i in range(gradations):
+        t = i / (gradations - 1)
+        m = {
+            "roughness": lambda: b.material(
+                f0=(1, 1, 1), f80=(1, 1, 1), albedo=(0, 0, 0), roughness=t),
+            "roughness_diffuse": lambda: b.material(
+                albedo=(0.75, 0.25, 0.25), roughness=t, **glassy),
+            "ior_reflection": lambda: b.material(
+                albedo=(0.7, 0.5, 0.3), ior_minus_one=t, **glassy),
+            "ior_refraction": lambda: b.material(
+                transmission=(0.95,) * 3, ior_minus_one=t * 0.5, **glassy),
+            "roughness_glass": lambda: b.material(
+                transmission=(0.95,) * 3, ior_minus_one=0.1, roughness=t,
+                **glassy),
+            "absorption": lambda: b.material(
+                transmission=lerp((0.95,) * 3, (0, 0.95, 0.95), t),
+                ior_minus_one=0.1, **glassy),
+            "absorption_roughness": lambda: b.material(
+                transmission=(0.0, 0.95, 0.95), ior_minus_one=0.1,
+                roughness=t, **glassy),
+            "refraction_to_diffuse": lambda: b.material(
+                albedo=lerp((0, 0, 0), (0, 0.95, 0.95), t),
+                transmission=lerp((0.95,) * 3, (0, 0, 0), t), **glassy),
+        }[prop]()
+        x = (i * 2 - gradations) * 1.25 + 1.0
+        b.sphere((x, i * 0.1, 0.0), 1.0, m)
+    cam = Camera.create(eye=(0, 0, gradations * 2.8), forward=(0, 0, -1),
+                        width=width, height=height)
     return b.build(cam, Sky.constant((1.0, 1.0, 1.0)))
 
 

@@ -5,8 +5,10 @@ its fingerprint mean the same thing in both packages.
 The PyTorch port renders scenes of spheres and triangles (the dense
 batteries or the clustered traversal of ``accel='pallas'`` under each of its
 planners, resident or streamed, with the ordinary or the product-form
-triangle battery; lambertian, uniform light selection, MIS, Russian
-roulette, wavefront narrowing, raster or screen-tile ray order, median
+triangle battery; lambertian, GGX or principled shading, pinhole or thin
+lens camera, jittered or stratified, with or without the scrambled RNG,
+any samples_per_pixel, uniform light selection, MIS, Russian roulette,
+wavefront narrowing, raster or screen-tile ray order, median or mean
 resolve). Knobs that select anything else are accepted
 here, so that later port slices only lift the checks, and are refused with
 ``NotImplementedError`` by ``render.renderer.check_policy`` before any work
