@@ -5,12 +5,12 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py    # every phase, always; needs one CUDA card
 
 Phases:
-  1. device info and the build of csrc/ (the three CUDA sources with nvcc
-     for sm_90a and the host tree builder with g++, the four compilers
+  1. device info and the build of csrc/ (the four CUDA sources with nvcc
+     for sm_90a and the host tree builder with g++, the five compilers
      started together); -Xptxas -v of both planners, every walk, both
      sphere batteries and the fma kernels
      (registers, spills, shared memory), the float64 instructions in the
-     SASS of every kernel of the three CUDA sources (cuobjdump): a planner,
+     SASS of every kernel of the four CUDA sources (cuobjdump): a planner,
      a walk, a battery or an fma kernel with any fails the run; the SASS
      opcodes of the flat planner, sphere_closest and sphere_occluded, and
      the card's clock, for their issue floors;
@@ -124,16 +124,28 @@ Phases:
      prefix walk at m = 1, nv/4, nv/2, nv, the trace2 variants against each
      other, and the times of stream_replay on the busiest tile (beside an
      index_select of the same rows) and on tile 0, and of the prefix
-     launch.
+     launch;
+ 16. the shading knobs (SHADING_PATHS) at full width and card against CPU
+     at 64x64 (check_shading_knobs);
+ 17. light selection: the light_rows kernel against its plain version, bit
+     for bit, on 2^19 rows at 1-10,817 lights (the selection, the sum, the
+     fused sum) and its time at 326 and 10,817 lights; then every
+     LIGHT_PATHS path at full width (10,817 lights at 256x256 under
+     'uniform' and 'alias', brute and accel='pallas'; the 326-light scene at
+     192x192 under 'uniform', 'power', 'ris' and 'restir', 2-D, 1-D and at
+     spp 2; the
+     hero under clear_sky at 1920x1088) with its peak device memory, and
+     each at 64x64 on the CPU and the card: buckets, and the reservoirs
+     under 'restir', equal bit for bit.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
 keyed "kernels" lists every kernel: the five of the sphere paths, the seven
 forms of the fma kernels, every walk with its S, the walks with the
 product-form battery, the seven planner modes of phase 14, and phase 15's
-stream_replay and prefix launch), the
+stream_replay and prefix launch, phase 17's light_rows), the
 clusters planned and walked per tile under each planner, phase 16's numbers
-(keyed "shading_paths"), the total time,
+(keyed "shading_paths"), phase 17's (keyed "light_paths"), the total time,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -161,6 +173,7 @@ KERNEL_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/sphere_battery.cu"
 CLUSTER_SOURCE = \
     "cpu_raytracing_experiments_tpu_torch/csrc/cluster_traverse.cu"
 FMA_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/fma.cu"
+LIGHT_ROWS_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/light_rows.cu"
 _TK = "cpu_raytracing_experiments_tpu/ops/pallas/traverse_kernel.py"
 REPLACES = {
     **{name: "none: the single-rounding a*b + c that XLA contracts in the "
@@ -181,6 +194,9 @@ REPLACES = {
     "stream_replay": "benchmarks/diag_stream2.py:152",
     # the streamed walk over one tile's first m visits (_TK:1174)
     "cluster_closest_stream[prefix]": "benchmarks/diag_stream2.py:327",
+    "light_rows": "none: XLA's jnp.sum / jnp.cumsum over the lights, "
+                  "cpu_raytracing_experiments_tpu/render/renderer.py:300, "
+                  ":302 (_select_light) and :341 (the emissive-hit pdf)",
     # the planner modes last: phase 14 takes them as tuple(REPLACES)[-7:]
     "cluster_plan[super]": _TK + ":420",
     "cluster_plan[group]": _TK + ":420",
@@ -372,7 +388,8 @@ def sass_report(library) -> dict:
 SPLIT_WALKS = ("closest_kernel", "occluded_kernel")  # the walks' names
 # (and the sphere batteries')
 FMA_KERNELS = ("flat_kernel", "strided_kernel")  # csrc/fma.cu
-CHECKED = SPLIT_WALKS + ("plan_kernel", "replay_kernel") + FMA_KERNELS
+CHECKED = SPLIT_WALKS + ("plan_kernel", "replay_kernel", "light_rows_kernel") \
+    + FMA_KERNELS
 # (the kernels that must hold no float64)
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
@@ -383,7 +400,7 @@ SPHERE_OCCLUDED = "occluded_kernelE"  # sphere_occluded
 def report_kernels(libraries):
     """Phase 1's reading of what was compiled: -Xptxas -v for both
     planners, every walk (each a split walk), the sphere batteries and the
-    fma kernels, the SASS of every kernel of the three CUDA sources, and the
+    fma kernels, the SASS of every kernel of the four CUDA sources, and the
     opcodes of the flat planner (the slab tests of its sweep are unrolled 80
     times: 8 octants x (8 + 2) boxes), of sphere_closest and of
     sphere_occluded;
@@ -393,6 +410,8 @@ def report_kernels(libraries):
         cluster_traverse as ct
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import fma as kf
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        light_rows as lr
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
 
     for lib in libraries:
@@ -401,7 +420,7 @@ def report_kernels(libraries):
             log(f"    ptxas {kernel_name(fn)}: {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B, {smem} B static shared")
     bad = []
-    for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY):
+    for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY, lr.LIBRARY):
         for fn, c in sass_report(lib).items():
             log(f"    SASS {lib.source.name} {kernel_name(fn)}: "
                 f"{c['instructions']} instructions, {c['f64 arithmetic']} "
@@ -2135,6 +2154,203 @@ def check_shading_knobs(torch, np, crt):
     return numbers
 
 
+# phase 17: the light-row reductions' counts of lights, held on 2^19 rows
+LIGHT_ROWS_L = (1, 3, 16, 17, 18, 64, 326, 512, 10817)
+LIGHT_ROWS_N = 1 << 19
+LIGHT_ROWS_TIMED = (326, 10817)  # the kernel's ms at these counts
+# (label, scene, frame, bounces, policy knobs, kernels launched); the
+# scenes: benchmarks/many_lights.py:30-33 (10,817 lights), the 326-light
+# scene of benchmarks/convergence_restir_2d.py:32-35, the hero under
+# sky_models.clear_sky() (the JAX CLI's --sky clear)
+BRUTE = ("sphere_closest", "sphere_occluded", "fma")
+LIGHT_PATHS = (
+    ("many lights uniform", "many", (256, 256), 6, {}, BRUTE),
+    ("many lights alias", "many", (256, 256), 6, {"light_sampling": "alias"},
+     BRUTE),
+    ("many lights alias pallas", "many", (256, 256), 6,
+     {"light_sampling": "alias", "accel": "pallas"},
+     ("cluster_plan", "cluster_closest", "cluster_occluded", "fma")),
+    ("326 lights uniform", "field", (192, 192), 6, {}, BRUTE),
+    ("326 lights power", "field", (192, 192), 6, {"light_sampling": "power"},
+     BRUTE + ("light_rows",)),
+    ("326 lights ris", "field", (192, 192), 6, {"light_sampling": "ris"},
+     BRUTE),
+    ("326 lights restir", "field", (192, 192), 6,
+     {"light_sampling": "restir"}, BRUTE),
+    ("326 lights restir 1-D", "field", (192, 192), 6,
+     {"light_sampling": "restir", "restir_spatial_2d": False}, BRUTE),
+    ("326 lights restir spp2", "field", (192, 192), 6,
+     {"light_sampling": "restir", "samples_per_pixel": 2}, BRUTE),
+    ("hero clear sky", "hero sky", FRAME, 8, {"rays_per_chunk": 1 << 19},
+     BRUTE),
+)
+
+
+def light_scene(crt, kind, width, height):
+    """A phase-17 scene on the host."""
+    from cpu_raytracing_experiments_tpu_torch.scene.scene import Sky
+
+    if kind == "many":
+        scene = crt.builders.random_spheres_scene(
+            width, height, num_spheres=12000, emissive_fraction=0.9, seed=99)
+        return crt.accel.with_pallas_clusters(scene)
+    if kind == "field":
+        return crt.builders.random_spheres_scene(
+            width, height, num_spheres=1000, emissive_fraction=0.3, seed=77)
+    import dataclasses
+
+    return dataclasses.replace(
+        crt.builders.default_scene(width, height),
+        sky=Sky.from_image(crt.sky_models.clear_sky(), ambient=(1, 1, 1)))
+
+
+def check_light_rows(torch, timer):
+    """Phase 17 (a): the light_rows kernel against its plain version, bit
+    for bit, on 2^19 rows at every count of LIGHT_ROWS_L: the selection
+    (half the draws on an entry of the running sum) and the sum alone, in
+    both orders up to 32 lights. Random weights (a cube of uniforms, a
+    tenth zero) from a seed on the card; the plain version runs on slices
+    of rows. Returns the kernels-line row at 2^19 x 326, with the times at
+    10,817 lights beside it."""
+    from cpu_raytracing_experiments_tpu_torch.core import fp
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        light_rows as lr
+
+    n = LIGHT_ROWS_N
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    timed = {}
+    for lights in LIGHT_ROWS_L:
+        step = max(1, (1 << 28) // lights)  # rows of a 1 GiB slice
+        slices = [slice(a, min(a + step, n)) for a in range(0, n, step)]
+        w = torch.empty((n, lights), dtype=torch.float32, device=DEVICE)
+        for sl in slices:
+            part = w[sl]
+            part.copy_(torch.rand(part.shape, generator=gen, device=DEVICE)
+                       ** 3)
+            part.masked_fill_(torch.rand(part.shape, generator=gen,
+                                         device=DEVICE) < 0.1, 0.0)
+        f = torch.rand(n, generator=gen, device=DEVICE)
+        pick = torch.randint(0, lights, (n, 1), generator=gen, device=DEVICE)
+        on = torch.rand(n, generator=gen, device=DEVICE) < 0.5
+        for sl in slices:
+            total = fp.row_sum(w[sl])
+            entry = fp.row_cumsum(w[sl]).gather(1, pick[sl])[:, 0]
+            f[sl] = torch.where(on[sl] & (total > 0),
+                                (entry.double() / total.double()).float(),
+                                f[sl])
+        modes = [(f, False), (None, False)] + (
+            [(None, True)] if lights <= 32 else [])
+        for draws, fused in modes:
+            got = lr.light_rows(w, draws, fused)
+            torch.cuda.synchronize()
+            differ = 0
+            for sl in slices:
+                want = lr.rows_plain(w[sl], None if draws is None
+                                     else draws[sl], fused)
+                for a, b in zip(got, want):
+                    if b is not None:
+                        differ += int((a[sl].view(torch.int32)
+                                       != b.view(torch.int32)).sum())
+            log(f"[17 light_rows] {n} x {lights}, "
+                f"{'selection' if draws is not None else 'sum'}"
+                f"{', fused order' if fused else ''}: {differ} entries "
+                f"differ from the plain version")
+            if differ:
+                raise AssertionError(f"light_rows differs at {lights} lights")
+        if lights in LIGHT_ROWS_TIMED:
+            ms = timer(lambda: lr.light_rows(w, f), 5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for sl in slices:
+                lr.rows_plain(w[sl], f[sl])
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ref_ms = (timer(lambda: torch.cumsum(w, dim=1), 3)
+                      if len(slices) == 1 else None)
+            timed[lights] = kernel_row(
+                "light_rows", LIGHT_ROWS_SOURCE, f"{n} x {lights}", 0, 0.0,
+                ms, plain_ms, n * lights * 4 + n * 16, 3 * n * lights)
+            log(f"[17 light_rows] {n} x {lights}: {ms:.4f} ms (bound "
+                f"{timed[lights]['bound_ms']:.4f} ms by bytes); plain "
+                f"{plain_ms:.2f} ms in {len(slices)} slice(s); torch.cumsum "
+                f"of the rows alone {ref_ms} ms")
+        del w
+        torch.cuda.empty_cache()
+    main, big = (timed[k] for k in LIGHT_ROWS_TIMED)
+    main["at_10817_lights"] = {k: big[k] for k in ("shape", "ms", "plain_ms",
+                                                   "bound_ms")}
+    return main
+
+
+def check_light_modes(torch, np, crt):
+    """Phase 17 (b)-(c): every LIGHT_PATHS path at its full width, one
+    timed pass a window (render(): launches from 0, expected kernels,
+    light_rows idle but under 'power'), its peak device memory (also above
+    what the process held before the path); then each at
+    64x64 on the CPU and on the card, 2 passes (3 under 'restir', 1 on the
+    12,000-sphere scene): buckets, and under 'restir' the reservoirs, equal
+    bit for bit. Returns the numbers of each path."""
+    import hashlib
+
+    numbers = {}
+    for label, kind, (width, height), bounces, knobs, expect in LIGHT_PATHS:
+        policy = crt.RendererPolicy(max_bounces=bounces, **knobs)
+        scene = light_scene(crt, kind, width, height)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 20  # earlier phases'
+        idle = () if "light_rows" in expect else ("light_rows",)
+        _, path = render(torch, crt, scene, policy, width, height, 1,
+                         f"17 {label}", expect, idle)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = path["profile"]
+        log(f"[17 {label}] {width}x{height}, {scene.num_lights} lights: "
+            f"{path['ms_per_pass']:.2f} ms/pass, busy {prof['busy_ms']} ms of "
+            f"{prof['wall_ms']:.2f}, {prof['launches']} kernel launches, "
+            f"light_rows {path['launches']['light_rows'] / WINDOWS:.1f} a "
+            f"pass, peak {peak:.1f} MiB, {peak - held:.1f} MiB above the "
+            f"{held:.1f} MiB held before the path")
+        numbers[label] = {"ms_per_pass": path["ms_per_pass"],
+                          "rays_per_pass": path["rays_per_pass"],
+                          "profile": prof, "peak_mib": peak,
+                          "peak_above_held_mib": peak - held,
+                          "lights": scene.num_lights,
+                          "launches": {k: v for k, v in
+                                       path["launches"].items() if v}}
+        del scene
+        torch.cuda.empty_cache()
+    for label, kind, _, bounces, knobs, _ in LIGHT_PATHS:
+        policy = crt.RendererPolicy(max_bounces=bounces, **{
+            **knobs, "rays_per_chunk": 4096})
+        scene = light_scene(crt, kind, 64, 64)
+        # the 12,000-sphere scene's plain batteries take ~17 s a pass on
+        # the host: one pass there
+        passes = (3 if policy.light_sampling == "restir"
+                  else 1 if kind == "many" else 2)
+        renders = []
+        for device in ("cpu", DEVICE):
+            r = crt.Renderer(scene, policy, 64, 64, device=device)
+            r.accumulate(passes)
+            renders.append(r)
+        cpu, card = (r.state.buckets.cpu() for r in renders)
+        differ = int((cpu.view(torch.int32) != card.view(torch.int32)).sum())
+        res_differ = 0
+        if policy.light_sampling == "restir":
+            a, b = (r.state.reservoir.cpu() for r in renders)
+            res_differ = int((a.view(torch.int32) != b.view(torch.int32))
+                             .sum())
+        digest = hashlib.sha256(card.numpy().tobytes()).hexdigest()[:16]
+        log(f"[17 {label}] 64x64, {passes} passes: card buckets {digest}, "
+            f"{differ} of {card.numel()} entries differ from the CPU's; "
+            f"reservoir entries differing {res_differ}")
+        numbers[label].update(cpu_card_differing=differ,
+                              reservoir_differing=res_differ,
+                              buckets_sha256=digest)
+        if differ or res_differ:
+            raise AssertionError(f"[17 {label}] the card differs from the CPU")
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -2152,6 +2368,8 @@ def main() -> int:
         cluster_traverse as ct
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import fma as kf
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        light_rows as lr
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
     from cpu_raytracing_experiments_tpu_torch.utils import native
 
@@ -2166,7 +2384,8 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip())
     t0 = time.perf_counter()
-    libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, native.LIBRARY)
+    libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, lr.LIBRARY,
+                 native.LIBRARY)
     build.load_all(libraries)
     log(f"[1] csrc/ built side by side and loaded in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(lib.source.name for lib in libraries)})")
@@ -2435,6 +2654,12 @@ def main() -> int:
     t0 = time.perf_counter()
     shading = check_shading_knobs(torch, np, crt)
     log(f"[16] shading knobs checked in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    light_rows_row = check_light_rows(torch, timer)
+    light_paths = check_light_modes(torch, np, crt)
+    light_rows_row["launches"] = \
+        light_paths["326 lights power"]["launches"]["light_rows"]
+    log(f"[17] light selection checked in {time.perf_counter() - t0:.1f} s")
 
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
@@ -2484,10 +2709,12 @@ def main() -> int:
         f"{tname}, {kind}": v for (tname, kind), v in plan_numbers.items()}}))
     log(json.dumps({"fma_host_us_a_call": fma_host}))
     log(json.dumps({"shading_paths": shading}))
+    log(json.dumps({"light_paths": light_paths}))
+    log(card)
     log(json.dumps({"kernels": list(hero_rows.values())
                     + list(fma_rows.values())
                     + list(main_rows.values()) + list(new_rows.values())
-                    + list(stream2_rows.values())}))
+                    + list(stream2_rows.values()) + [light_rows_row]}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

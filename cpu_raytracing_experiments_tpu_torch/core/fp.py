@@ -29,11 +29,18 @@ rounded:
   holds the fused launches to;
 * ``sqrt``: IEEE on the card; on the CPU PyTorch's vectorised sqrt is off by
   one ulp in ~0.6% of lanes, so the CPU path goes through float64;
-* ``rsqrt``, ``sin``, ``cos``: through float64, rounded once to float32.
+* ``rsqrt``, ``sin``, ``cos``, ``atan2``, ``asin``: through float64,
+  rounded once to float32, on the CPU and the card alike.
 
 XLA's own CPU ``rsqrt`` (``vrsqrtps`` plus two Newton steps) and its
-``sin``/``cos`` are not correctly rounded, so those stay a source of
-one-ulp differences from the JAX package.
+``sin``/``cos``/``atan2``/``asin`` are not correctly rounded, so those stay
+a source of one-ulp differences from the JAX package.
+
+Reductions over a row of runtime length (the lights of a scene) are summed in
+the order XLA's CPU compiler gives ``jnp.sum(w, axis=1)`` and
+``jnp.cumsum(w, axis=1)`` (``row_sum``, ``row_cumsum``): a light's cdf entry
+one ulp off moves the selected light, and with it the path. On the card
+``ops/kernels/light_rows.py`` computes both in the same order.
 """
 from __future__ import annotations
 
@@ -104,6 +111,14 @@ def cos(x: torch.Tensor) -> torch.Tensor:
     return torch.cos(x.double()).float()
 
 
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.atan2(y.double(), x.double()).float()
+
+
+def asin(x: torch.Tensor) -> torch.Tensor:
+    return torch.asin(x.double()).float()
+
+
 def _dot3(f, ax, ay, az, bx, by, bz):
     return f(az, bz, f(ax, bx, ay * by))
 
@@ -135,3 +150,118 @@ def fma3(a, b, c):
 def fma3_plain(a, b, c):
     """``fma3`` from ``fma_plain``: the plain version of its kernel."""
     return type(a)(*(fma_plain(ac, b, cc) for ac, cc in zip(a, c)))
+
+
+SUM_BLOCK = 32  # XLA's CPU tree reduction: windows of 32 above 32 terms
+SCAN_BLOCK = 16  # XLA's blocked cumulative sum: blocks of 16 above 16 terms
+
+
+def _sequential_sum(x):
+    """The last axis of `x` added left to right from 0, as XLA reduces it."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def _sequential_scan(x):
+    """The running sums of the last axis of `x`, left to right from 0."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+        out[..., j] = acc
+    return out
+
+
+def sum_levels(n: int):
+    """Term counts of ``row_sum``'s levels: n, then the window sums of each
+    level until at most SUM_BLOCK remain."""
+    sizes = [n]
+    while sizes[-1] > SUM_BLOCK:
+        sizes.append(-(-sizes[-1] // SUM_BLOCK))
+    return sizes
+
+
+def scan_levels(n: int):
+    """Term counts of ``row_cumsum``'s levels: n, then the block totals of
+    each level until at most SCAN_BLOCK remain."""
+    sizes = [n]
+    while sizes[-1] > SCAN_BLOCK:
+        sizes.append(-(-sizes[-1] // SCAN_BLOCK))
+    return sizes
+
+
+def _lanes8(b):
+    """The 8 lanes of `b` [..., 8] reduced as LLVM reduces a vector of 8
+    floats: halves, then quarters, then the pair."""
+    c = b[..., :4] + b[..., 4:]
+    d = c[..., :2] + c[..., 2:]
+    return d[..., 0] + d[..., 1]
+
+
+def _vector_sum(x):
+    """The last axis of `x` (at most 32 terms) summed as XLA's CPU backend
+    sums a reduction fused with the elementwise producer of its terms, which
+    it emits with reassociation allowed, so that LLVM vectorizes it in lanes
+    of 8: up to 11 terms left to right; 12-15 terms as 8 lanes (terms 8.. on
+    lanes 0..) reduced by ``_lanes8``; 16-31 terms as one or two more blocks
+    of 8 added lane by lane, reduced by ``_lanes8``, the rest added left to
+    right; 32 terms as two accumulators of 8 lanes (blocks 0 and 2, 1 and
+    3) added lane by lane, then reduced."""
+    n = x.shape[-1]
+    if n < 12:
+        return _sequential_sum(x)
+    if n < 16:
+        lanes = x[..., :8].clone()
+        lanes[..., :n - 8] = x[..., :n - 8] + x[..., 8:]
+        return _lanes8(lanes)
+    if n == 32:
+        return _lanes8((x[..., :8] + x[..., 16:24])
+                       + (x[..., 8:16] + x[..., 24:]))
+    blocks = n // 8
+    lanes = x[..., :8]
+    for k in range(1, blocks):
+        lanes = lanes + x[..., 8 * k:8 * k + 8]
+    acc = _lanes8(lanes)
+    for j in range(8 * blocks, n):
+        acc = acc + x[..., j]
+    return acc
+
+
+def row_sum(w: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    """The sums of the rows of float32 `w` [R, L], rounded as jitted
+    ``jnp.sum(w, axis=1)`` rounds them on XLA's CPU backend: up to 32 terms
+    left to right; above that the row is zero-padded to windows of 32, half
+    the padding (rounded down) in front, each window summed left to right,
+    and the window sums reduced again the same way. With `fused`, a row of
+    at most 32 terms is summed as a reduction fused with the computation of
+    its terms is (``_vector_sum``): the JAX renderer's emissive-hit pdf."""
+    x = w
+    if fused and x.shape[1] <= SUM_BLOCK:
+        return _vector_sum(x)
+    while x.shape[1] > SUM_BLOCK:
+        n = x.shape[1]
+        nb = -(-n // SUM_BLOCK)
+        lo = (nb * SUM_BLOCK - n) // 2
+        x = torch.nn.functional.pad(x, (lo, nb * SUM_BLOCK - n - lo))
+        x = _sequential_sum(x.view(x.shape[0], nb, SUM_BLOCK))
+    return _sequential_sum(x)
+
+
+def row_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """The running sums along the rows of float32 `w` [R, L], rounded as
+    jitted ``jnp.cumsum(w, axis=1)`` rounds them on XLA's CPU backend: up to
+    16 terms left to right; above that the row is zero-padded at its end to
+    blocks of 16, each block scanned left to right, the block totals scanned
+    the same way (recursively), and entry i is its in-block running sum plus
+    the running total of the blocks before its own."""
+    n = w.shape[1]
+    if n <= SCAN_BLOCK:
+        return _sequential_scan(w)
+    nb = -(-n // SCAN_BLOCK)
+    x = torch.nn.functional.pad(w, (0, nb * SCAN_BLOCK - n))
+    inblock = _sequential_scan(x.view(x.shape[0], nb, SCAN_BLOCK))
+    before = torch.nn.functional.pad(row_cumsum(inblock[:, :, -1])[:, :-1],
+                                     (1, 0))
+    return (inblock + before[:, :, None]).view(x.shape[0], -1)[:, :n]

@@ -57,7 +57,8 @@ class Renderer:
                                                   self.device)
 
     def reset_accumulator(self):
-        """Renderer::ResetAccumulator (Renderer.hpp:64-67)."""
+        """Renderer::ResetAccumulator (Renderer.hpp:64-67); also empties the
+        ReSTIR reservoirs."""
         self.state = self.state.reset()
 
     def accumulate(self, n: int = 1):

@@ -10,6 +10,7 @@ frame's buckets are the largest state the renderer keeps.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -25,11 +26,22 @@ class RenderState:
     """buckets: [B, 3, npix] float32 on the render device; accumulations: the
     u32 pass counter, kept on the host; rays_traced: 0-d int64 on the render
     device, the passes' ``ray_count`` summed since the last reset (the
-    Mrays/s numerator; read it only after the passes, it syncs)."""
+    Mrays/s numerator; read it only after the passes, it syncs); reservoir:
+    under ``light_sampling='restir'`` the per-pixel ReSTIR reservoirs
+    carried from pass to pass, [3, npix] float32 (light index as a float,
+    -1 = empty; contribution weight W; candidate count), else None. A reset
+    empties them with the buckets."""
 
     buckets: torch.Tensor
     accumulations: int
     rays_traced: torch.Tensor
+    reservoir: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def _empty_reservoir(npix: int, device=None) -> torch.Tensor:
+        res = torch.zeros((3, npix), dtype=torch.float32, device=device)
+        res[0] = -1.0
+        return res
 
     @staticmethod
     def create(width: int, height: int, policy: RendererPolicy,
@@ -37,12 +49,18 @@ class RenderState:
         return RenderState(
             torch.zeros((policy.accumulation_buckets, 3, width * height),
                         dtype=torch.float32, device=device),
-            0, torch.zeros((), dtype=torch.int64, device=device))
+            0, torch.zeros((), dtype=torch.int64, device=device),
+            RenderState._empty_reservoir(width * height, device)
+            if policy.light_sampling == "restir" else None)
 
     def reset(self) -> "RenderState":
         """ResetAccumulator (Renderer.hpp:64-67)."""
-        return RenderState(torch.zeros_like(self.buckets), 0,
-                           torch.zeros_like(self.rays_traced))
+        res = self.reservoir
+        return RenderState(
+            torch.zeros_like(self.buckets), 0,
+            torch.zeros_like(self.rays_traced),
+            None if res is None
+            else RenderState._empty_reservoir(res.shape[1], res.device))
 
 
 def _add_pass(buckets, policy, acc: int, rad_x, rad_y, rad_z):
@@ -53,11 +71,17 @@ def _add_pass(buckets, policy, acc: int, rad_x, rad_y, rad_z):
 def accumulate(scene: Scene, policy: RendererPolicy, state: RenderState,
                width: int, height: int) -> RenderState:
     """One progressive sample per pixel into bucket accumulations % B
-    (Renderer.hpp:73-84)."""
+    (Renderer.hpp:73-84), the ReSTIR reservoirs carried through the pass."""
     acc = (state.accumulations + 1) & MASK
-    rad, count = _renderer.render_pass(scene, policy, acc, width, height)
+    reservoir = state.reservoir
+    if policy.light_sampling == "restir" and reservoir is not None:
+        rad, count, reservoir = _renderer.render_pass(
+            scene, policy, acc, width, height, restir_in=reservoir)
+    else:
+        rad, count = _renderer.render_pass(scene, policy, acc, width, height)
     _add_pass(state.buckets, policy, acc, *rad)
-    return RenderState(state.buckets, acc, state.rays_traced + count)
+    return RenderState(state.buckets, acc, state.rays_traced + count,
+                       reservoir)
 
 
 def accumulate_wide(scene: Scene, policy: RendererPolicy, state: RenderState,
@@ -71,12 +95,13 @@ def accumulate_wide(scene: Scene, policy: RendererPolicy, state: RenderState,
         _add_pass(state.buckets, policy, (acc0 + i) & MASK,
                   rad.x[i], rad.y[i], rad.z[i])
     return RenderState(state.buckets, (acc0 + k - 1) & MASK,
-                       state.rays_traced + count)
+                       state.rays_traced + count, state.reservoir)
 
 
 def launch_width(policy: RendererPolicy, width: int, height: int) -> int:
     """Passes per wavefront launch for accumulate_n: fill rays_per_chunk,
-    cap 8 ('auto'), or policy.passes_per_launch."""
+    cap 8 ('auto'), or policy.passes_per_launch; 1 under 'restir', whose
+    reservoirs chain pass to pass."""
     if policy.light_sampling == "restir":
         return 1
     ppl = policy.passes_per_launch

@@ -4,8 +4,10 @@
 
 Structure of one bounce (``bounce_step``, Renderer.hpp:131-432): intersect
 (the closest-hit battery, or the clustered traversal) -> closest-hit frame
--> NEE with MIS and a shadow any-hit -> emissive hit with MIS -> BSDF
-sample (lambertian, GGX or principled) + Russian roulette -> miss/sky.
+-> NEE with MIS and a shadow any-hit (the light picked uniformly, by
+power, from an alias table, by RIS or by ReSTIR with per-pixel reservoirs)
+-> emissive hit with MIS -> BSDF sample (lambertian, GGX or principled) +
+Russian roulette -> miss/sky.
 ``trace_rays`` runs bounces over one chunk of rays as a Python loop with
 mask-based termination: it stops at
 ``max_bounces`` or when no lane is alive, and with narrowing on it compacts
@@ -17,7 +19,8 @@ chunk are dead from bounce 0.
 
 RNG is the counter scheme of ``core/rng.py``, bit for bit the JAX package's,
 so both packages draw the same numbers at every decision point. Knobs
-outside this port slice raise ``NotImplementedError`` (``check_policy``).
+outside the port (the BVH, grid and clustered backends) raise
+``NotImplementedError`` (``check_policy``).
 """
 from __future__ import annotations
 
@@ -35,11 +38,13 @@ from ..core.rng import MASK, add32, mul32
 from ..core.vec import Quat, Vec3
 from ..ops import closures, intersect
 from ..ops import gather as fast_gather
+from ..ops.kernels import light_rows
 from ..ops.kernels.cluster_traverse import PLANS, compact_order
 from ..scene.scene import Scene
 from ..utils.config import RendererPolicy
 
 FLT_EPSILON = 1.1920928955078125e-07  # float32(1.1920929e-7)
+THIRD = float(np.float32(1.0 / 3.0))
 
 
 class PathState(NamedTuple):
@@ -73,8 +78,9 @@ def check_policy(policy: RendererPolicy):
 
     Every ``brdf`` renders ('lambertian', 'ggx', 'principled', with
     ``shade_f80``), as do ``enable_dof``, ``stratify_camera``,
-    ``rng_scramble`` and any ``samples_per_pixel``; ``light_sampling``
-    must be 'uniform'.
+    ``rng_scramble``, any ``samples_per_pixel`` and every
+    ``light_sampling`` ('uniform', 'power', 'alias', 'ris' and 'restir'
+    with its ``restir_*`` knobs).
 
     ``accel`` / ``primary_accel`` may be 'brute' or 'pallas'. Of the pallas_*
     knobs, ``pallas_tile_rays``, ``pallas_compact``, ``pallas_stream`` and
@@ -99,8 +105,6 @@ def check_policy(policy: RendererPolicy):
             policy.effective_accel not in ("brute", "pallas"),
         f"primary_accel={policy.primary_accel!r}":
             policy.primary_accel not in (None, "brute", "pallas"),
-        f"light_sampling={policy.light_sampling!r}":
-            policy.light_sampling != "uniform",
     }
     if "pallas" in accels:
         refused[f"pallas_plan={policy.pallas_plan!r}"] = \
@@ -313,21 +317,269 @@ def _gather_material(scene: Scene, policy: RendererPolicy, mat_id) -> dict:
     return mat
 
 
+def _light_selection_weights(scene: Scene, point: Vec3):
+    """[R, L] unnormalized selection weights of power-proportional light
+    selection (renderer.py:235-272 of the JAX package): max emission times
+    the approximate solid angle the light subtends from `point`, sphere
+    lights first, then triangle lights (from the centroid v0 + (e1 + e2) /
+    3). |d|^2 and the centroid contract as XLA contracts them."""
+    em_all = scene.materials.emission
+    cols = []
+
+    def weights(cx, cy, cz, em, size):
+        dx = cx[None, :] - point.x[:, None]
+        dy = cy[None, :] - point.y[:, None]
+        dz = cz[None, :] - point.z[:, None]
+        d2 = fp.dot3(dx, dy, dz, dx, dy, dz)
+        return torch.div((em * size)[None, :],
+                         torch.maximum(d2, size[None, :]))
+
+    if scene.num_lights > 0:
+        sl = scene.lights.to(torch.int64)
+        sp = scene.spheres
+        mid = sp.material_id[sl].to(torch.int64)
+        em = Vec3(em_all.x[mid], em_all.y[mid], em_all.z[mid])
+        cols.append(weights(sp.center.x[sl], sp.center.y[sl],
+                            sp.center.z[sl], em.max_component(),
+                            sp.radius_sq[sl]))
+    if scene.num_tri_lights > 0:
+        tl = scene.tri_lights.to(torch.int64)
+        tri = scene.triangles
+        # XLA divides by 3 as a product by float32(1/3), fused with + v0
+        cx, cy, cz = (fma(e1[tl] + e2[tl], THIRD, v0[tl])
+                      for v0, e1, e2 in zip(tri.v0, tri.e1, tri.e2))
+        mid = tri.material_id[tl].to(torch.int64)
+        em = Vec3(em_all.x[mid], em_all.y[mid], em_all.z[mid])
+        cols.append(weights(cx, cy, cz, em.max_component(), tri.area[tl]))
+    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+
+
+def _uniform_pick(f, light_count: int):
+    """The light a unit draw picks uniformly, bit-identical to the
+    reference's rand_bounded_int (Random.hpp:31-34): int64 [R]."""
+    return torch.clamp_max((f * float(light_count)).to(torch.int64),
+                           light_count - 1)
+
+
 def _select_light(scene: Scene, policy: RendererPolicy, point: Vec3, f,
                   light_count: int):
-    """Uniform light selection from one unit draw, bit-identical to the
-    reference's rand_bounded_int (Random.hpp:31-34): (selected [R] int64,
-    selection pdf)."""
-    sel = torch.clamp_max((f * float(light_count)).to(torch.int64),
-                          light_count - 1)
-    return sel, 1.0 / light_count
+    """Select a light from one unit draw `f`: (selected [R] int64, selection
+    pdf), the pdf a Python float under uniform selection. 'power' takes
+    the row total and the running sum of the weights in XLA's order
+    (``ops/kernels/light_rows.py``), with the uniform pick where a row's
+    weights are all zero; 'alias' one row of the scene's alias table."""
+    if policy.light_sampling == "uniform" or light_count == 1:
+        return _uniform_pick(f, light_count), 1.0 / light_count
+    if policy.light_sampling == "alias" and scene.light_alias is not None:
+        # O(1) in L: one alias-row gather picks the light and its pdf
+        u = f * float(light_count)
+        b = torch.clamp_max(u.to(torch.int32), light_count - 1)
+        frac = u - b.to(torch.float32)
+        row = fast_gather.gather_rows(scene.light_alias.table, b)
+        take_bin = frac < row[:, 0]
+        sel = torch.where(take_bin, b, row[:, 1].to(torch.int32))
+        return sel.to(torch.int64), torch.where(take_bin, row[:, 2],
+                                                row[:, 3])
+    w = _light_selection_weights(scene, point)
+    total, sel, p_sel = light_rows.light_rows(w, f)
+    ok = total > 0.0  # all-zero weights: the uniform pick
+    return (torch.where(ok, sel.to(torch.int64),
+                        _uniform_pick(f, light_count)),
+            torch.where(ok, p_sel, 1.0 / light_count))
 
 
 def _hit_light_selection_pdf(scene, policy, state, prim_id, is_tri,
                              light_count):
-    """Selection pdf the previous shading point would have used for the hit
-    light; uniform selection makes it 1/L."""
-    return 1.0 / light_count
+    """The selection pdf with which the previous shading point (the ray
+    origin, state.p) would have picked the light just hit: 1/L under
+    uniform selection, the prim's entry of the alias table's pdfs under
+    'alias', its weight over the row total at state.p under 'power'. A
+    lane whose hit prim is no light gets 1/L (masked out downstream)."""
+    if policy.light_sampling == "uniform" or light_count == 1:
+        return 1.0 / light_count
+    safe = torch.clamp_min(prim_id, 0).to(torch.int64)
+    la = scene.light_alias
+    if policy.light_sampling == "alias" and la is not None:
+        p = la.sphere_pdf[torch.clamp_max(safe, la.sphere_pdf.shape[0] - 1)]
+        if la.tri_pdf is not None:
+            p = torch.where(is_tri, la.tri_pdf[torch.clamp_max(
+                safe, la.tri_pdf.shape[0] - 1)], p)
+        return torch.where(p > 0.0, p, 1.0 / light_count)
+    w = _light_selection_weights(scene, state.p)
+    # XLA fuses this sum with the weights (row_sum's `fused` order)
+    total = torch.clamp_min(light_rows.light_rows(w, fused=True)[0], 1e-30)
+    # the hit prim's column: its index in the light lists (each prim is
+    # listed at most once, so this is the JAX package's first match)
+    n_s = scene.num_lights
+    idx = torch.full_like(safe, -1)
+    if n_s > 0:
+        col = torch.full((scene.spheres.count,), -1, dtype=torch.int64,
+                         device=safe.device)
+        col[scene.lights.to(torch.int64)] = torch.arange(
+            n_s, device=safe.device)
+        idx = torch.where(~is_tri & (prim_id >= 0),
+                          col[torch.clamp_max(safe, col.shape[0] - 1)], idx)
+    if scene.num_tri_lights > 0:
+        col = torch.full((scene.triangles.count,), -1, dtype=torch.int64,
+                         device=safe.device)
+        col[scene.tri_lights.to(torch.int64)] = torch.arange(
+            n_s, n_s + scene.num_tri_lights, device=safe.device)
+        idx = torch.where(is_tri & (prim_id >= 0),
+                          col[torch.clamp_max(safe, col.shape[0] - 1)], idx)
+    found = idx >= 0
+    p = torch.div(w.gather(1, torch.clamp_min(idx, 0)[:, None])[:, 0], total)
+    return torch.where(found, p, 1.0 / light_count)
+
+
+RIS_CANDIDATES = 4  # M for light_sampling='ris'
+
+
+def _candidates(w_table, site, light_count: int):
+    """RIS_CANDIDATES uniform candidates streamed into an empty reservoir
+    with weights p_hat / p_src = p_hat * L (renderer.py:371-384 and
+    :429-437 of the JAX package): (site, sel [R] int64 with -1 = empty,
+    wsum [R]). The take test divides the rounded product; the sum
+    contracts as XLA does: 0 + w0 folds to w0, then w0 + w1 fuses the first
+    candidate's product, fma(p0, L, w1), and each later add the new
+    one's."""
+    sel = torch.full(w_table.shape[:1], -1, dtype=torch.int64,
+                     device=w_table.device)
+    first = None
+    for k in range(RIS_CANDIDATES):
+        site, u_cand = rng.rand_unit_float(site)
+        cand = _uniform_pick(u_cand, light_count)
+        p_hat = w_table.gather(1, cand[:, None])[:, 0]
+        w = p_hat * float(light_count)
+        if k == 0:
+            first, wsum = p_hat, w
+        elif k == 1:
+            wsum = fma(first, float(light_count), w)
+        else:
+            wsum = fma(p_hat, float(light_count), wsum)
+        site, u_res = rng.rand_unit_float(site)
+        take = u_res < torch.div(w, torch.clamp_min(wsum, 1e-30))
+        sel = torch.where(take, cand, sel)
+    return site, sel, wsum
+
+
+def _select_light_ris(scene, policy, point: Vec3, site, light_count: int):
+    """Resampled importance sampling over lights (the reference's dormant
+    RIS hook, Sampling.hpp:25-73, wired into NEE): RIS_CANDIDATES uniform
+    candidates re-weighted by the power weights at `point`, one survivor a
+    lane. Returns (site, selected [R] int64, W [R]), W the unbiased
+    contribution weight that replaces 1/p_select."""
+    w_table = _light_selection_weights(scene, point)
+    site, sel, wsum = _candidates(w_table, site, light_count)
+    ok = sel >= 0
+    p_hat_sel = w_table.gather(1, torch.clamp_min(sel, 0)[:, None])[:, 0]
+    big_w = torch.where(ok & (p_hat_sel > 0.0), torch.div(
+        wsum, RIS_CANDIDATES * torch.clamp_min(p_hat_sel, 1e-30)), 0.0)
+    return site, torch.where(ok, sel, 0), big_w
+
+
+def _restir_key(order: str, width: int, edge: int):
+    """The ray-order key of local pixel (x, y): raster y * W + x, or
+    tile-major then raster within a tile of edge x edge pixels."""
+    if order == "tile":
+        tiles_x = -(-width // edge)
+        return lambda px, py: (((py // edge) * tiles_x + (px // edge))
+                               * (edge * edge) + (py % edge) * edge
+                               + (px % edge))
+    return lambda px, py: py * width + px
+
+
+def _select_light_restir(scene, policy, point: Vec3, site, light_count: int,
+                         res_in, guides=None, xy=None, geom=None):
+    """ReSTIR light selection (renderer.py:397-540 of the JAX package): a
+    fresh RIS reservoir merged with the lane's temporal reservoir (the
+    pixel's, from the previous pass) and ``restir_spatial`` neighbour
+    reservoirs, each re-weighted by the power weight at the current
+    `point`; W = wsum / (count * p_hat(sel)).
+
+    Neighbours: with `xy` (the lanes' local pixel coordinates) and `geom`
+    (order, width, tile edge, spp), a screen-space neighbour (dx, dy) in the
+    ``restir_radius`` box, its lane recovered from the ray-order key
+    (``_restir_key``) within this chunk of lanes and verified against the
+    gathered lane's own coordinates; `guides` (normal Vec3, hit distance)
+    adds the geometry rejection behind ``restir_reject`` (dot of the normals
+    >= 0.906, |t - t_nb| <= 0.1 max). Without them, 1-D lane offsets.
+
+    res_in / res_out: (sample [R] int64, -1 = empty; W [R]; count [R]) in
+    the lanes' order. Returns (site, selected, W, res_out)."""
+    w_table = _light_selection_weights(scene, point)
+    device = point.x.device
+    m = float(RIS_CANDIDATES)
+
+    def p_hat(cand):
+        return w_table.gather(1, torch.clamp_min(cand, 0)[:, None])[:, 0]
+
+    site, sel, wsum = _candidates(w_table, site, light_count)
+    cnt = torch.full_like(point.x, m)
+
+    s_in, w_in, c_in = res_in
+    cands = [(s_in, w_in, c_in, None)]
+    num = s_in.shape[0]
+    lane = torch.arange(num, dtype=torch.int64, device=device)
+    radius = policy.restir_radius
+    span = float(2 * radius + 1)
+    use_2d = xy is not None and geom is not None
+    reject = False
+    if use_2d:
+        order, width, edge, spp = geom
+        key = _restir_key(order, width, edge)
+        x_i, y_i = xy
+        key_self = key(x_i, y_i)
+        # one packed row a lane: one row gather a candidate
+        cols = [s_in, w_in, c_in, x_i, y_i]
+        reject = guides is not None and policy.restir_reject
+        if reject:
+            n_g, d_g = guides
+            cols += [n_g.x, n_g.y, n_g.z, d_g]
+        nb_tbl = fast_gather.pack_table(*cols)
+    for _ in range(policy.restir_spatial):
+        if not use_2d:
+            site, u_off = rng.rand_unit_float(site)
+            off = (u_off * span).to(torch.int64) - radius
+            idx = torch.clamp(lane + off, 0, num - 1)
+            cands.append((s_in[idx], w_in[idx], c_in[idx], None))
+            continue
+        site, u_dx = rng.rand_unit_float(site)
+        site, u_dy = rng.rand_unit_float(site)
+        nx = torch.clamp(x_i + (u_dx * span).to(torch.int64) - radius, 0,
+                         width - 1)
+        # the top is clamped; the bottom is caught by the coordinate check
+        ny = torch.clamp_min(y_i + (u_dy * span).to(torch.int64) - radius, 0)
+        idx = torch.clamp(lane + (key(nx, ny) - key_self) * spp, 0, num - 1)
+        row = fast_gather.gather_rows(nb_tbl, idx)
+        ok2 = ((row[:, 3].to(torch.int64) == nx)
+               & (row[:, 4].to(torch.int64) == ny))
+        if reject:
+            ndot = fp.dot3(n_g.x, n_g.y, n_g.z, row[:, 5], row[:, 6],
+                           row[:, 7])
+            d_nb = row[:, 8]
+            ok2 = ok2 & (ndot >= 0.906) & (
+                torch.abs(d_g - d_nb) <= 0.1 * torch.maximum(d_g, d_nb))
+        cands.append((row[:, 0].to(torch.int64), row[:, 1], row[:, 2], ok2))
+
+    cap = m * float(policy.restir_temporal_cap)
+    for s_q, w_q, c_q, extra_ok in cands:
+        c_q = torch.clamp_max(c_q, cap)
+        ok_q = s_q >= 0
+        if extra_ok is not None:
+            ok_q = ok_q & extra_ok
+        w = torch.where(ok_q, p_hat(s_q) * w_q * c_q, 0.0)
+        wsum = wsum + w
+        site, u_res = rng.rand_unit_float(site)
+        take = (u_res < torch.div(w, torch.clamp_min(wsum, 1e-30))) & ok_q
+        sel = torch.where(take, s_q, sel)
+        cnt = cnt + torch.where(ok_q, c_q, 0.0)
+
+    ok = sel >= 0
+    p_sel = p_hat(sel)
+    big_w = torch.where(ok & (p_sel > 0.0), torch.div(
+        wsum, cnt * torch.clamp_min(p_sel, 1e-30)), 0.0)
+    res_out = (torch.where(ok, sel, -1), big_w, torch.clamp_max(cnt, cap))
+    return site, torch.where(ok, sel, 0), big_w, res_out
 
 
 def _sphere_light_sample(scene: Scene, selected, n_lights: int, hit, prim_id,
@@ -408,23 +660,38 @@ def _triangle_light_sample(scene: Scene, selected, n_sphere_lights: int, hit,
 def _next_event_estimation(scene: Scene, policy: RendererPolicy,
                            state: PathState, accumulation, seeds, hit,
                            prim_id, is_tri, p_offset: Vec3, t_quat: Quat,
-                           v_local: Vec3, mat: dict):
-    """NEE with MIS (Renderer.hpp:247-314): pick one light uniformly among
-    the sphere lights and then the triangle lights, cone-sample a sphere
-    light or area-sample a triangle light, trace a shadow ray, add the
-    power-heuristic-weighted contribution. The reference's early rejections
-    become masks. Returns (contribution Vec3, shadow rays traced [R] bool)."""
+                           v_local: Vec3, mat: dict, restir_in=None,
+                           restir_xy=None, restir_geom=None,
+                           restir_guides=None):
+    """NEE with MIS (Renderer.hpp:247-314): pick one light among the sphere
+    lights and then the triangle lights (``policy.light_sampling``),
+    cone-sample a sphere light or area-sample a triangle light, trace a
+    shadow ray, add the power-heuristic-weighted contribution. Under 'ris'
+    and 'restir' (more than one light) the RIS weight W replaces 1/p_select
+    and there is no MIS. The reference's early rejections become masks.
+    Returns (contribution Vec3, shadow rays traced [R] bool, the ReSTIR
+    reservoirs out or None)."""
     n_sphere_lights, n_tri_lights = scene.num_lights, scene.num_tri_lights
     light_count = n_sphere_lights + n_tri_lights
     zeros = torch.zeros_like(state.p.x)
     zero3 = Vec3(zeros, zeros, zeros)
     if light_count == 0:
-        return zero3, torch.zeros_like(hit)
+        return zero3, torch.zeros_like(hit), None
     site = _site_state(accumulation, add32(seeds, 2 * state.bounce), policy)
     site, (t_draw, s_draw) = rng.draws(site, 2)
-    site, sel_draw = rng.rand_unit_float(site)
-    selected, light_selection_pdf = _select_light(scene, policy, p_offset,
-                                                  sel_draw, light_count)
+    restir_out = ris_w = light_selection_pdf = None
+    if (policy.light_sampling == "restir" and restir_in is not None
+            and light_count > 1):
+        site, selected, ris_w, restir_out = _select_light_restir(
+            scene, policy, p_offset, site, light_count, restir_in,
+            guides=restir_guides, xy=restir_xy, geom=restir_geom)
+    elif policy.light_sampling in ("ris", "restir") and light_count > 1:
+        site, selected, ris_w = _select_light_ris(scene, policy, p_offset,
+                                                  site, light_count)
+    else:
+        site, sel_draw = rng.rand_unit_float(site)
+        selected, light_selection_pdf = _select_light(
+            scene, policy, p_offset, sel_draw, light_count)
 
     l_dir, l_dist, l_pdf, l_emission = zero3, zeros, zeros, zero3
     valid = torch.zeros_like(hit)
@@ -450,10 +717,16 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     valid = valid & (l_local.z >= 0.0)  # sample below the hemisphere (:276)
     shadow_radiance = (l_emission * state.throughput
                        * _closure_eval(policy, mat, l_local, v_local))
-    l_pdf = l_pdf * light_selection_pdf  # (:282)
-    brdf_pdf = _closure_pdf(policy, mat, l_local, v_local)
-    shadow_radiance = shadow_radiance * sampling.power_heuristic_over_f(
-        l_pdf, brdf_pdf)
+    if ris_w is not None:
+        # the RIS estimator f / pdf * W, without MIS: NEE alone carries the
+        # direct light in this mode (see _emissive_hit)
+        shadow_radiance = shadow_radiance * torch.div(
+            ris_w, torch.clamp_min(l_pdf, 1e-9))
+    else:
+        l_pdf = l_pdf * light_selection_pdf  # (:282)
+        brdf_pdf = _closure_pdf(policy, mat, l_local, v_local)
+        shadow_radiance = shadow_radiance * sampling.power_heuristic_over_f(
+            l_pdf, brdf_pdf)
     valid = valid & (shadow_radiance.max_component() > 0.0)  # (:285)
 
     # Shadow trace (Renderer.hpp:302-314). Masked-out lanes get tfar = 0,
@@ -462,7 +735,7 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
         scene, p_offset, l_dir, torch.where(valid, l_dist, 0.0),
         accel=policy.effective_accel, policy=policy)
     contribution = shadow_radiance.where(valid & ~occluded, zero3)
-    return contribution, valid
+    return contribution, valid, restir_out
 
 
 def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
@@ -471,10 +744,17 @@ def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
     """Emissive-primitive hit with MIS (Renderer.hpp:319-353). For a sphere
     the distance to the light's center comes from the law of cosines
     (:328-332); for a triangle the light pdf is tfar^2 / (area * |cos|), the
-    cosine at the light being the local view vector's z."""
+    cosine at the light being the local view vector's z. Under 'ris' and
+    'restir' (more than one light) NEE alone carries the direct light: an
+    emitter hit counts only where NEE could not have sampled it, on camera
+    rays and after a delta bounce. The primary bounce adds emission
+    unweighted, so no MIS weight is formed there."""
     is_emissive = hit & (em.max_component() > FLT_EPSILON)
     light_count = scene.num_lights + scene.num_tri_lights
-    if not policy.mis or light_count == 0:
+    if policy.light_sampling in ("ris", "restir") and light_count > 1:
+        weight = (torch.ones_like(tfar) if state.bounce == 0
+                  else torch.where(state.prev_delta, 1.0, 0.0))
+    elif not policy.mis or light_count == 0 or state.bounce == 0:
         weight = torch.ones_like(tfar)
     else:
         light_selection_pdf = _hit_light_selection_pdf(
@@ -491,17 +771,19 @@ def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
             light_pdf = torch.where(is_tri, tri_pdf, light_pdf)
         mis_weight = sampling.power_heuristic(state.prev_pdf, light_pdf)
         # a delta previous bounce could not have been light-sampled
-        mis_weight = torch.where(state.prev_delta, 1.0, mis_weight)
-        # bounce 0 was BRDF-blind: add emission unweighted (:344-353)
-        weight = mis_weight if state.bounce > 0 else torch.ones_like(tfar)
+        weight = torch.where(state.prev_delta, 1.0, mis_weight)
     contribution = (state.throughput * em) * weight
     zeros = torch.zeros_like(tfar)
     return contribution.where(is_emissive, Vec3(zeros, zeros, zeros))
 
 
 def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
-                state: PathState) -> PathState:
-    """One wavefront bounce (Renderer.hpp:131-432)."""
+                state: PathState, restir_in=None, restir_xy=None,
+                restir_geom=None):
+    """One wavefront bounce (Renderer.hpp:131-432). With `restir_in` (the
+    lanes' ReSTIR reservoirs, ``_select_light_restir``) it returns
+    (PathState, reservoirs out); where NEE forms none (one light, or
+    ``mis=False``) the reservoirs pass through."""
     # ---- INTERSECTION (Renderer.hpp:165): the closest-hit battery ----
     tfar, prim_id, is_tri = intersect.intersect_scene(
         scene, state.p, state.d, accel=policy.effective_accel,
@@ -518,10 +800,13 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
 
     # ---- NEE + SHADOW (:247-314): the any-hit battery ----
     shadow_traced = torch.zeros_like(hit)
+    restir_out = None
     if policy.mis:
-        nee, shadow_traced = _next_event_estimation(
+        nee, shadow_traced, restir_out = _next_event_estimation(
             scene, policy, state, accumulation, seeds, hit, prim_id, is_tri,
-            p_offset, t_quat, v_local, mat)
+            p_offset, t_quat, v_local, mat, restir_in=restir_in,
+            restir_xy=restir_xy, restir_geom=restir_geom,
+            restir_guides=None if restir_in is None else (n, tfar))
         radiance = radiance + nee
 
     # ---- EMISSIVE HIT (:319-353) ----
@@ -590,7 +875,7 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     if state.bounce + 1 >= policy.max_bounces:
         alive_next = torch.zeros_like(alive_next)
     rays_this_bounce = state.alive.sum() + shadow_traced.sum()
-    return PathState(
+    out = PathState(
         bounce=state.bounce + 1,
         p=p_next.where(alive_next, state.p),
         d=world_dir.where(alive_next, state.d),
@@ -601,6 +886,9 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
         alive=alive_next,
         ray_count=add32(state.ray_count, rays_this_bounce),
     )
+    if restir_in is not None:
+        return out, restir_in if restir_out is None else restir_out
+    return out
 
 
 def initial_state(p0: Vec3, d0: Vec3, alive0=None) -> PathState:
@@ -651,14 +939,18 @@ def narrow_state(state: PathState, cap: int):
 
 
 def trace_rays(scene: Scene, policy: RendererPolicy, accumulation, seeds,
-               p0: Vec3, d0: Vec3, alive0=None):
+               p0: Vec3, d0: Vec3, alive0=None, res_in=None, restir_xy=None,
+               restir_geom=None):
     """The bounce loop for one chunk of primary rays (Renderer.hpp:131-432):
-    (radiance Vec3 [R], ray_count). Stops at max_bounces or when no lane is
-    alive; the liveness test reads one number back per bounce.
+    (radiance Vec3 [R], ray_count), and the reservoirs out as a third item
+    where `res_in` is given. Stops at max_bounces or when no lane is alive;
+    the liveness test reads one number back per bounce.
 
     ``policy.primary_accel`` peels the primary bounce out of the loop and
     runs it under that backend: every backend returns the same hits and the
-    RNG is keyed by the bounce, not by the loop.
+    RNG is keyed by the bounce, not by the loop. Under 'restir' with
+    reservoirs `res_in` the primary bounce is peeled too: it is the only
+    bounce that reuses reservoirs.
 
     Narrowing cascade (``narrow_wavefront``): full-width masked bounces run
     until the live lanes fit 1/f of the width, then the alive lanes move to
@@ -667,9 +959,16 @@ def trace_rays(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     per narrow factor. Each lane's radiance and the ray count are those of
     the full-width loop."""
     state = initial_state(p0, d0, alive0)
+    pol0 = policy
     if policy.primary_accel and policy.primary_accel != policy.effective_accel:
         pol0 = dataclasses.replace(policy, accel=policy.primary_accel,
                                    use_bvh=False)
+    res_out = None
+    if res_in is not None and policy.light_sampling == "restir":
+        state, res_out = bounce_step(scene, pol0, accumulation, seeds, state,
+                                     restir_in=res_in, restir_xy=restir_xy,
+                                     restir_geom=restir_geom)
+    elif pol0 is not policy:
         state = bounce_step(scene, pol0, accumulation, seeds, state)
 
     restores = []
@@ -695,6 +994,8 @@ def trace_rays(scene: Scene, policy: RendererPolicy, accumulation, seeds,
         back = torch.clamp_max(inv, cap - 1)
         radiance = Vec3(*(torch.where(live, c[back], pc)
                           for c, pc in zip(radiance, prev_rad)))
+    if res_in is not None:
+        return radiance, state.ray_count, res_out
     return radiance, state.ray_count
 
 
@@ -738,7 +1039,7 @@ def sum_rows(rows):
 
 def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
                 width: int, height: int, pixel_start: int = 0,
-                npix: int = None, k_passes: int = 1):
+                npix: int = None, k_passes: int = 1, restir_in=None):
     """One progressive sample for a contiguous flat-pixel range: (radiance
     Vec3 of [npix] tensors in raster order, row 0 = bottom scanline;
     ray_count, a 0-d u32 in int64). Rays are traced in raster order or, with
@@ -753,7 +1054,13 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     ``k_passes > 1`` the k consecutive passes accumulation .. accumulation
     + k - 1 are traced as one wide wavefront and the radiance comes back as
     [k, npix] rows, each bit-identical to its sequential pass (the counter
-    RNG keys every draw by accumulation and pixel)."""
+    RNG keys every draw by accumulation and pixel).
+
+    ``restir_in`` ([3, npix] float32 in raster pixel order: light index, -1
+    = empty; W; count) carries the per-pixel ReSTIR reservoirs under
+    ``light_sampling='restir'``; the return is then (radiance, ray_count,
+    reservoirs out [3, npix]), each pixel's from its first sample's lane.
+    The reservoirs chain pass to pass, so k_passes must be 1."""
     check_policy(policy)
     device = scene.device
     if npix is None:
@@ -792,21 +1099,43 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     chunk = min(policy.rays_per_chunk, nrays)
     padded = -(-nrays // chunk) * chunk
 
-    def pad(a):
-        return torch.cat([a, torch.zeros(padded - nrays, dtype=a.dtype,
-                                         device=device)])
+    def pad(a, value=0):
+        return torch.cat([a, torch.full((padded - nrays,), value,
+                                        dtype=a.dtype, device=device)])
 
+    use_restir = restir_in is not None and policy.light_sampling == "restir"
+    assert not (use_restir and k_passes > 1), (
+        "ReSTIR reservoirs chain pass to pass: k_passes must be 1")
+    if use_restir:
+        # each lane takes its pixel's reservoir, and its local pixel
+        # coordinates, which the 2-D neighbourhood inverts
+        res_pos = (pad(restir_in[0][pos].to(torch.int64), -1),
+                   pad(restir_in[1][pos]), pad(restir_in[2][pos]))
+        res_xy = (pad(pos % width), pad(pos // width))
+        restir_geom = None
+        if policy.restir_spatial_2d:
+            restir_geom = (("tile", width, edge, spp) if order is not None
+                           else ("raster", width, 0, spp))
     lane_ok = pad(torch.ones(nrays, dtype=torch.bool, device=device))
     xs, ys, ss = pad(x), pad(y), pad(seeds)
     accs = pad(acc_lane) if acc_lane is not None else None
-    rads, count = [], 0
+    rads, res_chunks, count = [], [], 0
     for start in range(0, padded, chunk):
         sl = slice(start, start + chunk)
         acc = accs[sl] if accs is not None else accumulation
         p0, d0 = generate_camera_rays(scene.camera, xs[sl], ys[sl], acc,
                                       ss[sl], policy.enable_dof, policy)
-        rad, cnt = trace_rays(scene, policy, acc, ss[sl], p0, d0,
-                              alive0=lane_ok[sl])
+        if use_restir:
+            rad, cnt, res = trace_rays(
+                scene, policy, acc, ss[sl], p0, d0, alive0=lane_ok[sl],
+                res_in=tuple(a[sl] for a in res_pos),
+                restir_xy=(tuple(a[sl] for a in res_xy) if restir_geom
+                           else None),
+                restir_geom=restir_geom)
+            res_chunks.append(res)
+        else:
+            rad, cnt = trace_rays(scene, policy, acc, ss[sl], p0, d0,
+                                  alive0=lane_ok[sl])
         rads.append(rad)
         count = add32(cnt, count)
     flat = Vec3(*(torch.cat([r[k] for r in rads])[:nrays] for k in range(3)))
@@ -820,4 +1149,13 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
         flat = Vec3(*(c.reshape(k_passes, npix) for c in flat))
     if order is not None:  # back to raster pixel order
         flat = Vec3(*(c[..., order[1]] for c in flat))
+    if use_restir:
+        # the reservoirs back to raster pixel order, a pixel's first sample's
+        rs = [torch.cat([r[k] for r in res_chunks])[:nrays] for k in range(3)]
+        if spp > 1:
+            rs = [a.reshape(npix, spp)[:, 0] for a in rs]
+        if order is not None:
+            rs = [a[order[1]] for a in rs]
+        return flat, count, torch.stack([rs[0].to(torch.float32), rs[1],
+                                         rs[2]])
     return flat, count

@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import fp
+from ..core.fp import fma
 from ..core.vec import Quat, Vec3
 from ..ops.clustered import ClusteredPrims
 
@@ -119,14 +121,23 @@ class Sky:
         return Sky(Vec3.splat(ambient, device), *planes, w, h)
 
     def sample(self, d: Vec3) -> Vec3:
-        """Nearest-texel equirect lookup (Primitives.hpp:35-46)."""
-        fw = float(self.width - 1)
-        fh = float(self.height - 1)
-        u = fw * (0.5 + (0.5 / np.pi) * torch.atan2(d.z, d.x))
-        v = fh * (0.5 - (1.0 / np.pi) * torch.asin(torch.clamp(d.y, -1.0, 1.0)))
-        ix = torch.clamp(u.to(torch.int64), 0, self.width - 1)
-        iy = torch.clamp(v.to(torch.int64), 0, self.height - 1)
-        flat = iy * self.width + ix
+        """Nearest-texel equirect lookup (Primitives.hpp:35-46). The texel
+        coordinates contract as XLA contracts them in the JAX package
+        (0.5 + c * atan2 and 0.5 - c * asin, each one fma), with atan2 and
+        asin correctly rounded (``core/fp.py``); a 1x1 map has one texel
+        whatever the direction."""
+        if self.width == 1 and self.height == 1:
+            flat = torch.zeros(d.x.shape, dtype=torch.int64,
+                               device=d.x.device)
+        else:
+            u = fma(fp.atan2(d.z, d.x), float(np.float32(0.5 / np.pi)), 0.5)
+            v = fma(fp.asin(torch.clamp(d.y, -1.0, 1.0)),
+                    -float(np.float32(1.0 / np.pi)), 0.5)
+            ix = torch.clamp((u * float(self.width - 1)).to(torch.int64), 0,
+                             self.width - 1)
+            iy = torch.clamp((v * float(self.height - 1)).to(torch.int64), 0,
+                             self.height - 1)
+            flat = iy * self.width + ix
         return Vec3(
             self.hdri_r[flat] * self.ambient.x,
             self.hdri_g[flat] * self.ambient.y,
@@ -245,6 +256,90 @@ def build_light_list(material_ids: np.ndarray, emission: np.ndarray) -> np.ndarr
     return np.nonzero(mask)[0].astype(np.int32)
 
 
+@dataclasses.dataclass
+class LightAlias:
+    """O(1) light selection over static power weights (Vose's alias
+    method), for ``light_sampling='alias'``: w_i = max emission x size (r^2
+    for a sphere light, area for a triangle light), the distance-free
+    numerator of the 'power' weights. ``table`` rows are (prob, alias,
+    pdf_bin, pdf_alias): the alias bin's pdf sits beside its own, so the pdf
+    of the selected light needs no second gather; alias indices ride as
+    float32 (exact below 2^24 lights). ``sphere_pdf`` / ``tri_pdf`` give each
+    prim's selection pdf, 0 for a prim that is no light."""
+
+    table: torch.Tensor  # [L, 4] float32
+    sphere_pdf: torch.Tensor  # [P] float32
+    tri_pdf: Optional[torch.Tensor] = None  # [T] float32
+
+    def to(self, device) -> "LightAlias":
+        return LightAlias(self.table.to(device), self.sphere_pdf.to(device),
+                          None if self.tri_pdf is None
+                          else self.tri_pdf.to(device))
+
+
+def _vose_alias(p: np.ndarray):
+    """Vose's alias-table construction from a normalized pmf [L], operation
+    for operation the JAX package's (its pops from Python lists make the
+    table depend on that order)."""
+    n = p.size
+    prob = (p * n).astype(np.float64)
+    alias = np.arange(n, dtype=np.int64)
+    small = [i for i in range(n) if prob[i] < 1.0]
+    large = [i for i in range(n) if prob[i] >= 1.0]
+    while small and large:
+        s, g = small.pop(), large.pop()
+        alias[s] = g
+        prob[g] -= 1.0 - prob[s]
+        (small if prob[g] < 1.0 else large).append(g)
+    for i in small + large:
+        prob[i] = 1.0
+    return prob.astype(np.float32), alias
+
+
+def light_alias_arrays(arrays: dict) -> Optional[dict]:
+    """The ``light_alias_*`` arrays of a scene from its flat arrays
+    (``Scene.to_numpy``'s layout), built on the host in float64 as the JAX
+    package's ``build_light_alias``; None for a scene without lights."""
+    lights = np.asarray(arrays["lights"])
+    tri_lights = arrays.get("tri_lights")
+    n_s = lights.shape[0]
+    n_t = 0 if tri_lights is None else np.asarray(tri_lights).shape[0]
+    total = n_s + n_t
+    if total == 0:
+        return None
+    em = np.asarray(arrays["material_emission"], np.float32).max(axis=1)
+    weights = []
+    if n_s > 0:
+        mid = np.asarray(arrays["sphere_material_id"])[lights]
+        weights.append(em[mid] * np.asarray(arrays["sphere_radius_sq"],
+                                            np.float32)[lights])
+    if n_t > 0:
+        tl = np.asarray(tri_lights)
+        mid = np.asarray(arrays["tri_material_id"])[tl]
+        weights.append(em[mid] * np.asarray(arrays["tri_area"],
+                                            np.float32)[tl])
+    w = np.concatenate(weights).astype(np.float64)
+    ws = w.sum()
+    p = (w / ws) if ws > 0 else np.full(total, 1.0 / total)
+    prob, alias = _vose_alias(p)
+    p32 = p.astype(np.float32)
+    out = {
+        "light_alias_table": np.stack(
+            [prob, alias.astype(np.float32), p32, p32[alias]], axis=1),
+        "light_alias_sphere_pdf": np.zeros(
+            np.asarray(arrays["sphere_radius_sq"]).shape[0], np.float32),
+    }
+    if n_s > 0:
+        out["light_alias_sphere_pdf"][lights] = p32[:n_s]
+    if "tri_area" in arrays:
+        tri_pdf = np.zeros(np.asarray(arrays["tri_area"]).shape[0],
+                           np.float32)
+        if n_t > 0:
+            tri_pdf[np.asarray(tri_lights)] = p32[n_s:]
+        out["light_alias_tri_pdf"] = tri_pdf
+    return out
+
+
 _MATERIAL_FIELDS = ("albedo", "f0", "f80", "emission", "transmission",
                     "roughness", "ior_minus_one")
 _TRIANGLE_VECS = ("v0", "e1", "e2", "normal")
@@ -268,6 +363,7 @@ class Scene:
     tri_lights: Optional[torch.Tensor] = None  # [L2] int32
     sphere_clusters: Optional[ClusteredPrims] = None  # scene.accel
     tri_clusters: Optional[ClusteredPrims] = None
+    light_alias: Optional[LightAlias] = None  # 'alias' light selection
 
     @property
     def num_lights(self) -> int:
@@ -298,7 +394,8 @@ class Scene:
                      self.sky.to(device), triangles=moved(self.triangles),
                      tri_lights=moved(self.tri_lights),
                      sphere_clusters=moved(self.sphere_clusters),
-                     tri_clusters=moved(self.tri_clusters))
+                     tri_clusters=moved(self.tri_clusters),
+                     light_alias=moved(self.light_alias))
 
     @staticmethod
     def from_numpy(arrays: dict, device=None) -> "Scene":
@@ -311,8 +408,11 @@ class Scene:
         for a scene with triangles ``tri_v0``, ``tri_e1``, ``tri_e2``,
         ``tri_normal`` [T,3], ``tri_area`` [T], ``tri_material_id`` [T] int32
         and ``tri_lights`` [L2] int32; optionally ``sphere_clusters`` and
-        ``tri_clusters``, the dicts ``ClusteredPrims.from_numpy`` reads.
-        Values are taken bit for bit."""
+        ``tri_clusters``, the dicts ``ClusteredPrims.from_numpy`` reads, and
+        the alias table ``light_alias_table`` [L, 4],
+        ``light_alias_sphere_pdf`` [P] and, with triangles,
+        ``light_alias_tri_pdf`` [T] (``light_alias_arrays``; without them
+        the scene has no ``light_alias``). Values are taken bit for bit."""
         t = functools.partial(_tensor, arrays, device=device)
         vec = functools.partial(_vec, arrays, device=device)
         hdri = t("sky_hdri")
@@ -329,7 +429,8 @@ class Scene:
         return Scene(*_geometry(arrays, device), camera, sky,
                      **_triangles(arrays, device),
                      sphere_clusters=clusters("sphere_clusters"),
-                     tri_clusters=clusters("tri_clusters"))
+                     tri_clusters=clusters("tri_clusters"),
+                     light_alias=_light_alias(arrays, device))
 
     def to_numpy(self) -> dict:
         """The flat-array layout ``from_numpy`` reads."""
@@ -362,6 +463,12 @@ class Scene:
         for key in ("sphere_clusters", "tri_clusters"):
             if getattr(self, key) is not None:
                 out[key] = getattr(self, key).to_numpy()
+        la = self.light_alias
+        if la is not None:
+            out["light_alias_table"] = la.table.cpu().numpy()
+            out["light_alias_sphere_pdf"] = la.sphere_pdf.cpu().numpy()
+            if la.tri_pdf is not None:
+                out["light_alias_tri_pdf"] = la.tri_pdf.cpu().numpy()
         return out
 
 
@@ -371,7 +478,8 @@ def make_scene(centers, radii, material_ids, materials: dict, camera: Camera,
     ``make_scene``). materials: albedo, f0, f80, emission, transmission
     ([M,3]) and roughness, ior_minus_one ([M]). triangles: v0, v1, v2 ([T,3])
     and material_id ([T]); edges, unit normals and areas are made here in
-    numpy float32, as there."""
+    numpy float32, as there, and the scene carries its alias table
+    (``light_alias_arrays``) as the JAX builder's does."""
     centers = np.asarray(centers, np.float32)
     radii = np.asarray(radii, np.float32)
     material_ids = np.asarray(material_ids, np.int32)
@@ -395,9 +503,13 @@ def make_scene(centers, radii, material_ids, materials: dict, camera: Camera,
             "tri_normal": n / np.maximum(area2[:, None], 1e-20),
             "tri_area": 0.5 * area2, "tri_material_id": tmid,
             "tri_lights": build_light_list(tmid, m["emission"])})
+    alias = light_alias_arrays(arrays)
+    if alias is not None:
+        arrays.update(alias)
     device = camera.z.device
     return Scene(*_geometry(arrays, device), camera=camera, sky=sky,
-                 **_triangles(arrays, device))
+                 **_triangles(arrays, device),
+                 light_alias=_light_alias(arrays, device))
 
 
 def _tensor(arrays, key, dtype=np.float32, device=None) -> torch.Tensor:
@@ -432,3 +544,13 @@ def _triangles(arrays, device) -> dict:
         *(_vec(arrays, f"tri_{k}", device=device) for k in _TRIANGLE_VECS),
         material_id=t("tri_material_id", np.int32), area=t("tri_area"))
     return {"triangles": tri, "tri_lights": t("tri_lights", np.int32)}
+
+
+def _light_alias(arrays, device) -> Optional[LightAlias]:
+    """The scene's LightAlias from the flat arrays, None without them."""
+    if "light_alias_table" not in arrays:
+        return None
+    t = functools.partial(_tensor, arrays, device=device)
+    return LightAlias(t("light_alias_table"), t("light_alias_sphere_pdf"),
+                      t("light_alias_tri_pdf") if "light_alias_tri_pdf"
+                      in arrays else None)

@@ -7,7 +7,8 @@ batteries or the clustered traversal of ``accel='pallas'`` under each of its
 planners, resident or streamed, with the ordinary or the product-form
 triangle battery; lambertian, GGX or principled shading, pinhole or thin
 lens camera, jittered or stratified, with or without the scrambled RNG,
-any samples_per_pixel, uniform light selection, MIS, Russian roulette,
+any samples_per_pixel, every light selection ('uniform', 'power',
+'alias', 'ris', 'restir'), MIS, Russian roulette,
 wavefront narrowing, raster or screen-tile ray order, median or mean
 resolve). Knobs that select anything else are accepted
 here, so that later port slices only lift the checks, and are refused with

@@ -302,7 +302,7 @@ def test_resume_equivalence_bitwise():
 @pytest.mark.parametrize("knob", [
     {"accel": "clustered"}, {"use_bvh": True},
     {"brdf": "ggx"},  # ggx, the camera knobs and spp = 2 render now
-    {"light_sampling": "power"}, {"enable_dof": True},
+    {"light_sampling": "power"}, {"enable_dof": True},  # and power, alias
     {"stratify_camera": True}, {"rng_scramble": True},
     {"samples_per_pixel": 2}, {"primary_accel": "bvh"},
     {"accel": "grid"}, {"accel": "pallas", "pallas_stream": True},
@@ -324,14 +324,15 @@ def test_knob_outside_slice_raises(knob):
     the 'ray' planner has them, and 'group' and
     ``pallas_sort_visits=False`` meet tests/test_goldens.py::_check's bar
     against it (their visit order may settle an exact tie otherwise).
-    ``brdf='ggx'``, ``enable_dof``, ``stratify_camera``, ``rng_scramble``
-    and ``samples_per_pixel=2`` are ported: the hero at 16x16, 2 bounces, 5
-    passes meets the JAX renderer under the same knob at _check's bar
-    (test_torch_brdf.py, test_torch_camera.py and test_torch_knobs.py hold
-    them closer)."""
+    ``brdf='ggx'``, ``enable_dof``, ``stratify_camera``, ``rng_scramble``,
+    ``samples_per_pixel=2`` and ``light_sampling`` 'power' and 'alias' are
+    ported: the hero at 16x16, 2 bounces, 5 passes meets the JAX renderer
+    under the same knob at _check's bar (test_torch_brdf.py,
+    test_torch_camera.py, test_torch_knobs.py, test_torch_lights.py and
+    test_torch_restir.py hold them closer)."""
     planner = {"pallas_plan", "pallas_sort_impl", "pallas_sort_visits"}
     shading = {"brdf", "enable_dof", "stratify_camera", "rng_scramble",
-               "samples_per_pixel"}
+               "samples_per_pixel", "light_sampling"}
     if shading & set(knob):
         r = Renderer(tbuilders.default_scene(16, 16), RendererPolicy(
             max_bounces=2, rays_per_chunk=4096, **knob), 16, 16, device="cpu")

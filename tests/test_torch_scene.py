@@ -3,9 +3,9 @@
 
 ``jax_scene_to_numpy`` (test side only: the port never imports the JAX
 package) flattens a JAX ``Scene`` into the arrays ``Scene.from_numpy``
-reads, with its triangles, its triangle lights and its cluster packs
-(``jax_clusters_to_numpy``) where it has them, so both packages render
-identical inputs. The port's own builders
+reads, with its triangles, its triangle lights, its cluster packs
+(``jax_clusters_to_numpy``) and its light alias table where it has them, so
+both packages render identical inputs. The port's own builders
 must give exactly the JAX builders' arrays."""
 import numpy as np
 import pytest
@@ -76,6 +76,12 @@ def jax_scene_to_numpy(scene) -> dict:
     for key in ("sphere_clusters", "tri_clusters"):
         if getattr(scene, key) is not None:
             out[key] = jax_clusters_to_numpy(getattr(scene, key))
+    la = scene.light_alias
+    if la is not None:
+        out["light_alias_table"] = np.asarray(la.table)
+        out["light_alias_sphere_pdf"] = np.asarray(la.sphere_pdf)
+        if la.tri_pdf is not None:
+            out["light_alias_tri_pdf"] = np.asarray(la.tri_pdf)
     return out
 
 
