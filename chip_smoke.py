@@ -136,7 +136,18 @@ Phases:
      spp 2; the
      hero under clear_sky at 1920x1088) with its peak device memory, and
      each at 64x64 on the CPU and the card: buckets, and the reservoirs
-     under 'restir', equal bit for bit.
+     under 'restir', equal bit for bit;
+ 18. the host features around a render (check_host_paths): render_adaptive
+     on the hero at 1920x1088 (tol 0.08, max_spp 50, warmup 25; both
+     sphere batteries launched; wall time, stats, tiers, rounds, peak
+     memory) and at 64x64 card against CPU (two tier sizes; buckets and
+     counts bit for bit); checkpoint resume on the card bit for bit (the
+     hero at 1920x1088, with adaptive counts, and 'restir' reservoirs on the
+     326-light scene at 192x192); render_aovs and render_ao at 1920x1088,
+     and at 64x64 card against CPU bit for bit; denoise_render at 64x64
+     card against CPU within rtol 1e-5 / atol 1e-6; check_render on the
+     hero and on a NaN-albedo scene (the same first bad pixel as the CPU);
+     a SceneEditor edit on the card against a scene built with the edit.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
@@ -145,7 +156,8 @@ forms of the fma kernels, every walk with its S, the walks with the
 product-form battery, the seven planner modes of phase 14, and phase 15's
 stream_replay and prefix launch, phase 17's light_rows), the
 clusters planned and walked per tile under each planner, phase 16's numbers
-(keyed "shading_paths"), phase 17's (keyed "light_paths"), the total time,
+(keyed "shading_paths"), phase 17's (keyed "light_paths"), phase 18's (keyed
+"host_paths"), the total time,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -2351,6 +2363,280 @@ def check_light_modes(torch, np, crt):
     return numbers
 
 
+# phase 18: the host features around a render (adaptive sampling,
+# checkpoint / resume, AOVs, AO, the denoiser, the NaN guard, scene edits).
+# The full-width adaptive render takes benchmarks/adaptive.py:63's settings;
+# at 64x64 the tolerance makes the 4096 and 2048 tiers run
+ADAPTIVE_FULL = {"tol": 0.08, "max_spp": 50, "warmup": 25}
+ADAPTIVE_SMALL = {"tol": 0.04, "max_spp": 30, "warmup": 10}
+DENOISE_RTOL, DENOISE_ATOL = 1e-5, 1e-6  # tests/test_torch_probes.py's
+
+
+@contextlib.contextmanager
+def tiers_run():
+    """Record (tier, rounds) of every adaptive tier the block runs
+    (render/api.py::_adaptive_tier)."""
+    from cpu_raytracing_experiments_tpu_torch.render import api
+
+    run, tier = [], api._adaptive_tier
+
+    def recorded(*args):
+        out = tier(*args)
+        run.append((args[6], out[3]))
+        return out
+
+    api._adaptive_tier = recorded
+    try:
+        yield run
+    finally:
+        api._adaptive_tier = tier
+
+
+def equal_bits(torch, a, b) -> bool:
+    """Equal shapes and every element's bits equal (on the host)."""
+    a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def counted(torch, label, expect, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with the launch counts set to 0 just before and
+    read just after; every kernel of `expect` must have been launched.
+    Returns (result, wall s, launches of the kernels launched, peak MiB
+    above what the process held before)."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.launch_counts().items() if v}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    for name in expect:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"[18 {label}] {name} was never launched")
+    log(f"[18 {label}] {wall:.2f} s, peak {peak:.1f} MiB above the "
+        f"{held / 2 ** 20:.1f} MiB held before, launches {launches}")
+    return out, wall, launches, peak
+
+
+def check_host_paths(torch, np, crt):
+    """Phase 18: (a) render_adaptive on the hero at 1920x1088 (8 bounces,
+    ADAPTIVE_FULL), both sphere batteries launched, and at 64x64
+    (ADAPTIVE_SMALL, two tier sizes) card against CPU: buckets and counts
+    bit for bit; (b) checkpoint resume on the card: accumulate(10) against
+    accumulate(5) + save + load into a fresh Renderer + accumulate(5) at
+    1920x1088, the same after an adaptive round (counts in the file) and
+    under 'restir' on phase 17's 326-light scene at 192x192 (reservoirs in
+    the file); (c) render_aovs(samples=4) and render_ao(samples=32) at
+    1920x1088, and at 64x64 card against CPU bit for bit; denoise_render of
+    a 25-pass hero at 64x64 card against CPU within the CPU test's
+    tolerance; check_render on the hero at full width, and on the
+    NaN-albedo scene of tests/test_validate.py, where the card names the
+    CPU's first bad pixel; (d) a SceneEditor edit on the card (a sphere
+    moved and made emissive, committed): the accumulator resets and the next
+    64x64 passes equal those of a scene built with the edit from the start.
+    Returns the numbers."""
+    import dataclasses
+    import tempfile
+
+    from cpu_raytracing_experiments_tpu_torch.render import (ao, checkpoint,
+                                                             denoise, probes,
+                                                             validate)
+    from cpu_raytracing_experiments_tpu_torch.scene import edit
+    from cpu_raytracing_experiments_tpu_torch.scene.scene import (
+        Scene, build_light_list, light_alias_arrays)
+
+    pol = crt.RendererPolicy
+    sphere_kernels = ("sphere_closest", "sphere_occluded")
+    numbers = {}
+    hero = crt.builders.default_scene(*FRAME)
+    policy = pol(max_bounces=8, rays_per_chunk=1 << 19)
+
+    # (a) adaptive sampling
+    r = crt.Renderer(hero, policy, *FRAME)
+    with tiers_run() as run:
+        (img, stats), wall, launches, peak = counted(
+            torch, "adaptive 1920x1088", sphere_kernels, r.render_adaptive,
+            **ADAPTIVE_FULL)
+    if img.shape != (FRAME[1], FRAME[0], 3) or not np.isfinite(img).all():
+        raise AssertionError("[18 adaptive] bad image")
+    log(f"[18 adaptive 1920x1088] {ADAPTIVE_FULL}: stats {stats}, tiers "
+        f"(size, rounds) {run}, {r.state.accumulations} passes")
+    numbers["adaptive 1920x1088"] = {
+        "settings": ADAPTIVE_FULL, "wall_s": wall, "stats": stats,
+        "tiers": run, "rounds": sum(k for _, k in run),
+        "launches": {k: launches[k] for k in sphere_kernels},
+        "launches_all": sum(launches.values()), "peak_mib": peak}
+    del r
+    small = crt.builders.default_scene(64, 64)
+    spol = pol(max_bounces=6, rays_per_chunk=4096)
+    renders = []
+    for device in ("cpu", DEVICE):
+        r = crt.Renderer(small, spol, 64, 64, device=device)
+        with tiers_run() as run:
+            _, small_stats = r.render_adaptive(**ADAPTIVE_SMALL)
+        renders.append((r, run))
+    (cpu, cpu_run), (card, card_run) = renders
+    same = (equal_bits(torch, cpu.state.buckets, card.state.buckets)
+            and equal_bits(torch, cpu.state.counts, card.state.counts))
+    sizes = sorted({t for t, k in card_run if k})
+    log(f"[18 adaptive 64x64] {ADAPTIVE_SMALL}: tiers card {card_run}, cpu "
+        f"{cpu_run}; buckets and counts equal the CPU's bit for bit: {same}")
+    if not same or card_run != cpu_run or len(sizes) < 2:
+        raise AssertionError("[18 adaptive 64x64] the card differs from the "
+                             "CPU or fewer than two tier sizes ran")
+    numbers["adaptive 64x64"] = {"tiers": card_run, "stats": small_stats,
+                                 "cpu_card_equal": same}
+
+    # (b) checkpoint / resume on the card
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = Path(tmp) / "state.npz"
+
+        def resumed(scene, p, width, height, first, then, label):
+            whole = crt.Renderer(scene, p, width, height)
+            first(whole)
+            then(whole)
+            part = crt.Renderer(scene, p, width, height)
+            first(part)
+            checkpoint.save(path, part.state, p, width, height)
+            again = crt.Renderer(scene, p, width, height)
+            again.state = checkpoint.load(path, p, width, height)
+            then(again)
+            ok = all(
+                (a is None and b is None) or equal_bits(torch, a, b)
+                for a, b in ((whole.state.buckets, again.state.buckets),
+                             (whole.state.counts, again.state.counts),
+                             (whole.state.reservoir, again.state.reservoir)))
+            ok = ok and whole.state.accumulations == again.state.accumulations
+            log(f"[18 checkpoint {label}] resumed equals uninterrupted bit "
+                f"for bit: {ok} (file {path.stat().st_size / 2 ** 20:.1f} "
+                f"MiB)")
+            if not ok:
+                raise AssertionError(f"[18 checkpoint {label}] resume differs")
+            return ok
+
+        t0 = time.perf_counter()
+        ckpt = {
+            "1920x1088": resumed(hero, policy, *FRAME,
+                                 lambda x: x.accumulate(5),
+                                 lambda x: x.accumulate(5), "1920x1088"),
+            "1920x1088 counts": resumed(
+                hero, policy, *FRAME,
+                lambda x: x.render_adaptive(tol=0.08, max_spp=10, warmup=5),
+                lambda x: x.accumulate(5), "1920x1088 counts"),
+            "326 lights restir 192x192": resumed(
+                light_scene(crt, "field", 192, 192),
+                pol(max_bounces=6, light_sampling="restir"), 192, 192,
+                lambda x: x.accumulate(3), lambda x: x.accumulate(3),
+                "326 lights restir 192x192")}
+        numbers["checkpoint"] = {"resumed_equal": ckpt,
+                                 "wall_s": time.perf_counter() - t0}
+
+    # (c) AOVs, AO, the denoiser, the NaN guard
+    card_hero = hero.to(DEVICE)
+    aovs, wall, launches, peak = counted(
+        torch, "aovs 1920x1088 samples=4", ("sphere_closest",),
+        probes.render_aovs, card_hero, policy, *FRAME, samples=4)
+    numbers["aovs 1920x1088"] = {"wall_s": wall, "launches": launches,
+                                 "peak_mib": peak}
+    img, wall, launches, peak = counted(
+        torch, "ao 1920x1088 samples=32", sphere_kernels, ao.render_ao,
+        card_hero, policy, *FRAME, samples=32)
+    if not (np.isfinite(img).all() and img.max() == 1.0 and img.min() < 1.0):
+        raise AssertionError("[18 ao] bad image")
+    numbers["ao 1920x1088"] = {"wall_s": wall, "launches": launches,
+                               "peak_mib": peak}
+    del card_hero
+    small_pol = pol(max_bounces=6, rays_per_chunk=4096)
+    got = [probes.render_aovs(small.to(dev), small_pol, 64, 64, samples=4)
+           for dev in ("cpu", DEVICE)]
+    aov_same = all(np.array_equal(got[0][k], got[1][k]) for k in got[0])
+    ao_imgs = [ao.render_ao(small.to(dev), small_pol, 64, 64, samples=32)
+               for dev in ("cpu", DEVICE)]
+    ao_same = np.array_equal(ao_imgs[0].view(np.int32),
+                             ao_imgs[1].view(np.int32))
+    den = []
+    for dev in ("cpu", DEVICE):
+        r = crt.Renderer(small, small_pol, 64, 64, device=dev)
+        r.accumulate(25)
+        den.append([denoise.denoise_render(r),
+                    denoise.denoise_render(r, variance_guided=True,
+                                           sigma_l=25.0)])
+    den_err = max(float(np.max(np.abs(a - b))) for a, b in zip(*den))
+    den_ok = all(np.allclose(a, b, rtol=DENOISE_RTOL, atol=DENOISE_ATOL)
+                 for a, b in zip(*den))
+    log(f"[18 64x64] card against CPU: AOVs (samples=4) equal bit for bit "
+        f"{aov_same}, AO (samples=32) {ao_same}; denoise_render (fixed, "
+        f"guided) within rtol {DENOISE_RTOL} / atol {DENOISE_ATOL}: {den_ok} "
+        f"(max |diff| {den_err:.3g})")
+    if not (aov_same and ao_same and den_ok):
+        raise AssertionError("[18 64x64] the card differs from the CPU")
+    numbers["64x64 card vs cpu"] = {"aovs_equal": aov_same,
+                                    "ao_equal": ao_same,
+                                    "denoise_max_abs_diff": den_err}
+    rad, wall, _, _ = counted(torch, "check_render 1920x1088",
+                              sphere_kernels, validate.check_render,
+                              hero.to(DEVICE), policy, *FRAME)
+    vpol = pol(max_bounces=4, rays_per_chunk=1024)
+    nan_scene = crt.builders.default_scene(16, 16)
+    albedo = nan_scene.materials.albedo
+    x = albedo.x.clone()
+    x[0] = float("nan")  # material 0 = the floor (tests/test_validate.py)
+    nan_scene = dataclasses.replace(nan_scene, materials=dataclasses.replace(
+        nan_scene.materials, albedo=type(albedo)(x, albedo.y, albedo.z)))
+    messages = []
+    for dev in ("cpu", DEVICE):
+        try:
+            validate.check_render(nan_scene.to(dev), vpol, 16, 16)
+            messages.append(None)
+        except FloatingPointError as err:
+            messages.append(str(err))
+    log(f"[18 check_render] the hero at 1920x1088 passes ({wall:.2f} s); "
+        f"the NaN-albedo scene raises on the CPU {messages[0]!r} and on the "
+        f"card {messages[1]!r}")
+    if messages[1] is None or messages[1] != messages[0]:
+        raise AssertionError("[18 check_render] the card's guard differs")
+    numbers["check_render"] = {"hero_wall_s": wall, "nan_scene": messages[1]}
+
+    # (d) a scene edit on the card
+    light_mat = int(small.spheres.material_id[int(small.lights[0])])
+    k = 6  # a small diffuse sphere of the hero
+    if k in small.lights.tolist():
+        raise AssertionError("[18 edit] the edited sphere is a light")
+    pos = tuple(float(c[k]) + 0.05 for c in small.spheres.center)
+    r = crt.Renderer(small, small_pol, 64, 64)
+    r.accumulate(2)
+    editor = edit.SceneEditor(r)
+    editor.edit(edit.set_sphere, k, position=pos, material_id=light_mat)
+    editor.commit()
+    reset = r.state.accumulations == 0
+    r.accumulate(2)
+    arrays = small.to_numpy()
+    arrays["sphere_center"][k] = pos
+    arrays["sphere_material_id"][k] = light_mat
+    arrays["lights"] = build_light_list(arrays["sphere_material_id"],
+                                        arrays["material_emission"])
+    arrays.update(light_alias_arrays(arrays))
+    built = crt.Renderer(Scene.from_numpy(arrays), small_pol, 64, 64)
+    built.accumulate(2)
+    edit_same = equal_bits(torch, r.state.buckets, built.state.buckets)
+    log(f"[18 edit] sphere {k} moved and made emissive on the card: "
+        f"accumulator reset {reset}, {r.scene.num_lights} lights (was "
+        f"{small.num_lights}); the next 2 passes equal a scene built with the "
+        f"edit bit for bit: {edit_same}")
+    if not (reset and edit_same
+            and r.scene.num_lights == small.num_lights + 1):
+        raise AssertionError("[18 edit] the edited render differs")
+    numbers["edit"] = {"reset": reset, "equal_to_built": edit_same,
+                       "lights": r.scene.num_lights}
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -2660,6 +2946,11 @@ def main() -> int:
     light_rows_row["launches"] = \
         light_paths["326 lights power"]["launches"]["light_rows"]
     log(f"[17] light selection checked in {time.perf_counter() - t0:.1f} s")
+    log(f"[18] phases 1-17 done at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    host_paths = check_host_paths(torch, np, crt)
+    host_paths["phase_s"] = time.perf_counter() - t0
+    log(f"[18] host features checked in {host_paths['phase_s']:.1f} s")
 
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
@@ -2710,6 +3001,7 @@ def main() -> int:
     log(json.dumps({"fma_host_us_a_call": fma_host}))
     log(json.dumps({"shading_paths": shading}))
     log(json.dumps({"light_paths": light_paths}))
+    log(json.dumps({"host_paths": host_paths}))
     log(card)
     log(json.dumps({"kernels": list(hero_rows.values())
                     + list(fma_rows.values())

@@ -12,9 +12,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..core import color, sampling
+from ..core import color, fp, sampling
 from ..core.rng import MASK
 from ..scene.scene import Scene
 from ..utils.config import RendererPolicy
@@ -30,12 +31,16 @@ class RenderState:
     under ``light_sampling='restir'`` the per-pixel ReSTIR reservoirs
     carried from pass to pass, [3, npix] float32 (light index as a float,
     -1 = empty; contribution weight W; candidate count), else None. A reset
-    empties them with the buckets."""
+    empties them with the buckets. counts: [npix] float32 per-pixel pass
+    counts on the render device once a pass has traced a pixel subset
+    (``accumulate_pixels``), else None (every pixel traced every pass); a
+    reset drops them."""
 
     buckets: torch.Tensor
     accumulations: int
     rays_traced: torch.Tensor
     reservoir: Optional[torch.Tensor] = None
+    counts: Optional[torch.Tensor] = None
 
     @staticmethod
     def _empty_reservoir(npix: int, device=None) -> torch.Tensor:
@@ -68,6 +73,10 @@ def _add_pass(buckets, policy, acc: int, rad_x, rad_y, rad_z):
         [rad_x, rad_y, rad_z])
 
 
+def _counts_plus(state: RenderState, k: int):
+    return None if state.counts is None else state.counts + float(k)
+
+
 def accumulate(scene: Scene, policy: RendererPolicy, state: RenderState,
                width: int, height: int) -> RenderState:
     """One progressive sample per pixel into bucket accumulations % B
@@ -81,7 +90,81 @@ def accumulate(scene: Scene, policy: RendererPolicy, state: RenderState,
         rad, count = _renderer.render_pass(scene, policy, acc, width, height)
     _add_pass(state.buckets, policy, acc, *rad)
     return RenderState(state.buckets, acc, state.rays_traced + count,
-                       reservoir)
+                       reservoir, _counts_plus(state, 1))
+
+
+def accumulate_pixels(scene: Scene, policy: RendererPolicy,
+                      state: RenderState, width: int, height: int,
+                      pixel_ids: torch.Tensor,
+                      valid: torch.Tensor) -> RenderState:
+    """One progressive sample for a pixel subset (per-pixel adaptive sample
+    allocation; the reference traces every pixel every pass,
+    Renderer.hpp:75). `pixel_ids` [N] lists flat pixels, `valid` [N] masks
+    the padding entries (any id; they add nothing). The pass counter still
+    advances globally (it keys the RNG), but only the listed pixels receive
+    the sample, and ``state.counts`` keeps each pixel's passes for the
+    count-aware resolve. As in the JAX package the sample goes into a zero
+    frame by a scatter-add that tolerates repeated ids, and the frame is then
+    added to the bucket, so untraced pixels keep their bits."""
+    acc = (state.accumulations + 1) & MASK
+    rad, count = _renderer.render_pass_pixels(scene, policy, acc, width,
+                                              pixel_ids, valid)
+    ids = pixel_ids.to(torch.int64)
+    vf = valid.to(torch.float32)
+    npix = state.buckets.shape[-1]
+    frame = torch.zeros((3, npix), dtype=torch.float32,
+                        device=state.buckets.device)
+    frame.index_add_(1, ids, torch.stack([rad.x * vf, rad.y * vf,
+                                          rad.z * vf]))
+    counts = state.counts
+    if counts is None:
+        counts = torch.full((npix,), float(state.accumulations),
+                            dtype=torch.float32, device=frame.device)
+    counts = counts.index_add(0, ids, vf)
+    state.buckets[acc % policy.accumulation_buckets] += frame
+    return RenderState(state.buckets, acc, state.rays_traced + count,
+                       state.reservoir, counts)
+
+
+def stderr_arrays(buckets: torch.Tensor, accumulations: int,
+                  counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """[n] per-pixel standard error of the running mean from the spread of
+    the B bucket means (channel-averaged), as the JAX package's jitted
+    ``stderr_arrays`` computes it bit for bit: each pixel's bucket sums are
+    divided by its passes per bucket (accumulations // B, or counts / B
+    with ``counts``), then ``var(axis=0, ddof=1).mean(axis=0) / B`` in
+    XLA's order. XLA turns each division by a constant into a product by
+    its float32 reciprocal (the mean over the channels and the / B into one
+    product by float32(1/3) * float32(1/B)), sums the B terms of the mean
+    left to right and contracts the squares and the channel sum into fma
+    chains. The adaptive rounds rank pixels by this value, so one ulp can
+    change which pixels a round traces."""
+    b = buckets.shape[0]
+    n = buckets.shape[-1]
+    if b <= 1:
+        return torch.zeros((n,), dtype=torch.float32, device=buckets.device)
+    inv_b = float(np.float32(1.0 / b))
+    if counts is None:
+        acc = torch.tensor(float(accumulations), dtype=torch.float32)
+        per_bucket = torch.clamp_min(torch.floor(acc * inv_b), 1.0).to(
+            buckets.device)
+    else:
+        per_bucket = torch.clamp_min(counts * inv_b, 1.0)
+    means = buckets / per_bucket
+    centred = means - _renderer.sum_rows(means) * inv_b
+    sq = centred[0] * centred[0]
+    for k in range(1, b):
+        sq = fp.fma(centred[k], centred[k], sq)
+    inv_dof = float(np.float32(1.0 / (b - 1)))
+    total = sq[0] * inv_dof
+    for c in (1, 2):
+        total = fp.fma(sq[c], inv_dof, total)
+    scale = float(np.float32(np.float32(1.0 / 3.0) * np.float32(inv_b)))
+    return fp.sqrt(total * scale)
+
+
+def pixel_stderr(state: RenderState) -> torch.Tensor:
+    return stderr_arrays(state.buckets, state.accumulations, state.counts)
 
 
 def accumulate_wide(scene: Scene, policy: RendererPolicy, state: RenderState,
@@ -95,7 +178,8 @@ def accumulate_wide(scene: Scene, policy: RendererPolicy, state: RenderState,
         _add_pass(state.buckets, policy, (acc0 + i) & MASK,
                   rad.x[i], rad.y[i], rad.z[i])
     return RenderState(state.buckets, (acc0 + k - 1) & MASK,
-                       state.rays_traced + count, state.reservoir)
+                       state.rays_traced + count, state.reservoir,
+                       _counts_plus(state, k))
 
 
 def launch_width(policy: RendererPolicy, width: int, height: int) -> int:
@@ -132,8 +216,16 @@ def resolve(state: RenderState, policy: RendererPolicy, exposure, width: int,
     accumulations is a multiple of the bucket count, as in the reference."""
     b = policy.accumulation_buckets
     buckets = state.buckets
-    n_rounds = torch.tensor(float(max(state.accumulations // b, 1)),
-                            dtype=torch.float32, device=buckets.device)
+    if state.counts is not None:
+        # the count-aware resolve of adaptive sampling: a bucket holds
+        # counts / B of the pixel's passes (subset rounds come in bucket
+        # multiples); XLA divides by the constant B as a product by its
+        # float32 reciprocal
+        n_rounds = torch.clamp_min(
+            state.counts * float(np.float32(1.0 / b)), 1.0)
+    else:
+        n_rounds = torch.tensor(float(max(state.accumulations // b, 1)),
+                                dtype=torch.float32, device=buckets.device)
     scale = torch.as_tensor(exposure, dtype=torch.float32).to(buckets.device) \
         / (n_rounds * policy.samples_per_pixel)
     if policy.median and b == 5:

@@ -1159,3 +1159,50 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
         return flat, count, torch.stack([rs[0].to(torch.float32), rs[1],
                                          rs[2]])
     return flat, count
+
+
+def render_pass_pixels(scene: Scene, policy: RendererPolicy, accumulation,
+                       width: int, pixel_ids: torch.Tensor,
+                       valid: torch.Tensor):
+    """One progressive sample for an arbitrary pixel subset, the basis of
+    per-pixel adaptive sample allocation (``_trace_rays_masked`` of the JAX
+    package's renderer.py:1441-1506): `pixel_ids` [N] flat pixel indices,
+    `valid` [N] bool; invalid entries (padding, any id) trace as lanes dead
+    from bounce 0 and contribute nothing. Seeds are keyed by (pixel,
+    accumulation) as in the dense pass, with the sample index of
+    ``pixel_seeds_from_index``'s default: one ray a pixel, whatever
+    ``samples_per_pixel`` says, as in the JAX package. No radiance clamp
+    and no ReSTIR reservoirs: under 'restir' NEE takes the RIS selection.
+    Returns (radiance Vec3 [N] in the order of `pixel_ids`, ray_count).
+
+    The lanes go through ``trace_rays`` in ``rays_per_chunk`` chunks, the
+    last one padded with dead lanes: a lane's radiance is that of the JAX
+    package's one masked loop over all N lanes, bit for bit (no lane reads
+    another, and narrowing leaves each lane's value as it is)."""
+    check_policy(policy)
+    device = scene.device
+    ids = pixel_ids.to(device=device, dtype=torch.int64) & MASK
+    alive = valid.to(device=device, dtype=torch.bool)
+    n = ids.shape[0]
+    seeds = pixel_seeds_from_index(ids, width, policy)
+    accumulation = accumulation & MASK
+    chunk = min(policy.rays_per_chunk, n)
+    padded = -(-n // chunk) * chunk
+
+    def pad(a, value=0):
+        return torch.cat([a, torch.full((padded - n,), value, dtype=a.dtype,
+                                        device=device)])
+
+    ids, seeds, alive = pad(ids), pad(seeds), pad(alive, False)
+    rads, count = [], 0
+    for start in range(0, padded, chunk):
+        sl = slice(start, start + chunk)
+        p0, d0 = generate_camera_rays(scene.camera, ids[sl] % width,
+                                      ids[sl] // width, accumulation,
+                                      seeds[sl], policy.enable_dof, policy)
+        rad, cnt = trace_rays(scene, policy, accumulation, seeds[sl], p0, d0,
+                              alive0=alive[sl])
+        rads.append(rad)
+        count = add32(cnt, count)
+    return Vec3(*(torch.cat([r[k] for r in rads])[:n] for k in range(3))), \
+        count

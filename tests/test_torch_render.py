@@ -27,7 +27,7 @@ from cpu_raytracing_experiments_tpu.utils.config import RendererPolicy as JPolic
 from cpu_raytracing_experiments_tpu_torch import Renderer, render_image
 from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3 as TVec3
 from cpu_raytracing_experiments_tpu_torch.ops import intersect as tint
-from cpu_raytracing_experiments_tpu_torch.render import estimator
+from cpu_raytracing_experiments_tpu_torch.render import checkpoint, estimator
 from cpu_raytracing_experiments_tpu_torch.render import renderer as tr
 from cpu_raytracing_experiments_tpu_torch.scene import accel as taccel
 from cpu_raytracing_experiments_tpu_torch.scene import builders as tbuilders
@@ -477,9 +477,11 @@ def test_narrowing_auto_and_triangles_raise():
         assert np.isfinite(r.render()).all()
 
 
-def test_entry_points_default_to_cuda():
-    """Renderer and render_image without `device` run on the card; with no
-    card they raise rather than fall back to the CPU."""
+def test_entry_points_default_to_cuda(tmp_path):
+    """Renderer, render_image and checkpoint.load without `device` run on
+    the card; with no card they raise rather than fall back to the CPU.
+    (The other entry points take a scene or a Renderer and run on its
+    device.)"""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     scene = tbuilders.white_furnace_scene(8, 8)
@@ -487,6 +489,11 @@ def test_entry_points_default_to_cuda():
         Renderer(scene, RendererPolicy(), 8, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         render_image(scene, 8, 8, 5)
-    img = render_image(scene, 8, 8, 5, RendererPolicy(max_bounces=4),
-                       tonemap=False, device="cpu")
+    pol = RendererPolicy(max_bounces=4)
+    img = render_image(scene, 8, 8, 5, pol, tonemap=False, device="cpu")
     assert img.shape == (8, 8, 3)
+    path = tmp_path / "state.npz"
+    checkpoint.save(path, estimator.RenderState.create(8, 8, pol), pol, 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.load(path, pol, 8, 8)
+    assert checkpoint.load(path, pol, 8, 8, device="cpu").buckets.is_cpu
