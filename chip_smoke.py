@@ -5,12 +5,12 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py    # every phase, always; needs one CUDA card
 
 Phases:
-  1. device info and the build of csrc/ (the four CUDA sources with nvcc
-     for sm_90a and the host tree builder with g++, the five compilers
-     started together); -Xptxas -v of both planners, every walk, both
-     sphere batteries and the fma kernels
+  1. device info and the build of csrc/ (the six CUDA sources with nvcc
+     for sm_90a and the host tree builder with g++, the seven compilers
+     started together); -Xptxas -v of both planners, every walk (the BVH
+     and grid walks too), both sphere batteries and the fma kernels
      (registers, spills, shared memory), the float64 instructions in the
-     SASS of every kernel of the four CUDA sources (cuobjdump): a planner,
+     SASS of every kernel of the six CUDA sources (cuobjdump): a planner,
      a walk, a battery or an fma kernel with any fails the run; the SASS
      opcodes of the flat planner, sphere_closest and sphere_occluded, and
      the card's clock, for their issue floors;
@@ -147,17 +147,37 @@ Phases:
      and at 64x64 card against CPU bit for bit; denoise_render at 64x64
      card against CPU within rtol 1e-5 / atol 1e-6; check_render on the
      hero and on a NaN-albedo scene (the same first bad pixel as the CPU);
-     a SceneEditor edit on the card against a scene built with the edit.
+     a SceneEditor edit on the card against a scene built with the edit;
+ 19. the backends without Pallas (check_accel_paths): bvh_closest,
+     bvh_occluded, grid_closest and grid_occluded against their plain
+     versions bit for bit on the 1000-sphere field's BVH (leaf_size 4) and
+     grid (res=32) and on mesh_scene(subdivisions=6)'s (81,920 triangles;
+     the grid at res=48 with its residual list), on camera, diffuse and
+     exactly axis-aligned batches of 2^19 rays (2^16 on the mesh grid,
+     whose plain residual battery is slow), timed beside the bound from the
+     plain version's visit counts; the field at 1920x1088, 8 bounces, under
+     'brute', 'bvh', 'grid' and 'clustered' (64 clusters), and the mesh at
+     5 bounces under 'bvh' and 'grid' (one window), each with its launches
+     and peak memory, each image held to the field's 'brute' image (the
+     mesh's to each other): the mean within rtol 1e-3 and more than
+     ACCEL_CLOSE of the values within rtol 1e-3 / atol 1e-4; bvh_test at
+     64x64 under 'bvh',
+     'grid', 'clustered' and 'bvh' with primary_accel='pallas', the card's
+     buckets of one pass equal to the CPU's bit for bit, and the bvh_test
+     golden on the card at 10 spp; a SceneEditor edit of a with_bvh scene on the card
+     against the scene built with the edit.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
 keyed "kernels" lists every kernel: the five of the sphere paths, the seven
 forms of the fma kernels, every walk with its S, the walks with the
 product-form battery, the seven planner modes of phase 14, and phase 15's
-stream_replay and prefix launch, phase 17's light_rows), the
+stream_replay and prefix launch, phase 17's light_rows, phase 19's four
+walks), the
 clusters planned and walked per tile under each planner, phase 16's numbers
 (keyed "shading_paths"), phase 17's (keyed "light_paths"), phase 18's (keyed
-"host_paths"), the total time,
+"host_paths"), phase 19's walks at their other shapes and its paths (keyed
+"accel_paths"), the total time,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -209,6 +229,19 @@ REPLACES = {
     "light_rows": "none: XLA's jnp.sum / jnp.cumsum over the lights, "
                   "cpu_raytracing_experiments_tpu/render/renderer.py:300, "
                   ":302 (_select_light) and :341 (the emissive-hit pdf)",
+    # phase 19's walks, each an XLA lax.while_loop in the JAX package
+    "bvh_closest": "none: an XLA lax.while_loop, "
+                   "cpu_raytracing_experiments_tpu/bvh/traverse.py:254 "
+                   "(traverse_closest_packed)",
+    "bvh_occluded": "none: an XLA lax.while_loop, "
+                    "cpu_raytracing_experiments_tpu/bvh/traverse.py:309 "
+                    "(traverse_shadow_packed)",
+    "grid_closest": "none: an XLA lax.while_loop and dense battery, "
+                    "cpu_raytracing_experiments_tpu/bvh/grid.py:100 "
+                    "(traverse_grid_closest) and :215 (_battery_closest)",
+    "grid_occluded": "none: an XLA lax.while_loop and dense battery, "
+                     "cpu_raytracing_experiments_tpu/bvh/grid.py:246 "
+                     "(traverse_grid_shadow) and :215 (_battery_closest)",
     # the planner modes last: phase 14 takes them as tuple(REPLACES)[-7:]
     "cluster_plan[super]": _TK + ":420",
     "cluster_plan[group]": _TK + ":420",
@@ -343,6 +376,9 @@ def kernel_name(mangled: str) -> str:
         return (f"cluster_{m.group(1)}"
                 f"{'_stream' if m.group(3) == '1' else ''}"
                 f"[{battery}, S={m.group(4)}]")
+    m = re.search(r"(closest|occluded)_kernelILb([01])EE", mangled)
+    if m:  # the BVH and grid walks
+        return f"{m.group(1)}_kernel[{('sphere', 'triangle')[int(m.group(2))]}]"
     m = re.search(r"replay_kernelILi(\d)EE", mangled)
     if m:
         return f"stream_replay[{('sphere', 'triangle')[int(m.group(1))]}]"
@@ -429,10 +465,17 @@ def report_kernels(libraries):
     for lib in libraries:
         for fn, regs, (st, ld), smem in ptxas_report(
                 lib.build_log, CHECKED):
-            log(f"    ptxas {kernel_name(fn)}: {regs} registers, spill "
+            log(f"    ptxas {lib.source.name} {kernel_name(fn)}: {regs} "
+                f"registers, spill "
                 f"stores {st} B, spill loads {ld} B, {smem} B static shared")
     bad = []
-    for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY, lr.LIBRARY):
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        bvh_walk as bw
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        grid_walk as gw
+
+    for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY, lr.LIBRARY, bw.LIBRARY,
+                gw.LIBRARY):
         for fn, c in sass_report(lib).items():
             log(f"    SASS {lib.source.name} {kernel_name(fn)}: "
                 f"{c['instructions']} instructions, {c['f64 arithmetic']} "
@@ -1765,8 +1808,8 @@ def check_against_brute(torch, scene, rays, label):
 
 
 def render(torch, crt, scene, policy, width, height, passes, label, expect,
-           idle=(), probe=None, profiled=True):
-    """Run WINDOWS timed windows of `passes` accumulation passes each
+           idle=(), probe=None, profiled=True, windows=WINDOWS):
+    """Run `windows` timed windows of `passes` accumulation passes each
     through Renderer.accumulate, with the launch counts set to 0 just
     before the first and read just after the last; returns (image,
     numbers). ms/pass is the median window's; rays per pass are the port's
@@ -1784,21 +1827,21 @@ def render(torch, crt, scene, policy, width, height, passes, label, expect,
     torch.cuda.synchronize()
     build.reset_counts()
     window_ms = []
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         t0 = time.perf_counter()
         r.accumulate(passes)
         torch.cuda.synchronize()
         window_ms.append((time.perf_counter() - t0) * 1e3 / passes)
     launches = build.launch_counts()
-    ms = sorted(window_ms)[WINDOWS // 2]
-    rays = int(r.state.rays_traced) / (passes * WINDOWS)
+    ms = sorted(window_ms)[windows // 2]
+    rays = int(r.state.rays_traced) / (passes * windows)
     img = r.render(tonemap=False)
     if img.shape != (height, width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"[{label}] bad image {img.shape}")
     log(f"[{label}] {width}x{height}: {ms:.2f} ms/pass (median of windows "
         f"{[round(m, 2) for m in window_ms]}), {rays} rays/pass (port "
         f"ray_count), {rays / ms / 1e3:.2f} Mrays/s; launches in "
-        f"{passes * WINDOWS} passes {launches}; image mean "
+        f"{passes * windows} passes {launches}; image mean "
         f"{float(img.mean()):.5f}")
     for name in expect:
         if launches[name] <= 0:
@@ -2637,6 +2680,414 @@ def check_host_paths(torch, np, crt):
     return numbers
 
 
+# phase 19: the backends without Pallas. The sphere field is BASELINE.json's
+# config 2 (benchmarks/tpu_diag.py:138-146: 'brute', 'bvh' and 'grid' at
+# res=32) with 'clustered' at with_clusters' 64 clusters; the mesh is
+# tpu_diag.py:171-173's 81,920 triangles at 5 bounces ('grid' at res=48, and
+# 'bvh')
+WALKS = ("bvh_closest", "bvh_occluded", "grid_closest", "grid_occluded")
+WALK_SOURCES = {"bvh": "cpu_raytracing_experiments_tpu_torch/csrc/bvh_walk.cu",
+                "grid": "cpu_raytracing_experiments_tpu_torch/csrc/grid_walk.cu"}
+WALK_RAYS = 1 << 19  # the rays of one chunk at the default rays_per_chunk
+MESH_GRID_RAYS = 1 << 16  # the mesh grid's plain residual battery is slow
+FIELD_GRID_RES, MESH_GRID_RES, FIELD_CLUSTERS = 32, 48, 64
+# operations per test, counted from csrc/walk_common.cuh and grid_walk.cu:
+# the sphere leaf test 20 (as the dense battery's pair), Moller-Trumbore
+# 6 fma + 3 mul (h), 2 fma + 1 mul (det), a division, 3 sub, 3 x (2 fma +
+# 2 mul) (u, v, t), 6 fma + 3 mul (q), 6 compares and an add, fmas counted
+# as 2; the DDA's set-up (per ray: 3 x (fma, reciprocal, 2 sub, 2 mul, min,
+# max, fma, sub, mul, convert, fma, sub, division, abs, division) + 6) and
+# a cell step (the exit min, 3 compares, an add, the done test, the flat
+# index)
+SPHERE_LEAF_OPS = CLOSEST_OPS_PER_PAIR
+# the share of values a backend's full-width image holds to the reference
+# image at rtol 1e-3 / atol 1e-4, below _check's 0.995: the brute any-hit
+# battery is the sqrt-free predicate and the walks compare t < tfar, which
+# round apart for about one shadow ray in a thousand (the ray to a point
+# sampled on the light itself, at t ~ tfar), and over 9 passes that moves
+# 0.6% of the values (PR 14's first chip run: 0.99406 for 'bvh')
+ACCEL_CLOSE = 0.99
+TRI_LEAF_OPS = 52
+GRID_SETUP_OPS = 66
+GRID_STEP_OPS = 14
+
+
+def walk_batches(torch, np, crt, scene, accel, n, seed):
+    """Ray batches for a walk over `scene`'s `accel` table, each (p, d,
+    tfar0 of the closest walk or None, tfar of the any-hit walk): 'camera',
+    the primary rays of the 1920x1088 frame's first chunk in screen-tile
+    order; 'diffuse', from where those rays hit (or a random point of the
+    bounds) in random directions, half the lanes seeded with a finite
+    tfar0; 'axis', exactly axis-aligned directions from random points of
+    the bounds, a quarter of the origins 0 on the ray's axis (n = 0 * inf =
+    NaN there). The any-hit distances mix finite values, 0 and +inf."""
+    from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3
+    from cpu_raytracing_experiments_tpu_torch.ops import intersect
+    from cpu_raytracing_experiments_tpu_torch.render import renderer
+
+    width, height = FRAME
+    pol = crt.RendererPolicy(max_bounces=8)
+    pixel = renderer._tile_pixel_order(width, width * height, 16,
+                                       torch.device(DEVICE))[0][:n]
+    seeds = renderer.pixel_seeds_from_index(pixel, width, pol)
+    p, d = renderer.generate_camera_rays(
+        scene.camera.resized(width, height), pixel % width, pixel // width,
+        1, seeds, False, pol)
+    t, prim, _ = intersect.intersect_scene(scene, p, d, accel=accel)
+    g = np.random.default_rng(seed)
+    as_t = lambda a: torch.tensor(np.ascontiguousarray(a),
+                                  dtype=torch.float32, device=DEVICE)
+    cent = np.stack([c.cpu().numpy() for c in scene.spheres.center], 1)
+    if scene.triangles is not None:
+        cent = np.concatenate([cent, np.stack(
+            [c.cpu().numpy() for c in scene.triangles.v0], 1)])
+    lo, hi = np.percentile(cent, 2, 0), np.percentile(cent, 98, 0)
+    extent = float(np.abs(hi - lo).max())
+
+    def shadow_tfar():
+        tf = g.uniform(0.0, extent, n)
+        tf[g.random(n) < 0.1] = 0.0
+        tf[g.random(n) < 0.05] = np.inf
+        return as_t(tf)
+
+    def unit(a):
+        return a / np.linalg.norm(a, axis=1, keepdims=True)
+
+    hit = prim >= 0
+    o = Vec3(*(torch.where(hit, pc + t * dc, as_t(g.uniform(lo[j], hi[j], n)))
+               .contiguous() for j, (pc, dc) in enumerate(zip(p, d))))
+    dirs = unit(g.normal(size=(n, 3)))
+    seed_t = torch.where(as_t(g.random(n)) < 0.5,
+                         as_t(g.uniform(1.0, extent, n)),
+                         torch.full((n,), FLT_MAX_F32, device=DEVICE))
+    axis = np.zeros((n, 3))
+    k = g.integers(0, 3, n)
+    axis[np.arange(n), k] = g.choice([-1.0, 1.0], n)
+    ao = g.uniform(lo, hi, (n, 3))
+    zero = g.random(n) < 0.25
+    ao[zero, k[zero]] = 0.0
+    return {
+        "camera": (p, d, None, shadow_tfar()),
+        "diffuse": (o, Vec3(*(as_t(dirs[:, j]) for j in range(3))), seed_t,
+                    shadow_tfar()),
+        "axis": (Vec3(*(as_t(ao[:, j]) for j in range(3))),
+                 Vec3(*(as_t(axis[:, j]) for j in range(3))), None,
+                 shadow_tfar()),
+    }
+
+
+FLT_MAX_F32 = 3.4028234663852886e38
+
+
+def residual_anyhit_pairs(torch, grid, rows, p, d, tf):
+    """The (ray, residual prim) pairs grid_occluded's residual loop needs on
+    these rays: a lane stops after its first prim whose candidate lies
+    below FLT_MAX and tfar, else it tests all Rr."""
+    from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3
+    from cpu_raytracing_experiments_tpu_torch.ops import intersect
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        sphere_battery as sb
+
+    rr = grid.residual.shape[0]
+    if rr == 0:
+        return 0
+    r = rows[grid.residual]
+    cols = [r[:, k].contiguous() for k in range(r.shape[1])]
+    needed = torch.full((p.x.shape[0],), rr, dtype=torch.int64, device=DEVICE)
+    if r.shape[1] == 9:
+        blocks = intersect._triangle_blocks(p, d, Vec3(*cols[0:3]),
+                                            Vec3(*cols[3:6]),
+                                            Vec3(*cols[6:9]))
+    else:
+        blocks = ((slice(r0, r0 + intersect.RAY_CHUNK), s0,
+                   sb._sphere_candidates(
+                       Vec3(*(c[r0:r0 + intersect.RAY_CHUNK] for c in p)),
+                       Vec3(*(c[r0:r0 + intersect.RAY_CHUNK] for c in d)),
+                       *(c[s0:s0 + sb.PRIM_CHUNK] for c in cols)))
+                  for r0 in range(0, p.x.shape[0], intersect.RAY_CHUNK)
+                  for s0 in range(0, rr, sb.PRIM_CHUNK))
+    for rs, start, t in blocks:
+        hit = (t < FLT_MAX_F32) & (t < tf[rs, None])
+        first = torch.where(hit.any(dim=1), hit.to(torch.int8).argmax(dim=1)
+                            + start + 1, rr)
+        needed[rs] = torch.minimum(needed[rs], first)
+    return int(needed.sum())
+
+
+def check_walks(torch, timer, kind, table, rows, batches, label):
+    """bvh_closest / bvh_occluded (kind 'bvh') or grid_closest /
+    grid_occluded ('grid') against their plain versions on each batch, bit
+    for bit (tfar bits, ids, occlusion); their CUDA-event times beside the
+    plain version's and the bound from the plain version's visit counts.
+    Returns {(kernel, batch): row}."""
+    from cpu_raytracing_experiments_tpu_torch.bvh import grid as grid_mod
+    from cpu_raytracing_experiments_tpu_torch.bvh import traverse
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import bvh_walk
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import grid_walk
+
+    walk = bvh_walk if kind == "bvh" else grid_walk
+    test = bvh_walk.ROW_TESTS[rows.shape[1]]
+    tri = rows.shape[1] == 9
+    leaf_ops = TRI_LEAF_OPS if tri else SPHERE_LEAF_OPS
+    dense_ops = TRI_CLOSEST_OPS if tri else CLOSEST_OPS_PER_PAIR
+    if kind == "bvh":
+        closest_plain, occluded_plain = (traverse.traverse_closest_packed,
+                                         traverse.traverse_shadow_packed)
+        table_bytes = table.num_nodes * 32 + rows.numel() * 4
+        shape = f"N={table.num_nodes} nodes, {rows.shape[0]} prims"
+    else:
+        closest_plain, occluded_plain = (grid_mod.traverse_grid_closest,
+                                         grid_mod.traverse_grid_shadow)
+        rr = table.residual.shape[0]
+        table_bytes = (table.cells.numel() * 4 + table.cell_count.numel() * 4
+                       + rows.numel() * 4 + rr * (4 + (48 if tri else 0)))
+        shape = (f"res={table.res} K={table.max_per_cell}, {rows.shape[0]} "
+                 f"prims, residual {rr}")
+
+    def ops(counts, n, residual_pairs=0):
+        tests = counts.get("tests", 0)
+        if kind == "bvh":
+            return SLAB_OPS * counts.get("nodes", 0) + leaf_ops * tests
+        return (GRID_SETUP_OPS * n + GRID_STEP_OPS * counts.get("cells", 0)
+                + leaf_ops * tests + dense_ops * residual_pairs)
+
+    out = {}
+    for bname, (p, d, tf0, tf) in batches.items():
+        n = p.x.shape[0]
+        cc, oc, plain = {}, {}, {}
+        kt, kid = walk.closest(table, p, d, rows, tf0)
+        ko = walk.occluded(table, p, d, tf, rows)
+        # one run of each plain version, timed, its visits counted (the
+        # counts cost a host read a leaf slot or cell, inside the time)
+        plain_ms = {
+            f"{kind}_closest": timer(lambda: plain.__setitem__(
+                "closest", closest_plain(table, p, d, rows, test, tfar0=tf0,
+                                         counts=cc)), 1, warmup=0),
+            f"{kind}_occluded": timer(lambda: plain.__setitem__(
+                "occluded", occluded_plain(table, p, d, tf, rows, test,
+                                           counts=oc)), 1, warmup=0)}
+        (pt, pid), po = plain["closest"], plain["occluded"]
+        same = (torch.equal(kid, pid)
+                and torch.equal(kt.view(torch.int32), pt.view(torch.int32))
+                and torch.equal(ko, po))
+        hit = pid >= 0
+        log(f"[{label}, {bname}] R={n} {shape}: hits {int(hit.sum())}, "
+            f"occluded {int(po.sum())}, plain counts closest {cc} any-hit "
+            f"{oc}; kernels equal the plain versions bit for bit: {same}")
+        if not same:
+            bad = ((kid != pid) | (kt.view(torch.int32) != pt.view(torch.int32))
+                   | (ko != po))
+            for i in torch.nonzero(bad)[:5, 0].tolist():
+                log(f"  lane {i}: kernel ({float(kt[i])!r}, {int(kid[i])}, "
+                    f"{bool(ko[i])}) plain ({float(pt[i])!r}, {int(pid[i])}, "
+                    f"{bool(po[i])})")
+            raise AssertionError(f"[{label}, {bname}] a walk kernel "
+                                 "disagrees with its plain version")
+        anyhit_pairs = (0 if kind == "bvh" else
+                        residual_anyhit_pairs(torch, table, rows, p, d, tf))
+        for name, kern, nbytes, n_ops in (
+                (f"{kind}_closest",
+                 lambda: walk.closest(table, p, d, rows, tf0),
+                 n * (24 + (0 if tf0 is None else 4) + 8) + table_bytes,
+                 ops(cc, n, cc.get("residual_pairs", 0))),
+                (f"{kind}_occluded",
+                 lambda: walk.occluded(table, p, d, tf, rows),
+                 n * (28 + 1) + table_bytes, ops(oc, n, anyhit_pairs))):
+            ms = timer(kern, 10)
+            row = kernel_row(name, WALK_SOURCES[kind], f"R={n} {shape}",
+                             None, 0.0, ms, plain_ms[name], nbytes, n_ops)
+            row["batch"] = f"{label}, {bname}"
+            out[name, bname] = row
+            log(f"[{label}, {bname}] {name}: {ms:.4f} ms (bound "
+                f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                f"{n_ops / 1e9:.3f} GFLOP; plain {plain_ms[name]:.1f} ms)")
+    return out
+
+
+def check_accel_paths(torch, np, crt, timer):
+    """Phase 19: (a) the four walk kernels against their plain versions on
+    the 1000-sphere field's BVH and grid and on the 81,920-triangle mesh's
+    (WALK_RAYS rays, MESH_GRID_RAYS on the mesh grid); (b) the field at
+    1920x1088, 8 bounces, under 'brute', 'bvh', 'grid' and 'clustered', and
+    the mesh at 5 bounces under 'bvh' and 'grid', each image held to the
+    field's 'brute' image (the mesh's: to each other) as ACCEL_CLOSE says,
+    with launches and peak memory; (c) bvh_test at 64x64 on the card against the
+    CPU under each backend, bucket bits, and the bvh_test golden on the
+    card; (d) a SceneEditor edit of a with_bvh scene on the card. Returns
+    (numbers, kernel rows)."""
+    from cpu_raytracing_experiments_tpu_torch.bvh import traverse
+    from cpu_raytracing_experiments_tpu_torch.scene import accel, edit
+    from cpu_raytracing_experiments_tpu_torch.scene.scene import (
+        Scene, build_light_list, light_alias_arrays)
+
+    pol = crt.RendererPolicy
+    numbers, rows_out = {}, {}
+    t0 = time.perf_counter()
+    field = crt.builders.random_spheres_scene(*FRAME, num_spheres=1000)
+    mesh = crt.builders.mesh_scene(*FRAME, subdivisions=6)
+    scenes = {
+        "field bvh": accel.with_bvh(field).to(DEVICE),
+        "field grid": accel.with_grid(field, res=FIELD_GRID_RES).to(DEVICE),
+        "field clustered": accel.with_clusters(
+            field, num_clusters=FIELD_CLUSTERS).to(DEVICE),
+        "mesh bvh": accel.with_bvh(mesh).to(DEVICE),
+        "mesh grid": accel.with_grid(mesh, res=MESH_GRID_RES).to(DEVICE),
+    }
+    g = scenes["mesh grid"].tri_grid
+    log(f"[19] tables built on the host in {time.perf_counter() - t0:.1f} s: "
+        f"field BVH {scenes['field bvh'].sphere_bvh.num_nodes} nodes, mesh "
+        f"BVH {scenes['mesh bvh'].tri_bvh.num_nodes} nodes ({mesh.triangles.count} "
+        f"triangles), mesh grid res {g.res} residual {g.residual.shape[0]}, "
+        f"field grid residual "
+        f"{scenes['field grid'].sphere_grid.residual.shape[0]}")
+
+    # (a) the kernels against their plain versions
+    for sname, kind, n in (("field bvh", "bvh", WALK_RAYS),
+                           ("field grid", "grid", WALK_RAYS),
+                           ("mesh bvh", "bvh", WALK_RAYS),
+                           ("mesh grid", "grid", MESH_GRID_RAYS)):
+        sc = scenes[sname]
+        if sname.startswith("field"):
+            table = sc.sphere_bvh if kind == "bvh" else sc.sphere_grid
+            rows = traverse.pack_spheres(sc.spheres.center,
+                                         sc.spheres.radius_sq)
+        else:
+            table = sc.tri_bvh if kind == "bvh" else sc.tri_grid
+            tri = sc.triangles
+            rows = traverse.pack_triangles(tri.v0, tri.e1, tri.e2)
+        if n < WALK_RAYS:
+            log(f"[19 {sname}] {n} rays, not {WALK_RAYS}: the plain "
+                f"version's dense residual battery is slow at full width")
+        batches = walk_batches(torch, np, crt, sc, kind, n, 19)
+        rows_out.update({(sname,) + k: v for k, v in check_walks(
+            torch, timer, kind, table, rows, batches, f"19 {sname}").items()})
+        del batches
+
+    log(f"[19] kernels checked at {time.perf_counter() - t0:.1f} s")
+
+    # (b) full-width renders
+    renders = {}
+    for name, scene, kw, expect, bounces in (
+            ("field brute", field.to(DEVICE), {},
+             ("sphere_closest", "sphere_occluded"), 8),
+            ("field bvh", scenes["field bvh"], {"accel": "bvh"},
+             ("bvh_closest", "bvh_occluded"), 8),
+            ("field grid", scenes["field grid"], {"accel": "grid"},
+             ("grid_closest", "grid_occluded"), 8),
+            ("field clustered", scenes["field clustered"],
+             {"accel": "clustered"}, ("sphere_closest",), 8),
+            ("mesh bvh", scenes["mesh bvh"], {"accel": "bvh"},
+             ("bvh_closest", "bvh_occluded"), 5),
+            ("mesh grid", scenes["mesh grid"], {"accel": "grid"},
+             ("grid_closest", "grid_occluded"), 5)):
+        mesh_path = name.startswith("mesh")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        # the mesh: one window of 3 passes (the median of 5 buckets is 0
+        # below 3 passes); the field: the images it compares are of equal
+        # pass counts
+        img, nums = render(torch, crt, scene, pol(max_bounces=bounces, **kw),
+                           *FRAME, PASSES, f"19 {name}", expect,
+                           idle=() if kw else WALKS,
+                           windows=1 if mesh_path else WINDOWS)
+        nums["peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        log(f"[19 {name}] peak {nums['peak_mib']:.1f} MiB above the "
+            f"{held / 2 ** 20:.1f} MiB held before")
+        renders[name] = (img, nums)
+    for name, ref in (("field bvh", "field brute"),
+                      ("field grid", "field brute"),
+                      ("field clustered", "field brute"),
+                      ("mesh grid", "mesh bvh")):
+        img, want = renders[name][0], renders[ref][0]
+        close = float(np.isclose(img, want, rtol=1e-3, atol=1e-4).mean())
+        mean_ok = abs(img.mean() - want.mean()) <= 1e-3 * abs(want.mean())
+        log(f"[19 {name} vs {ref}] close {close:.5f} (need > "
+            f"{ACCEL_CLOSE}), mean {img.mean():.6f} vs {want.mean():.6f} "
+            f"(within rtol 1e-3: {mean_ok})")
+        renders[name][1]["close_to_" + ref.split()[1]] = close
+        if not (close > ACCEL_CLOSE and mean_ok and want.mean() > 0):
+            raise AssertionError(f"[19 {name}] the image differs from "
+                                 f"{ref}'s")
+    numbers["renders"] = {
+        name: {k: v for k, v in nums.items() if k != "probe"}
+        for name, (_, nums) in renders.items()}
+    del renders, scenes
+
+    log(f"[19] full-width renders done at {time.perf_counter() - t0:.1f} s")
+
+    # (c) the card against the CPU at 64x64 (one pass), and the bvh_test
+    # golden on the card
+    small = crt.builders.bvh_test_scene(64, 64)
+    spol = dict(max_bounces=6, rays_per_chunk=4096)
+    equal = {}
+    for name, attach, kw in (
+            ("bvh", accel.with_bvh, {"accel": "bvh"}),
+            ("grid", accel.with_grid, {"accel": "grid"}),
+            ("clustered", accel.with_clusters, {"accel": "clustered"}),
+            ("bvh, primary pallas",
+             lambda s: accel.with_pallas_clusters(accel.with_bvh(s)),
+             {"accel": "bvh", "primary_accel": "pallas"})):
+        sc = attach(small)
+        got = []
+        for dev in ("cpu", DEVICE):
+            r = crt.Renderer(sc, pol(**spol, **kw), 64, 64, device=dev)
+            r.accumulate(1)
+            got.append(r.state.buckets)
+        equal[name] = equal_bits(torch, got[0], got[1])
+        r = crt.Renderer(sc, pol(**spol, narrow_wavefront=False, **kw), 64,
+                         64)
+        r.accumulate(10)
+        img = r.render(tonemap=False)
+        golden = np.load(ROOT / "tests" / "goldens" / "bvh_test_64x64_10spp.npy")
+        close = float(np.isclose(img, golden, rtol=1e-3, atol=1e-4).mean())
+        log(f"[19 bvh_test 64x64 {name}] card buckets equal the CPU's bit "
+            f"for bit: {equal[name]}; 10 spp on the card against the golden: "
+            f"close {close:.5f} (need > 0.995)")
+        if not equal[name] or close <= 0.995:
+            raise AssertionError(f"[19 bvh_test {name}] card differs from "
+                                 "the CPU or misses the golden")
+        numbers[f"bvh_test {name}"] = {"cpu_card_equal": equal[name],
+                                       "golden_close": close}
+
+    log(f"[19] card against CPU done at {time.perf_counter() - t0:.1f} s")
+
+    # (d) an edit of a with_bvh scene on the card
+    hero = crt.builders.default_scene(64, 64)
+    bpol = pol(**spol, accel="bvh")
+    sb = accel.with_bvh(hero)
+    r = crt.Renderer(sb, bpol, 64, 64)
+    r.accumulate(1)
+    k = 6
+    pos = tuple(float(c[k]) + 0.05 for c in sb.spheres.center)
+    editor = edit.SceneEditor(r)
+    editor.edit(edit.set_sphere, k, position=pos)
+    editor.commit()
+    r.accumulate(2)
+    # the same sphere moved in the scene as built, then with_bvh; the light
+    # list in leaf order, as the editor's invalidation rebuilds it
+    centers = np.stack([c.numpy() for c in hero.spheres.center], 1)
+    moved = int(np.nonzero((centers == np.stack(
+        [c.numpy() for c in sb.spheres.center], 1)[k]).all(1))[0][0])
+    arrays = hero.to_numpy()
+    arrays["sphere_center"][moved] = pos
+    arrays = accel.with_bvh(Scene.from_numpy(arrays)).to_numpy()
+    arrays["lights"] = build_light_list(arrays["sphere_material_id"],
+                                        arrays["material_emission"])
+    arrays.update(light_alias_arrays(arrays))
+    built = crt.Renderer(Scene.from_numpy(arrays), bpol, 64, 64)
+    built.accumulate(2)
+    same = equal_bits(torch, r.state.buckets, built.state.buckets)
+    log(f"[19 edit] sphere {k} of a with_bvh hero moved on the card and "
+        f"committed (BVH rebuilt: {r.scene.sphere_bvh is not sb.sphere_bvh}); "
+        f"the next 2 passes equal the scene built with the edit bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("[19 edit] the edited bvh render differs")
+    numbers["edit"] = {"equal_to_built": same}
+    return numbers, rows_out
+
+
 def main() -> int:
     import torch
 
@@ -2651,8 +3102,12 @@ def main() -> int:
     from cpu_raytracing_experiments_tpu_torch.ops import intersect
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        bvh_walk as bw
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import fma as kf
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        grid_walk as gw
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         light_rows as lr
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
@@ -2671,7 +3126,7 @@ def main() -> int:
             check=True, timeout=60).stdout.strip())
     t0 = time.perf_counter()
     libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, lr.LIBRARY,
-                 native.LIBRARY)
+                 bw.LIBRARY, gw.LIBRARY, native.LIBRARY)
     build.load_all(libraries)
     log(f"[1] csrc/ built side by side and loaded in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(lib.source.name for lib in libraries)})")
@@ -2951,6 +3406,21 @@ def main() -> int:
     host_paths = check_host_paths(torch, np, crt)
     host_paths["phase_s"] = time.perf_counter() - t0
     log(f"[18] host features checked in {host_paths['phase_s']:.1f} s")
+    log(f"[19] phases 1-18 done at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    accel_paths, walk_rows = check_accel_paths(torch, np, crt, timer)
+    accel_paths["phase_s"] = time.perf_counter() - t0
+    log(f"[19] the backends without Pallas checked in "
+        f"{accel_paths['phase_s']:.1f} s")
+    # each walk's row at the field's camera batch, its launches from the
+    # field's render under that backend
+    walk_main = {}
+    for (sname, name, bname), row in walk_rows.items():
+        render_nums = accel_paths["renders"].get(sname)
+        row["launches"] = (render_nums["launches"][name]
+                           if render_nums else 0)
+        if sname.startswith("field") and bname == "camera":
+            walk_main[name] = row
 
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):
         for name, row in rows.items():
@@ -3002,11 +3472,16 @@ def main() -> int:
     log(json.dumps({"shading_paths": shading}))
     log(json.dumps({"light_paths": light_paths}))
     log(json.dumps({"host_paths": host_paths}))
+    log(json.dumps({"walk_kernels_at_other_shapes": [
+        row for row in walk_rows.values()
+        if row not in walk_main.values()]}))
+    log(json.dumps({"accel_paths": accel_paths}))
     log(card)
     log(json.dumps({"kernels": list(hero_rows.values())
                     + list(fma_rows.values())
                     + list(main_rows.values()) + list(new_rows.values())
-                    + list(stream2_rows.values()) + [light_rows_row]}))
+                    + list(stream2_rows.values()) + [light_rows_row]
+                    + [walk_main[name] for name in WALKS]}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

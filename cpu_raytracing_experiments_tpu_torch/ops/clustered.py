@@ -7,8 +7,15 @@ statement the JAX package's, so the arrays are equal to the last bit.
 
 ``build_clusters_sah(group_boxes=True)`` also records each cluster's SAH
 leaf boxes (``glo`` / ``ghi``), which ``pallas_plan='group'`` culls against.
-Not ported here: the XLA paths ``intersect_clustered`` /
-``occluded_clustered`` of ``accel='clustered'``.
+
+``intersect_clustered`` / ``occluded_clustered`` are ``accel='clustered'``:
+every cluster that any ray of the call touches runs the dense battery of
+``accel='brute'`` over its real rows, nearest cluster first. The JAX package
+scans all C clusters with a ``lax.cond`` each; here the cull is read back
+once a call and the loop visits the touched clusters only. A sphere cluster
+goes through ``closest_hit`` (the ``sphere_closest`` kernel on the card), a
+triangle cluster through the plain Baldwin-Weber battery of
+``ops/intersect.py``.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ from ..bvh import builder as _bvh
 from ..core.vec import Vec3
 
 SUPER = 128  # clusters a supercluster box covers (pallas_plan='super')
+FLT_MAX = 3.4028234663852886e38  # float32 max, exactly representable
+CULL_RAYS = 1 << 16  # rays per [R, C] block of the cull
 
 
 @dataclasses.dataclass
@@ -307,3 +316,107 @@ def build_clusters(mins: np.ndarray, maxs: np.ndarray, rows: np.ndarray,
             c_lo[c] = 1e16
             c_hi[c] = 1e16
     return _pack(rows, full_order, c_lo, c_hi, k, kind)
+
+
+def _cluster_cull(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar):
+    """([C] whether any ray's slab test hits the cluster's box, [C] the
+    nearest entry distance over the rays that hit it, FLT_MAX elsewhere),
+    in blocks of CULL_RAYS rays (min and any are exact in any order)."""
+    inv = Vec3(*(torch.reciprocal(c) for c in d))
+    any_hit, entry = [], []
+    for r0 in range(0, p.x.shape[0], CULL_RAYS):
+        rs = slice(r0, r0 + CULL_RAYS)
+        tmin = tmax = None
+        for lo, hi, pc, ic in zip(cp.lo, cp.hi, p, inv):
+            a = (lo[None, :] - pc[rs, None]) * ic[rs, None]
+            b = (hi[None, :] - pc[rs, None]) * ic[rs, None]
+            if tmin is None:
+                tmin, tmax = torch.minimum(a, b), torch.maximum(a, b)
+            else:
+                tmin = torch.maximum(tmin, torch.minimum(a, b))
+                tmax = torch.minimum(tmax, torch.maximum(a, b))
+        near = torch.clamp_min(tmin, 0.0)
+        hit = (tmax >= near) & (tmin < tfar[rs, None])
+        any_hit.append(hit.any(dim=0))
+        entry.append(torch.where(hit, near, FLT_MAX).amin(dim=0))
+    return (torch.stack(any_hit).any(dim=0),
+            torch.stack(entry).amin(dim=0))
+
+
+def _touched(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar):
+    """[(cluster, real rows)] of the clusters the cull touches, nearest
+    entry first (a stable sort: untouched clusters tie at FLT_MAX), from
+    one host read. A cluster's real rows are a prefix of its K slots."""
+    any_hit, entry = _cluster_cull(cp, p, d, tfar)
+    visit = torch.argsort(entry, stable=True)
+    real = (cp.order.view(cp.num_clusters, cp.cluster_size) >= 0).sum(dim=1)
+    visit, hit, real = torch.stack(
+        [visit, any_hit[visit].to(visit.dtype), real[visit].to(visit.dtype)]
+    ).tolist()
+    return [(c, n) for c, h, n in zip(visit, hit, real) if h]
+
+
+def _cluster_closest(cp: ClusteredPrims, cols, c: int, n: int, p: Vec3,
+                     d: Vec3):
+    """(best t [R], ORIGINAL prim id [R] or -1) over cluster c's n real
+    rows: the first of the least t, FLT_MAX on a miss. `cols` are the
+    pack's rows as contiguous columns."""
+    from . import intersect as _i
+
+    rs = slice(c * cp.cluster_size, c * cp.cluster_size + n)
+    ids = cp.order[rs]
+    cl = [a[rs] for a in cols]
+    if cp.kind == "sphere":
+        best, arg = _i.closest_hit(p, d, Vec3(*cl[:3]), cl[3])
+    else:
+        best, arg = _i.intersect_triangles(p, d, Vec3(*cl[0:3]),
+                                           Vec3(*cl[3:6]), Vec3(*cl[6:9]))
+    return best, torch.where(arg >= 0, ids[torch.clamp_min(arg, 0)], -1)
+
+
+def _columns(cp: ClusteredPrims):
+    return list(cp.rows.t().contiguous())
+
+
+def intersect_clustered(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar0=None):
+    """Closest hit over the clustered primitives: (tfar [R], prim_id [R] in
+    ORIGINAL primitive numbering, -1 for a miss). Each touched cluster, in
+    order of nearest entry, replaces a lane's hit where its best is strictly
+    closer; the cull uses the tfar the call starts with, a finite one (see
+    ``occluded_clustered``)."""
+    n = p.x.shape[0]
+    tfar = (torch.full((n,), FLT_MAX, dtype=torch.float32, device=p.x.device)
+            if tfar0 is None else tfar0)
+    prim_id = torch.full((n,), -1, dtype=torch.int32, device=p.x.device)
+    cols = _columns(cp)
+    for c, real in _touched(cp, p, d, tfar):
+        if real == 0:  # an empty cluster: every slot is padding
+            continue
+        best, ids = _cluster_closest(cp, cols, c, real, p, d)
+        closer = best < tfar
+        tfar = torch.where(closer, best, tfar)
+        prim_id = torch.where(closer, ids, prim_id)
+    return tfar, prim_id
+
+
+def occluded_clustered(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar):
+    """Any hit: [R] bool, some prim of a touched cluster at t < tfar (the
+    least t of the cluster's battery below tfar). For finite tfar, as the
+    renderer's are: the JAX package's padding slots test as FLT_MAX, which
+    an infinite tfar would count."""
+    from . import intersect as _i
+
+    occ = torch.zeros(p.x.shape[0], dtype=torch.bool, device=p.x.device)
+    cols = _columns(cp)
+    for c, real in _touched(cp, p, d, tfar):
+        if real == 0:  # an empty cluster: every slot is padding
+            continue
+        if cp.kind == "sphere":
+            best, _ = _cluster_closest(cp, cols, c, real, p, d)
+            occ = occ | (best < tfar)
+        else:
+            rs = slice(c * cp.cluster_size, c * cp.cluster_size + real)
+            cl = [a[rs] for a in cols]
+            occ = occ | _i.occluded_triangles(
+                p, d, tfar, Vec3(*cl[0:3]), Vec3(*cl[3:6]), Vec3(*cl[6:9]))
+    return occ

@@ -1,11 +1,13 @@
 """Batched ray-primitive intersection, the port of the JAX package's
-``ops/intersect.py`` for spheres and triangles under ``accel='brute'`` and
-``accel='pallas'``.
+``ops/intersect.py`` for spheres and triangles under every ``accel``:
+'brute', 'pallas', 'clustered', 'grid' and 'bvh'.
 
 The plain batteries ``intersect_spheres`` / ``occluded_spheres`` keep the JAX
 semantics (first-occurrence tie-break, sqrt-free any-hit predicate) and live
 beside their CUDA kernels in ``ops/kernels/sphere_battery.py``; the clustered
-traversal of ``accel='pallas'`` lives in ``ops/kernels/cluster_traverse.py``.
+traversal of ``accel='pallas'`` lives in ``ops/kernels/cluster_traverse.py``,
+the BVH and grid walks in ``ops/kernels/bvh_walk.py`` / ``grid_walk.py`` and
+``accel='clustered'`` in ``ops/clustered.py``.
 The dense triangle batteries ``intersect_triangles`` / ``occluded_triangles``
 are XLA code in the JAX package, not a TPU kernel, and are plain PyTorch here
 on every device. ``intersect_scene`` / ``occluded_scene`` dispatch to the
@@ -17,8 +19,12 @@ from functools import partial
 
 import torch
 
+from ..bvh import traverse as _bvh
 from ..core.vec import Vec3
+from . import clustered
+from .kernels import bvh_walk as _bw
 from .kernels import cluster_traverse as _tk
+from .kernels import grid_walk as _gw
 from .kernels.sphere_battery import (  # noqa: F401  (re-exported JAX names)
     FLT_MAX, PRIM_CHUNK, _closest_epilogue, any_hit, closest_hit,
     intersect_spheres, occluded_spheres)
@@ -151,10 +157,42 @@ def occluded_triangles(p: Vec3, d: Vec3, tfar, v0: Vec3, e1: Vec3, e2: Vec3):
 # ---------------------------------------------------------------------------
 # Scene-level dispatch
 # ---------------------------------------------------------------------------
-def _check_accel(accel):
-    if accel not in ("brute", "pallas"):
-        raise NotImplementedError(
-            f"accel={accel!r} is not ported yet ('brute' and 'pallas' are)")
+def _accel_passes(scene, accel):
+    """The passes of accel='clustered', 'grid' or 'bvh': [(closest,
+    occluded)], the sphere pass and, where the scene has triangles and
+    their table, the triangle pass; closest(p, d, tfar0) -> (tfar, prim_id)
+    and occluded(p, d, tfar) -> [R] bool. None for another accel, and where
+    the scene lacks the backend's sphere table: the dense batteries run
+    then. Both rules are the JAX package's dispatch (its intersect_scene
+    tests ``scene.sphere_* is not None``, and skips triangles whose table is
+    missing), not a fallback of the device."""
+    if accel == "clustered":
+        tables = (scene.sphere_clusters, scene.tri_clusters)
+
+        def walks(table, _):
+            return (partial(clustered.intersect_clustered, table),
+                    partial(clustered.occluded_clustered, table))
+    elif accel in ("grid", "bvh"):
+        walk = _gw if accel == "grid" else _bw
+        tables = ((scene.sphere_grid, scene.tri_grid) if accel == "grid"
+                  else (scene.sphere_bvh, scene.tri_bvh))
+
+        def walks(table, rows):
+            return (lambda p, d, tfar0=None: walk.closest(table, p, d, rows(),
+                                                          tfar0),
+                    lambda p, d, tfar: walk.occluded(table, p, d, tfar,
+                                                     rows()))
+    else:
+        return None
+    if tables[0] is None:
+        return None
+    sp, tri = scene.spheres, scene.triangles
+    passes = [walks(tables[0],
+                    lambda: _bvh.pack_spheres(sp.center, sp.radius_sq))]
+    if tri is not None and tables[1] is not None:
+        passes.append(walks(tables[1], lambda: _bvh.pack_triangles(
+            tri.v0, tri.e1, tri.e2)))
+    return passes
 
 
 def _clusters_for(scene, accel, kind: str):
@@ -175,12 +213,23 @@ def intersect_scene(scene, p: Vec3, d: Vec3, accel: str = None, alive=None,
                     policy=None):
     """Closest hit over the scene: (tfar [R], prim_id [R] int32, is_tri [R]
     bool). prim_id indexes the spheres, or the triangles where is_tri; -1 for
-    a miss. The triangle pass is seeded with the sphere pass's tfar. `alive`
-    masks dead wavefront lanes for accel='pallas', whose planner skips them
-    (they return a miss); the dense batteries test every lane. `policy`
-    carries the pallas_* knobs."""
+    a miss. The triangle pass is seeded with the sphere pass's tfar. `accel`
+    picks the backend ('brute', 'pallas', 'clustered', 'grid', 'bvh';
+    ``_accel_passes`` says when the last three run the dense batteries).
+    `alive` masks dead wavefront lanes for accel='pallas', whose planner
+    skips them (they return a miss); every other backend tests every lane.
+    `policy` carries the pallas_* knobs."""
     accel = accel or "brute"
-    _check_accel(accel)
+    passes = _accel_passes(scene, accel)
+    if passes is not None:
+        tfar, prim_id = passes[0][0](p, d)
+        is_tri = torch.zeros_like(prim_id, dtype=torch.bool)
+        if len(passes) > 1:
+            t2, id2 = passes[1][0](p, d, tfar)
+            is_tri = id2 >= 0
+            tfar = torch.where(is_tri, t2, tfar)
+            prim_id = torch.where(is_tri, id2, prim_id)
+        return tfar, prim_id, is_tri
     kw = _pallas_kw(policy)
     if kw.pop("compact") and alive is not None:
         run = partial(_tk.intersect_clustered_pallas_compact, alive=alive)
@@ -207,11 +256,17 @@ def intersect_scene(scene, p: Vec3, d: Vec3, accel: str = None, alive=None,
 
 def occluded_scene(scene, p: Vec3, d: Vec3, tfar, accel: str = None,
                    policy=None):
-    """Any-hit shadow test over the scene: [R] bool. The clustered triangle
-    pass skips the lanes a sphere already occludes (their tfar is set to 0,
-    which plans no visits)."""
+    """Any-hit shadow test over the scene: [R] bool. The triangle pass of
+    'clustered', 'grid', 'bvh' and of the clustered 'pallas' path skips the
+    lanes a sphere already occludes (their tfar is set to 0, which walks
+    nothing)."""
     accel = accel or "brute"
-    _check_accel(accel)
+    passes = _accel_passes(scene, accel)
+    if passes is not None:
+        occ = passes[0][1](p, d, tfar)
+        if len(passes) > 1:
+            occ = occ | passes[1][1](p, d, torch.where(occ, 0.0, tfar))
+        return occ
     kw = _pallas_kw(policy)
     run = (_tk.occluded_clustered_pallas_compact if kw.pop("compact")
            else _tk.occluded_clustered_pallas)

@@ -44,11 +44,14 @@ def gxx() -> str:
 
 class Library:
     """One source of ``csrc/`` as a ctypes library. ``bind(lib)`` declares
-    the argument and result types of its C functions."""
+    the argument and result types of its C functions; `headers` names the
+    files of ``csrc/`` it includes, which the build's hash covers too."""
 
     def __init__(self, source: str, compiler: Callable[[], str],
-                 flags: Sequence[str], bind: Callable[[ctypes.CDLL], None]):
+                 flags: Sequence[str], bind: Callable[[ctypes.CDLL], None],
+                 headers: Sequence[str] = ()):
         self.source = CSRC / source
+        self.headers = tuple(CSRC / h for h in headers)
         self.compiler = compiler
         self.flags = tuple(flags)
         self.bind = bind
@@ -60,8 +63,9 @@ class Library:
         """Build (once per hash of source and flags) and load the library."""
         if self._lib is not None:
             return self._lib
-        key = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(self.flags).encode()).hexdigest()[:16]
+        text = b"".join(f.read_bytes() for f in (self.source, *self.headers))
+        key = hashlib.sha256(text + " ".join(self.flags).encode()
+                             ).hexdigest()[:16]
         so = BUILD_DIR / f"{self.source.stem}_{key}.so"
         if not so.exists():
             compiler = self.compiler()

@@ -1,9 +1,10 @@
 """The wavefront path tracer, ported from the JAX package's
-``render/renderer.py`` for scenes of spheres and triangles under
-``accel='brute'`` and ``accel='pallas'``.
+``render/renderer.py`` for scenes of spheres and triangles under every
+``accel`` ('brute', 'pallas', 'clustered', 'grid', 'bvh').
 
 Structure of one bounce (``bounce_step``, Renderer.hpp:131-432): intersect
-(the closest-hit battery, or the clustered traversal) -> closest-hit frame
+(the closest-hit battery, the clustered traversal, the BVH or the grid
+walk) -> closest-hit frame
 -> NEE with MIS and a shadow any-hit (the light picked uniformly, by
 power, from an alias table, by RIS or by ReSTIR with per-pixel reservoirs)
 -> emissive hit with MIS -> BSDF sample (lambertian, GGX or principled) +
@@ -18,9 +19,10 @@ pixel, and walks ``rays_per_chunk`` chunks; the padding lanes of the last
 chunk are dead from bounce 0.
 
 RNG is the counter scheme of ``core/rng.py``, bit for bit the JAX package's,
-so both packages draw the same numbers at every decision point. Knobs
-outside the port (the BVH, grid and clustered backends) raise
-``NotImplementedError`` (``check_policy``).
+so both packages draw the same numbers at every decision point. A knob
+the port does not render would raise ``NotImplementedError``
+(``check_policy``); of the policy's knobs only an unknown ``pallas_plan``
+does.
 """
 from __future__ import annotations
 
@@ -82,7 +84,11 @@ def check_policy(policy: RendererPolicy):
     ``light_sampling`` ('uniform', 'power', 'alias', 'ris' and 'restir'
     with its ``restir_*`` knobs).
 
-    ``accel`` / ``primary_accel`` may be 'brute' or 'pallas'. Of the pallas_*
+    ``accel`` / ``primary_accel`` take every value the JAX package's
+    ``RendererPolicy`` takes ('brute', 'bvh', 'grid', 'clustered',
+    'pallas'; ``use_bvh=True`` means 'bvh'); a backend whose table the
+    scene lacks renders with the dense batteries, as in the JAX package
+    (``ops/intersect.py::_accel_passes``). Of the pallas_*
     knobs, ``pallas_tile_rays``, ``pallas_compact``, ``pallas_stream`` and
     ``pallas_mxu`` act as in the JAX package (``RendererPolicy`` itself
     refuses ``pallas_stream=True`` together with ``pallas_mxu``; a pack of
@@ -99,20 +105,10 @@ def check_policy(policy: RendererPolicy):
     kernel holds in one block (``cluster_traverse.max_plan_clusters``) the
     planner writes the entry matrix and sorts it in PyTorch, with the same
     lists."""
-    accels = {policy.effective_accel, policy.primary_accel or "brute"}
-    refused = {
-        f"accel={policy.effective_accel!r}":
-            policy.effective_accel not in ("brute", "pallas"),
-        f"primary_accel={policy.primary_accel!r}":
-            policy.primary_accel not in (None, "brute", "pallas"),
-    }
-    if "pallas" in accels:
-        refused[f"pallas_plan={policy.pallas_plan!r}"] = \
-            policy.pallas_plan not in ("auto",) + PLANS
-    what = [k for k, bad in refused.items() if bad]
-    if what:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: " + ", ".join(what))
+    if ("pallas" in (policy.effective_accel, policy.primary_accel)
+            and policy.pallas_plan not in ("auto",) + PLANS):
+        raise NotImplementedError("not ported to PyTorch yet: "
+                                  f"pallas_plan={policy.pallas_plan!r}")
 
 
 def path_index_from_pixel(i, width: int, policy: RendererPolicy):

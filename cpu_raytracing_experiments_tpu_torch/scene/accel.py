@@ -1,7 +1,15 @@
-"""Scene acceleration: attach cluster tables to a scene, the cluster part of
-the JAX package's ``scene/accel.py``, for spheres and triangles. Cluster
-tables carry original prim ids, so nothing is reordered and the light lists
-stay valid. ``with_bvh`` and ``with_grid`` belong to later port slices."""
+"""Scene acceleration, the port of the JAX package's ``scene/accel.py``:
+attach BVHs, uniform grids or cluster tables to a scene, for its spheres and
+triangles, on the scene's device.
+
+``with_bvh`` is the reference's rebuild on a geometry change
+(Application.cpp:508 -> BVH.hpp:90-206): a host-side SAH build, the prims
+reordered into leaf order and the NEE light lists remapped to the new
+order. Like the JAX package it leaves ``light_alias`` and any cluster packs
+as they are (the alias table indexes positions in the light lists, which
+the remap keeps; a cluster pack built before the reorder names the old
+prim ids). Grids and cluster tables carry original prim ids, so
+``with_grid`` and the cluster builders reorder nothing."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +17,12 @@ import functools
 
 import numpy as np
 
-from ..bvh import builder
+import torch
+
+from ..bvh import builder, grid as grid_mod
+from ..core.vec import Vec3
 from ..ops import clustered
-from .scene import Scene
+from .scene import Scene, SphereGeometry, TriangleGeometry
 
 
 def _sphere_tables(scene: Scene):
@@ -32,6 +43,64 @@ def _triangle_tables(scene: Scene):
                   for v in (tri.v0, tri.e1, tri.e2))
     mins, maxs = builder.triangle_bounds(v0, v0 + e1, v0 + e2)
     return mins, maxs, np.concatenate([v0, e1, e2], axis=1)
+
+
+def _reordered(v: Vec3, idx) -> Vec3:
+    return Vec3(v.x[idx], v.y[idx], v.z[idx])
+
+
+def _remap(lights, order: np.ndarray):
+    """`lights` (old prim indices) renumbered to positions in `order`."""
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.shape[0], dtype=order.dtype)
+    return torch.from_numpy(inv.astype(np.int32)).to(lights.device)[lights]
+
+
+def with_bvh(scene: Scene, leaf_size: int = 4) -> Scene:
+    """The scene with sphere (and triangle) BVHs attached, its primitives
+    reordered into leaf order and its light lists remapped. The native
+    builder raises where no C++ compiler is found (the JAX package would
+    build another tree in numpy)."""
+    dev = scene.device
+    mins, maxs, _ = _sphere_tables(scene)
+    sphere_bvh, order = builder.build_bvh(mins, maxs, leaf_size=leaf_size,
+                                          device=dev)
+    idx = torch.from_numpy(order.astype(np.int64)).to(dev)
+    sp = scene.spheres
+    spheres = SphereGeometry(_reordered(sp.center, idx), sp.radius_sq[idx],
+                             sp.material_id[idx])
+    lights = _remap(scene.lights, order)
+    tri_bvh, triangles, tri_lights = None, scene.triangles, scene.tri_lights
+    if triangles is not None:
+        tmins, tmaxs, _ = _triangle_tables(scene)
+        tri_bvh, torder = builder.build_bvh(tmins, tmaxs,
+                                            leaf_size=leaf_size, device=dev)
+        tidx = torch.from_numpy(torder.astype(np.int64)).to(dev)
+        tri = triangles
+        triangles = TriangleGeometry(
+            *(_reordered(v, tidx) for v in (tri.v0, tri.e1, tri.e2,
+                                            tri.normal)),
+            material_id=tri.material_id[tidx], area=tri.area[tidx])
+        if tri_lights is not None:
+            tri_lights = _remap(tri_lights, torder)
+    return dataclasses.replace(
+        scene, spheres=spheres, lights=lights, triangles=triangles,
+        tri_lights=tri_lights, sphere_bvh=sphere_bvh, tri_bvh=tri_bvh)
+
+
+def with_grid(scene: Scene, res: int = 32, max_per_cell: int = 16) -> Scene:
+    """The scene with uniform DDA grids attached (``bvh/grid.py``). Cells
+    hold prim ids, so nothing is reordered and the light lists stay
+    valid."""
+    def grid(mins, maxs, _):
+        return grid_mod.build_grid(mins, maxs, res=res,
+                                   max_per_cell=max_per_cell,
+                                   device=scene.device)
+
+    tri_grid = (None if scene.triangles is None
+                else grid(*_triangle_tables(scene)))
+    return dataclasses.replace(scene, sphere_grid=grid(*_sphere_tables(scene)),
+                               tri_grid=tri_grid)
 
 
 def with_pallas_clusters(scene: Scene, cluster_size="auto",

@@ -9,9 +9,11 @@ at commit
 
 An edit returns a new scene whose edited tensors are copies (clone, then
 index-set), as the JAX package's ``.at[].set`` does: the scene it was given
-is never written. The port's scenes carry no BVH, so ``needs_bvh`` rebuilds
-nothing; like the JAX package, a geometry edit leaves the cluster packs of
-``accel='pallas'`` as they were (ROADMAP queue 3).
+is never written. ``needs_bvh`` rebuilds the BVH of a scene that carries
+one (``scene.accel.with_bvh``, which reorders the prims again from their
+current order, as the JAX package does); like the JAX package, a geometry
+edit leaves a uniform grid and the cluster packs as they were (ROADMAP
+queue 3).
 """
 from __future__ import annotations
 
@@ -115,7 +117,7 @@ def set_camera(scene: Scene, **fields):
 def apply_invalidation(scene: Scene, flags: SceneUpdate) -> Scene:
     """End-of-frame rebuilds (Application.cpp:508-510): the light lists
     and the alias table, on the host as the JAX package builds them, put on
-    the scene's device."""
+    the scene's device; then the BVH, where the scene has one."""
     if flags.needs_light_list:
         dev = scene.device
         emission = np.stack([c.cpu().numpy()
@@ -145,6 +147,10 @@ def apply_invalidation(scene: Scene, flags: SceneUpdate) -> Scene:
             torch.from_numpy(alias[k]).to(dev) if k in alias else None
             for k in ("light_alias_table", "light_alias_sphere_pdf",
                       "light_alias_tri_pdf"))))
+    if flags.needs_bvh and scene.sphere_bvh is not None:
+        from . import accel
+
+        scene = accel.with_bvh(scene)
     return scene
 
 

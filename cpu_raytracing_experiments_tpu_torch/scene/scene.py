@@ -19,6 +19,8 @@ import torch
 from ..core import fp
 from ..core.fp import fma
 from ..core.vec import Quat, Vec3
+from ..bvh.builder import BVHArrays
+from ..bvh.grid import UniformGrid
 from ..ops.clustered import ClusteredPrims
 
 
@@ -343,6 +345,10 @@ def light_alias_arrays(arrays: dict) -> Optional[dict]:
 _MATERIAL_FIELDS = ("albedo", "f0", "f80", "emission", "transmission",
                     "roughness", "ior_minus_one")
 _TRIANGLE_VECS = ("v0", "e1", "e2", "normal")
+# the acceleration tables a scene may carry beside its clusters, with the
+# class whose from_numpy reads each
+_ACCEL = {"sphere_bvh": BVHArrays, "tri_bvh": BVHArrays,
+          "sphere_grid": UniformGrid, "tri_grid": UniformGrid}
 _CAMERA_SCALARS = ("half_width", "half_height", "z", "exposure",
                    "aperture_radius", "focus_distance")
 
@@ -364,6 +370,10 @@ class Scene:
     sphere_clusters: Optional[ClusteredPrims] = None  # scene.accel
     tri_clusters: Optional[ClusteredPrims] = None
     light_alias: Optional[LightAlias] = None  # 'alias' light selection
+    sphere_bvh: Optional[BVHArrays] = None  # scene.accel.with_bvh
+    tri_bvh: Optional[BVHArrays] = None
+    sphere_grid: Optional[UniformGrid] = None  # scene.accel.with_grid
+    tri_grid: Optional[UniformGrid] = None
 
     @property
     def num_lights(self) -> int:
@@ -395,7 +405,8 @@ class Scene:
                      tri_lights=moved(self.tri_lights),
                      sphere_clusters=moved(self.sphere_clusters),
                      tri_clusters=moved(self.tri_clusters),
-                     light_alias=moved(self.light_alias))
+                     light_alias=moved(self.light_alias),
+                     **{k: moved(getattr(self, k)) for k in _ACCEL})
 
     @staticmethod
     def from_numpy(arrays: dict, device=None) -> "Scene":
@@ -408,7 +419,9 @@ class Scene:
         for a scene with triangles ``tri_v0``, ``tri_e1``, ``tri_e2``,
         ``tri_normal`` [T,3], ``tri_area`` [T], ``tri_material_id`` [T] int32
         and ``tri_lights`` [L2] int32; optionally ``sphere_clusters`` and
-        ``tri_clusters``, the dicts ``ClusteredPrims.from_numpy`` reads, and
+        ``tri_clusters``, the dicts ``ClusteredPrims.from_numpy`` reads,
+        ``sphere_bvh`` / ``tri_bvh`` (``BVHArrays.from_numpy``'s dicts),
+        ``sphere_grid`` / ``tri_grid`` (``UniformGrid.from_numpy``'s), and
         the alias table ``light_alias_table`` [L, 4],
         ``light_alias_sphere_pdf`` [P] and, with triangles,
         ``light_alias_tri_pdf`` [T] (``light_alias_arrays``; without them
@@ -430,7 +443,10 @@ class Scene:
                      **_triangles(arrays, device),
                      sphere_clusters=clusters("sphere_clusters"),
                      tri_clusters=clusters("tri_clusters"),
-                     light_alias=_light_alias(arrays, device))
+                     light_alias=_light_alias(arrays, device),
+                     **{k: None if arrays.get(k) is None
+                        else cls.from_numpy(arrays[k], device)
+                        for k, cls in _ACCEL.items()})
 
     def to_numpy(self) -> dict:
         """The flat-array layout ``from_numpy`` reads."""
@@ -460,7 +476,7 @@ class Scene:
             out["tri_area"] = tri.area.cpu().numpy()
             out["tri_material_id"] = tri.material_id.cpu().numpy()
             out["tri_lights"] = self.tri_lights.cpu().numpy()
-        for key in ("sphere_clusters", "tri_clusters"):
+        for key in ("sphere_clusters", "tri_clusters", *_ACCEL):
             if getattr(self, key) is not None:
                 out[key] = getattr(self, key).to_numpy()
         la = self.light_alias

@@ -3,17 +3,16 @@
 its fingerprint mean the same thing in both packages.
 
 The PyTorch port renders scenes of spheres and triangles (the dense
-batteries or the clustered traversal of ``accel='pallas'`` under each of its
+batteries, the clustered traversal of ``accel='pallas'`` under each of its
 planners, resident or streamed, with the ordinary or the product-form
-triangle battery; lambertian, GGX or principled shading, pinhole or thin
-lens camera, jittered or stratified, with or without the scrambled RNG,
-any samples_per_pixel, every light selection ('uniform', 'power',
-'alias', 'ris', 'restir'), MIS, Russian roulette,
-wavefront narrowing, raster or screen-tile ray order, median or mean
-resolve). Knobs that select anything else are accepted
-here, so that later port slices only lift the checks, and are refused with
-``NotImplementedError`` by ``render.renderer.check_policy`` before any work
-is done. The pallas_* schedule knobs (``pallas_unroll``, ``pallas_fuse``,
+triangle battery, or ``accel='clustered'``, 'grid' and 'bvh'; lambertian,
+GGX or principled shading, pinhole or thin lens camera, jittered or
+stratified, with or without the scrambled RNG, any samples_per_pixel,
+every light selection ('uniform', 'power', 'alias', 'ris', 'restir'), MIS,
+Russian roulette, wavefront narrowing, raster or screen-tile ray order,
+median or mean resolve). A ``pallas_plan`` outside the port's planners is
+accepted here and refused with ``NotImplementedError`` by
+``render.renderer.check_policy`` before any work is done. The pallas_* schedule knobs (``pallas_unroll``, ``pallas_fuse``,
 ``pallas_trav_block``, ``pallas_exit_refresh``, ``pallas_prefetch``,
 ``pallas_plan_block``) and ``pallas_interpret`` describe how the JAX
 package runs its TPU kernels; the port accepts them and they change nothing.

@@ -200,7 +200,9 @@ def test_scene_dispatch_on_cpu_takes_plain_version():
 
 def test_wrapper_refuses_other_devices_and_accels():
     """No silent fallback: a tensor neither on the CPU nor on a CUDA card
-    raises, and so does an acceleration structure outside the slice."""
+    raises. The BVH, grid and clustered backends are ported: on a scene
+    without their tables they take the dense batteries, by the JAX
+    package's dispatch rule, and give the 'brute' results."""
     from cpu_raytracing_experiments_tpu_torch.scene import builders
 
     meta = TVec3(*(torch.empty(8, device="meta") for _ in range(3)))
@@ -212,10 +214,12 @@ def test_wrapper_refuses_other_devices_and_accels():
     scene = builders.default_scene(16, 16)
     v = TVec3(*(torch.zeros(4) for _ in range(3)))
     for accel in ("bvh", "grid", "clustered"):
-        with pytest.raises(NotImplementedError):
-            tint.intersect_scene(scene, v, v, accel=accel)
-        with pytest.raises(NotImplementedError):
-            tint.occluded_scene(scene, v, v, torch.ones(4), accel=accel)
+        got = tint.intersect_scene(scene, v, v, accel=accel)
+        want = tint.intersect_scene(scene, v, v)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(
+            tint.occluded_scene(scene, v, v, torch.ones(4), accel=accel),
+            tint.occluded_scene(scene, v, v, torch.ones(4)))
     # the cluster kernels' wrappers refuse a device that is neither, too
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         cluster_traverse as ct

@@ -314,8 +314,9 @@ def test_resume_equivalence_bitwise():
     {"light_sampling": "alias"},
 ])
 def test_knob_outside_slice_raises(knob):
-    """A knob the port does not render yet raises NotImplementedError, which
-    names it, instead of changing the result. ``pallas_stream=True`` and
+    """Each of these knobs was once outside the port and raised
+    NotImplementedError, naming it, instead of changing the result; every
+    one renders now. ``pallas_stream=True`` and
     ``pallas_mxu`` are ported: they render, and on this 9-sphere scene (dense
     batteries under accel='pallas') leave the buckets as accel='brute' has
     them; the two together are refused by RendererPolicy, as in the JAX
@@ -324,6 +325,11 @@ def test_knob_outside_slice_raises(knob):
     the 'ray' planner has them, and 'group' and
     ``pallas_sort_visits=False`` meet tests/test_goldens.py::_check's bar
     against it (their visit order may settle an exact tie otherwise).
+    The BVH, grid and clustered backends (``accel``, ``use_bvh``,
+    ``primary_accel``) are ported: on this scene, which carries none of
+    their tables, they render with the dense batteries, as in the JAX
+    package, and leave the buckets as accel='brute' has them
+    (test_torch_accel.py holds them with their tables to the JAX package).
     ``brdf='ggx'``, ``enable_dof``, ``stratify_camera``, ``rng_scramble``,
     ``samples_per_pixel=2`` and ``light_sampling`` 'power' and 'alias' are
     ported: the hero at 16x16, 2 bounces, 5 passes meets the JAX renderer
@@ -364,22 +370,17 @@ def test_knob_outside_slice_raises(knob):
         assert np.isclose(img, want, rtol=1e-3, atol=1e-4).mean() > 0.995
         np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
         return
+    # the backends and pallas_stream / pallas_mxu: the dense batteries here
     pol = RendererPolicy(max_bounces=2, rays_per_chunk=4096, **knob)
-    if "pallas_stream" in knob or "pallas_mxu" in knob:
-        renders = [Renderer(tbuilders.default_scene(8, 8), p, 8, 8,
-                            device="cpu")
-                   for p in (pol, RendererPolicy(max_bounces=2,
-                                                 rays_per_chunk=4096,
-                                                 narrow_wavefront=True))]
-        for r in renders:
-            r.accumulate(1)
-        assert torch.equal(renders[0].state.buckets, renders[1].state.buckets)
-        with pytest.raises(ValueError, match="pallas_stream=True excludes"):
-            RendererPolicy(pallas_stream=True, pallas_mxu=True)
-        return
-    with pytest.raises(NotImplementedError) as err:
-        Renderer(tbuilders.default_scene(8, 8), pol, 8, 8, device="cpu")
-    assert [k for k in knob if k in str(err.value)] or "use_bvh" in knob
+    renders = [Renderer(tbuilders.default_scene(8, 8), p, 8, 8, device="cpu")
+               for p in (pol, RendererPolicy(max_bounces=2,
+                                             rays_per_chunk=4096,
+                                             narrow_wavefront=True))]
+    for r in renders:
+        r.accumulate(1)
+    assert torch.equal(renders[0].state.buckets, renders[1].state.buckets)
+    with pytest.raises(ValueError, match="pallas_stream=True excludes"):
+        RendererPolicy(pallas_stream=True, pallas_mxu=True)
 
 
 @pytest.mark.parametrize("knob", [

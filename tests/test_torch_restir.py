@@ -240,11 +240,11 @@ def test_hero_clear_sky_matches_jax(jax_exact_sky):
 
 
 def test_check_policy_accepts_every_light_mode():
-    """check_policy lets every light_sampling through; the BVH, grid and
-    clustered backends stay refused, by name."""
+    """check_policy lets every light_sampling through, under the BVH, grid
+    and clustered backends too (ported; test_torch_accel.py renders
+    them)."""
     for mode in ("uniform", "power", "alias", "ris", "restir"):
         tr.check_policy(RendererPolicy(light_sampling=mode))
     for knob in ({"accel": "grid"}, {"use_bvh": True},
                  {"accel": "clustered"}, {"primary_accel": "bvh"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tr.check_policy(RendererPolicy(light_sampling="restir", **knob))
+        tr.check_policy(RendererPolicy(light_sampling="restir", **knob))

@@ -4,7 +4,8 @@
 ``jax_scene_to_numpy`` (test side only: the port never imports the JAX
 package) flattens a JAX ``Scene`` into the arrays ``Scene.from_numpy``
 reads, with its triangles, its triangle lights, its cluster packs
-(``jax_clusters_to_numpy``) and its light alias table where it has them, so
+(``jax_clusters_to_numpy``), its BVHs and grids (``jax_bvh_to_numpy``,
+``jax_grid_to_numpy``) and its light alias table where it has them, so
 both packages render identical inputs. The port's own builders
 must give exactly the JAX builders' arrays."""
 import numpy as np
@@ -42,6 +43,22 @@ def jax_clusters_to_numpy(cp) -> dict:
     }
 
 
+def jax_bvh_to_numpy(bvh) -> dict:
+    """Flatten a JAX BVHArrays into the dict ``BVHArrays.from_numpy``
+    reads."""
+    return {"node_min": _vec(bvh.node_min), "node_max": _vec(bvh.node_max),
+            "first": np.asarray(bvh.first), "count": np.asarray(bvh.count),
+            "miss": np.asarray(bvh.miss), "max_leaf": int(bvh.max_leaf)}
+
+
+def jax_grid_to_numpy(grid) -> dict:
+    """Flatten a JAX UniformGrid into the dict ``UniformGrid.from_numpy``
+    reads."""
+    out = {k: np.asarray(getattr(grid, k)) for k in (
+        "origin", "inv_cell", "cell_size", "cells", "cell_count", "residual")}
+    return dict(out, res=int(grid.res), max_per_cell=int(grid.max_per_cell))
+
+
 def jax_scene_to_numpy(scene) -> dict:
     """Flatten a JAX Scene into the dict ``Scene.from_numpy`` reads."""
     out = {
@@ -73,9 +90,14 @@ def jax_scene_to_numpy(scene) -> dict:
         out["tri_area"] = np.asarray(tri.area)
         out["tri_material_id"] = np.asarray(tri.material_id)
         out["tri_lights"] = np.asarray(scene.tri_lights)
-    for key in ("sphere_clusters", "tri_clusters"):
+    for key, flat in (("sphere_clusters", jax_clusters_to_numpy),
+                      ("tri_clusters", jax_clusters_to_numpy),
+                      ("sphere_bvh", jax_bvh_to_numpy),
+                      ("tri_bvh", jax_bvh_to_numpy),
+                      ("sphere_grid", jax_grid_to_numpy),
+                      ("tri_grid", jax_grid_to_numpy)):
         if getattr(scene, key) is not None:
-            out[key] = jax_clusters_to_numpy(getattr(scene, key))
+            out[key] = flat(getattr(scene, key))
     la = scene.light_alias
     if la is not None:
         out["light_alias_table"] = np.asarray(la.table)
@@ -120,6 +142,25 @@ def test_from_numpy_round_trip(name):
     assert scene.spheres.material_id.dtype == torch.int32
     assert scene.lights.dtype == torch.int32
     _assert_same_arrays(scene.to_numpy(), arrays)
+
+
+@pytest.mark.parametrize("attach", ["with_bvh", "with_grid",
+                                    "with_clusters"])
+def test_accel_tables_carried_across(attach):
+    """A JAX scene with a BVH, a grid or cluster packs attached becomes the
+    port's array for array (Scene.from_numpy, every table of both prim
+    kinds), and Scene.to carries the tables to another device."""
+    from cpu_raytracing_experiments_tpu.scene import accel as jaccel
+
+    jsc = getattr(jaccel, attach)(jbuilders.cornell_box_scene(16, 16))
+    arrays = jax_scene_to_numpy(jsc)
+    keys = {"with_bvh": ("sphere_bvh", "tri_bvh"),
+            "with_grid": ("sphere_grid", "tri_grid"),
+            "with_clusters": ("sphere_clusters", "tri_clusters")}[attach]
+    assert all(k in arrays for k in keys)
+    scene = tscene.Scene.from_numpy(arrays, device="cpu")
+    _assert_same_arrays(scene.to_numpy(), arrays)
+    _assert_same_arrays(scene.to("cpu").to_numpy(), arrays)
 
 
 def test_camera_resized_matches_jax():
