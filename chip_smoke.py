@@ -165,7 +165,21 @@ Phases:
      'grid', 'clustered' and 'bvh' with primary_accel='pallas', the card's
      buckets of one pass equal to the CPU's bit for bit, and the bvh_test
      golden on the card at 10 spp; a SceneEditor edit of a with_bvh scene on the card
-     against the scene built with the edit.
+     against the scene built with the edit;
+ 20. the pool, the shell and multi-device (check_shell_paths): the hero at
+     1920x1088 through render_pass_pooled (pool 2^19) against render_pass,
+     radiance and ray count bit for bit, both timed (median of 3 windows),
+     the pool's iterations, launches, busy time and peak memory, and card =
+     CPU at 64x64; ``python -m cpu_raytracing_experiments_tpu_torch.cli
+     render`` of the hero at 1920x1088, 5 spp, in a subprocess (its .hdr
+     equal to the RGBE bytes of the in-process resolve, its PNG decoded
+     with zlib to the tonemapped resolve) and ``cli bench`` at
+     BENCH_PASSES=3 (its line names the card); the viewer at 1920x1088
+     (/stats, /frame.png, /edit, /delta, stopped), its ms a pass; the
+     sharded renderer at world size 1 over NCCL against Renderer, and two
+     processes on the card over gloo at dp 2 (bit for bit) and sp 2
+     (within tests/test_sharding.py's tolerance, and equal to the same run
+     on the CPU); it prints a ``shell_paths`` JSON line.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
@@ -177,7 +191,7 @@ walks), the
 clusters planned and walked per tile under each planner, phase 16's numbers
 (keyed "shading_paths"), phase 17's (keyed "light_paths"), phase 18's (keyed
 "host_paths"), phase 19's walks at their other shapes and its paths (keyed
-"accel_paths"), the total time,
+"accel_paths"), phase 20's (keyed "shell_paths"), the total time,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -1856,11 +1870,12 @@ def render(torch, crt, scene, policy, width, height, passes, label, expect,
                  "probe": None if probe is None else probe(r)}
 
 
-def profile_pass(torch, r, label):
-    """One more pass under torch.profiler: device busy time against the
-    pass's wall time, the kernel launches of the pass (all, and those of the
-    fma kernels by their counters and the profiler), and the kernels that
-    take the most device time."""
+def profile_pass(torch, r, label, run=None):
+    """One more pass under torch.profiler (``r.accumulate(1)``, or `run()`
+    where given): device busy time against the pass's wall time, the kernel
+    launches of the pass (all, and those of the fma kernels by their
+    counters and the profiler), and the kernels that take the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
@@ -1870,7 +1885,10 @@ def profile_pass(torch, r, label):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.accumulate(1)
+        if run is None:
+            r.accumulate(1)
+        else:
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fma_counts = {k: v for k, v in build.launch_counts().items()
@@ -3088,6 +3106,409 @@ def check_accel_paths(torch, np, crt, timer):
     return numbers, rows_out
 
 
+# phase 20: the pool, the shell and multi-device. The hero is bench.py's
+# main path (bench.py:89-104: default_scene at 1920x1088, 8 bounces, 2^19
+# rays a chunk); the pool's size is that chunk (JAX wavefront_pool.py:59)
+SHELL_PASSES = 5  # spp of the CLI render
+SHARDED_FRAME = (256, 256)
+SHARDED_PASSES = 10
+SHARDED_RTOL, SHARDED_ATOL = 2e-5, 1e-5  # tests/test_sharding.py's
+
+
+def read_png(np, data: bytes):
+    """The pixels of an 8-bit RGB PNG whose scanlines all have filter type
+    0 (what utils/image.py::encode_png writes), decoded with zlib."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            size = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = size
+    if (depth, ctype) != (8, 2):
+        raise AssertionError(f"not 8-bit RGB: {size}")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError("a scanline with a filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def tonemapped_bytes(np, img):
+    """utils/image.py::write_png's quantization."""
+    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+@contextlib.contextmanager
+def pool_iterations():
+    """Count the bounce steps (= pool iterations) of the block's pooled
+    passes."""
+    from cpu_raytracing_experiments_tpu_torch.render import wavefront_pool
+
+    calls, step = [0], wavefront_pool._r.bounce_step
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return step(*args, **kwargs)
+
+    wavefront_pool._r.bounce_step = counted
+    try:
+        yield calls
+    finally:
+        wavefront_pool._r.bounce_step = step
+
+
+def windows_ms(torch, fn, windows=WINDOWS):
+    """ms of `fn` (one pass) in each of `windows` windows, synchronized."""
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_pool(torch, np, crt, numbers):
+    """(a) render_pass_pooled on the hero at full width against render_pass
+    on the card, bit for bit, both timed; the pool's launches, busy time and
+    iterations from one profiled pass, its peak memory; the pool at 64x64
+    on the card against the CPU, bit for bit."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+    from cpu_raytracing_experiments_tpu_torch.render import renderer as rr
+    from cpu_raytracing_experiments_tpu_torch.render import wavefront_pool
+
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
+    hero = crt.builders.default_scene(*FRAME).to(DEVICE)
+    pooled = wavefront_pool.render_pass_pooled
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    build.reset_counts()
+    with pool_iterations() as calls:
+        got, count = pooled(hero, policy, 1, *FRAME)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in build.launch_counts().items() if v}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    for name in ("sphere_closest", "sphere_occluded", "fma"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"[20 pool] {name} was never launched")
+    want, want_count = rr.render_pass(hero, policy, 1, *FRAME)
+    same = (int(count) == int(want_count)
+            and all(equal_bits(torch, g, w) for g, w in zip(got, want)))
+    log(f"[20 pool] the hero at {FRAME[0]}x{FRAME[1]}, pool 2^19: radiance "
+        f"and ray count ({int(count)}) equal render_pass's bit for bit: "
+        f"{same}; {calls[0]} iterations a pass, peak {peak:.1f} MiB above "
+        f"the {held / 2 ** 20:.1f} MiB held; launches {launches}")
+    if not same:
+        raise AssertionError("[20 pool] the pool differs from render_pass")
+    pool_ms = windows_ms(torch, lambda: pooled(hero, policy, 2, *FRAME))
+    masked_ms = windows_ms(torch, lambda: rr.render_pass(hero, policy, 2,
+                                                         *FRAME))
+    med = sorted(pool_ms)[WINDOWS // 2], sorted(masked_ms)[WINDOWS // 2]
+    log(f"[20 pool] ms/pass, median of windows: pool {med[0]:.2f} "
+        f"{[round(m, 2) for m in pool_ms]}, masked render_pass {med[1]:.2f} "
+        f"{[round(m, 2) for m in masked_ms]}")
+    prof = {name: profile_pass(torch, None, f"20 {name}", run=run)
+            for name, run in (
+                ("pool", lambda: pooled(hero, policy, 3, *FRAME)),
+                ("masked", lambda: rr.render_pass(hero, policy, 3, *FRAME)))}
+    small = crt.builders.default_scene(64, 64)
+    spol = crt.RendererPolicy(max_bounces=6, rays_per_chunk=1000)
+    outs = [pooled(small.to(dev), spol, 2, 64, 64) for dev in ("cpu", DEVICE)]
+    small_same = (int(outs[0][1]) == int(outs[1][1]) and all(
+        equal_bits(torch, a, b) for a, b in zip(outs[0][0], outs[1][0])))
+    log(f"[20 pool 64x64] pool 1000: the card equals the CPU bit for bit: "
+        f"{small_same}")
+    if not small_same:
+        raise AssertionError("[20 pool 64x64] the card differs from the CPU")
+    numbers["pool"] = {
+        "ms_per_pass": med[0], "windows_ms": pool_ms,
+        "masked_ms_per_pass": med[1], "masked_windows_ms": masked_ms,
+        "iterations": calls[0], "peak_mib": peak, "launches": launches,
+        "launches_all": sum(launches.values()), "profile": prof,
+        "rays_per_pass": int(count), "equal_to_render_pass": same,
+        "cpu_card_equal_64x64": small_same}
+
+
+def check_cli(torch, np, crt, numbers):
+    """(b) ``python -m cpu_raytracing_experiments_tpu_torch.cli render`` on
+    the card: the hero at 1920x1088, 5 spp, with --out, --hdr-out and
+    --metrics; the .hdr equals the RGBE encoding of the in-process
+    Renderer's linear resolve byte for byte, the PNG decodes to its
+    tonemapped resolve; then ``cli bench`` at BENCH_PASSES=3."""
+    import os
+    import tempfile
+
+    from cpu_raytracing_experiments_tpu_torch.utils import image
+
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
+    cmd = [sys.executable, "-m", "cpu_raytracing_experiments_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = {k: str(Path(tmp) / f"hero.{k}") for k in ("png", "hdr",
+                                                         "jsonl")}
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            cmd + ["render", "--scene", "default", "--width", str(FRAME[0]),
+                   "--height", str(FRAME[1]), "--spp", str(SHELL_PASSES),
+                   "--quiet", "--out", out["png"], "--hdr-out", out["hdr"],
+                   "--metrics", out["jsonl"]],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"[20 cli render] exit {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+        hdr = Path(out["hdr"]).read_bytes()
+        png = read_png(np, Path(out["png"]).read_bytes())
+        records = [json.loads(x) for x in
+                   Path(out["jsonl"]).read_text().splitlines()]
+    r = crt.Renderer(crt.builders.default_scene(*FRAME), policy, *FRAME)
+    r.accumulate(SHELL_PASSES)
+    hdr_same = hdr == image.encode_hdr(r.render(tonemap=False))
+    png_same = np.array_equal(png, tonemapped_bytes(np, r.render()))
+    step = [x for x in records if x["event"] == "step"]
+    log(f"[20 cli render] {FRAME[0]}x{FRAME[1]}, {SHELL_PASSES} spp: exit 0 "
+        f"in {wall:.2f} s (the process, start and build load included; the "
+        f"passes' step {step[0]['wall_s'] if step else None} s); the .hdr "
+        f"equals the in-process resolve's RGBE bytes: {hdr_same}; the PNG "
+        f"decodes to its tonemapped resolve: {png_same}; metrics {records}")
+    if not (hdr_same and png_same and step):
+        raise AssertionError("[20 cli render] the CLI's files differ")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["bench"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, BENCH_PASSES="3"))
+    bench_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"[20 cli bench] exit {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    bench = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"[20 cli bench] BENCH_PASSES=3 in {bench_wall:.2f} s: {bench}")
+    if bench["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError("[20 cli bench] the line does not name the card")
+    numbers["cli"] = {"render_wall_s": wall, "hdr_equal": hdr_same,
+                      "png_equal": png_same,
+                      "step_wall_s": step[0]["wall_s"], "bench": bench,
+                      "bench_wall_s": bench_wall}
+
+
+def check_viewer(torch, np, crt, numbers):
+    """(c) the viewer on the card at 1920x1088 on an ephemeral port: /stats
+    until spp grows, /frame.png, one /edit (spp drops back), /delta?gen=0
+    (a full frame) and the next generation (tiles), then stopped."""
+    import base64
+    import threading
+    import urllib.request
+
+    from cpu_raytracing_experiments_tpu_torch import viewer
+
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
+    server, renderer, stop, worker = viewer.make_server(
+        crt.builders.default_scene(*FRAME), policy, *FRAME, port=0)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as resp:
+            return resp.read()
+
+    def stats_until(ok, seconds=90.0):
+        deadline = time.time() + seconds
+        while time.time() < deadline:
+            s = json.loads(get("/stats"))
+            if ok(s):
+                return s
+            time.sleep(0.1)
+        raise AssertionError(f"[20 viewer] /stats never met the condition "
+                             f"(last {s})")
+
+    try:
+        t0 = time.perf_counter()
+        first = stats_until(lambda s: s["spp"] >= 10)
+        first_s = time.perf_counter() - t0
+        frame = read_png(np, get("/frame.png"))
+        if frame.shape != (FRAME[1], FRAME[0], 3):
+            raise AssertionError(f"[20 viewer] /frame.png is {frame.shape}")
+        if get("/edit?material=0&albedo=0.5,0.5,0.5") != b"ok":
+            raise AssertionError("[20 viewer] /edit refused")
+        spp_before = first["spp"]
+        after = stats_until(lambda s: s["spp"] < spp_before)
+        full = json.loads(get("/delta?gen=0"))
+        part = json.loads(get(f"/delta?gen={full['gen']}"))
+        full_png = read_png(np, base64.b64decode(full["png_b64"]))
+        stats = json.loads(get("/stats"))
+    finally:
+        stop.set()
+        server.shutdown()
+        server.server_close()
+        worker.join(timeout=120)
+        serving.join(timeout=60)
+    ok = (full["full"] and full_png.shape == (FRAME[1], FRAME[0], 3)
+          and not part["full"] and part["gen"] == full["gen"] + 1
+          and not worker.is_alive())
+    log(f"[20 viewer] {FRAME[0]}x{FRAME[1]} on the card: spp {spp_before} "
+        f"after {first_s:.2f} s; /frame.png decodes; after /edit spp "
+        f"{after['spp']} < {spp_before}; /delta full frame then "
+        f"{len(part['tiles'])} tiles at gen {part['gen']}; /stats "
+        f"{stats['ms_per_pass']:.2f} ms/pass, "
+        f"{stats['msamples_per_s']:.3f} Msamples/s; render thread stopped: "
+        f"{not worker.is_alive()}")
+    if not ok:
+        raise AssertionError("[20 viewer] the protocol or the stop failed")
+    numbers["viewer"] = {"ms_per_pass": stats["ms_per_pass"],
+                         "msamples_per_s": stats["msamples_per_s"],
+                         "history_ms": [v for v in stats["history_ms"] if v],
+                         "spp_before_edit": spp_before,
+                         "spp_after_edit": after["spp"],
+                         "delta_tiles": len(part["tiles"])}
+
+
+def sharded_rank(argv):
+    """One rank of phase 20's two-process meshes over gloo (spawned by
+    check_sharded): ``STORE RANK OUT DEVICE``. The 2 x 1 and the 1 x 2 mesh
+    on DEVICE (the card), the 1 x 2 also on the CPU; rank 0 writes the merged
+    buckets to OUT."""
+    store, rank, out, card = argv[0], int(argv[1]), argv[2], argv[3]
+    import numpy as np
+    import torch
+
+    import cpu_raytracing_experiments_tpu_torch as crt
+    from cpu_raytracing_experiments_tpu_torch.parallel import (distributed,
+                                                               sharded)
+
+    distributed.initialize(f"file://{store}", 2, rank, backend="gloo")
+    if card == "cuda":
+        torch.cuda.set_device(0)  # both ranks on the one card
+    scene = crt.builders.default_scene(*SHARDED_FRAME)
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
+    res = {}
+    for dp, sp in ((2, 1), (1, 2)):
+        # the mesh's device type is that of the gloo collectives (the
+        # host); each renderer renders on its own device, sp 2 also on the
+        # CPU
+        mesh = sharded.make_mesh(dp, sp, device_type="cpu")
+        for device in ("card", "cpu") if sp > 1 else ("card",):
+            r = sharded.ShardedRenderer(scene, policy, *SHARDED_FRAME, mesh,
+                                        device=card if device == "card"
+                                        else "cpu")
+            r.accumulate(SHARDED_PASSES)
+            merged = sharded._frame(sharded._merge_sp(r.state.buckets, mesh),
+                                    mesh)
+            res[f"{dp}x{sp} {device}"] = merged.cpu().numpy()
+    if rank == 0:
+        np.savez(out, **res)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def check_sharded(torch, np, crt, numbers):
+    """(d) ShardedRenderer at world size 1 over NCCL on the hero at
+    1920x1088, 2 passes, against Renderer bit for bit; then two processes
+    on the one card over gloo at dp 2 and sp 2 (256x256, 10 passes): dp 2's
+    merged buckets equal one device's bit for bit, sp 2's within
+    test_sharding.py's tolerance of one device's and equal to the same sp 2
+    run on the CPU bit for bit."""
+    import tempfile
+
+    from cpu_raytracing_experiments_tpu_torch.parallel import (distributed,
+                                                               sharded)
+
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
+    hero = crt.builders.default_scene(*FRAME)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        distributed.initialize(f"file://{tmp}/store", 1, 0, backend="nccl")
+        try:
+            backend = torch.distributed.get_backend()
+            mesh = sharded.make_mesh(1, 1, device_type="cuda")
+            sr = sharded.ShardedRenderer(hero, policy, *FRAME, mesh)
+            sr.accumulate(2)
+            img = sr.render(tonemap=False)
+        finally:
+            torch.distributed.destroy_process_group()
+        nccl_s = time.perf_counter() - t0
+    r = crt.Renderer(hero, policy, *FRAME)
+    r.accumulate(2)
+    one_same = (equal_bits(torch, sr.state.buckets, r.state.buckets)
+                and np.array_equal(img, r.render(tonemap=False)))
+    log(f"[20 sharded] world size 1 over {backend}, the hero at "
+        f"{FRAME[0]}x{FRAME[1]}, 2 passes in {nccl_s:.2f} s: buckets and "
+        f"image equal Renderer's bit for bit: {one_same}")
+    if not one_same:
+        raise AssertionError("[20 sharded] world size 1 differs")
+    del sr, r
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                "import chip_smoke; chip_smoke.sharded_rank(sys.argv[1:])")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, f"{tmp}/store", str(rank),
+             f"{tmp}/out.npz", DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        gloo_s = time.perf_counter() - t0
+        for p, (_, err) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"[20 sharded gloo] a rank exited "
+                                     f"{p.returncode}: {err[-3000:]}")
+        with np.load(f"{tmp}/out.npz") as z:
+            got = dict(z)
+    one = crt.Renderer(crt.builders.default_scene(*SHARDED_FRAME), policy,
+                       *SHARDED_FRAME)
+    one.accumulate(SHARDED_PASSES)
+    want = one.state.buckets.cpu().numpy()
+
+    def bits(a, b):
+        return np.array_equal(a.view(np.int32), b.view(np.int32))
+
+    dp_same = bits(got["2x1 card"], want)
+    sp_close = bool(np.allclose(got["1x2 card"], want, rtol=SHARDED_RTOL,
+                                atol=SHARDED_ATOL))
+    sp_cpu = bits(got["1x2 card"], got["1x2 cpu"])
+    sp_bits = bits(got["1x2 card"], want)
+    log(f"[20 sharded gloo] 2 processes on the card, "
+        f"{SHARDED_FRAME[0]}x{SHARDED_FRAME[1]}, {SHARDED_PASSES} passes, in "
+        f"{gloo_s:.2f} s: dp 2 equals one device bit for bit: "
+        f"{dp_same}; sp 2 within rtol {SHARDED_RTOL} / atol {SHARDED_ATOL} "
+        f"of one device: {sp_close} (bit for bit: {sp_bits}); sp 2 on the "
+        f"card equals sp 2 on the CPU bit for bit: {sp_cpu}")
+    if not (dp_same and sp_close and sp_cpu):
+        raise AssertionError("[20 sharded gloo] a mesh differs")
+    numbers["sharded"] = {"world1_backend": backend, "world1_equal": one_same,
+                          "world1_s": nccl_s, "gloo_s": gloo_s,
+                          "dp2_equal": dp_same, "sp2_close": sp_close,
+                          "sp2_bits_equal_one_device": sp_bits,
+                          "sp2_cpu_card_equal": sp_cpu}
+
+
+def check_shell_paths(torch, np, crt):
+    """Phase 20: the regeneration pool, the CLI (render and bench), the
+    viewer and the sharded renderer on the card. Returns the numbers."""
+    numbers = {}
+    for name, check in (("pool", check_pool), ("cli", check_cli),
+                        ("viewer", check_viewer),
+                        ("sharded", check_sharded)):
+        t0 = time.perf_counter()
+        check(torch, np, crt, numbers)
+        numbers[name]["phase_s"] = time.perf_counter() - t0
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -3412,6 +3833,12 @@ def main() -> int:
     accel_paths["phase_s"] = time.perf_counter() - t0
     log(f"[19] the backends without Pallas checked in "
         f"{accel_paths['phase_s']:.1f} s")
+    log(f"[20] phases 1-19 done at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    shell_paths = check_shell_paths(torch, np, crt)
+    shell_paths["phase_s"] = time.perf_counter() - t0
+    log(f"[20] the pool, the shell and multi-device checked in "
+        f"{shell_paths['phase_s']:.1f} s")
     # each walk's row at the field's camera batch, its launches from the
     # field's render under that backend
     walk_main = {}
@@ -3476,6 +3903,7 @@ def main() -> int:
         row for row in walk_rows.values()
         if row not in walk_main.values()]}))
     log(json.dumps({"accel_paths": accel_paths}))
+    log(json.dumps({"shell_paths": shell_paths}))
     log(card)
     log(json.dumps({"kernels": list(hero_rows.values())
                     + list(fma_rows.values())

@@ -50,9 +50,12 @@ THIRD = float(np.float32(1.0 / 3.0))
 
 
 class PathState(NamedTuple):
-    """Per-ray SoA wavefront state (DataStreams.hpp:74-105)."""
+    """Per-ray SoA wavefront state (DataStreams.hpp:74-105). ``bounce`` is
+    one Python int for the whole wavefront (the masked loop) or a [R] int32
+    tensor, one bounce a lane (the regeneration pool,
+    ``render/wavefront_pool.py``)."""
 
-    bounce: int
+    bounce: int  # or a [R] int32 tensor
     p: Vec3  # [R] ray origin
     d: Vec3  # [R] ray direction
     throughput: Vec3
@@ -747,10 +750,16 @@ def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
     unweighted, so no MIS weight is formed there."""
     is_emissive = hit & (em.max_component() > FLT_EPSILON)
     light_count = scene.num_lights + scene.num_tri_lights
+    per_lane = isinstance(state.bounce, torch.Tensor)
     if policy.light_sampling in ("ris", "restir") and light_count > 1:
-        weight = (torch.ones_like(tfar) if state.bounce == 0
-                  else torch.where(state.prev_delta, 1.0, 0.0))
-    elif not policy.mis or light_count == 0 or state.bounce == 0:
+        if per_lane:
+            weight = torch.where((state.bounce == 0) | state.prev_delta, 1.0,
+                                 0.0)
+        else:
+            weight = (torch.ones_like(tfar) if state.bounce == 0
+                      else torch.where(state.prev_delta, 1.0, 0.0))
+    elif (not policy.mis or light_count == 0
+          or (not per_lane and state.bounce == 0)):
         weight = torch.ones_like(tfar)
     else:
         light_selection_pdf = _hit_light_selection_pdf(
@@ -768,6 +777,8 @@ def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
         mis_weight = sampling.power_heuristic(state.prev_pdf, light_pdf)
         # a delta previous bounce could not have been light-sampled
         weight = torch.where(state.prev_delta, 1.0, mis_weight)
+        if per_lane:  # camera rays add emission unweighted
+            weight = torch.where(state.bounce > 0, weight, 1.0)
     contribution = (state.throughput * em) * weight
     zeros = torch.zeros_like(tfar)
     return contribution.where(is_emissive, Vec3(zeros, zeros, zeros))
@@ -779,7 +790,12 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     """One wavefront bounce (Renderer.hpp:131-432). With `restir_in` (the
     lanes' ReSTIR reservoirs, ``_select_light_restir``) it returns
     (PathState, reservoirs out); where NEE forms none (one light, or
-    ``mis=False``) the reservoirs pass through."""
+    ``mis=False``) the reservoirs pass through.
+
+    ``state.bounce`` is an int (every lane at one depth: the masked loop) or
+    a [R] int32 tensor (the regeneration pool), as the JAX ``bounce_step``
+    takes a scalar or a vector: with a tensor the RNG sites, the primary
+    bounce's emission weight and the bounce cap are taken per lane."""
     # ---- INTERSECTION (Renderer.hpp:165): the closest-hit battery ----
     tfar, prim_id, is_tri = intersect.intersect_scene(
         scene, state.p, state.d, accel=policy.effective_accel,
@@ -868,7 +884,9 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     radiance = radiance + sky_contrib.where(sky_on, Vec3(zeros, zeros, zeros))
 
     alive_next = hit & ~rr_kill
-    if state.bounce + 1 >= policy.max_bounces:
+    if isinstance(state.bounce, torch.Tensor):  # the per-lane bounce cap
+        alive_next = alive_next & (state.bounce + 1 < policy.max_bounces)
+    elif state.bounce + 1 >= policy.max_bounces:
         alive_next = torch.zeros_like(alive_next)
     rays_this_bounce = state.alive.sum() + shadow_traced.sum()
     out = PathState(

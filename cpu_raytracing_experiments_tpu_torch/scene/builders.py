@@ -289,6 +289,7 @@ SCENES = {
     "default": default_scene,
     "white_furnace": white_furnace_scene,
     "bvh_test": bvh_test_scene,
+    "brdf_test": brdf_test_scene,
     "cornell": cornell_box_scene,
     "random_spheres": random_spheres_scene,
     "mesh": mesh_scene,
