@@ -176,10 +176,11 @@ Phases:
      with zlib to the tonemapped resolve) and ``cli bench`` at
      BENCH_PASSES=3 (its line names the card); the viewer at 1920x1088
      (/stats, /frame.png, /edit, /delta, stopped), its ms a pass; the
-     sharded renderer at world size 1 over NCCL against Renderer, and two
-     processes on the card over gloo at dp 2 (bit for bit) and sp 2
-     (within tests/test_sharding.py's tolerance, and equal to the same run
-     on the CPU); it prints a ``shell_paths`` JSON line.
+     sharded renderer at world size 1 over NCCL (its all_gathers on card
+     tensors) against Renderer, and tests/torch_sharded_worker.py on two
+     processes over gloo at dp 2 on the card (bit for bit) and sp 2 on the
+     card (within tests/test_sharding.py's tolerance, and equal to the same
+     run on the CPU); it prints a ``shell_paths`` JSON line.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
@@ -3110,8 +3111,8 @@ def check_accel_paths(torch, np, crt, timer):
 # main path (bench.py:89-104: default_scene at 1920x1088, 8 bounces, 2^19
 # rays a chunk); the pool's size is that chunk (JAX wavefront_pool.py:59)
 SHELL_PASSES = 5  # spp of the CLI render
-SHARDED_FRAME = (256, 256)
-SHARDED_PASSES = 10
+SHARDED_WIDTH = 256  # the two-process meshes' square frame
+SHARDED_PASSES = 10  # torch_sharded_worker.py's "buckets" case
 SHARDED_RTOL, SHARDED_ATOL = 2e-5, 1e-5  # tests/test_sharding.py's
 
 
@@ -3372,104 +3373,87 @@ def check_viewer(torch, np, crt, numbers):
                          "delta_tiles": len(part["tiles"])}
 
 
-def sharded_rank(argv):
-    """One rank of phase 20's two-process meshes over gloo (spawned by
-    check_sharded): ``STORE RANK OUT DEVICE``. The 2 x 1 and the 1 x 2 mesh
-    on DEVICE (the card), the 1 x 2 also on the CPU; rank 0 writes the merged
-    buckets to OUT."""
-    store, rank, out, card = argv[0], int(argv[1]), argv[2], argv[3]
-    import numpy as np
-    import torch
-
-    import cpu_raytracing_experiments_tpu_torch as crt
-    from cpu_raytracing_experiments_tpu_torch.parallel import (distributed,
-                                                               sharded)
-
-    distributed.initialize(f"file://{store}", 2, rank, backend="gloo")
-    if card == "cuda":
-        torch.cuda.set_device(0)  # both ranks on the one card
-    scene = crt.builders.default_scene(*SHARDED_FRAME)
-    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
-    res = {}
-    for dp, sp in ((2, 1), (1, 2)):
-        # the mesh's device type is that of the gloo collectives (the
-        # host); each renderer renders on its own device, sp 2 also on the
-        # CPU
-        mesh = sharded.make_mesh(dp, sp, device_type="cpu")
-        for device in ("card", "cpu") if sp > 1 else ("card",):
-            r = sharded.ShardedRenderer(scene, policy, *SHARDED_FRAME, mesh,
-                                        device=card if device == "card"
-                                        else "cpu")
-            r.accumulate(SHARDED_PASSES)
-            merged = sharded._frame(sharded._merge_sp(r.state.buckets, mesh),
-                                    mesh)
-            res[f"{dp}x{sp} {device}"] = merged.cpu().numpy()
-    if rank == 0:
-        np.savez(out, **res)
-    torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
-
-
 def check_sharded(torch, np, crt, numbers):
     """(d) ShardedRenderer at world size 1 over NCCL on the hero at
-    1920x1088, 2 passes, against Renderer bit for bit; then two processes
-    on the one card over gloo at dp 2 and sp 2 (256x256, 10 passes): dp 2's
-    merged buckets equal one device's bit for bit, sp 2's within
-    test_sharding.py's tolerance of one device's and equal to the same sp 2
-    run on the CPU bit for bit."""
+    1920x1088, 2 passes, against Renderer bit for bit (the sp merge and the
+    dp frame are all_gathers over NCCL on card tensors, 1 wide); then
+    tests/torch_sharded_worker.py's hero (its policy, 10 passes) at 256x256
+    on two processes over gloo, three meshes at once: dp 2 and sp 2 on the
+    one card, sp 2 on the CPU. dp 2's merged buckets equal one device's bit
+    for bit, sp 2's are within test_sharding.py's tolerance of one
+    device's and equal to the same sp 2 run on the CPU bit for bit."""
     import tempfile
 
     from cpu_raytracing_experiments_tpu_torch.parallel import (distributed,
                                                                sharded)
 
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_worker as worker
+
     policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 19)
     hero = crt.builders.default_scene(*FRAME)
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        t0 = time.perf_counter()
-        distributed.initialize(f"file://{tmp}/store", 1, 0, backend="nccl")
-        try:
-            backend = torch.distributed.get_backend()
-            mesh = sharded.make_mesh(1, 1, device_type="cuda")
-            sr = sharded.ShardedRenderer(hero, policy, *FRAME, mesh)
-            sr.accumulate(2)
-            img = sr.render(tonemap=False)
-        finally:
-            torch.distributed.destroy_process_group()
-        nccl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)  # NCCL's device, before the DeviceMesh
+    distributed.initialize(backend="nccl")
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = sharded.make_mesh(1, 1, device_type="cuda")
+        sr = sharded.ShardedRenderer(hero, policy, *FRAME, mesh)
+        sr.accumulate(2)
+        img = sr.render(tonemap=False)
+    finally:
+        torch.distributed.destroy_process_group()
+    nccl_s = time.perf_counter() - t0
     r = crt.Renderer(hero, policy, *FRAME)
     r.accumulate(2)
     one_same = (equal_bits(torch, sr.state.buckets, r.state.buckets)
                 and np.array_equal(img, r.render(tonemap=False)))
-    log(f"[20 sharded] world size 1 over {backend}, the hero at "
-        f"{FRAME[0]}x{FRAME[1]}, 2 passes in {nccl_s:.2f} s: buckets and "
-        f"image equal Renderer's bit for bit: {one_same}")
+    log(f"[20 sharded] world size 1 over {backend} (its all_gathers on the "
+        f"card), the hero at {FRAME[0]}x{FRAME[1]}, 2 passes in "
+        f"{nccl_s:.2f} s: buckets and image equal Renderer's bit for bit: "
+        f"{one_same}")
     if not one_same:
         raise AssertionError("[20 sharded] world size 1 differs")
     del sr, r
+    runs = {"2x1 card": (2, 1, DEVICE), "1x2 card": (1, 2, DEVICE),
+            "1x2 cpu": (1, 2, "cpu")}
+    got = {}
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
-                "import chip_smoke; chip_smoke.sharded_rank(sys.argv[1:])")
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", code, f"{tmp}/store", str(rank),
-             f"{tmp}/out.npz", DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+        procs = []
+        for name, (dp, sp, device) in runs.items():
+            out = Path(tmp) / name.replace(" ", "_")
+            out.mkdir()
+            for rank in (0, 1):
+                with open(out / f"rank{rank}.log", "w") as f:
+                    procs.append((name, out, subprocess.Popen(
+                        [sys.executable, str(ROOT / "tests" /
+                                             "torch_sharded_worker.py"),
+                         str(out / "store"), "2", str(rank), str(dp),
+                         str(sp), str(out), device, str(SHARDED_WIDTH),
+                         "buckets"], cwd=ROOT, stdout=f,
+                        stderr=subprocess.STDOUT)))
         try:
-            outs = [p.communicate(timeout=300) for p in procs]
+            for _, _, p in procs:
+                p.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
         finally:
-            for p in procs:
+            for _, _, p in procs:
                 if p.poll() is None:
                     p.kill()
-                    p.communicate()
+                    p.wait()
         gloo_s = time.perf_counter() - t0
-        for p, (_, err) in zip(procs, outs):
+        for name, out, p in procs:
             if p.returncode != 0:
-                raise AssertionError(f"[20 sharded gloo] a rank exited "
-                                     f"{p.returncode}: {err[-3000:]}")
-        with np.load(f"{tmp}/out.npz") as z:
-            got = dict(z)
-    one = crt.Renderer(crt.builders.default_scene(*SHARDED_FRAME), policy,
-                       *SHARDED_FRAME)
+                tail = "".join(open(f).read()[-3000:]
+                               for f in sorted(out.glob("rank*.log")))
+                raise AssertionError(f"[20 sharded gloo] a rank of {name} "
+                                     f"exited {p.returncode}: {tail}")
+        for name, out, _ in procs:
+            with np.load(out / "results.npz") as z:
+                got[name] = z["buckets"]
+    one = crt.Renderer(crt.builders.default_scene(SHARDED_WIDTH,
+                                                  SHARDED_WIDTH),
+                       worker.POL, SHARDED_WIDTH, SHARDED_WIDTH)
     one.accumulate(SHARDED_PASSES)
     want = one.state.buckets.cpu().numpy()
 
@@ -3481,12 +3465,12 @@ def check_sharded(torch, np, crt, numbers):
                                 atol=SHARDED_ATOL))
     sp_cpu = bits(got["1x2 card"], got["1x2 cpu"])
     sp_bits = bits(got["1x2 card"], want)
-    log(f"[20 sharded gloo] 2 processes on the card, "
-        f"{SHARDED_FRAME[0]}x{SHARDED_FRAME[1]}, {SHARDED_PASSES} passes, in "
-        f"{gloo_s:.2f} s: dp 2 equals one device bit for bit: "
-        f"{dp_same}; sp 2 within rtol {SHARDED_RTOL} / atol {SHARDED_ATOL} "
-        f"of one device: {sp_close} (bit for bit: {sp_bits}); sp 2 on the "
-        f"card equals sp 2 on the CPU bit for bit: {sp_cpu}")
+    log(f"[20 sharded gloo] 3 meshes of 2 processes at once (2 on the card "
+        f"each, one on the CPU), {SHARDED_WIDTH}x{SHARDED_WIDTH}, "
+        f"{SHARDED_PASSES} passes, in {gloo_s:.2f} s: dp 2 equals one device "
+        f"bit for bit: {dp_same}; sp 2 within rtol {SHARDED_RTOL} / atol "
+        f"{SHARDED_ATOL} of one device: {sp_close} (bit for bit: {sp_bits}); "
+        f"sp 2 on the card equals sp 2 on the CPU bit for bit: {sp_cpu}")
     if not (dp_same and sp_close and sp_cpu):
         raise AssertionError("[20 sharded gloo] a mesh differs")
     numbers["sharded"] = {"world1_backend": backend, "world1_equal": one_same,

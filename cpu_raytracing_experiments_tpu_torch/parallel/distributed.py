@@ -28,35 +28,38 @@ def initialize(init_method: Optional[str] = None,
                world_size: Optional[int] = None, rank: Optional[int] = None,
                backend: Optional[str] = None):
     """``torch.distributed.init_process_group`` (JAX
-    ``jax.distributed.initialize`` passthrough): a no-op for one process
-    without a rendezvous. The backend is NCCL where a CUDA device is
-    available and gloo otherwise, unless `backend` names one."""
-    if (world_size is not None and world_size > 1) or init_method:
-        dist.init_process_group(
-            backend or default_backend(
-                "cuda" if torch.cuda.is_available() else "cpu"),
-            init_method=init_method,
-            world_size=-1 if world_size is None else world_size,
-            rank=-1 if rank is None else rank)
+    ``jax.distributed.initialize`` passthrough), the one place a process
+    group is made. Without a rendezvous and for one process, the group is
+    world size 1 over an in-process store. The backend is NCCL where a CUDA
+    device is available and gloo otherwise, unless `backend` names one."""
+    backend = backend or default_backend(
+        "cuda" if torch.cuda.is_available() else "cpu")
+    if init_method is None and world_size in (None, 1):
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+        return
+    dist.init_process_group(
+        backend, init_method=init_method,
+        world_size=-1 if world_size is None else world_size,
+        rank=-1 if rank is None else rank)
 
 
-def _ensure_group(device_type: str):
-    """A process group for one process where none was initialized: world
-    size 1 over an in-process store (no rendezvous)."""
+def group_size() -> int:
+    """The number of processes of the group ``initialize`` made."""
     if not dist.is_initialized():
-        dist.init_process_group(default_backend(device_type),
-                                store=dist.HashStore(), rank=0, world_size=1)
+        raise RuntimeError("no process group: call distributed.initialize() "
+                           "first")
+    return dist.get_world_size()
 
 
 def mesh_2d(dp: int, sp: int, device_type: str = "cuda"):
     """The ('dp', 'sp') ``DeviceMesh`` of dp x sp processes: rank
     ``dp_i * sp + sp_i`` sits at (dp_i, sp_i), as the JAX package's
-    ``devices.reshape(dp, sp)`` lays devices out. One process without a
-    group gets the 1 x 1 mesh."""
+    ``devices.reshape(dp, sp)`` lays devices out. A group of one process
+    is the 1 x 1 mesh; without a group it raises."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    _ensure_group(device_type)
-    world = dist.get_world_size()
+    world = group_size()
     if dp * sp != world:
         raise ValueError(f"a {dp} x {sp} mesh needs {dp * sp} processes, "
                          f"not {world}")
@@ -69,8 +72,7 @@ def pod_mesh(sp: int = 1, device_type: str = "cuda"):
     groups contiguous in rank order so each sample shard maps to a
     contiguous slice of ranks (dp collectives stay local, only sp crosses
     nodes)."""
-    _ensure_group(device_type)
-    world = dist.get_world_size()
+    world = group_size()
     if world % sp:
         raise ValueError(f"sp={sp} does not divide {world} processes")
     return mesh_2d(world // sp, sp, device_type)

@@ -43,11 +43,11 @@ from . import distributed
 
 def make_mesh(dp: Optional[int] = None, sp: int = 1,
               device_type: str = "cuda"):
-    """A ('dp', 'sp') mesh over the process group (all on dp by default);
-    one process without a group is the 1 x 1 mesh."""
+    """A ('dp', 'sp') mesh over the process group that
+    ``distributed.initialize`` made (all on dp by default); a group of one
+    process is the 1 x 1 mesh."""
     if dp is None:
-        distributed._ensure_group(device_type)
-        dp = dist.get_world_size() // sp
+        dp = distributed.group_size() // sp
     return distributed.mesh_2d(dp, sp, device_type)
 
 
@@ -58,12 +58,10 @@ def _shape(mesh):
 
 
 def _gather(t: torch.Tensor, mesh, axis: str) -> list:
-    """Every rank's `t` along the mesh `axis`, in rank order (an
-    all_gather; `t` alone on a 1-wide axis)."""
+    """Every rank's `t` along the mesh `axis`, in rank order: an
+    all_gather, on a 1-wide axis too."""
     group = mesh.get_group(axis)
     world = dist.get_world_size(group)
-    if world == 1:
-        return [t]
     # gloo gathers host tensors: a partial on the card crosses through the
     # host, explicitly, and comes back to the card; the render stays there
     host = t.is_cuda and dist.get_backend(group) == "gloo"
@@ -248,7 +246,8 @@ class ShardedRenderer:
     ``render.api.Renderer`` (JAX ``ShardedRenderer``). Every rank builds one
     over the same scene and calls each method; ``render`` returns the full
     frame on every rank. The device is the card unless `device` names
-    another (``device="cpu"`` for a CPU mesh)."""
+    another (``device="cpu"`` for a CPU mesh). Without a `mesh` it takes
+    ``make_mesh()`` over the group of ``distributed.initialize``."""
 
     def __init__(self, scene: Scene, policy: Optional[RendererPolicy] = None,
                  width: int = 256, height: int = 256, mesh=None,

@@ -59,7 +59,7 @@ def _spawn(out: Path, dp: int, sp: int, timeout: float = 240.0) -> dict:
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, str(WORKER), str(out / "store"), str(world), str(r),
-         str(dp), str(sp), str(out)],
+         str(dp), str(sp), str(out), "cpu", str(W)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for r in range(world)]
     try:
@@ -276,16 +276,25 @@ def test_initialize_and_pod_mesh(runs):
         assert t["multi_slice"] == [[1, 2], [0, t["rank"]]]
 
 
-def test_single_process_mesh():
-    """One process without a group: ``make_mesh`` is the 1 x 1 mesh (a
-    world-size-1 group over an in-process store) and a ShardedRenderer on it
-    equals the one-device Renderer bit for bit, with the same resume through
-    its checkpoint; without a card and without ``device`` it raises."""
+def test_single_process_mesh(tmp_path):
+    """One process: without a group ``make_mesh`` raises; after
+    ``distributed.initialize()`` (a world-size-1 group over an in-process
+    store, the only place a group is made) it is the 1 x 1 mesh, and a
+    ShardedRenderer on it, whose gathers run gloo's all_gather on the
+    1-wide axes, equals the one-device Renderer bit for bit, with the same
+    resume through its checkpoint; without a card and without ``device`` it
+    raises."""
     import torch.distributed as dist
+
+    from cpu_raytracing_experiments_tpu_torch.parallel import distributed
 
     scene = builders.default_scene(16, 16)
     pol = RendererPolicy(**SMALL)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no process group"):
+        sharded.make_mesh(device_type="cpu")
     try:
+        distributed.initialize(backend="gloo")
         mesh = sharded.make_mesh(device_type="cpu")
         assert tuple(mesh.mesh.shape) == (1, 1)
         sr = sharded.ShardedRenderer(scene, pol, 16, 16, mesh, device="cpu")
@@ -294,6 +303,13 @@ def test_single_process_mesh():
         r.accumulate(5)
         assert _bits(sr.state.buckets, r.state.buckets)
         assert _bits(sr.render(), r.render())
+        sr.save_checkpoint(tmp_path / "one.npz")
+        sr.load_checkpoint(tmp_path / "one.npz")
+        r.state = checkpoint.load(tmp_path / "one.npz", pol, 16, 16,
+                                  device="cpu")
+        sr.accumulate(3)
+        r.accumulate(3)
+        assert _bits(sr.state.buckets, r.state.buckets)
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 sharded.ShardedRenderer(scene, pol, 16, 16, mesh)

@@ -1,11 +1,16 @@
-"""One rank of a (dp, sp) mesh for tests/test_torch_sharded.py: the port's
-``parallel/sharded.py`` on the CPU over gloo, the processes meeting at a
-``file://`` store. It imports the port only (no JAX).
+"""One rank of a (dp, sp) mesh: the port's ``parallel/sharded.py`` over
+gloo, the processes meeting at a ``file://`` store. tests/test_torch_sharded.py
+spawns it on the CPU, and chip_smoke.py's phase 20 on the card (every rank on
+the one card). It imports the port only (no JAX).
 
-    python tests/torch_sharded_worker.py STORE WORLD RANK DP SP OUT
+    python tests/torch_sharded_worker.py STORE WORLD RANK DP SP OUT DEVICE \
+        WIDTH [CASE ...]
 
-Rank 0 writes what the mesh rendered to OUT/results.npz (the frames and
-buckets joined over the mesh), and, where the test put one there, resumes
+DEVICE is the renderers' ("cpu" or "cuda"); the collectives run on the host
+either way. WIDTH is the hero's square frame. The CASEs (all by default) are
+"buckets", "checkpoint", "spp" and "dp" (the 2 x 1 mesh's own cases); rank 0
+writes what the mesh rendered to OUT/results.npz (the frames and buckets
+joined over the mesh), and, where the test put one there, resumes
 OUT/jax4.npz. Every case is collective: each rank runs all of them.
 """
 import dataclasses
@@ -25,7 +30,7 @@ from cpu_raytracing_experiments_tpu_torch.scene import builders  # noqa: E402
 from cpu_raytracing_experiments_tpu_torch.utils.config import \
     RendererPolicy  # noqa: E402
 
-W = 32
+CASES = ("buckets", "checkpoint", "spp", "dp")
 POL = RendererPolicy(max_bounces=6, rays_per_chunk=2048)
 SMALL = RendererPolicy(max_bounces=3, rays_per_chunk=1024)
 RESTIR = RendererPolicy(max_bounces=3, rays_per_chunk=1024,
@@ -54,54 +59,61 @@ def subset_ids():
 def merged(r):
     """The renderer's buckets merged over the whole mesh: [B, 3, npix]."""
     return sharded._frame(sharded._merge_sp(r.state.buckets, r.mesh),
-                          r.mesh).numpy()
+                          r.mesh).cpu().numpy()
 
 
 def main():
-    store, world, rank, dp, sp, out = sys.argv[1:]
-    world, rank, dp, sp, out = int(world), int(rank), int(dp), int(sp), \
-        Path(out)
+    store, world, rank, dp, sp, out, device, w = sys.argv[1:9]
+    cases = sys.argv[9:] or CASES
+    world, rank, dp, sp, w = int(world), int(rank), int(dp), int(sp), int(w)
+    out = Path(out)
     torch.set_num_threads(1)
     distributed.initialize(f"file://{store}", world, rank, backend="gloo")
+    if device == "cuda":
+        torch.cuda.set_device(0)  # every rank on the one card
     mesh = sharded.make_mesh(dp, sp, device_type="cpu")
     res = {}
 
-    def renderer(scene=None, pol=POL, w=W):
+    def renderer(scene=None, pol=POL, w=w):
         return sharded.ShardedRenderer(
             scene if scene is not None else builders.default_scene(w, w),
-            pol, w, w, mesh, device="cpu")
+            pol, w, w, mesh, device=device)
 
-    r = renderer()
-    r.accumulate(10)
-    res["buckets"] = merged(r)
-    res["image"] = r.render(tonemap=True)
-    res["linear"] = r.render(tonemap=False)
-    res["variance"] = r.variance_map()
-
-    r = renderer()
-    r.accumulate(4)
-    r.save_checkpoint(out / "port4.npz")
-    if (out / "jax4.npz").exists():
+    if "buckets" in cases:
         r = renderer()
-        r.load_checkpoint(out / "jax4.npz")
-        r.accumulate(6)
-        res["resumed"] = merged(r)
+        r.accumulate(10)
+        res["buckets"] = merged(r)
+        res["image"] = r.render(tonemap=True)
+        res["linear"] = r.render(tonemap=False)
+        res["variance"] = r.variance_map()
 
-    r = renderer(pol=dataclasses.replace(POL, samples_per_pixel=2))
-    res["spp_image"] = r.render_spp(10)
-    res["spp_passes"] = r.state.accumulations
+    if "checkpoint" in cases:
+        r = renderer()
+        r.accumulate(4)
+        r.save_checkpoint(out / "port4.npz")
+        if (out / "jax4.npz").exists():
+            r = renderer()
+            r.load_checkpoint(out / "jax4.npz")
+            r.accumulate(6)
+            res["resumed"] = merged(r)
 
-    if sp == 1 and dp > 1:
+    if "spp" in cases:
+        r = renderer(pol=dataclasses.replace(POL, samples_per_pixel=2))
+        res["spp_image"] = r.render_spp(10)
+        res["spp_passes"] = r.state.accumulations
+
+    if "dp" in cases and sp == 1 and dp > 1:
         r = renderer(field(16), RESTIR, 16)
         r.accumulate(4)
         res["restir_buckets"] = merged(r)
         res["restir_reservoir"] = sharded._frame(r.state.reservoir,
-                                                 mesh).numpy()
+                                                 mesh).cpu().numpy()
         r = renderer(pol=SMALL, w=16)
         img, stats = r.render_adaptive(**ADAPTIVE)
         res["adaptive_image"] = img
         res["adaptive_buckets"] = merged(r)
-        res["adaptive_counts"] = sharded._frame(r.state.counts, mesh).numpy()
+        res["adaptive_counts"] = sharded._frame(r.state.counts,
+                                                mesh).cpu().numpy()
         res["adaptive_stats"] = json.dumps(stats)
         r = renderer(pol=SMALL, w=16)
         r.accumulate(5)
@@ -109,7 +121,8 @@ def main():
         r.state = sharded.accumulate_pixels_sharded(
             r.scene, r.policy, r.state, 16, 16, ids, valid, mesh)
         res["subset_buckets"] = merged(r)
-        res["subset_counts"] = sharded._frame(r.state.counts, mesh).numpy()
+        res["subset_counts"] = sharded._frame(r.state.counts,
+                                              mesh).cpu().numpy()
         # the topology of the mesh builders (after test_two_process_initialize)
         pod = distributed.pod_mesh(1, "cpu")
         slices = distributed.multi_slice_mesh(world, "cpu")
