@@ -48,6 +48,14 @@ it prints JSON lines:
             same rows (ms); ms also at the tile with the fewest visits, on
             the busiest tile into an output of exactly nv visits, and on
             the grids of a one- and a four-SM card;
+  grid      grid_closest and grid_occluded on phase 19's grids: the
+            81,920-triangle mesh's (res 48, 33,576 residual triangles) on
+            camera, diffuse and axis-aligned batches of 2^16 rays (equal to
+            plain, ms) and on the camera rays of a 2^19-ray chunk (ms
+            only: the plain residual battery is too slow there), and the
+            1000-sphere field's (res 32, no residual) on the three batches
+            of 2^19 (equal to plain, ms); the SASS of
+            csrc/grid_walk.cu into DIR;
   hero      the hero scene at 256x256, 8 bounces, 2 passes through
             Renderer.accumulate: the buckets' SHA-256 and their equality
             with every other checkout's buckets saved in DIR, the kernel
@@ -72,7 +80,7 @@ import time
 from pathlib import Path
 
 KERNELS = ("plan", "rows", "closest", "occluded", "fma", "sphere",
-           "replay", "hero")
+           "replay", "grid", "hero")
 CLUSTER = ("plan", "rows", "closest", "occluded")
 
 
@@ -399,6 +407,51 @@ def probe_replay(m, timer, label):
               flush=True)
 
 
+def probe_grid(m, timer, label, out):
+    """The grid walks on phase 19's grids (the docstring's `grid`): one
+    JSON line a grid and batch."""
+    torch, np, cs, crt = m["torch"], m["np"], m["cs"], m["crt"]
+    gw, traverse, grid_mod = m["gw"], m["traverse"], m["grid"]
+    field = crt.accel.with_grid(crt.builders.random_spheres_scene(
+        *cs.FRAME, num_spheres=1000), res=cs.FIELD_GRID_RES).to("cuda")
+    mesh = crt.accel.with_grid(crt.builders.mesh_scene(
+        *cs.FRAME, subdivisions=6), res=cs.MESH_GRID_RES).to("cuda")
+    tri = mesh.triangles
+    for gname, scene, table, rows, n, plain in (
+            ("mesh", mesh, mesh.tri_grid,
+             traverse.pack_triangles(tri.v0, tri.e1, tri.e2), 1 << 16, True),
+            ("mesh", mesh, mesh.tri_grid,
+             traverse.pack_triangles(tri.v0, tri.e1, tri.e2), 1 << 19, False),
+            ("field", field, field.sphere_grid, traverse.pack_spheres(
+                field.spheres.center, field.spheres.radius_sq), 1 << 19,
+             True)):
+        test = traverse.sphere_row_test if rows.shape[1] == 4 else \
+            traverse.triangle_row_test
+        batches = cs.walk_batches(torch, np, crt, scene, "grid", n, 19)
+        for bname, (p, d, tf0, tf) in batches.items():
+            if not plain and bname != "camera":
+                continue
+            closest = lambda: gw.closest(table, p, d, rows, tf0)
+            occluded = lambda: gw.occluded(table, p, d, tf, rows)
+            res = {}
+            if plain:
+                want = grid_mod.traverse_grid_closest(table, p, d, rows, test,
+                                                      tfar0=tf0)
+                res["closest_equal"] = cs._same_hits(torch, closest(), want)
+                res["occluded_equal"] = torch.equal(
+                    occluded(), grid_mod.traverse_grid_shadow(
+                        table, p, d, tf, rows, test))
+            res["closest_ms"] = timer(closest, 10)
+            res["occluded_ms"] = timer(occluded, 10)
+            print(f"[{label}] grid {gname} (residual "
+                  f"{table.residual.shape[0]}) {bname} x {n} rays: "
+                  f"{json.dumps(res)}", flush=True)
+    tool = Path(m["build"].nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(gw.LIBRARY.path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    (out / f"sass_{label}_grid_walk.txt").write_text(sass)
+
+
 def probe_hero(m, label, out):
     """The hero at 256x256, 2 passes: buckets against the other
     checkouts' saved in `out`, launches a pass; then at 1920x1088: ms/pass
@@ -478,6 +531,8 @@ def main():
         ("build", pkg + ".ops.kernels.build"),
         ("sb", pkg + ".ops.kernels.sphere_battery"),
         ("kf", pkg + ".ops.kernels.fma"),
+        ("gw", pkg + ".ops.kernels.grid_walk"),
+        ("traverse", pkg + ".bvh.traverse"), ("grid", pkg + ".bvh.grid"),
         ("ct", pkg + ".ops.kernels.cluster_traverse"))}
     m["Vec3"], m["Quat"] = m["vec"].Vec3, m["vec"].Quat
     torch, cs, crt, ct = m["torch"], m["cs"], m["crt"], m["ct"]
@@ -485,7 +540,8 @@ def main():
     print(f"[{label}] {cs.gpu_name_power()}", flush=True)
     t0 = time.perf_counter()
     libraries = (m["sb"].LIBRARY, m["kf"].LIBRARY) + (
-        (ct.LIBRARY,) if kernels & set(CLUSTER + ("replay",)) else ())
+        (ct.LIBRARY,) if kernels & set(CLUSTER + ("replay",)) else ()) + (
+        (m["gw"].LIBRARY,) if "grid" in kernels else ())
     m["build"].load_all(libraries)
     print(f"[{label}] built in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libraries:
@@ -493,7 +549,8 @@ def main():
                 lib.build_log, ("plan_kernel", "closest_kernel",
                                 "occluded_kernel", "stream_kernel",
                                 "fma_kernel", "flat_kernel",
-                                "strided_kernel", "replay_kernel")):
+                                "strided_kernel", "replay_kernel",
+                                "merge_kernel")):
             print(f"    ptxas {cs.kernel_name(fn)}: {regs} registers, spill "
                   f"{st} / {ld} B, {smem} B static shared", flush=True)
         fn = None
@@ -512,6 +569,8 @@ def main():
         probe_sphere(m, timer, label, out)
     if "replay" in kernels:
         probe_replay(m, timer, label)
+    if "grid" in kernels:
+        probe_grid(m, timer, label, out)
     if "hero" in kernels:
         probe_hero(m, label, out)
     if not kernels & set(CLUSTER):

@@ -27,7 +27,8 @@ Phases:
      sampler); their times at 2^19 lanes and the host microseconds a call
      takes;
      sphere_closest on tables of 1, 9 and 1000
-     spheres and of 9, 1024 and 1025 with duplicated spheres, on ray slices
+     spheres, of 9, 1024 and 1025 with duplicated spheres and of 5-8 and
+     517 (a last 512-sphere chunk whose disc rounds b*b alone), on ray slices
      at offsets 0-3 with n % 4 = 0-3; sphere_occluded on tables of 1, 9 and
      1000 spheres and of 1024-1026 with one occluder at the staging chunk's
      edge (index 1023, 1024, 1025), on the same slices, with NaN shadow
@@ -155,7 +156,10 @@ Phases:
      the grid at res=48 with its residual list), on camera, diffuse and
      exactly axis-aligned batches of 2^19 rays (2^16 on the mesh grid,
      whose plain residual battery is slow), timed beside the bound from the
-     plain version's visit counts; the field at 1920x1088, 8 bounces, under
+     plain version's visit counts; both grid kernels on residual lists of
+     5-8 spheres (disc rounds b*b alone), bit for bit; the mesh grid's
+     kernels on the 2^19 camera rays of a chunk, timed only (the bound from
+     the set-up and the residual pairs); the field at 1920x1088, 8 bounces, under
      'brute', 'bvh', 'grid' and 'clustered' (64 clusters), and the mesh at
      5 bounces under 'bvh' and 'grid' (one window), each with its launches
      and peak memory, each image held to the field's 'brute' image (the
@@ -164,7 +168,8 @@ Phases:
      64x64 under 'bvh',
      'grid', 'clustered' and 'bvh' with primary_accel='pallas', the card's
      buckets of one pass equal to the CPU's bit for bit, and the bvh_test
-     golden on the card at 10 spp; a SceneEditor edit of a with_bvh scene on the card
+     golden on the card at 10 spp; a 6-sphere scene at 64x64 (brute), the
+     card's buckets equal to the CPU's; a SceneEditor edit of a with_bvh scene on the card
      against the scene built with the edit;
  20. the pool, the shell and multi-device (check_shell_paths): the hero at
      1920x1088 through render_pass_pooled (pool 2^19) against render_pass,
@@ -309,6 +314,7 @@ PLAIN_WALK_LIMIT_S = 20.0  # a plain walk predicted to take longer is run on
 FMA_TRIPLES = 1 << 22  # random triples the fma kernel is held to fp.fma on
 SPLITS = (1, 2, 4)  # the S of the walks' S-way split
 PATCHED_CHUNK = 96  # cluster_plan_rows' chunk in phase 14's patched run
+RESIDUAL_SPHERES = (5, 6, 7, 8)  # chunk widths whose disc rounds b*b alone
 
 
 def log(*args):
@@ -391,9 +397,11 @@ def kernel_name(mangled: str) -> str:
         return (f"cluster_{m.group(1)}"
                 f"{'_stream' if m.group(3) == '1' else ''}"
                 f"[{battery}, S={m.group(4)}]")
-    m = re.search(r"(closest|occluded)_kernelILb([01])EE", mangled)
-    if m:  # the BVH and grid walks
-        return f"{m.group(1)}_kernel[{('sphere', 'triangle')[int(m.group(2))]}]"
+    m = re.search(r"(walk_|residual_)?(closest|occluded)_kernelILb([01])EE",
+                  mangled)
+    if m:  # the BVH and grid walks, the grid's residual battery
+        return (f"{m.group(1) or ''}{m.group(2)}_kernel"
+                f"[{('sphere', 'triangle')[int(m.group(3))]}]")
     m = re.search(r"replay_kernelILi(\d)EE", mangled)
     if m:
         return f"stream_replay[{('sphere', 'triangle')[int(m.group(1))]}]"
@@ -451,13 +459,15 @@ def sass_report(library) -> dict:
 SPLIT_WALKS = ("closest_kernel", "occluded_kernel")  # the walks' names
 # (and the sphere batteries')
 FMA_KERNELS = ("flat_kernel", "strided_kernel")  # csrc/fma.cu
-CHECKED = SPLIT_WALKS + ("plan_kernel", "replay_kernel", "light_rows_kernel") \
-    + FMA_KERNELS
+CHECKED = SPLIT_WALKS + ("closest_split_kernel", "plan_kernel",
+                         "replay_kernel", "light_rows_kernel",
+                         "merge_kernel") + FMA_KERNELS
 # (the kernels that must hold no float64)
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
 # templates)
 SPHERE_OCCLUDED = "occluded_kernelE"  # sphere_occluded
+GRID_RESIDUAL = "residual_"  # the grid's residual battery
 
 
 def report_kernels(libraries):
@@ -465,8 +475,8 @@ def report_kernels(libraries):
     planners, every walk (each a split walk), the sphere batteries and the
     fma kernels, the SASS of every kernel of the four CUDA sources, and the
     opcodes of the flat planner (the slab tests of its sweep are unrolled 80
-    times: 8 octants x (8 + 2) boxes), of sphere_closest and of
-    sphere_occluded;
+    times: 8 octants x (8 + 2) boxes), of sphere_closest, of
+    sphere_occluded and of the grid's residual battery;
     raises where a planner, a walk, a battery or an fma kernel holds float64
     arithmetic or a float64 conversion."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
@@ -500,7 +510,7 @@ def report_kernels(libraries):
                                                   or c["f64 conversions"]):
                 bad.append(kernel_name(fn))
             if any(k in fn for k in (FLAT_PLANNER, SPHERE_CLOSEST,
-                                     SPHERE_OCCLUDED)):
+                                     SPHERE_OCCLUDED, GRID_RESIDUAL)):
                 log(f"    SASS opcodes of {kernel_name(fn)}: " + ", ".join(
                     f"{op} {n}" for op, n in sorted(
                         c["opcodes"].items(), key=lambda kv: -kv[1])))
@@ -963,8 +973,11 @@ def check_closest_tables(torch, np, hero, field):
     field), the hero's 9 with ties (spheres 5-8 are copies of 0-3), and
     1024 and 1025 spheres
     with ties across the staging chunk (the field and copies of its first
-    24 or 25 spheres); on 65,543 rays sliced at offsets 0-3 from a 16-byte
-    boundary, with 65,543 - offset - {0, 1, 2} rays (every n % 4)."""
+    24 or 25 spheres); tables of 5-8 and 517 spheres (the field's first),
+    where the plain battery rounds b*b alone in the last 512-sphere chunk
+    (fp.xla_fuses_sphere_bb); on 65,543 rays sliced at offsets 0-3 from a
+    16-byte boundary, with 65,543 - offset - {0, 1, 2} rays (every n %
+    4)."""
     from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
@@ -981,6 +994,8 @@ def check_closest_tables(torch, np, hero, field):
         "1000 spheres": table(field, list(range(nf))),
         "1024 with ties": table(field, list(range(nf)) + list(range(24))),
         "1025 with ties": table(field, list(range(nf)) + list(range(25))),
+        **{f"{k} spheres (disc rounds b*b alone)": table(field, list(range(k)))
+           for k in RESIDUAL_SPHERES + (517,)},
     }
     n = 65536 + 7
     failures, calls = [], 0
@@ -1883,8 +1898,9 @@ def profile_pass(torch, r, label, run=None):
 
     torch.cuda.synchronize()
     build.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the busy time and launches read nothing else,
+    # and recording every host op of a pass slows the pass and the reading
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if run is None:
             r.accumulate(1)
@@ -1894,7 +1910,6 @@ def profile_pass(torch, r, label, run=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     fma_counts = {k: v for k, v in build.launch_counts().items()
                   if k.startswith("fma") and v}
-    # device-side events only: a CPU op's row repeats its kernels' time
     rows = [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
@@ -2833,6 +2848,70 @@ def residual_anyhit_pairs(torch, grid, rows, p, d, tf):
     return int(needed.sum())
 
 
+def residual_sphere_grid(torch, np, k, n, seed):
+    """A res-4 grid over 40 small spheres and k giant ones that each span
+    more than res^2 cells, so that its residual list is the k giants, with
+    the sphere rows and `n` seeded rays from the grid's box in random
+    directions: (grid, rows, p, d, tfar0 (every fifth lane 20, else
+    FLT_MAX), shadow tfar (80, every seventh lane 0))."""
+    from cpu_raytracing_experiments_tpu_torch.bvh import grid as grid_mod
+    from cpu_raytracing_experiments_tpu_torch.bvh import traverse
+    from cpu_raytracing_experiments_tpu_torch.core.vec import Vec3
+
+    g = np.random.default_rng(seed)
+    c = np.concatenate([g.uniform(-50, 50, (40, 3)),
+                        g.uniform(-10, 10, (k, 3))]).astype(np.float32)
+    r = np.concatenate([g.uniform(0.3, 5.0, 40),
+                        g.uniform(40, 55, k)]).astype(np.float32)
+    grid = grid_mod.build_grid(c - r[:, None], c + r[:, None], res=4,
+                               max_per_cell=40, device=DEVICE)
+    if grid.residual.tolist() != list(range(40, 40 + k)):
+        raise AssertionError(f"the residual grid holds {grid.residual}")
+    as_t = lambda a: torch.tensor(np.ascontiguousarray(a),
+                                  dtype=torch.float32, device=DEVICE)
+    rows = traverse.pack_spheres(Vec3(*(as_t(c[:, j]) for j in range(3))),
+                                 as_t(r * r))
+    o = g.uniform(-100, 100, (n, 3))
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tf0 = np.full(n, FLT_MAX_F32)
+    tf0[::5] = 20.0
+    tf = np.full(n, 80.0)
+    tf[::7] = 0.0
+    return (grid, rows, Vec3(*(as_t(o[:, j]) for j in range(3))),
+            Vec3(*(as_t(d[:, j]) for j in range(3))), as_t(tf0), as_t(tf))
+
+
+def check_residual_widths(torch, np):
+    """grid_closest and grid_occluded against their plain versions, bit for
+    bit, on residual lists of RESIDUAL_SPHERES spheres (the widths whose
+    disc rounds b*b alone), 2^16 rays each; returns the residual hits."""
+    from cpu_raytracing_experiments_tpu_torch.bvh import grid as grid_mod
+    from cpu_raytracing_experiments_tpu_torch.bvh import traverse
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import grid_walk
+
+    hits = {}
+    for k in RESIDUAL_SPHERES:
+        grid, rows, p, d, tf0, tf = residual_sphere_grid(torch, np, k,
+                                                         1 << 16, 190 + k)
+        test = traverse.sphere_row_test
+        kt, kid = grid_walk.closest(grid, p, d, rows, tf0)
+        pt, pid = grid_mod.traverse_grid_closest(grid, p, d, rows, test,
+                                                 tfar0=tf0)
+        ko = grid_walk.occluded(grid, p, d, tf, rows)
+        po = grid_mod.traverse_grid_shadow(grid, p, d, tf, rows, test)
+        same = (torch.equal(kid, pid) and torch.equal(ko, po) and torch.equal(
+            kt.view(torch.int32), pt.view(torch.int32)))
+        hits[k] = int(torch.isin(pid, grid.residual).sum())
+        log(f"[19 residual of {k} spheres] 65536 rays: {hits[k]} residual "
+            f"hits, occluded {int(po.sum())}; grid_closest and grid_occluded "
+            f"equal their plain versions bit for bit: {same}")
+        if not same or hits[k] == 0:
+            raise AssertionError(f"[19 residual of {k} spheres] a walk kernel "
+                                 "disagrees with its plain version")
+    return hits
+
+
 def check_walks(torch, timer, kind, table, rows, batches, label):
     """bvh_closest / bvh_occluded (kind 'bvh') or grid_closest /
     grid_occluded ('grid') against their plain versions on each batch, bit
@@ -2923,6 +3002,45 @@ def check_walks(torch, timer, kind, table, rows, batches, label):
     return out
 
 
+def time_mesh_grid_chunk(torch, np, crt, timer, scene):
+    """grid_closest and grid_occluded on the mesh grid at the pass's chunk
+    width (WALK_RAYS camera rays), timed only: the plain residual battery
+    is too slow to compare there. The bound counts the set-up and the
+    residual pairs (the any-hit form's up to each lane's first occluder),
+    not the walk's cells: a least time of part of the work."""
+    from cpu_raytracing_experiments_tpu_torch.bvh import traverse
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import grid_walk
+
+    tri = scene.triangles
+    rows = traverse.pack_triangles(tri.v0, tri.e1, tri.e2)
+    grid = scene.tri_grid
+    p, d, tf0, tf = walk_batches(torch, np, crt, scene, "grid", WALK_RAYS,
+                                 19)["camera"]
+    n, rr = WALK_RAYS, grid.residual.shape[0]
+    table_bytes = (grid.cells.numel() * 4 + grid.cell_count.numel() * 4
+                   + rows.numel() * 4 + rr * (4 + 48))
+    shape = (f"R={n} res={grid.res} K={grid.max_per_cell}, {rows.shape[0]} "
+             f"prims, residual {rr} (timed only)")
+    out = {}
+    for name, kern, nbytes, n_ops in (
+            ("grid_closest", lambda: grid_walk.closest(grid, p, d, rows, tf0),
+             n * 32 + table_bytes,
+             GRID_SETUP_OPS * n + TRI_CLOSEST_OPS * n * rr),
+            ("grid_occluded", lambda: grid_walk.occluded(grid, p, d, tf, rows),
+             n * 29 + table_bytes,
+             GRID_SETUP_OPS * n + TRI_CLOSEST_OPS * residual_anyhit_pairs(
+                 torch, grid, rows, p, d, tf))):
+        ms = timer(kern, 10)
+        row = kernel_row(name, WALK_SOURCES["grid"], shape, None, 0.0, ms,
+                         None, nbytes, n_ops)
+        row["batch"] = "19 mesh grid, camera, chunk width"
+        out["mesh grid", name, "camera 2^19"] = row
+        log(f"[19 mesh grid, camera, {n} rays] {name}: {ms:.4f} ms (bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']} from the set-up "
+            f"and the residual pairs; timed only)")
+    return out
+
+
 def check_accel_paths(torch, np, crt, timer):
     """Phase 19: (a) the four walk kernels against their plain versions on
     the 1000-sphere field's BVH and grid and on the 81,920-triangle mesh's
@@ -2935,6 +3053,7 @@ def check_accel_paths(torch, np, crt, timer):
     card; (d) a SceneEditor edit of a with_bvh scene on the card. Returns
     (numbers, kernel rows)."""
     from cpu_raytracing_experiments_tpu_torch.bvh import traverse
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
     from cpu_raytracing_experiments_tpu_torch.scene import accel, edit
     from cpu_raytracing_experiments_tpu_torch.scene.scene import (
         Scene, build_light_list, light_alias_arrays)
@@ -2982,6 +3101,9 @@ def check_accel_paths(torch, np, crt, timer):
             torch, timer, kind, table, rows, batches, f"19 {sname}").items()})
         del batches
 
+    numbers["residual_width_hits"] = check_residual_widths(torch, np)
+    rows_out.update(time_mesh_grid_chunk(torch, np, crt, timer,
+                                         scenes["mesh grid"]))
     log(f"[19] kernels checked at {time.perf_counter() - t0:.1f} s")
 
     # (b) full-width renders
@@ -3068,6 +3190,23 @@ def check_accel_paths(torch, np, crt, timer):
                                  "the CPU or misses the golden")
         numbers[f"bvh_test {name}"] = {"cpu_card_equal": equal[name],
                                        "golden_close": close}
+
+    # a 6-sphere scene: its one chunk is 6 wide, where the plain battery
+    # rounds disc's b*b alone (fp.xla_fuses_sphere_bb)
+    six = crt.builders.random_spheres_scene(64, 64, num_spheres=6)
+    got = []
+    for dev in ("cpu", DEVICE):
+        r = crt.Renderer(six, pol(**spol), 64, 64, device=dev)
+        build.reset_counts()
+        r.accumulate(1)
+        got.append(r.state.buckets)
+    launched = build.launch_counts()["sphere_closest"]
+    same = equal_bits(torch, got[0], got[1])
+    log(f"[19 6 spheres 64x64] card buckets equal the CPU's bit for bit: "
+        f"{same}; sphere_closest launched {launched} times on the card")
+    if not same or launched <= 0:
+        raise AssertionError("[19 6 spheres] card differs from the CPU")
+    numbers["6 spheres"] = {"cpu_card_equal": same}
 
     log(f"[19] card against CPU done at {time.perf_counter() - t0:.1f} s")
 

@@ -41,6 +41,9 @@ the order XLA's CPU compiler gives ``jnp.sum(w, axis=1)`` and
 ``jnp.cumsum(w, axis=1)`` (``row_sum``, ``row_cumsum``): a light's cdf entry
 one ulp off moves the selected light, and with it the path. On the card
 ``ops/kernels/light_rows.py`` computes both in the same order.
+
+One contraction depends on the width of the block XLA computes: the closest-hit
+sphere battery's ``disc`` (``xla_fuses_sphere_bb``).
 """
 from __future__ import annotations
 
@@ -150,6 +153,27 @@ def fma3(a, b, c):
 def fma3_plain(a, b, c):
     """``fma3`` from ``fma_plain``: the plain version of its kernel."""
     return type(a)(*(fma_plain(ac, b, cc) for ac, cc in zip(a, c)))
+
+
+SPHERE_BB_UNFUSED = range(5, 9)  # chunk widths where XLA rounds b*b alone
+
+
+def xla_fuses_sphere_bb(width: int) -> bool:
+    """Whether jitted XLA on the CPU fuses ``b*b`` into the closest-hit
+    sphere battery's ``disc = r_sq - (tx*tx + ty*ty + tz*tz) + b*b``
+    (``ops/intersect.py::_sphere_candidates`` of the JAX package) when the
+    battery's prim chunk is `width` spheres wide: fused
+    (``fma(b, b, r_sq - dot3(t, t))``, one rounding) at every width but
+    5-8, where XLA's CPU backend rounds ``b*b`` alone and adds it,
+    ``(r_sq - dot3(t, t)) + b*b``. Like the orders above, this is XLA's CPU
+    backend's choice, not the source's. It holds for the brute battery's and the grid
+    residual's 512-sphere chunks; the K-slot battery of the JAX package's
+    ``intersect_clustered`` (inside ``lax.cond`` in a scan) fuses at every
+    K. Held by ``tests/test_torch_disc_width.py`` at widths 1-17 and
+    516-521 on 4096 rays; at ray counts that XLA splits into thread
+    partitions of no multiple of its 8-lane vectors, a partition's scalar
+    tail fuses at every width (ROADMAP queue 3)."""
+    return width not in SPHERE_BB_UNFUSED
 
 
 SUM_BLOCK = 32  # XLA's CPU tree reduction: windows of 32 above 32 terms

@@ -49,6 +49,13 @@
 // the pairs' latency); small tables read straight from device memory with
 // no staging, faster only below the hero's 9 spheres.
 //
+// A table whose last 512-sphere chunk is 5-8 wide rounds that chunk's disc
+// with b*b alone, as the plain battery does (core/fp.py::
+// xla_fuses_sphere_bb): the wrapper passes the first such sphere, and the
+// launch takes closest_split_kernel; every other table takes
+// closest_kernel, whose loop fuses throughout (one kernel with the split
+// loop was 18% slower at 1000 spheres, PERF.md section 6).
+//
 // sphere_occluded: the same one-wave grid-stride grid of 128-thread blocks,
 // one ray a thread. A table of one chunk (the hero's 9 spheres) is staged
 // once a block, before its first trip, and read by every trip with no
@@ -124,12 +131,16 @@ constexpr int kClosestThreads = 128;
 constexpr int kClosestBlocksPerSm = 2048 / kClosestThreads;  // one wave
 
 // One sphere against the thread's ray: the nearest root >= 0 where
-// disc >= 0, kept where strictly below the ray's best.
+// disc >= 0, kept where strictly below the ray's best. kAlone rounds b*b
+// on its own before adding it to disc, as XLA rounds a 5-8-wide chunk
+// (core/fp.py::xla_fuses_sphere_bb); else b*b is fused into disc.
+template <bool kAlone>
 __device__ __forceinline__ void closest_pair(const Ray& r, float4 s, int id,
                                              float& best, int32_t& best_id) {
   const PairTerms pt = pair_terms(r, s);
   const float b = pt.b;
-  const float disc = fma32(b, b, pt.rsq_minus_len2);
+  const float disc = kAlone ? __fadd_rn(pt.rsq_minus_len2, __fmul_rn(b, b))
+                            : fma32(b, b, pt.rsq_minus_len2);
   if (disc >= 0.0f) {
     const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
     const float t_near = __fsub_rn(b, sq);
@@ -141,15 +152,18 @@ __device__ __forceinline__ void closest_pair(const Ray& r, float4 s, int id,
   }
 }
 
-__global__ void __launch_bounds__(kClosestThreads)
-closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
-               const float* __restrict__ pz, const float* __restrict__ dx,
-               const float* __restrict__ dy, const float* __restrict__ dz,
-               const float* __restrict__ cx, const float* __restrict__ cy,
-               const float* __restrict__ cz, const float* __restrict__ rsq,
-               int n_rays, int n_prims, float* __restrict__ tfar_out,
-               int32_t* __restrict__ prim_out) {
-  __shared__ float4 tile[kChunk];
+// The closest battery over the rays of the grid-stride loop. kSplit: the
+// spheres from unfused_from on round b*b alone (unfused_from < n_prims);
+// without it the loop is the fused one throughout.
+template <bool kSplit>
+__device__ __forceinline__ void closest_rays(
+    float4* tile, const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ cx, const float* __restrict__ cy,
+    const float* __restrict__ cz, const float* __restrict__ rsq, int n_rays,
+    int n_prims, int unfused_from, float* __restrict__ tfar_out,
+    int32_t* __restrict__ prim_out) {
   const int step = gridDim.x * blockDim.x;
   // block-uniform trip count: every thread reaches every barrier
   for (int i0 = blockIdx.x * blockDim.x; i0 < n_rays; i0 += step) {
@@ -164,8 +178,18 @@ closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
       const int n = stage(tile, cx, cy, cz, rsq, start, n_prims);
       __syncthreads();
       if (!live) continue;
-      for (int j = 0; j < n; ++j) {
-        closest_pair(r, tile[j], start + j, best, best_id);
+      if constexpr (kSplit) {
+        const int fused = min(n, max(unfused_from - start, 0));
+        for (int j = 0; j < fused; ++j) {
+          closest_pair<false>(r, tile[j], start + j, best, best_id);
+        }
+        for (int j = fused; j < n; ++j) {
+          closest_pair<true>(r, tile[j], start + j, best, best_id);
+        }
+      } else {
+        for (int j = 0; j < n; ++j) {
+          closest_pair<false>(r, tile[j], start + j, best, best_id);
+        }
       }
     }
     if (live) {
@@ -173,6 +197,39 @@ closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
       prim_out[i] = best_id;
     }
   }
+}
+
+// Every sphere's disc fuses b*b.
+__global__ void __launch_bounds__(kClosestThreads)
+closest_kernel(const float* __restrict__ px, const float* __restrict__ py,
+               const float* __restrict__ pz, const float* __restrict__ dx,
+               const float* __restrict__ dy, const float* __restrict__ dz,
+               const float* __restrict__ cx, const float* __restrict__ cy,
+               const float* __restrict__ cz, const float* __restrict__ rsq,
+               int n_rays, int n_prims, float* __restrict__ tfar_out,
+               int32_t* __restrict__ prim_out) {
+  __shared__ float4 tile[kChunk];
+  closest_rays<false>(tile, px, py, pz, dx, dy, dz, cx, cy, cz, rsq, n_rays,
+                      n_prims, n_prims, tfar_out, prim_out);
+}
+
+// The spheres from unfused_from on round b*b alone.
+__global__ void __launch_bounds__(kClosestThreads)
+closest_split_kernel(const float* __restrict__ px,
+                     const float* __restrict__ py,
+                     const float* __restrict__ pz,
+                     const float* __restrict__ dx,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ dz,
+                     const float* __restrict__ cx,
+                     const float* __restrict__ cy,
+                     const float* __restrict__ cz,
+                     const float* __restrict__ rsq, int n_rays, int n_prims,
+                     int unfused_from, float* __restrict__ tfar_out,
+                     int32_t* __restrict__ prim_out) {
+  __shared__ float4 tile[kChunk];
+  closest_rays<true>(tile, px, py, pz, dx, dy, dz, cx, cy, cz, rsq, n_rays,
+                     n_prims, unfused_from, tfar_out, prim_out);
 }
 
 constexpr int kOccludedThreads = 128;
@@ -260,15 +317,17 @@ occluded_kernel(const float* __restrict__ px, const float* __restrict__ py,
 
 // C entry points, bound with ctypes. Each launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
-// sphere_closest: `sms` is the card's SM count, which caps the grid at one
+// sphere_closest: spheres from `unfused_from` on round b*b alone in disc
+// (n_prims: none); `sms` is the card's SM count, which caps the grid at one
 // wave.
 extern "C" int sphere_closest(const float* px, const float* py,
                               const float* pz, const float* dx,
                               const float* dy, const float* dz,
                               const float* cx, const float* cy,
                               const float* cz, const float* rsq, int n_rays,
-                              int n_prims, int sms, float* tfar_out,
-                              int32_t* prim_out, void* stream) {
+                              int n_prims, int unfused_from, int sms,
+                              float* tfar_out, int32_t* prim_out,
+                              void* stream) {
   if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays > 0) {
     const long long wanted =
@@ -276,10 +335,16 @@ extern "C" int sphere_closest(const float* px, const float* py,
         kClosestThreads;
     const long long cap = static_cast<long long>(kClosestBlocksPerSm) * sms;
     const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
-    closest_kernel<<<blocks, kClosestThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        px, py, pz, dx, dy, dz, cx, cy, cz, rsq, n_rays, n_prims, tfar_out,
-        prim_out);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (unfused_from < n_prims) {
+      closest_split_kernel<<<blocks, kClosestThreads, 0, s>>>(
+          px, py, pz, dx, dy, dz, cx, cy, cz, rsq, n_rays, n_prims,
+          unfused_from, tfar_out, prim_out);
+    } else {
+      closest_kernel<<<blocks, kClosestThreads, 0, s>>>(
+          px, py, pz, dx, dy, dz, cx, cy, cz, rsq, n_rays, n_prims, tfar_out,
+          prim_out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

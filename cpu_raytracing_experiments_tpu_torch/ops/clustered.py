@@ -360,14 +360,17 @@ def _cluster_closest(cp: ClusteredPrims, cols, c: int, n: int, p: Vec3,
                      d: Vec3):
     """(best t [R], ORIGINAL prim id [R] or -1) over cluster c's n real
     rows: the first of the least t, FLT_MAX on a miss. `cols` are the
-    pack's rows as contiguous columns."""
+    pack's rows as contiguous columns. A sphere's disc is fused at every
+    width: XLA rounds the JAX package's K-slot battery so at every K, 8
+    too (``fp.xla_fuses_sphere_bb``; tests/test_torch_disc_width.py)."""
     from . import intersect as _i
 
     rs = slice(c * cp.cluster_size, c * cp.cluster_size + n)
     ids = cp.order[rs]
     cl = [a[rs] for a in cols]
     if cp.kind == "sphere":
-        best, arg = _i.closest_hit(p, d, Vec3(*cl[:3]), cl[3])
+        best, arg = _i.closest_hit(p, d, Vec3(*cl[:3]), cl[3],
+                                   xla_chunks=False)
     else:
         best, arg = _i.intersect_triangles(p, d, Vec3(*cl[0:3]),
                                            Vec3(*cl[3:6]), Vec3(*cl[6:9]))

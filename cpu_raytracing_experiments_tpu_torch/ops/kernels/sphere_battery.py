@@ -44,15 +44,19 @@ def _closest_epilogue(t):
     return best, first
 
 
-def sphere_candidates(px, py, pz, dx, dy, dz, cx, cy, cz, r_sq):
+def sphere_candidates(px, py, pz, dx, dy, dz, cx, cy, cz, r_sq,
+                      fuse_bb=True):
     """Candidate distances of rays against spheres, FLT_MAX where the ray
     misses; the arguments broadcast against each other. b and disc fuse
-    their multiply-adds as XLA does (core/fp.py)."""
+    their multiply-adds as XLA does (core/fp.py); with `fuse_bb` False,
+    b*b is rounded alone and added to disc, as XLA rounds a 5-8-wide chunk
+    (``fp.xla_fuses_sphere_bb``)."""
     tx = cx - px
     ty = cy - py
     tz = cz - pz
     b = fp.dot3(dx, dy, dz, tx, ty, tz)
-    disc = fma(b, b, r_sq - fp.dot3(tx, ty, tz, tx, ty, tz))
+    rest = r_sq - fp.dot3(tx, ty, tz, tx, ty, tz)
+    disc = fma(b, b, rest) if fuse_bb else rest + b * b
     sq = fp.sqrt(torch.clamp_min(disc, 0.0))
     t_near = b - sq
     t = torch.where(t_near < 0.0, b + sq, t_near)
@@ -60,24 +64,41 @@ def sphere_candidates(px, py, pz, dx, dy, dz, cx, cy, cz, r_sq):
     return torch.where(valid, t, FLT_MAX)
 
 
-def _sphere_candidates(p: Vec3, d: Vec3, cx, cy, cz, r_sq):
+def _sphere_candidates(p: Vec3, d: Vec3, cx, cy, cz, r_sq, fuse_bb=True):
     """[R, C] candidate distances of rays [R] against spheres [C]."""
     return sphere_candidates(
         p.x[:, None], p.y[:, None], p.z[:, None], d.x[:, None], d.y[:, None],
-        d.z[:, None], cx[None, :], cy[None, :], cz[None, :], r_sq[None, :])
+        d.z[:, None], cx[None, :], cy[None, :], cz[None, :], r_sq[None, :],
+        fuse_bb)
 
 
-def intersect_spheres(p: Vec3, d: Vec3, center: Vec3, radius_sq):
+def unfused_from(n_prims: int) -> int:
+    """The first sphere whose disc ``intersect_spheres`` rounds with b*b
+    alone: the start of the last PRIM_CHUNK-wide chunk where that chunk is
+    5-8 spheres wide (``fp.xla_fuses_sphere_bb``), else n_prims."""
+    last = (n_prims - 1) // PRIM_CHUNK * PRIM_CHUNK if n_prims else 0
+    return n_prims if fp.xla_fuses_sphere_bb(n_prims - last) else last
+
+
+def intersect_spheres(p: Vec3, d: Vec3, center: Vec3, radius_sq,
+                      xla_chunks=True):
     """Closest hit over all spheres: (tfar [R], prim_id [R] int32), FLT_MAX
     and -1 for a miss. Prims are reduced in PRIM_CHUNK-wide chunks with a
-    strict `<` between chunks: the first occurrence wins."""
+    strict `<` between chunks: the first occurrence wins. With `xla_chunks`
+    disc is rounded as jitted XLA rounds each chunk of the JAX package's
+    ``intersect_spheres`` (``unfused_from``); without, fused in every
+    chunk, as XLA rounds the cluster battery of its ``intersect_clustered``
+    (inside ``lax.cond`` in a scan) at every K."""
     n = p.x.shape[0]
     best_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=p.x.device)
     best_id = torch.full((n,), -1, dtype=torch.int32, device=p.x.device)
-    for start in range(0, radius_sq.shape[0], PRIM_CHUNK):
-        end = min(start + PRIM_CHUNK, radius_sq.shape[0])
+    n_prims = radius_sq.shape[0]
+    alone = unfused_from(n_prims) if xla_chunks else n_prims
+    for start in range(0, n_prims, PRIM_CHUNK):
+        end = min(start + PRIM_CHUNK, n_prims)
         t = _sphere_candidates(p, d, center.x[start:end], center.y[start:end],
-                               center.z[start:end], radius_sq[start:end])
+                               center.z[start:end], radius_sq[start:end],
+                               fuse_bb=start < alone)
         chunk_best, first = _closest_epilogue(t)
         closer = chunk_best < best_t
         best_id = torch.where(closer, first + start, best_id)
@@ -131,7 +152,7 @@ def occluded_spheres(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
 # ---------------------------------------------------------------------------
 def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sphere_closest.argtypes = [ptr] * 10 + [i32] * 3 + [ptr] * 3
+    lib.sphere_closest.argtypes = [ptr] * 10 + [i32] * 4 + [ptr] * 3
     lib.sphere_closest.restype = i32
     lib.sphere_occluded.argtypes = [ptr] * 11 + [i32] * 3 + [ptr] * 2
     lib.sphere_occluded.restype = i32
@@ -159,13 +180,14 @@ def _check_inputs(name, device, n, rays, prims):
         raise ValueError(f"{name}: more than 2^31 rays or spheres")
 
 
-def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq):
+def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq, xla_chunks=True):
     """Closest sphere hit per ray: (tfar [R] float32, prim [R] int32, -1 and
-    FLT_MAX for a miss). CPU tensors take the plain version; CUDA tensors
-    launch ``sphere_closest``."""
+    FLT_MAX for a miss); `xla_chunks` as ``intersect_spheres``'s. CPU
+    tensors take the plain version; CUDA tensors launch
+    ``sphere_closest``."""
     device = p.x.device
     if device.type == "cpu":
-        return intersect_spheres(p, d, center, radius_sq)
+        return intersect_spheres(p, d, center, radius_sq, xla_chunks)
     n = p.x.shape[0]
     prims = (center.x, center.y, center.z, radius_sq)
     _check_inputs(CLOSEST.name, device, n, (*p, *d), prims)
@@ -174,8 +196,11 @@ def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq):
     prim = torch.empty(n, dtype=torch.int32, device=device)
     build.launch(CLOSEST.name, lib.sphere_closest, device,
                  [a.data_ptr() for a in (*p, *d, *prims)]
-                 + [n, radius_sq.shape[0], build.sm_count(device.index),
-                    tfar.data_ptr(), prim.data_ptr()])
+                 + [n, radius_sq.shape[0],
+                    (unfused_from(radius_sq.shape[0]) if xla_chunks
+                     else radius_sq.shape[0]),
+                    build.sm_count(device.index), tfar.data_ptr(),
+                    prim.data_ptr()])
     CLOSEST.launches += 1
     return tfar, prim
 

@@ -168,3 +168,26 @@ def test_kernels_match_plain_on_card(case):
     assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
     assert torch.equal(grid_walk.occluded(tg, p, d, tf, rows),
                        tgrid.traverse_grid_shadow(tg, p, d, tf, rows, test))
+
+
+@pytest.mark.parametrize("n_rays,n_residual,want", [
+    (1 << 16, 33576, (17, 2048)),  # the mesh grid's residual at 2^16 rays
+    (1 << 19, 33576, (3, 11264)),  # and at the pass's chunk width
+    (100, 5, (1, 128)),
+    (1000, 700, (1, 768)),
+    (4096, 0, (1, 0)),
+    (1, 1 << 20, (2048, 512)),
+])
+def test_residual_split(n_rays, n_residual, want):
+    """ops/kernels/grid_walk.py::residual_split, the grid kernels' split of
+    the residual battery across blocks on a 132-SM card: whole 128-row
+    tiles, at least 4 a slice where there are several, no slice empty, the
+    slices covering the residual, and enough of them for 16 blocks an SM
+    where the residual is long enough."""
+    slices, rows = grid_walk.residual_split(n_rays, n_residual, 132)
+    assert (slices, rows) == want
+    assert rows % grid_walk.ROW_TILE == 0
+    if n_residual:
+        assert (slices - 1) * rows < n_residual <= slices * rows
+    if slices > 1:
+        assert rows >= grid_walk.MIN_SLICE_TILES * grid_walk.ROW_TILE
