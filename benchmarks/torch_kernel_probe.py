@@ -56,6 +56,16 @@ it prints JSON lines:
             1000-sphere field's (res 32, no residual) on the three batches
             of 2^19 (equal to plain, ms); the SASS of
             csrc/grid_walk.cu into DIR;
+  bvh       bvh_closest and bvh_occluded on phase 19's BVHs: the
+            1000-sphere field's (665 nodes) and the 81,920-triangle mesh's
+            (51,863 nodes), on its camera, diffuse and axis-aligned batches
+            of 2^19 rays (equal to plain, ms), and packing the node table
+            (bvh/traverse.py::pack_nodes, ms: a checkout whose wrappers
+            pack it on every call times it inside each walk's ms); the SASS
+            of csrc/bvh_walk.cu into DIR;
+  light_rows light_rows at 2^19 rows of PROBE_LIGHTS lights with draws
+            (phase 17's weights: equal to plain, ms); the SASS of
+            csrc/light_rows.cu into DIR;
   hero      the hero scene at 256x256, 8 bounces, 2 passes through
             Renderer.accumulate: the buckets' SHA-256 and their equality
             with every other checkout's buckets saved in DIR, the kernel
@@ -80,7 +90,8 @@ import time
 from pathlib import Path
 
 KERNELS = ("plan", "rows", "closest", "occluded", "fma", "sphere",
-           "replay", "grid", "hero")
+           "replay", "grid", "bvh", "light_rows", "hero")
+PROBE_LIGHTS = (32, 64, 326, 1000, 4096, 10817)  # light_rows' L
 CLUSTER = ("plan", "rows", "closest", "occluded")
 
 
@@ -265,6 +276,14 @@ def probe_fma(m, timer, label):
     print(f"[{label}] fma 2^19: {json.dumps(res)}", flush=True)
 
 
+def save_sass(m, library, label, out):
+    """cuobjdump -sass of a built library into `out`."""
+    tool = Path(m["build"].nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library.path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    (out / f"sass_{label}_{library.source.stem}.txt").write_text(sass)
+
+
 def probe_sphere(m, timer, label, out):
     torch, np, cs, crt = m["torch"], m["np"], m["cs"], m["crt"]
     sb = m["sb"]
@@ -308,10 +327,7 @@ def probe_sphere(m, timer, label, out):
         print(f"[{label}] sphere {tname} x {n} rays: {json.dumps(res)}",
               flush=True)
     probe_tables(m, timer, label)
-    tool = Path(m["build"].nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(sb.LIBRARY.path)],
-                          capture_output=True, text=True, timeout=300).stdout
-    (out / f"sass_{label}_sphere_battery.txt").write_text(sass)
+    save_sass(m, sb.LIBRARY, label, out)
 
 
 SWEEP_TABLES = (1, 4, 9, 12, 16, 32, 64, 128, 256)  # spheres
@@ -446,10 +462,70 @@ def probe_grid(m, timer, label, out):
             print(f"[{label}] grid {gname} (residual "
                   f"{table.residual.shape[0]}) {bname} x {n} rays: "
                   f"{json.dumps(res)}", flush=True)
-    tool = Path(m["build"].nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(gw.LIBRARY.path)],
-                          capture_output=True, text=True, timeout=300).stdout
-    (out / f"sass_{label}_grid_walk.txt").write_text(sass)
+    save_sass(m, gw.LIBRARY, label, out)
+
+
+def probe_bvh(m, timer, label, out):
+    """The BVH walks on phase 19's BVHs (the docstring's `bvh`): one JSON
+    line a BVH and batch."""
+    torch, np, cs, crt = m["torch"], m["np"], m["cs"], m["crt"]
+    bw, traverse = m["bw"], m["traverse"]
+    field = crt.accel.with_bvh(crt.builders.random_spheres_scene(
+        *cs.FRAME, num_spheres=1000)).to("cuda")
+    mesh = crt.accel.with_bvh(crt.builders.mesh_scene(
+        *cs.FRAME, subdivisions=6)).to("cuda")
+    tri = mesh.triangles
+    for bname, scene, table, rows in (
+            ("field", field, field.sphere_bvh, traverse.pack_spheres(
+                field.spheres.center, field.spheres.radius_sq)),
+            ("mesh", mesh, mesh.tri_bvh,
+             traverse.pack_triangles(tri.v0, tri.e1, tri.e2))):
+        test = bw.ROW_TESTS[rows.shape[1]]
+        batches = cs.walk_batches(torch, np, crt, scene, "bvh", 1 << 19, 19)
+        for kind, (p, d, tf0, tf) in batches.items():
+            closest = lambda: bw.closest(table, p, d, rows, tf0)
+            occluded = lambda: bw.occluded(table, p, d, tf, rows)
+            want = traverse.traverse_closest_packed(table, p, d, rows, test,
+                                                    tfar0=tf0)
+            res = {"closest_equal": cs._same_hits(torch, closest(), want),
+                   "occluded_equal": torch.equal(
+                       occluded(), traverse.traverse_shadow_packed(
+                           table, p, d, tf, rows, test)),
+                   "closest_ms": timer(closest, 10),
+                   "occluded_ms": timer(occluded, 10),
+                   "pack_nodes_ms": timer(
+                       lambda: traverse.pack_nodes(table), 10)}
+            print(f"[{label}] bvh {bname} ({table.num_nodes} nodes) {kind} "
+                  f"x {1 << 19} rays: {json.dumps(res)}", flush=True)
+    save_sass(m, bw.LIBRARY, label, out)
+
+
+def probe_light_rows(m, timer, label, out):
+    """light_rows on 2^19 rows (the docstring's `light_rows`): one JSON
+    line a count of lights."""
+    torch, lr, fp = m["torch"], m["lr"], m["fp"]
+    n = 1 << 19
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for lights in PROBE_LIGHTS:
+        w = torch.rand((n, lights), generator=gen, device="cuda") ** 3
+        w.masked_fill_(torch.rand((n, lights), generator=gen,
+                                  device="cuda") < 0.1, 0.0)
+        f = torch.rand(n, generator=gen, device="cuda")
+        got = lr.light_rows(w, f)
+        step = max(1, (1 << 28) // lights)
+        equal = True
+        for a in range(0, n, step):
+            sl = slice(a, min(a + step, n))
+            want = lr.rows_plain(w[sl], f[sl])
+            equal &= all(torch.equal(x[sl].view(torch.int32),
+                                     y.view(torch.int32))
+                         for x, y in zip(got, want))
+        res = {"equal": equal, "ms": timer(lambda: lr.light_rows(w, f), 5)}
+        print(f"[{label}] light_rows {n} x {lights}: {json.dumps(res)}",
+              flush=True)
+        del w, got
+        torch.cuda.empty_cache()
+    save_sass(m, lr.LIBRARY, label, out)
 
 
 def probe_hero(m, label, out):
@@ -532,6 +608,8 @@ def main():
         ("sb", pkg + ".ops.kernels.sphere_battery"),
         ("kf", pkg + ".ops.kernels.fma"),
         ("gw", pkg + ".ops.kernels.grid_walk"),
+        ("bw", pkg + ".ops.kernels.bvh_walk"),
+        ("lr", pkg + ".ops.kernels.light_rows"),
         ("traverse", pkg + ".bvh.traverse"), ("grid", pkg + ".bvh.grid"),
         ("ct", pkg + ".ops.kernels.cluster_traverse"))}
     m["Vec3"], m["Quat"] = m["vec"].Vec3, m["vec"].Quat
@@ -541,7 +619,9 @@ def main():
     t0 = time.perf_counter()
     libraries = (m["sb"].LIBRARY, m["kf"].LIBRARY) + (
         (ct.LIBRARY,) if kernels & set(CLUSTER + ("replay",)) else ()) + (
-        (m["gw"].LIBRARY,) if "grid" in kernels else ())
+        (m["gw"].LIBRARY,) if "grid" in kernels else ()) + (
+        (m["bw"].LIBRARY,) if "bvh" in kernels else ()) + (
+        (m["lr"].LIBRARY,) if "light_rows" in kernels else ())
     m["build"].load_all(libraries)
     print(f"[{label}] built in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libraries:
@@ -550,7 +630,7 @@ def main():
                                 "occluded_kernel", "stream_kernel",
                                 "fma_kernel", "flat_kernel",
                                 "strided_kernel", "replay_kernel",
-                                "merge_kernel")):
+                                "merge_kernel", "light_rows_kernel")):
             print(f"    ptxas {cs.kernel_name(fn)}: {regs} registers, spill "
                   f"{st} / {ld} B, {smem} B static shared", flush=True)
         fn = None
@@ -571,6 +651,10 @@ def main():
         probe_replay(m, timer, label)
     if "grid" in kernels:
         probe_grid(m, timer, label, out)
+    if "bvh" in kernels:
+        probe_bvh(m, timer, label, out)
+    if "light_rows" in kernels:
+        probe_light_rows(m, timer, label, out)
     if "hero" in kernels:
         probe_hero(m, label, out)
     if not kernels & set(CLUSTER):

@@ -130,7 +130,9 @@ Phases:
      at 64x64 (check_shading_knobs);
  17. light selection: the light_rows kernel against its plain version, bit
      for bit, on 2^19 rows at 1-10,817 lights (the selection, the sum, the
-     fused sum) and its time at 326 and 10,817 lights; then every
+     fused sum; both sides of its staged and streamed forms) and its time
+     at 326 and 10,817 lights; one timed pass of the 326-light scene under
+     'power' at 1920x1088 (light_rows launches and device ms); then every
      LIGHT_PATHS path at full width (10,817 lights at 256x256 under
      'uniform' and 'alias', brute and accel='pallas'; the 326-light scene at
      192x192 under 'uniform', 'power', 'ris' and 'restir', 2-D, 1-D and at
@@ -156,7 +158,9 @@ Phases:
      the grid at res=48 with its residual list), on camera, diffuse and
      exactly axis-aligned batches of 2^19 rays (2^16 on the mesh grid,
      whose plain residual battery is slow), timed beside the bound from the
-     plain version's visit counts; both grid kernels on residual lists of
+     plain version's visit counts, bvh_closest also by the host's clock
+     around one call (its node table packed once, with the BVH) beside
+     what packing the table took; both grid kernels on residual lists of
      5-8 spheres (disc rounds b*b alone), bit for bit; the mesh grid's
      kernels on the 2^19 camera rays of a chunk, timed only (the bound from
      the set-up and the residual pairs); the field at 1920x1088, 8 bounces, under
@@ -397,6 +401,13 @@ def kernel_name(mangled: str) -> str:
         return (f"cluster_{m.group(1)}"
                 f"{'_stream' if m.group(3) == '1' else ''}"
                 f"[{battery}, S={m.group(4)}]")
+    m = re.search(r"14closest_kernelILb([01])ELb([01])EE", mangled)
+    if m:  # bvh_closest: its leaves, its node table staged or not
+        return (f"closest_kernel[{('sphere', 'triangle')[int(m.group(1))]}, "
+                f"{('nodes by __ldg', 'nodes staged')[int(m.group(2))]}]")
+    m = re.search(r"light_rows_kernelILb([01])EE", mangled)
+    if m:
+        return f"light_rows_kernel[{('staged', 'streamed')[int(m.group(1))]}]"
     m = re.search(r"(walk_|residual_)?(closest|occluded)_kernelILb([01])EE",
                   mangled)
     if m:  # the BVH and grid walks, the grid's residual battery
@@ -468,6 +479,8 @@ SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
 # templates)
 SPHERE_OCCLUDED = "occluded_kernelE"  # sphere_occluded
 GRID_RESIDUAL = "residual_"  # the grid's residual battery
+BVH_CLOSEST = "14closest_kernelILb"  # bvh_closest's four instantiations
+LIGHT_ROWS = "light_rows_kernel"
 
 
 def report_kernels(libraries):
@@ -476,7 +489,8 @@ def report_kernels(libraries):
     fma kernels, the SASS of every kernel of the four CUDA sources, and the
     opcodes of the flat planner (the slab tests of its sweep are unrolled 80
     times: 8 octants x (8 + 2) boxes), of sphere_closest, of
-    sphere_occluded and of the grid's residual battery;
+    sphere_occluded, of the grid's residual battery, of bvh_closest and of
+    light_rows;
     raises where a planner, a walk, a battery or an fma kernel holds float64
     arithmetic or a float64 conversion."""
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
@@ -510,7 +524,8 @@ def report_kernels(libraries):
                                                   or c["f64 conversions"]):
                 bad.append(kernel_name(fn))
             if any(k in fn for k in (FLAT_PLANNER, SPHERE_CLOSEST,
-                                     SPHERE_OCCLUDED, GRID_RESIDUAL)):
+                                     SPHERE_OCCLUDED, GRID_RESIDUAL,
+                                     BVH_CLOSEST, LIGHT_ROWS)):
                 log(f"    SASS opcodes of {kernel_name(fn)}: " + ", ".join(
                     f"{op} {n}" for op, n in sorted(
                         c["opcodes"].items(), key=lambda kv: -kv[1])))
@@ -1838,15 +1853,16 @@ def check_against_brute(torch, scene, rays, label):
 
 
 def render(torch, crt, scene, policy, width, height, passes, label, expect,
-           idle=(), probe=None, profiled=True, windows=WINDOWS):
+           idle=(), probe=None, profiled=True, windows=WINDOWS, watch=()):
     """Run `windows` timed windows of `passes` accumulation passes each
     through Renderer.accumulate, with the launch counts set to 0 just
     before the first and read just after the last; returns (image,
     numbers). ms/pass is the median window's; rays per pass are the port's
     ray_count summed over all timed passes. Every kernel named in `expect`
     must have been launched in those passes, and none named in `idle`.
-    Then one profiled pass (unless not `profiled`); `probe(renderer)`, if
-    given, runs after it and its result is kept under "probe"."""
+    Then one profiled pass (unless not `profiled`; the device ms of the
+    kernels whose names hold one of `watch` kept too); `probe(renderer)`,
+    if given, runs after it and its result is kept under "probe"."""
     import numpy as np
 
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
@@ -1880,18 +1896,19 @@ def render(torch, crt, scene, policy, width, height, passes, label, expect,
         if launches[name] != 0:
             raise AssertionError(f"[{label}] {name} was launched "
                                  f"{launches[name]} times on this path")
-    profile = profile_pass(torch, r, label) if profiled else None
+    profile = profile_pass(torch, r, label, watch=watch) if profiled else None
     return img, {"ms_per_pass": ms, "rays_per_pass": rays,
                  "launches": launches, "profile": profile,
                  "probe": None if probe is None else probe(r)}
 
 
-def profile_pass(torch, r, label, run=None):
+def profile_pass(torch, r, label, run=None, watch=()):
     """One more pass under torch.profiler (``r.accumulate(1)``, or `run()`
     where given): device busy time against the pass's wall time, the kernel
     launches of the pass (all, and those of the fma kernels by their
-    counters and the profiler), and the kernels that take the most device
-    time."""
+    counters and the profiler), the kernels that take the most device
+    time, and the launches and device ms of the kernels whose names hold
+    one of `watch`."""
     from torch.profiler import ProfilerActivity, profile
 
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
@@ -1930,9 +1947,15 @@ def profile_pass(torch, r, label, run=None):
         f"{sum(fma_counts.values())} {fma_counts})")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    watched = {k: {"launches": sum(c for _, c, key in rows if k in key),
+                   "device_ms": sum(us for us, _, key in rows
+                                    if k in key) / 1e3} for k in watch}
+    if watched:
+        log(f"[{label}] profiled pass, watched kernels: {watched}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "launches": sum(c for _, c, _ in rows),
-            "fma_launches": sum(fma_counts.values())}
+            "fma_launches": sum(fma_counts.values()),
+            **({"watched": watched} if watched else {})}
 
 
 def golden_check(np, img, name, want=None):
@@ -2244,7 +2267,10 @@ def check_shading_knobs(torch, np, crt):
 
 
 # phase 17: the light-row reductions' counts of lights, held on 2^19 rows
-LIGHT_ROWS_L = (1, 3, 16, 17, 18, 64, 326, 512, 10817)
+# (up to 380 lights the kernel stages a warp's rows whole, rows padded where
+# L is a multiple of 8; above that it streams them in column tiles of 64)
+LIGHT_ROWS_L = (1, 3, 8, 16, 17, 18, 31, 32, 33, 64, 326, 376, 380, 381, 512,
+                1000, 4096, 10817)
 LIGHT_ROWS_N = 1 << 19
 LIGHT_ROWS_TIMED = (326, 10817)  # the kernel's ms at these counts
 # (label, scene, frame, bounces, policy knobs, kernels launched); the
@@ -2369,6 +2395,35 @@ def check_light_rows(torch, timer):
     main["at_10817_lights"] = {k: big[k] for k in ("shape", "ms", "plain_ms",
                                                    "bound_ms")}
     return main
+
+
+POWER_FULL = ("326 lights power 1920x1088", "field", FRAME, 6,
+              {"light_sampling": "power", "rays_per_chunk": 1 << 19})
+
+
+def check_power_full(torch, crt):
+    """Phase 17 (d): the slice's path at full width: the 326-light scene
+    under 'power' at 1920x1088, one timed pass after a warm-up (the launch
+    counts from 0 around it), then one profiled pass: light_rows' launches
+    and device ms beside the pass's busy time."""
+    label, kind, (width, height), bounces, knobs = POWER_FULL
+    scene = light_scene(crt, kind, width, height)
+    policy = crt.RendererPolicy(max_bounces=bounces, **knobs)
+    _, path = render(torch, crt, scene, policy, width, height, 1,
+                     f"17 {label}", BRUTE + ("light_rows",), windows=1,
+                     watch=("light_rows_kernel",))
+    prof = path["profile"]
+    numbers = {"ms_per_pass": path["ms_per_pass"],
+               "rays_per_pass": path["rays_per_pass"], "profile": prof,
+               "lights": scene.num_lights,
+               "launches": {k: v for k, v in path["launches"].items() if v}}
+    log(f"[17 {label}] {path['ms_per_pass']:.2f} ms/pass, light_rows "
+        f"{path['launches']['light_rows']} launches a pass; profiled pass: "
+        f"busy {prof['busy_ms']} ms of {prof['wall_ms']:.2f}, light_rows "
+        f"{prof.get('watched')}")
+    del scene
+    torch.cuda.empty_cache()
+    return numbers
 
 
 def check_light_modes(torch, np, crt):
@@ -2912,6 +2967,20 @@ def check_residual_widths(torch, np):
     return hits
 
 
+def host_ms(torch, fn, calls=5):
+    """The median of `calls` host-clock times of fn() ending in
+    torch.cuda.synchronize(), after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[calls // 2]
+
+
 def check_walks(torch, timer, kind, table, rows, batches, label):
     """bvh_closest / bvh_occluded (kind 'bvh') or grid_closest /
     grid_occluded ('grid') against their plain versions on each batch, bit
@@ -2995,6 +3064,16 @@ def check_walks(torch, timer, kind, table, rows, batches, label):
             row = kernel_row(name, WALK_SOURCES[kind], f"R={n} {shape}",
                              None, 0.0, ms, plain_ms[name], nbytes, n_ops)
             row["batch"] = f"{label}, {bname}"
+            if name == "bvh_closest":
+                # the host's clock around a call after the first (the node
+                # table packed once, with the BVH), beside what packing the
+                # table, as each call did before, takes: medians of 5
+                row["second_call_host_ms"] = host_ms(torch, kern)
+                row["pack_nodes_host_ms"] = host_ms(
+                    torch, lambda: traverse.pack_nodes(table))
+                log(f"[{label}, {bname}] bvh_closest by the host's clock: "
+                    f"{row['second_call_host_ms']:.4f} ms a call; packing "
+                    f"the node table {row['pack_nodes_host_ms']:.4f} ms")
             out[name, bname] = row
             log(f"[{label}, {bname}] {name}: {ms:.4f} ms (bound "
                 f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
@@ -3942,8 +4021,9 @@ def main() -> int:
     t0 = time.perf_counter()
     light_rows_row = check_light_rows(torch, timer)
     light_paths = check_light_modes(torch, np, crt)
+    light_paths[POWER_FULL[0]] = check_power_full(torch, crt)
     light_rows_row["launches"] = \
-        light_paths["326 lights power"]["launches"]["light_rows"]
+        light_paths[POWER_FULL[0]]["launches"]["light_rows"]
     log(f"[17] light selection checked in {time.perf_counter() - t0:.1f} s")
     log(f"[18] phases 1-17 done at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()

@@ -44,6 +44,15 @@ class BVHArrays:
     count: torch.Tensor  # [N] int32
     miss: torch.Tensor  # [N] int32 skip link
     max_leaf: int = 1  # the most prims in any leaf (a loop bound)
+    # the [N, 8] table the walk kernels read (bvh/traverse.py::pack_nodes),
+    # packed once with the arrays, on their device
+    nodes: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+
+    def __post_init__(self):
+        from .traverse import pack_nodes
+
+        self.nodes = pack_nodes(self)
 
     @property
     def num_nodes(self) -> int:

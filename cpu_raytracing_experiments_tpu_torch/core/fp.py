@@ -170,9 +170,10 @@ def xla_fuses_sphere_bb(width: int) -> bool:
     residual's 512-sphere chunks; the K-slot battery of the JAX package's
     ``intersect_clustered`` (inside ``lax.cond`` in a scan) fuses at every
     K. Held by ``tests/test_torch_disc_width.py`` at widths 1-17 and
-    516-521 on 4096 rays; at ray counts that XLA splits into thread
-    partitions of no multiple of its 8-lane vectors, a partition's scalar
-    tail fuses at every width (ROADMAP queue 3)."""
+    516-521 on 4096 rays. The rule equals jitted JAX in a one-CPU process
+    at every ray count tried (1000, 3000, 4001 too); in a process with more
+    CPUs XLA rounds some lanes fused (a thread partition's scalar tail),
+    which depends on the machine (ROADMAP, standing deviations)."""
     return width not in SPHERE_BB_UNFUSED
 
 

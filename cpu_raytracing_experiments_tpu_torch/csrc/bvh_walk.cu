@@ -33,11 +33,28 @@
 // FLOP) and a leaf test per prim (20 FLOP a sphere, about 50 a triangle).
 // The least time is the larger of the ray bytes over the memory rate and
 // the FLOP of this run's visits over the FP32 rate; chip_smoke.py computes
-// it from the plain version's visit counts. Design: one ray a thread,
-// 128-thread blocks, no shared memory; divergence within a warp (a warp
-// runs as long as its longest walk) is what it does not address. A later
-// redesign would sort rays by direction and origin, walk with persistent
-// threads, and keep the top of the tree in shared memory.
+// it from the plain version's visit counts.
+//
+// Design of bvh_closest: a warp runs as long as its longest walk, and a
+// warp whose lanes mix inner nodes and leaves waits for both. So
+//   * persistent warps (Aila & Laine, "Understanding the Efficiency of Ray
+//     Traversal on GPUs", HPG 2009): one wave of 128-thread blocks, each
+//     lane starting on a ray of its own, then each warp taking rays from a
+//     global counter (reset on the stream before the launch), lane by lane,
+//     whenever a quarter of its lanes are idle;
+//   * "while-while" stepping: the lanes step through inner nodes (two steps
+//     a vote) until every active lane is parked at a hit leaf or done, then
+//     the warp tests its leaves together;
+//   * the node table in shared memory, staged once a block with cp.async,
+//     where two blocks an SM can hold it whole (the field's 665 nodes, 21
+//     KB); else (the mesh's 51,863 nodes, 1.66 MB) two __ldg loads a node.
+//     The table is in depth-first order, so a prefix of it is no top of the
+//     tree: it is staged whole or not at all.
+// Each ray's walk is unchanged (the same threaded visit order, slab test
+// and strict < at the leaf, the leaf's slab test against the tfar of its
+// visit): only which warp walks which ray, and when, moves, so the bits do
+// not. bvh_occluded: one ray a thread, 128-thread blocks, no shared
+// memory.
 
 #include "walk_common.cuh"
 
@@ -95,38 +112,117 @@ struct Rays {
   const float* c[6];  // px, py, pz, dx, dy, dz
 };
 
-template <bool kTriangles>
-__global__ void __launch_bounds__(kThreads)
-    closest_kernel(Rays rays, const float* tfar0, const float* nodes,
-                   const float* rows, int n_rays, float* tfar_out,
-                   int32_t* prim_out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = walk::load_ray(rays.c, i);
+constexpr int kWalkThreads = 128;  // bvh_closest's blocks
+constexpr int kRefillIdle = 8;  // idle lanes at which a warp takes new rays
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// The closest walk of one ray in flight on a lane: its ray, slab
+// coefficients, tfar and prim so far, the cursor, and the leaf it is parked
+// at (leaf_count 0: none; the cursor then already holds the leaf's miss).
+struct Walk {
+  Ray r;
   float m[3], n[3];
-  coeffs(r, m, n);
-  float tfar = tfar0 != nullptr ? tfar0[i] : FLT_MAX;
-  int32_t prim_id = -1;
-  int cur = 0;
-  while (cur >= 0) {
-    const Node nd = load_node(nodes, cur);
-    const bool hit = slab(nd, m, n, tfar);
-    const unsigned fc = __float_as_uint(nd.hi.z);
-    const int first = static_cast<int>(fc & kFirstMask);
-    const int count = static_cast<int>(fc >> kCountShift);
-    if (hit && count > 0) {
-      for (int s = 0; s < count; ++s) {
-        const Candidate c = Leaf<kTriangles>::test(r, rows, first + s);
-        if (c.ok && c.t < tfar) {
-          tfar = c.t;
-          prim_id = first + s;
+  float tfar;
+  int32_t prim;
+  int cur, leaf_first, leaf_count;
+};
+
+template <bool kTriangles, bool kStaged>
+__global__ void __launch_bounds__(kWalkThreads)
+    closest_kernel(Rays rays, const float* tfar0, const float* nodes,
+                   int n_nodes, const float* rows, int n_rays,
+                   int* __restrict__ next_ray, float* tfar_out,
+                   int32_t* prim_out) {
+  extern __shared__ float4 staged[];
+  if (kStaged) {
+    const float4* table = reinterpret_cast<const float4*>(nodes);
+    for (int k = threadIdx.x; k < 2 * n_nodes; k += kWalkThreads) {
+      cp_async16(staged + k, table + k);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+  }
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  Walk w;
+  int ray = -1;  // the lane's ray, -1 while idle
+  auto start = [&](int i) {
+    ray = i;
+    w.r = walk::load_ray(rays.c, i);
+    coeffs(w.r, w.m, w.n);
+    w.tfar = tfar0 != nullptr ? tfar0[i] : FLT_MAX;
+    w.prim = -1;
+    w.cur = 0;
+    w.leaf_count = 0;
+  };
+  // each lane's first ray is its own; the counter hands out the rest,
+  // from the grid's lane count on
+  const int lanes = gridDim.x * kWalkThreads;
+  const int own = blockIdx.x * kWalkThreads + threadIdx.x;
+  if (own < n_rays) start(own);
+  bool more = lanes < n_rays;  // rays left at the counter (warp-uniform)
+  while (true) {
+    const unsigned idle = __ballot_sync(kFullMask, ray < 0);
+    const int want = __popc(idle);
+    if (more && want >= kRefillIdle) {
+      int base = 0;
+      if (lane == 0) base = lanes + atomicAdd(next_ray, want);
+      base = __shfl_sync(kFullMask, base, 0);
+      more = static_cast<long long>(base) + want < n_rays;
+      const int i = base + __popc(idle & below);
+      if (ray < 0 && i < n_rays) start(i);
+    }
+    if (__ballot_sync(kFullMask, ray >= 0) == 0) break;
+    // inner nodes, until every active lane is parked at a leaf or done:
+    // two steps a vote
+    while (__any_sync(kFullMask, ray >= 0 && w.leaf_count == 0)) {
+#pragma unroll
+      for (int step = 0; step < 2; ++step) {
+        if (ray >= 0 && w.leaf_count == 0) {
+          const Node nd = kStaged ? Node{staged[2 * w.cur],
+                                         staged[2 * w.cur + 1]}
+                                  : load_node(nodes, w.cur);
+          const bool hit = slab(nd, w.m, w.n, w.tfar);
+          const unsigned fc = __float_as_uint(nd.hi.z);
+          const int first = static_cast<int>(fc & kFirstMask);
+          const int count = static_cast<int>(fc >> kCountShift);
+          w.cur = (hit && count == 0) ? first : __float_as_int(nd.hi.w);
+          if (hit && count > 0) {
+            w.leaf_first = first;
+            w.leaf_count = count;
+          } else if (w.cur < 0) {
+            tfar_out[ray] = w.tfar;
+            prim_out[ray] = w.prim;
+            ray = -1;
+          }
         }
       }
     }
-    cur = (hit && count == 0) ? first : __float_as_int(nd.hi.w);
+    // the parked leaves, together
+    if (ray >= 0) {
+      for (int s = 0; s < w.leaf_count; ++s) {
+        const Candidate c = Leaf<kTriangles>::test(w.r, rows,
+                                                   w.leaf_first + s);
+        if (c.ok && c.t < w.tfar) {
+          w.tfar = c.t;
+          w.prim = w.leaf_first + s;
+        }
+      }
+      w.leaf_count = 0;
+      if (w.cur < 0) {
+        tfar_out[ray] = w.tfar;
+        prim_out[ray] = w.prim;
+        ray = -1;
+      }
+    }
   }
-  tfar_out[i] = tfar;
-  prim_out[i] = prim_id;
 }
 
 template <bool kTriangles>
@@ -162,26 +258,71 @@ __global__ void __launch_bounds__(kThreads)
 
 int blocks_for(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
 
+// Launch bvh_closest's persistent grid: as many blocks as the card holds at
+// once (capped at one block per 128 rays), the node table staged where two
+// blocks an SM can hold it.
+template <bool kTriangles>
+cudaError_t launch_closest(const Rays& rays, const float* tfar0,
+                           const float* nodes, int n_nodes, const float* rows,
+                           int n_rays, int* next_ray, float* tfar_out,
+                           int32_t* prim_out, cudaStream_t s) {
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const size_t table = static_cast<size_t>(n_nodes) * 2 * sizeof(float4);
+  const bool stage = 2 * table <= static_cast<size_t>(optin);
+  const void* fn = stage
+      ? reinterpret_cast<const void*>(closest_kernel<kTriangles, true>)
+      : reinterpret_cast<const void*>(closest_kernel<kTriangles, false>);
+  const size_t smem = stage ? table : 0;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kWalkThreads,
+                                                smem);
+  const int wave = (per_sm > 0 ? per_sm : 1) * sms;
+  const int wanted = (n_rays + kWalkThreads - 1) / kWalkThreads;
+  const int blocks = wave < wanted ? wave : wanted;
+  cudaMemsetAsync(next_ray, 0, sizeof(int), s);
+  if (stage) {
+    closest_kernel<kTriangles, true><<<blocks, kWalkThreads, smem, s>>>(
+        rays, tfar0, nodes, n_nodes, rows, n_rays, next_ray, tfar_out,
+        prim_out);
+  } else {
+    closest_kernel<kTriangles, false><<<blocks, kWalkThreads, 0, s>>>(
+        rays, tfar0, nodes, n_nodes, rows, n_rays, next_ray, tfar_out,
+        prim_out);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (0 = launched). `triangles` picks the leaf rows: 0 spheres [P, 4],
-// 1 triangles [T, 9]. `tfar0` may be null (FLT_MAX).
+// 1 triangles [T, 9]. `tfar0` may be null (FLT_MAX). bvh_closest takes the
+// node count and one int of device scratch (`next_ray`, the rays' counter,
+// which it resets on the stream); `nodes` is 16-byte aligned.
 extern "C" int bvh_closest(const float* px, const float* py, const float* pz,
                            const float* dx, const float* dy, const float* dz,
                            const float* tfar0, const float* nodes,
-                           const float* rows, int triangles, int n_rays,
-                           float* tfar_out, int32_t* prim_out, void* stream) {
+                           int n_nodes, const float* rows, int triangles,
+                           int n_rays, int* next_ray, float* tfar_out,
+                           int32_t* prim_out, void* stream) {
   if (n_rays > 0) {
     const Rays rays{{px, py, pz, dx, dy, dz}};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (triangles) {
-      closest_kernel<true><<<blocks_for(n_rays), kThreads, 0, s>>>(
-          rays, tfar0, nodes, rows, n_rays, tfar_out, prim_out);
-    } else {
-      closest_kernel<false><<<blocks_for(n_rays), kThreads, 0, s>>>(
-          rays, tfar0, nodes, rows, n_rays, tfar_out, prim_out);
-    }
+    const cudaError_t err =
+        triangles ? launch_closest<true>(rays, tfar0, nodes, n_nodes, rows,
+                                         n_rays, next_ray, tfar_out,
+                                         prim_out, s)
+                  : launch_closest<false>(rays, tfar0, nodes, n_nodes, rows,
+                                          n_rays, next_ray, tfar_out,
+                                          prim_out, s);
+    return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,13 @@ rows). Two forms each:
 * the plain PyTorch version, ``bvh/traverse.py``'s
   ``traverse_closest_packed`` / ``traverse_shadow_packed``, which a tensor
   on the CPU takes and ``chip_smoke.py`` holds the kernels to on the card;
-* a hand-written CUDA kernel (``csrc/bvh_walk.cu``), one thread walking one
-  ray to the end. It replaces no Pallas kernel: the JAX package runs these
-  walks as XLA ``lax.while_loop``s (``bvh/traverse.py:254``, ``:309``).
+* a hand-written CUDA kernel (``csrc/bvh_walk.cu``): ``bvh_closest`` in
+  persistent warps that take rays from a counter and step inner nodes and
+  leaves in turns, the node table in shared memory where it fits;
+  ``bvh_occluded`` one thread walking one ray to the end. Both read the
+  node table that ``BVHArrays`` packs once (``BVHArrays.nodes``). They
+  replace no Pallas kernel: the JAX package runs these walks as XLA
+  ``lax.while_loop``s (``bvh/traverse.py:254``, ``:309``).
 
 ``closest`` and ``occluded`` launch the kernel for CUDA tensors or raise;
 nothing falls back. Launches are counted in ``CLOSEST.launches`` and
@@ -32,7 +36,8 @@ ROW_TESTS = {4: traverse.sphere_row_test, 9: traverse.triangle_row_test}
 
 def _bind(lib: ctypes.CDLL):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bvh_closest.argtypes = [ptr] * 9 + [i32] * 2 + [ptr] * 3
+    lib.bvh_closest.argtypes = ([ptr] * 8 + [i32, ptr] + [i32] * 2
+                                + [ptr] * 4)
     lib.bvh_closest.restype = i32
     lib.bvh_occluded.argtypes = [ptr] * 9 + [i32] * 2 + [ptr] * 2
     lib.bvh_occluded.restype = i32
@@ -67,10 +72,23 @@ def check_operands(name: str, p: Vec3, d: Vec3, lanes, rows):
         raise ValueError(f"{name}: more than 2^31 rays or prims")
 
 
-def _args(p: Vec3, d: Vec3, lane, nodes, rows):
+def _nodes(name: str, bvh: BVHArrays, device):
+    """The BVH's packed node table, checked to be the kernels' operand: a
+    contiguous, 16-byte aligned float32 [N, 8] table on `device`."""
+    nodes = bvh.nodes
+    if (nodes.device != device or nodes.dtype != torch.float32
+            or nodes.shape != (bvh.num_nodes, 8) or not nodes.is_contiguous()
+            or nodes.data_ptr() % 16):
+        raise ValueError(f"{name}: the node table must be a contiguous, "
+                         f"16-byte aligned float32 [N, 8] table on {device}; "
+                         f"got {nodes.dtype} {tuple(nodes.shape)} "
+                         f"{nodes.device}")
+    return nodes
+
+
+def _rays(p: Vec3, d: Vec3, lane):
     return [a.data_ptr() for a in (*p, *d)] + [
-        None if lane is None else lane.data_ptr(), nodes.data_ptr(),
-        rows.data_ptr(), int(rows.shape[1] == 9), p.x.shape[0]]
+        None if lane is None else lane.data_ptr()]
 
 
 def closest(bvh: BVHArrays, p: Vec3, d: Vec3, rows, tfar0=None):
@@ -82,14 +100,17 @@ def closest(bvh: BVHArrays, p: Vec3, d: Vec3, rows, tfar0=None):
         return traverse.traverse_closest_packed(
             bvh, p, d, rows, ROW_TESTS[rows.shape[1]], tfar0=tfar0)
     check_operands(CLOSEST.name, p, d, (tfar0,), rows)
+    nodes = _nodes(CLOSEST.name, bvh, p.x.device)
     lib = LIBRARY.load()
     n = p.x.shape[0]
     tfar = torch.empty(n, dtype=torch.float32, device=p.x.device)
     prim = torch.empty(n, dtype=torch.int32, device=p.x.device)
-    nodes = traverse.pack_nodes(bvh)
+    next_ray = torch.empty(1, dtype=torch.int32, device=p.x.device)
     build.launch(CLOSEST.name, lib.bvh_closest, p.x.device,
-                 _args(p, d, tfar0, nodes, rows)
-                 + [tfar.data_ptr(), prim.data_ptr()])
+                 _rays(p, d, tfar0) + [
+                     nodes.data_ptr(), bvh.num_nodes, rows.data_ptr(),
+                     int(rows.shape[1] == 9), n, next_ray.data_ptr(),
+                     tfar.data_ptr(), prim.data_ptr()])
     CLOSEST.launches += 1
     return tfar, prim
 
@@ -102,11 +123,12 @@ def occluded(bvh: BVHArrays, p: Vec3, d: Vec3, tfar, rows):
         return traverse.traverse_shadow_packed(
             bvh, p, d, tfar, rows, ROW_TESTS[rows.shape[1]])
     check_operands(OCCLUDED.name, p, d, (tfar,), rows)
+    nodes = _nodes(OCCLUDED.name, bvh, p.x.device)
     lib = LIBRARY.load()
     occ = torch.empty(p.x.shape[0], dtype=torch.bool, device=p.x.device)
-    nodes = traverse.pack_nodes(bvh)
     build.launch(OCCLUDED.name, lib.bvh_occluded, p.x.device,
-                 _args(p, d, tfar, nodes, rows)
-                 + [occ.data_ptr()])
+                 _rays(p, d, tfar) + [
+                     nodes.data_ptr(), rows.data_ptr(),
+                     int(rows.shape[1] == 9), p.x.shape[0], occ.data_ptr()])
     OCCLUDED.launches += 1
     return occ

@@ -8,8 +8,10 @@ lights (``core/fp.py``'s ``row_sum`` / ``row_cumsum``). Two forms:
   ``chip_smoke.py`` holds the kernel to on the card;
 * a hand-written CUDA kernel (``csrc/light_rows.cu``), one thread a row,
   which forms the running sum as it compares it with the target, so the
-  [R, L] cdf is never written. It replaces no Pallas kernel: the JAX package
-  leaves these reductions to XLA.
+  [R, L] cdf is never written. A warp's 32 rows reach it through shared
+  memory: staged whole with ``cp.async`` up to 380 lights, streamed in
+  double-buffered column tiles above. It replaces no Pallas kernel: the
+  JAX package leaves these reductions to XLA.
 
 ``light_rows`` launches the kernel for CUDA tensors or raises; nothing falls
 back. Its launches are counted in ``LIGHT_ROWS.launches``.
@@ -67,7 +69,7 @@ def light_rows(w: torch.Tensor, f: torch.Tensor = None, fused=False):
             raise ValueError(
                 f"light_rows: operands must be contiguous float32 on one "
                 f"CUDA device; got {a.dtype} {tuple(a.shape)} {a.device}")
-    if n < 1 or (f is not None and f.shape != (r,)):
+    if not 1 <= n < 2 ** 31 or (f is not None and f.shape != (r,)):
         raise ValueError(f"light_rows: weights {tuple(w.shape)}, draws "
                          f"{None if f is None else tuple(f.shape)}")
     lib = LIBRARY.load()

@@ -177,6 +177,37 @@ def test_pack_nodes_equals_jax(request, kind):
     assert torch.equal(miss, tb.miss)
 
 
+@pytest.mark.parametrize("kind", ["sphere", "triangle"])
+def test_cached_node_table_equals_pack_nodes(request, kind):
+    """BVHArrays.nodes, the table the walk kernels read, packed once when
+    the arrays are made: bit for bit traverse.pack_nodes of the arrays, also
+    after .to() and from_numpy."""
+    _, tb = _case(request, kind)["bvh"]
+    want = bits(ttraverse.pack_nodes(tb).numpy())
+    for arrays in (tb, tb.to("cpu"),
+                   tbuilder.BVHArrays.from_numpy(tb.to_numpy())):
+        assert arrays.nodes.shape == (tb.num_nodes, 8)
+        assert arrays.nodes.is_contiguous()
+        np.testing.assert_array_equal(bits(arrays.nodes.numpy()), want)
+
+
+def test_edit_rebuilds_the_node_table():
+    """A geometry edit of a with_bvh scene (scene/edit.py's
+    apply_invalidation, through with_bvh) makes a new BVH, and its node
+    table is the new tree's, not the old one's."""
+    from cpu_raytracing_experiments_tpu_torch.scene import edit
+
+    scene = taccel.with_bvh(tbuilders.default_scene(16, 16))
+    moved, flags = edit.set_sphere(scene, 3, position=(5.0, 5.0, 5.0))
+    assert flags.needs_bvh
+    bvh = edit.apply_invalidation(moved, flags).sphere_bvh
+    assert bvh is not scene.sphere_bvh
+    np.testing.assert_array_equal(bits(bvh.nodes.numpy()),
+                                  bits(ttraverse.pack_nodes(bvh).numpy()))
+    assert not np.array_equal(bits(bvh.nodes.numpy()),
+                              bits(scene.sphere_bvh.nodes.numpy()))
+
+
 def _jax_walk(form, shadow, jb, case, p, d, tf):
     """The JAX package's walk `form` ('scalar' or 'packed'), jitted."""
     rows, leaf, row_test = case["rows"][0], case["leaf"][0], \

@@ -21,11 +21,21 @@ here, each against the JAX function named, on seeded random rays:
   (``jax_exact_math``), bit for bit, and against the float64 oracle
   ``tests/oracle.py::trace_pixel`` within ``test_fuzz_oracle.py``'s budget.
 
-The ray counts are those of the renderer's chunks (powers of two). At some
-other counts (1000, 1024, 3000, 4000 measured) XLA splits the rays into
-thread partitions whose size is no multiple of its 8-lane vectors, and the
-scalar tail of a partition fuses ``b*b`` at every width: 1-6 lanes a call
-round otherwise there (ROADMAP queue 3)."""
+The ray counts above are those of the renderer's chunks (powers of two).
+At other counts (1000, 3000, 4001) jitted JAX's own bits depend on the CPUs
+its process may use: XLA splits the rays into thread partitions, and the
+scalar tail of a partition fuses ``b*b`` at every width. The witness is
+jitted JAX in a one-CPU process, which equals the rule in every lane
+(``test_one_cpu_jax_equals_rule``); at the host's own CPU count every lane
+where JAX differs from the rule is the fused form
+(``test_every_lane_is_one_of_two_roundings``). ROADMAP's standing
+deviations record this; ``benchmarks/torch_disc_witness.py`` counts the
+lanes at 1, 2 and all CPUs, and on the grid residual."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax
@@ -86,6 +96,137 @@ def test_intersect_spheres_width_matches_jax(width):
     moved = int((bits(fused_t.numpy()) != bits(want_t)).sum())
     last = (width - 1) % sb.PRIM_CHUNK + 1
     assert (moved > 0) == (not fp.xla_fuses_sphere_bb(last)), moved
+
+
+# the ray counts at which XLA's thread partitions leave scalar tails, and
+# the chunk widths of the rule (517: a fused 512-wide chunk, then 5)
+ODD_RAYS = (1000, 3000, 4001)
+ODD_WIDTHS = (5, 6, 8, 517)
+CHILD_TIMEOUT_S = 60
+
+# Runs in a child process: restrict the process to the CPUs named in
+# argv[3] before JAX is imported, then write jitted JAX's closest-hit bits
+# for each case of the .npz argv[1] (keys '<case>_<array>') to argv[2]: the
+# brute battery (``intersect_spheres``) for cases 's...', the grid
+# (``traverse_grid_closest`` over a res-4 grid, 40 slots a cell) for 'g...'.
+_CHILD = r"""
+import os, sys
+os.sched_setaffinity(0, {int(c) for c in sys.argv[3].split(",")})
+sys.path.insert(0, sys.argv[4])
+import numpy as np
+import jax
+import jax.numpy as jnp
+from cpu_raytracing_experiments_tpu.bvh import grid as jgrid
+from cpu_raytracing_experiments_tpu.bvh import traverse as jtraverse
+from cpu_raytracing_experiments_tpu.core.vec import Vec3
+from cpu_raytracing_experiments_tpu.ops import intersect as jint
+
+data = np.load(sys.argv[1])
+v = lambda a: Vec3(*(jnp.asarray(a[:, k]) for k in range(3)))
+out = {}
+for case in sorted({k.split("_")[0] for k in data.files}):
+    a = {k.split("_", 1)[1]: data[k] for k in data.files
+         if k.split("_")[0] == case}
+    if case[0] == "s":
+        t, i = jax.jit(jint.intersect_spheres)(
+            v(a["o"]), v(a["d"]), v(a["c"]), jnp.asarray(a["rsq"]))
+    else:
+        c, r = a["c"], a["r"]
+        g = jgrid.build_grid(c - r[:, None], c + r[:, None], res=4,
+                             max_per_cell=40)
+        rows = jtraverse.pack_spheres(v(c), jnp.asarray(r * r))
+        t, i = jax.jit(lambda g, p, d, t0: jgrid.traverse_grid_closest(
+            g, p, d, rows, jtraverse.sphere_row_test, tfar0=t0))(
+                g, v(a["p"]), v(a["d"]), jnp.asarray(a["tf0"]))
+    out[case + "_t"] = np.asarray(t).view(np.int32)
+    out[case + "_id"] = np.asarray(i)
+np.savez(sys.argv[2], **out)
+"""
+
+
+def jax_bits_on_cpus(cases: dict, cpus, tmp: Path,
+                     timeout=CHILD_TIMEOUT_S) -> dict:
+    """{case: (t bits, ids)} of jitted JAX run in a child process that may
+    use only `cpus`. `cases` maps a name beginning 's' to the brute
+    battery's arrays (o, d, c [n, 3], rsq) and one beginning 'g' to a
+    grid's (c [m, 3], r, p, d [n, 3], tf0)."""
+    src, dst = tmp / "cases.npz", tmp / "bits.npz"
+    np.savez(src, **{f"{case}_{k}": a for case, arrays in cases.items()
+                     for k, a in arrays.items()})
+    root = str(Path(__file__).resolve().parents[1])
+    subprocess.run([sys.executable, "-c", _CHILD, str(src), str(dst),
+                    ",".join(map(str, sorted(cpus))), root],
+                   check=True, timeout=timeout,
+                   env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    got = np.load(dst)
+    return {case: (got[case + "_t"], got[case + "_id"]) for case in cases}
+
+
+def odd_batteries() -> dict:
+    """The brute battery's cases: `_batch` rays at each of ODD_RAYS against
+    each of ODD_WIDTHS spheres, as [n, 3] arrays."""
+    cases = {}
+    for n in ODD_RAYS:
+        for w in ODD_WIDTHS:
+            o, d, c, rsq, _ = _batch(n, w, seed=n + w)
+            cases[f"s{n}x{w}"] = {"o": np.stack(o, 1), "d": np.stack(d, 1),
+                                  "c": np.stack(c, 1), "rsq": rsq}
+    return cases
+
+
+def port_battery(a: dict, xla_chunks: bool):
+    """(t bits, ids) of the port's brute battery on a case of
+    ``odd_batteries``."""
+    t, i = sb.intersect_spheres(tv(a["o"]), tv(a["d"]), tv(a["c"]),
+                                torch.from_numpy(a["rsq"]),
+                                xla_chunks=xla_chunks)
+    return bits(t.numpy()), i.numpy()
+
+
+@pytest.mark.skipif(not hasattr(os, "sched_setaffinity"),
+                    reason="os.sched_setaffinity is missing on this platform")
+def test_one_cpu_jax_equals_rule(tmp_path):
+    """The witness of the width rule: jitted JAX ``intersect_spheres`` in a
+    process restricted to one CPU (of this process's set) equals the port's
+    rule (``xla_chunks=True``) in every lane, t bits and ids, at ray counts
+    where XLA's thread partitions leave scalar tails."""
+    cases = odd_batteries()
+    one = min(os.sched_getaffinity(0))
+    want = jax_bits_on_cpus(cases, {one}, tmp_path)
+    differ = {}
+    for case, a in cases.items():
+        t, i = port_battery(a, xla_chunks=True)
+        bad = (t != want[case][0]) | (i != want[case][1])
+        if bad.any():
+            differ[case] = np.nonzero(bad)[0].tolist()
+        assert (i >= 0).mean() > 0.1
+    assert not differ, f"lanes where one-CPU JAX leaves the rule: {differ}"
+
+
+def test_every_lane_is_one_of_two_roundings():
+    """At this host's own CPU count, jitted JAX ``intersect_spheres`` on the
+    cases of ``test_one_cpu_jax_equals_rule`` rounds each lane either as
+    the rule does or, where a thread partition's scalar tail fuses ``b*b``,
+    as the port's fused form (``xla_chunks=False``), bit for bit in t and
+    id. How many lanes are fused depends on the host, so only the
+    explanation is asserted; the count is in the message."""
+    fused_lanes, unexplained = 0, {}
+    for case, a in odd_batteries().items():
+        want_t, want_id = jax.jit(jint.intersect_spheres)(
+            jv(a["o"]), jv(a["d"]), jv(a["c"]), jnp.asarray(a["rsq"]))
+        want_t, want_id = bits(want_t), np.asarray(want_id)
+        t, i = port_battery(a, xla_chunks=True)
+        ft, fi = port_battery(a, xla_chunks=False)
+        off = (t != want_t) | (i != want_id)
+        fused_lanes += int(off.sum())
+        neither = off & ((ft != want_t) | (fi != want_id))
+        if neither.any():
+            unexplained[case] = np.nonzero(neither)[0].tolist()
+    cpus = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+            else os.cpu_count())
+    assert not unexplained, (
+        f"{fused_lanes} lanes leave the rule at {cpus} CPUs; these are not "
+        f"the fused form either: {unexplained}")
 
 
 def _residual_grid(k):
