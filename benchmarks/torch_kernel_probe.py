@@ -56,10 +56,16 @@ it prints JSON lines:
             1000-sphere field's (res 32, no residual) on the three batches
             of 2^19 (equal to plain, ms); the SASS of
             csrc/grid_walk.cu into DIR;
-  bvh       bvh_closest and bvh_occluded on phase 19's BVHs: the
+  bvh       bvh_closest and bvh_occluded on phase 19's BVHs, the
             1000-sphere field's (665 nodes) and the 81,920-triangle mesh's
-            (51,863 nodes), on its camera, diffuse and axis-aligned batches
-            of 2^19 rays (equal to plain, ms), and packing the node table
+            (51,863 nodes), and on a 100,000-sphere field's and a
+            1,280-triangle mesh's, each on its camera, diffuse and
+            axis-aligned batches
+            of 2^19 rays and on the shadow batch (the operands of the
+            largest bvh_occluded call in one 1920x1088 pass of the scene's
+            'bvh' render, chip_smoke.CaptureOccluded of this repository)
+            (equal to plain; ms, the median of three timings of 10
+            launches), and packing the node table
             (bvh/traverse.py::pack_nodes, ms: a checkout whose wrappers
             pack it on every call times it inside each walk's ms); the SASS
             of csrc/bvh_walk.cu into DIR;
@@ -80,8 +86,10 @@ Where the checkout built its cluster kernels in this process it first
 prints -Xptxas -v of the planners and the walks.
 """
 import argparse
+import functools
 import hashlib
 import importlib
+import importlib.util
 import json
 import re
 import subprocess
@@ -465,23 +473,53 @@ def probe_grid(m, timer, label, out):
     save_sass(m, gw.LIBRARY, label, out)
 
 
+@functools.lru_cache(maxsize=None)
+def own_chip_smoke():
+    """This repository's chip_smoke.py (not the probed checkout's), for the
+    helpers that take the probed package's modules as arguments."""
+    spec = importlib.util.spec_from_file_location(
+        "probe_chip_smoke", Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def probe_bvh(m, timer, label, out):
     """The BVH walks on phase 19's BVHs (the docstring's `bvh`): one JSON
     line a BVH and batch."""
     torch, np, cs, crt = m["torch"], m["np"], m["cs"], m["crt"]
     bw, traverse = m["bw"], m["traverse"]
-    field = crt.accel.with_bvh(crt.builders.random_spheres_scene(
-        *cs.FRAME, num_spheres=1000)).to("cuda")
-    mesh = crt.accel.with_bvh(crt.builders.mesh_scene(
-        *cs.FRAME, subdivisions=6)).to("cuda")
-    tri = mesh.triangles
-    for bname, scene, table, rows in (
-            ("field", field, field.sphere_bvh, traverse.pack_spheres(
-                field.spheres.center, field.spheres.radius_sq)),
-            ("mesh", mesh, mesh.tri_bvh,
-             traverse.pack_triangles(tri.v0, tri.e1, tri.e2))):
+
+    def ms(fn):  # the median of three timings of 10 launches
+        return sorted(timer(fn, 10) for _ in range(3))[1]
+
+    def spheres(n):
+        scene = crt.accel.with_bvh(crt.builders.random_spheres_scene(
+            *cs.FRAME, num_spheres=n)).to("cuda")
+        return scene, scene.sphere_bvh, traverse.pack_spheres(
+            scene.spheres.center, scene.spheres.radius_sq), 8
+
+    def mesh(subdivisions):
+        scene = crt.accel.with_bvh(crt.builders.mesh_scene(
+            *cs.FRAME, subdivisions=subdivisions)).to("cuda")
+        tri = scene.triangles
+        return scene, scene.tri_bvh, traverse.pack_triangles(
+            tri.v0, tri.e1, tri.e2), 5
+
+    for bname, make, size in (("field", spheres, 1000), ("mesh", mesh, 6),
+                              ("spheres 100k", spheres, 100_000),
+                              ("mesh 1280", mesh, 3)):
+        scene, table, rows, bounces = make(size)
         test = bw.ROW_TESTS[rows.shape[1]]
         batches = cs.walk_batches(torch, np, crt, scene, "bvh", 1 << 19, 19)
+        with own_chip_smoke().CaptureOccluded(torch, bw, table) as got:
+            crt.Renderer(scene, crt.RendererPolicy(
+                max_bounces=bounces, accel="bvh"), *cs.FRAME).accumulate(1)
+        p, d, _, tf = got.batch
+        batches["shadow"] = (p.to("cuda"), d.to("cuda"), None, tf.to("cuda"))
+        print(f"[{label}] bvh {bname} shadow batch: {json.dumps(got.calls)}",
+              flush=True)
         for kind, (p, d, tf0, tf) in batches.items():
             closest = lambda: bw.closest(table, p, d, rows, tf0)
             occluded = lambda: bw.occluded(table, p, d, tf, rows)
@@ -491,12 +529,13 @@ def probe_bvh(m, timer, label, out):
                    "occluded_equal": torch.equal(
                        occluded(), traverse.traverse_shadow_packed(
                            table, p, d, tf, rows, test)),
-                   "closest_ms": timer(closest, 10),
-                   "occluded_ms": timer(occluded, 10),
+                   "closest_ms": ms(closest),
+                   "occluded_ms": ms(occluded),
                    "pack_nodes_ms": timer(
                        lambda: traverse.pack_nodes(table), 10)}
             print(f"[{label}] bvh {bname} ({table.num_nodes} nodes) {kind} "
-                  f"x {1 << 19} rays: {json.dumps(res)}", flush=True)
+                  f"x {p.x.shape[0]} rays: {json.dumps(res)}", flush=True)
+        del scene, batches
     save_sass(m, bw.LIBRARY, label, out)
 
 
@@ -627,7 +666,8 @@ def main():
     for lib in libraries:
         for fn, regs, (st, ld), smem in cs.ptxas_report(
                 lib.build_log, ("plan_kernel", "closest_kernel",
-                                "occluded_kernel", "stream_kernel",
+                                "occluded_kernel", "occluded_pairs_kernel",
+                                "stream_kernel",
                                 "fma_kernel", "flat_kernel",
                                 "strided_kernel", "replay_kernel",
                                 "merge_kernel", "light_rows_kernel")):

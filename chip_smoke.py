@@ -157,8 +157,11 @@ Phases:
      grid (res=32) and on mesh_scene(subdivisions=6)'s (81,920 triangles;
      the grid at res=48 with its residual list), on camera, diffuse and
      exactly axis-aligned batches of 2^19 rays (2^16 on the mesh grid,
-     whose plain residual battery is slow), timed beside the bound from the
-     plain version's visit counts, bvh_closest also by the host's clock
+     whose plain residual battery is slow), and the BVH walks also on the
+     shadow batch (CaptureOccluded: the operands of the largest
+     bvh_occluded call of the warm-up pass of the field's or mesh's 'bvh'
+     render below), timed beside the bound from the plain version's visit
+     counts, bvh_closest also by the host's clock
      around one call (its node table packed once, with the BVH) beside
      what packing the table took; both grid kernels on residual lists of
      5-8 spheres (disc rounds b*b alone), bit for bit; the mesh grid's
@@ -391,6 +394,19 @@ def ptxas_report(build_log: str, keys):
     return out
 
 
+def stack_frames(build_log: str) -> dict:
+    """{entry function: bytes of its stack frame} from nvcc's -Xptxas -v
+    output."""
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        fn = m.group(1) if m else fn
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and fn is not None:
+            out[fn] = int(m.group(1))
+    return out
+
+
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel of csrc/: the streamed walks'
     battery and split, or the function's name."""
@@ -408,8 +424,8 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"light_rows_kernelILb([01])EE", mangled)
     if m:
         return f"light_rows_kernel[{('staged', 'streamed')[int(m.group(1))]}]"
-    m = re.search(r"(walk_|residual_)?(closest|occluded)_kernelILb([01])EE",
-                  mangled)
+    m = re.search(r"(walk_|residual_)?(closest|occluded|occluded_pairs)"
+                  r"_kernelILb([01])EE", mangled)
     if m:  # the BVH and grid walks, the grid's residual battery
         return (f"{m.group(1) or ''}{m.group(2)}_kernel"
                 f"[{('sphere', 'triangle')[int(m.group(3))]}]")
@@ -467,8 +483,9 @@ def sass_report(library) -> dict:
     return counts
 
 
-SPLIT_WALKS = ("closest_kernel", "occluded_kernel")  # the walks' names
-# (and the sphere batteries')
+SPLIT_WALKS = ("closest_kernel", "occluded_kernel",
+               "occluded_pairs_kernel")  # the walks' names (and the sphere
+# batteries')
 FMA_KERNELS = ("flat_kernel", "strided_kernel")  # csrc/fma.cu
 CHECKED = SPLIT_WALKS + ("closest_split_kernel", "plan_kernel",
                          "replay_kernel", "light_rows_kernel",
@@ -480,6 +497,7 @@ SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
 SPHERE_OCCLUDED = "occluded_kernelE"  # sphere_occluded
 GRID_RESIDUAL = "residual_"  # the grid's residual battery
 BVH_CLOSEST = "14closest_kernelILb"  # bvh_closest's four instantiations
+BVH_PAIRS = "occluded_pairs_kernel"  # bvh_occluded's pair walk
 LIGHT_ROWS = "light_rows_kernel"
 
 
@@ -501,13 +519,20 @@ def report_kernels(libraries):
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
 
+    bad = []
     for lib in libraries:
+        frames = stack_frames(lib.build_log)
         for fn, regs, (st, ld), smem in ptxas_report(
                 lib.build_log, CHECKED):
             log(f"    ptxas {lib.source.name} {kernel_name(fn)}: {regs} "
                 f"registers, spill "
-                f"stores {st} B, spill loads {ld} B, {smem} B static shared")
-    bad = []
+                f"stores {st} B, spill loads {ld} B, {smem} B static shared, "
+                f"{frames.get(fn, 0)} B stack frame")
+            # bvh_occluded's pair walk: at most 64 registers, no stack frame
+            if BVH_PAIRS in fn and (regs > 64 or frames.get(fn, 0)):
+                bad.append(kernel_name(fn))
+    if bad:
+        raise AssertionError(f"more than 64 registers or a stack frame: {bad}")
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         bvh_walk as bw
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
@@ -525,7 +550,7 @@ def report_kernels(libraries):
                 bad.append(kernel_name(fn))
             if any(k in fn for k in (FLAT_PLANNER, SPHERE_CLOSEST,
                                      SPHERE_OCCLUDED, GRID_RESIDUAL,
-                                     BVH_CLOSEST, LIGHT_ROWS)):
+                                     BVH_CLOSEST, BVH_PAIRS, LIGHT_ROWS)):
                 log(f"    SASS opcodes of {kernel_name(fn)}: " + ", ".join(
                     f"{op} {n}" for op, n in sorted(
                         c["opcodes"].items(), key=lambda kv: -kv[1])))
@@ -1853,7 +1878,8 @@ def check_against_brute(torch, scene, rays, label):
 
 
 def render(torch, crt, scene, policy, width, height, passes, label, expect,
-           idle=(), probe=None, profiled=True, windows=WINDOWS, watch=()):
+           idle=(), probe=None, profiled=True, windows=WINDOWS, watch=(),
+           warmup=None):
     """Run `windows` timed windows of `passes` accumulation passes each
     through Renderer.accumulate, with the launch counts set to 0 just
     before the first and read just after the last; returns (image,
@@ -1862,13 +1888,15 @@ def render(torch, crt, scene, policy, width, height, passes, label, expect,
     must have been launched in those passes, and none named in `idle`.
     Then one profiled pass (unless not `profiled`; the device ms of the
     kernels whose names hold one of `watch` kept too); `probe(renderer)`,
-    if given, runs after it and its result is kept under "probe"."""
+    if given, runs after it and its result is kept under "probe". The
+    warm-up pass runs inside the context manager `warmup` where given."""
     import numpy as np
 
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
 
     r = crt.Renderer(scene, policy, width, height)
-    r.accumulate(1)  # warm-up pass
+    with warmup if warmup is not None else contextlib.nullcontext():
+        r.accumulate(1)  # warm-up pass
     r.reset_accumulator()
     torch.cuda.synchronize()
     build.reset_counts()
@@ -2868,6 +2896,48 @@ def walk_batches(torch, np, crt, scene, accel, n, seed):
 FLT_MAX_F32 = 3.4028234663852886e38
 
 
+class CaptureOccluded:
+    """A context manager: within it, every bvh_walk.occluded call over
+    `table` (a BVH of its node count; the renderer may hold a copy) runs as
+    before, and the operands of the one with the most lanes at tfar > 0
+    are copied to the host (a host read a call; nothing is left on the
+    card). Afterwards ``batch`` holds them, (p, d, tfar0 None, tfar) on the
+    host, and ``calls`` a summary of the calls. The package's module `bw`
+    is passed in, so that a probe of another checkout can use this on that
+    checkout's package."""
+
+    def __init__(self, torch, bw, table):
+        self.torch, self.bw, self.table = torch, bw, table
+        self.batch, self.calls, self._seen, self._best = None, None, [], {}
+
+    def _record(self, bvh, p, d, tfar, rows):
+        if bvh.num_nodes == self.table.num_nodes:
+            live = int((tfar > 0.0).sum())
+            self._seen.append((p.x.shape[0], live))
+            if live > self._best.get("live", -1):
+                self._best.update(live=live, ops=(p.to("cpu"), d.to("cpu"),
+                                                  tfar.cpu()))
+        return self._wrapped(bvh, p, d, tfar, rows)
+
+    def __enter__(self):
+        self._wrapped, self.bw.occluded = self.bw.occluded, self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.bw.occluded = self._wrapped
+        if exc[0] is None:
+            self.torch.cuda.synchronize()
+            p, d, tf = self._best["ops"]
+            self.batch = (p, d, None, tf)
+            self.calls = {
+                "calls": len(self._seen),
+                "lanes": sum(n for n, _ in self._seen),
+                "live": sum(k for _, k in self._seen),
+                "batch_lanes": p.x.shape[0],
+                "batch_live": self._best["live"]}
+        return False
+
+
 def residual_anyhit_pairs(torch, grid, rows, p, d, tf):
     """The (ray, residual prim) pairs grid_occluded's residual loop needs on
     these rays: a lane stops after its first prim whose candidate lies
@@ -3001,6 +3071,8 @@ def check_walks(torch, timer, kind, table, rows, batches, label):
         closest_plain, occluded_plain = (traverse.traverse_closest_packed,
                                          traverse.traverse_shadow_packed)
         table_bytes = table.num_nodes * 32 + rows.numel() * 4
+        # the any-hit walk reads the root's row and the child-pair table
+        occ_table_bytes = rows.numel() * 4 + 32 + table.pairs.numel() * 4
         shape = f"N={table.num_nodes} nodes, {rows.shape[0]} prims"
     else:
         closest_plain, occluded_plain = (grid_mod.traverse_grid_closest,
@@ -3010,6 +3082,7 @@ def check_walks(torch, timer, kind, table, rows, batches, label):
                        + rows.numel() * 4 + rr * (4 + (48 if tri else 0)))
         shape = (f"res={table.res} K={table.max_per_cell}, {rows.shape[0]} "
                  f"prims, residual {rr}")
+        occ_table_bytes = table_bytes
 
     def ops(counts, n, residual_pairs=0):
         tests = counts.get("tests", 0)
@@ -3052,6 +3125,10 @@ def check_walks(torch, timer, kind, table, rows, batches, label):
                                  "disagrees with its plain version")
         anyhit_pairs = (0 if kind == "bvh" else
                         residual_anyhit_pairs(torch, table, rows, p, d, tf))
+        # bvh_occluded reads the ray of a lane with tfar > 0 only
+        # (csrc/bvh_walk.cu); grid_occluded reads every lane's
+        occ_ray_bytes = (24 * int((tf > 0.0).sum()) + 5 * n if kind == "bvh"
+                         else 29 * n)
         for name, kern, nbytes, n_ops in (
                 (f"{kind}_closest",
                  lambda: walk.closest(table, p, d, rows, tf0),
@@ -3059,7 +3136,8 @@ def check_walks(torch, timer, kind, table, rows, batches, label):
                  ops(cc, n, cc.get("residual_pairs", 0))),
                 (f"{kind}_occluded",
                  lambda: walk.occluded(table, p, d, tf, rows),
-                 n * (28 + 1) + table_bytes, ops(oc, n, anyhit_pairs))):
+                 occ_ray_bytes + occ_table_bytes,
+                 ops(oc, n, anyhit_pairs))):
             ms = timer(kern, 10)
             row = kernel_row(name, WALK_SOURCES[kind], f"R={n} {shape}",
                              None, 0.0, ms, plain_ms[name], nbytes, n_ops)
@@ -3125,7 +3203,9 @@ def check_accel_paths(torch, np, crt, timer):
     the 1000-sphere field's BVH and grid and on the 81,920-triangle mesh's
     (WALK_RAYS rays, MESH_GRID_RAYS on the mesh grid); (b) the field at
     1920x1088, 8 bounces, under 'brute', 'bvh', 'grid' and 'clustered', and
-    the mesh at 5 bounces under 'bvh' and 'grid', each image held to the
+    the mesh at 5 bounces under 'bvh' and 'grid' (the BVH walks then also
+    on the shadow rays of the 'bvh' renders' warm-up pass,
+    CaptureOccluded), each image held to the
     field's 'brute' image (the mesh's: to each other) as ACCEL_CLOSE says,
     with launches and peak memory; (c) bvh_test at 64x64 on the card against the
     CPU under each backend, bucket bits, and the bvh_test golden on the
@@ -3133,6 +3213,8 @@ def check_accel_paths(torch, np, crt, timer):
     (numbers, kernel rows)."""
     from cpu_raytracing_experiments_tpu_torch.bvh import traverse
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        bvh_walk as bw
     from cpu_raytracing_experiments_tpu_torch.scene import accel, edit
     from cpu_raytracing_experiments_tpu_torch.scene.scene import (
         Scene, build_light_list, light_alias_arrays)
@@ -3159,6 +3241,7 @@ def check_accel_paths(torch, np, crt, timer):
         f"{scenes['field grid'].sphere_grid.residual.shape[0]}")
 
     # (a) the kernels against their plain versions
+    walked = {}
     for sname, kind, n in (("field bvh", "bvh", WALK_RAYS),
                            ("field grid", "grid", WALK_RAYS),
                            ("mesh bvh", "bvh", WALK_RAYS),
@@ -3176,6 +3259,8 @@ def check_accel_paths(torch, np, crt, timer):
             log(f"[19 {sname}] {n} rays, not {WALK_RAYS}: the plain "
                 f"version's dense residual battery is slow at full width")
         batches = walk_batches(torch, np, crt, sc, kind, n, 19)
+        if kind == "bvh":  # the render's shadow batch is checked after (b)
+            walked[sname] = (table, rows, CaptureOccluded(torch, bw, table))
         rows_out.update({(sname,) + k: v for k, v in check_walks(
             torch, timer, kind, table, rows, batches, f"19 {sname}").items()})
         del batches
@@ -3210,11 +3295,23 @@ def check_accel_paths(torch, np, crt, timer):
         img, nums = render(torch, crt, scene, pol(max_bounces=bounces, **kw),
                            *FRAME, PASSES, f"19 {name}", expect,
                            idle=() if kw else WALKS,
-                           windows=1 if mesh_path else WINDOWS)
+                           windows=1 if mesh_path else WINDOWS,
+                           warmup=(walked[name][2] if name in walked
+                                   else None))
         nums["peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
         log(f"[19 {name}] peak {nums['peak_mib']:.1f} MiB above the "
             f"{held / 2 ** 20:.1f} MiB held before")
         renders[name] = (img, nums)
+        if name in walked:
+            # the BVH walks on the shadow rays of the warm-up pass
+            table, rows, got = walked.pop(name)
+            p, d, _, tf = got.batch
+            numbers[f"{name} shadow batch"] = got.calls
+            log(f"[19 {name}] shadow batch: {got.calls}")
+            rows_out.update({(name,) + k: v for k, v in check_walks(
+                torch, timer, "bvh", table, rows, {"shadow": (
+                    p.to(DEVICE), d.to(DEVICE), None, tf.to(DEVICE))},
+                f"19 {name}").items()})
     for name, ref in (("field bvh", "field brute"),
                       ("field grid", "field brute"),
                       ("field clustered", "field brute"),
@@ -4042,14 +4139,16 @@ def main() -> int:
     shell_paths["phase_s"] = time.perf_counter() - t0
     log(f"[20] the pool, the shell and multi-device checked in "
         f"{shell_paths['phase_s']:.1f} s")
-    # each walk's row at the field's camera batch, its launches from the
-    # field's render under that backend
+    # each walk's row at the field's camera batch (bvh_occluded's at the
+    # field render's own shadow rays), its launches from the field's render
+    # under that backend
     walk_main = {}
     for (sname, name, bname), row in walk_rows.items():
         render_nums = accel_paths["renders"].get(sname)
         row["launches"] = (render_nums["launches"][name]
                            if render_nums else 0)
-        if sname.startswith("field") and bname == "camera":
+        main_batch = "shadow" if name == "bvh_occluded" else "camera"
+        if sname.startswith("field") and bname == main_batch:
             walk_main[name] = row
 
     for rows, path in ((hero_rows, hero_path), (field_rows, field_path)):

@@ -44,15 +44,22 @@ class BVHArrays:
     count: torch.Tensor  # [N] int32
     miss: torch.Tensor  # [N] int32 skip link
     max_leaf: int = 1  # the most prims in any leaf (a loop bound)
-    # the [N, 8] table the walk kernels read (bvh/traverse.py::pack_nodes),
-    # packed once with the arrays, on their device
+    # the tables the walk kernels read, packed once with the arrays, on
+    # their device: the [N, 8] node table (bvh/traverse.py::pack_nodes) and
+    # the any-hit walk's [I, 16] child-pair table with its stack's depth
+    # (pack_pairs)
     nodes: torch.Tensor = dataclasses.field(init=False, repr=False,
                                             compare=False)
+    pairs: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+    stack_depth: int = dataclasses.field(init=False, repr=False,
+                                         compare=False)
 
     def __post_init__(self):
-        from .traverse import pack_nodes
+        from .traverse import pack_nodes, pack_pairs
 
         self.nodes = pack_nodes(self)
+        self.pairs, self.stack_depth = pack_pairs(self, self.nodes)
 
     @property
     def num_nodes(self) -> int:

@@ -226,6 +226,32 @@ def pack_nodes(bvh: BVHArrays) -> torch.Tensor:
                        dim=1)
 
 
+def pack_pairs(bvh: BVHArrays, nodes) -> tuple:
+    """(pairs [I, 16] float32, stack_depth) for the any-hit kernel
+    (``csrc/bvh_walk.cu`` ``bvh_occluded``), from the [N, 8] table `nodes`.
+    Row j belongs to the j-th inner node in node order (the root's is row
+    0) and holds its two children c = first, first + 1 side by side, each
+    as its threaded row with slot 7, the miss link, replaced by the row of
+    c's own children where c is inner, else -1. ``stack_depth`` is the most
+    rows a walk that keeps the second child for later can hold pending: the
+    most inner nodes on a path from the root, less one (0 when no inner
+    node has an inner child)."""
+    inner = bvh.count == 0
+    row_of = torch.cumsum(inner.to(torch.int32), 0, dtype=torch.int32) - 1
+    c0 = bvh.first[inner].long()
+    halves = []
+    for c in (c0, c0 + 1):
+        below = torch.where(inner[c], row_of[c], -1).to(torch.int32)
+        halves += [nodes[c, :7], below.view(torch.float32)[:, None]]
+    pairs = torch.cat(halves, dim=1).contiguous()
+    levels, level = 0, c0[:1] if bool(inner[0]) else c0[:0]
+    while level.numel():  # children of the inner nodes of one level
+        levels += 1
+        level = torch.cat([level, level + 1])
+        level = bvh.first[level[inner[level]]].long()
+    return pairs, max(levels - 1, 0)
+
+
 def _unpack_row(rows):
     """rows: [R, 8] gathered node rows -> the six bounds, first, count,
     miss."""

@@ -24,8 +24,8 @@
 //
 // Layout: the node table is [N, 8] float32 (min.xyz, max.xyz,
 // bitcast(first | count << 27), bitcast(miss)), two 16-byte loads a node;
-// the leaf rows are [P, 4] (one 16-byte load a sphere) or [T, 9] (nine
-// loads a triangle).
+// the any-hit walk's pair table is [I, 16] (below); the leaf rows are
+// [P, 4] (one 16-byte load a sphere) or [T, 9] (nine loads a triangle).
 //
 // Bound on an H100: per ray the walk reads its node rows (32 B each) and
 // leaf rows, most from L2 (the 1,000-sphere tree is 21 KB, the
@@ -53,8 +53,47 @@
 // Each ray's walk is unchanged (the same threaded visit order, slab test
 // and strict < at the leaf, the leaf's slab test against the tfar of its
 // visit): only which warp walks which ray, and when, moves, so the bits do
-// not. bvh_occluded: one ray a thread, 128-thread blocks, no shared
-// memory.
+// not.
+//
+// bvh_occluded, the pair walk. The any-hit bit does not depend on the
+// order of the visits: tfar is fixed for the ray (it never tightens), the
+// result is the OR of (ok & t < tfar & t >= 0) over the prims of every leaf
+// reached, and the miss links skip exactly the subtree of a missed node, so
+// a node is reached iff the slab test passes at every ancestor. The bit is
+// therefore the OR over the leaves whose whole ancestor chain and own box
+// pass the slab test, and any walk that runs the same slab arithmetic on
+// the same float32 box bits gives it; stopping at the first occluder only
+// shortens the walk. NaN slabs are per box, so they take part unchanged.
+// (tests/test_torch_bvh.py holds a model of this walk's order to jitted
+// JAX.) So the walk takes a row of the child-pair table a step
+// (BVHArrays.pairs, bvh/traverse.py::pack_pairs): row j is the j-th inner
+// node's two children side by side, each its threaded row (min.xyz,
+// max.xyz, first | count << 27) with the last word the row of its own
+// children (-1 for a leaf), 64 bytes read as four __ldg loads. A lane tests
+// the root's own box (node 0 of the threaded table) and then, a row a step,
+// both children's boxes; a hit leaf child is tested in that step (both
+// leaves' prims in one loop); it goes down the first hit inner child and
+// keeps the second on its column of a shared-memory stack (an entry a
+// level: the most inner nodes on a root path less one), popped when no
+// child goes down. The two slab tests of a step issue together and the
+// chain of dependent row loads is half the threaded walk's; every step runs
+// one body, so the lanes of a warp stay together whichever rows they are
+// on. The sphere form is held to 32 registers (16 blocks an SM, as the
+// threaded walk it replaced): rays that miss the root need the occupancy;
+// the triangle form takes 54 (the threaded one took 48). Scheduling was measured and left out
+// (PERF.md section 6): persistent warps with a ray counter and while-while
+// stepping gained on the divergent field batches but lost on short walks
+// and on coherent camera rays; staging the table lost to the per-block
+// copy; a stackless pair walk in the threaded order ran two loop bodies
+// and lost. This one kernel walks every BVH: a root that is a leaf is
+// tested at once, and a tree deep enough that a block's stacks pass 48 KB
+// raises the dynamic shared-memory limit. On a 100,000-sphere field's 2.1
+// MB table, which no render path walks, the threaded walk it replaced was
+// faster on some batches (PERF.md section 6).
+// The bound: the operations of the plain version's node visits and leaf
+// tests; the bytes of the ray (24 B) of each lane with tfar > 0 (no other
+// lane reads it), tfar and the bit of every lane, the root's row, the pair
+// table and the leaf rows.
 
 #include "walk_common.cuh"
 
@@ -225,32 +264,76 @@ __global__ void __launch_bounds__(kWalkThreads)
   }
 }
 
+// Whether a prim of the leaf `fa`, then of the leaf `fb` (each first |
+// count << 27; 0: no leaf), lies at t in [0, tfar): one loop over both
+// leaves' prims in order, stopping at the first.
 template <bool kTriangles>
-__global__ void __launch_bounds__(kThreads)
-    occluded_kernel(Rays rays, const float* tfar_in, const float* nodes,
-                    const float* rows, int n_rays, uint8_t* occ_out) {
+__device__ __forceinline__ bool leaves_occlude(const Ray& r,
+                                               const float* rows, unsigned fa,
+                                               unsigned fb, float tfar) {
+  const int first_a = static_cast<int>(fa & kFirstMask);
+  const int count_a = static_cast<int>(fa >> kCountShift);
+  const int first_b = static_cast<int>(fb & kFirstMask) - count_a;
+  const int count = count_a + static_cast<int>(fb >> kCountShift);
+  for (int s = 0; s < count; ++s) {
+    const int prim = s < count_a ? first_a + s : first_b + s;
+    const Candidate c = Leaf<kTriangles>::test(r, rows, prim);
+    if (c.ok && c.t < tfar && c.t >= 0.0f) return true;
+  }
+  return false;
+}
+
+// The pair walk: one ray a thread, a step a row of the pair table (both
+// children of a node); the second inner child kept on the lane's column of
+// a shared-memory stack. A root that is a leaf is tested at once, the
+// table not read. Spheres are held to 32 registers (16 blocks an SM).
+template <bool kTriangles>
+__global__ void __launch_bounds__(kThreads, kTriangles ? 1 : 16)
+    occluded_pairs_kernel(Rays rays, const float* tfar_in, const float* nodes,
+                          const float* pairs, const float* rows, int n_rays,
+                          uint8_t* occ_out) {
+  extern __shared__ int stacks[];
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_rays) return;
+  int* stack = stacks + threadIdx.x;  // entry k at stack[kThreads * k]
   const float tfar = tfar_in[i];
   bool occluded = false;
   if (tfar > 0.0f) {
     const Ray r = walk::load_ray(rays.c, i);
     float m[3], n[3];
     coeffs(r, m, n);
-    int cur = 0;
-    while (cur >= 0 && !occluded) {
-      const Node nd = load_node(nodes, cur);
-      const bool hit = slab(nd, m, n, tfar);
-      const unsigned fc = __float_as_uint(nd.hi.z);
-      const int first = static_cast<int>(fc & kFirstMask);
-      const int count = static_cast<int>(fc >> kCountShift);
-      if (hit && count > 0) {
-        for (int s = 0; s < count && !occluded; ++s) {
-          const Candidate c = Leaf<kTriangles>::test(r, rows, first + s);
-          occluded = c.ok && c.t < tfar && c.t >= 0.0f;
+    const Node root = load_node(nodes, 0);
+    if (slab(root, m, n, tfar)) {
+      const unsigned rfc = __float_as_uint(root.hi.z);
+      const bool leaf = (rfc >> kCountShift) != 0;
+      int cur = leaf ? -1 : 0, sp = 0;  // the pair row to step next
+      unsigned la = leaf ? rfc : 0u, lb = 0u;  // hit leaves to test
+      while (true) {
+        if ((la | lb) && leaves_occlude<kTriangles>(r, rows, la, lb, tfar)) {
+          occluded = true;
+          break;
+        }
+        if (cur < 0) break;
+        const float4* row = reinterpret_cast<const float4*>(pairs) + 4 * cur;
+        const Node a{__ldg(row), __ldg(row + 1)};
+        const Node b{__ldg(row + 2), __ldg(row + 3)};
+        const bool hit_a = slab(a, m, n, tfar);
+        const bool hit_b = slab(b, m, n, tfar);
+        const unsigned fa = __float_as_uint(a.hi.z);
+        const unsigned fb = __float_as_uint(b.hi.z);
+        const bool go_a = hit_a && (fa >> kCountShift) == 0;
+        const bool go_b = hit_b && (fb >> kCountShift) == 0;
+        la = hit_a && !go_a ? fa : 0u;
+        lb = hit_b && !go_b ? fb : 0u;
+        if (go_a) {
+          if (go_b) stack[kThreads * sp++] = __float_as_int(b.hi.w);
+          cur = __float_as_int(a.hi.w);
+        } else if (go_b) {
+          cur = __float_as_int(b.hi.w);
+        } else {
+          cur = sp == 0 ? -1 : stack[kThreads * --sp];
         }
       }
-      cur = (hit && count == 0) ? first : __float_as_int(nd.hi.w);
     }
   }
   occ_out[i] = occluded ? 1 : 0;
@@ -327,20 +410,37 @@ extern "C" int bvh_closest(const float* px, const float* py, const float* pz,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bvh_occluded takes the pair table `pairs` (16-byte aligned; not read
+// where the root is a leaf) and its stacks' depth: `stack_depth` ints a
+// thread of dynamic shared memory, the limit raised past 48 KB a block
+// where a deep tree needs it (an error where the card's 227 KB cannot
+// hold them).
 extern "C" int bvh_occluded(const float* px, const float* py, const float* pz,
                             const float* dx, const float* dy, const float* dz,
                             const float* tfar, const float* nodes,
+                            const float* pairs, int stack_depth,
                             const float* rows, int triangles, int n_rays,
                             uint8_t* occ_out, void* stream) {
   if (n_rays > 0) {
     const Rays rays{{px, py, pz, dx, dy, dz}};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int blocks = blocks_for(n_rays);
+    const size_t smem = static_cast<size_t>(stack_depth) * kThreads * 4;
+    const void* fn =
+        triangles ? reinterpret_cast<const void*>(occluded_pairs_kernel<true>)
+                  : reinterpret_cast<const void*>(occluded_pairs_kernel<false>);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     if (triangles) {
-      occluded_kernel<true><<<blocks_for(n_rays), kThreads, 0, s>>>(
-          rays, tfar, nodes, rows, n_rays, occ_out);
+      occluded_pairs_kernel<true><<<blocks, kThreads, smem, s>>>(
+          rays, tfar, nodes, pairs, rows, n_rays, occ_out);
     } else {
-      occluded_kernel<false><<<blocks_for(n_rays), kThreads, 0, s>>>(
-          rays, tfar, nodes, rows, n_rays, occ_out);
+      occluded_pairs_kernel<false><<<blocks, kThreads, smem, s>>>(
+          rays, tfar, nodes, pairs, rows, n_rays, occ_out);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,11 +7,15 @@ rows). Two forms each:
   on the CPU takes and ``chip_smoke.py`` holds the kernels to on the card;
 * a hand-written CUDA kernel (``csrc/bvh_walk.cu``): ``bvh_closest`` in
   persistent warps that take rays from a counter and step inner nodes and
-  leaves in turns, the node table in shared memory where it fits;
-  ``bvh_occluded`` one thread walking one ray to the end. Both read the
-  node table that ``BVHArrays`` packs once (``BVHArrays.nodes``). They
-  replace no Pallas kernel: the JAX package runs these walks as XLA
-  ``lax.while_loop``s (``bvh/traverse.py:254``, ``:309``).
+  leaves in turns, the node table in shared memory where it fits, over the
+  node table that ``BVHArrays`` packs once (``BVHArrays.nodes``);
+  ``bvh_occluded`` one thread walking one ray to the end, a step a row of
+  the child-pair table (``BVHArrays.pairs``: both children of a node in 64
+  bytes), the second inner child on a shared-memory stack of
+  ``BVHArrays.stack_depth`` entries (the any-hit bit does not depend on
+  the order of the visits). They replace no Pallas kernel: the JAX
+  package runs these walks as XLA ``lax.while_loop``s
+  (``bvh/traverse.py:254``, ``:309``).
 
 ``closest`` and ``occluded`` launch the kernel for CUDA tensors or raise;
 nothing falls back. Launches are counted in ``CLOSEST.launches`` and
@@ -39,7 +43,8 @@ def _bind(lib: ctypes.CDLL):
     lib.bvh_closest.argtypes = ([ptr] * 8 + [i32, ptr] + [i32] * 2
                                 + [ptr] * 4)
     lib.bvh_closest.restype = i32
-    lib.bvh_occluded.argtypes = [ptr] * 9 + [i32] * 2 + [ptr] * 2
+    lib.bvh_occluded.argtypes = ([ptr] * 9 + [i32, ptr] + [i32] * 2
+                                 + [ptr] * 2)
     lib.bvh_occluded.restype = i32
 
 
@@ -72,18 +77,18 @@ def check_operands(name: str, p: Vec3, d: Vec3, lanes, rows):
         raise ValueError(f"{name}: more than 2^31 rays or prims")
 
 
-def _nodes(name: str, bvh: BVHArrays, device):
-    """The BVH's packed node table, checked to be the kernels' operand: a
-    contiguous, 16-byte aligned float32 [N, 8] table on `device`."""
-    nodes = bvh.nodes
-    if (nodes.device != device or nodes.dtype != torch.float32
-            or nodes.shape != (bvh.num_nodes, 8) or not nodes.is_contiguous()
-            or nodes.data_ptr() % 16):
-        raise ValueError(f"{name}: the node table must be a contiguous, "
-                         f"16-byte aligned float32 [N, 8] table on {device}; "
-                         f"got {nodes.dtype} {tuple(nodes.shape)} "
-                         f"{nodes.device}")
-    return nodes
+def _table(name: str, table, shape: tuple, device):
+    """A table a kernel reads (BVHArrays.nodes [N, 8] or .pairs [I, 16]),
+    checked to be a contiguous, 16-byte aligned float32 table of `shape` on
+    `device`."""
+    if (table.device != device or table.dtype != torch.float32
+            or tuple(table.shape) != shape or not table.is_contiguous()
+            or table.data_ptr() % 16):
+        raise ValueError(f"{name}: the BVH's table must be a contiguous, "
+                         f"16-byte aligned float32 {list(shape)} table on "
+                         f"{device}; got {table.dtype} {tuple(table.shape)} "
+                         f"{table.device}")
+    return table
 
 
 def _rays(p: Vec3, d: Vec3, lane):
@@ -100,7 +105,7 @@ def closest(bvh: BVHArrays, p: Vec3, d: Vec3, rows, tfar0=None):
         return traverse.traverse_closest_packed(
             bvh, p, d, rows, ROW_TESTS[rows.shape[1]], tfar0=tfar0)
     check_operands(CLOSEST.name, p, d, (tfar0,), rows)
-    nodes = _nodes(CLOSEST.name, bvh, p.x.device)
+    nodes = _table(CLOSEST.name, bvh.nodes, (bvh.num_nodes, 8), p.x.device)
     lib = LIBRARY.load()
     n = p.x.shape[0]
     tfar = torch.empty(n, dtype=torch.float32, device=p.x.device)
@@ -123,12 +128,16 @@ def occluded(bvh: BVHArrays, p: Vec3, d: Vec3, tfar, rows):
         return traverse.traverse_shadow_packed(
             bvh, p, d, tfar, rows, ROW_TESTS[rows.shape[1]])
     check_operands(OCCLUDED.name, p, d, (tfar,), rows)
-    nodes = _nodes(OCCLUDED.name, bvh, p.x.device)
+    nodes = _table(OCCLUDED.name, bvh.nodes, (bvh.num_nodes, 8),
+                   p.x.device)
+    pairs = _table(OCCLUDED.name, bvh.pairs, (bvh.pairs.shape[0], 16),
+                   p.x.device)
     lib = LIBRARY.load()
     occ = torch.empty(p.x.shape[0], dtype=torch.bool, device=p.x.device)
     build.launch(OCCLUDED.name, lib.bvh_occluded, p.x.device,
                  _rays(p, d, tfar) + [
-                     nodes.data_ptr(), rows.data_ptr(),
-                     int(rows.shape[1] == 9), p.x.shape[0], occ.data_ptr()])
+                     nodes.data_ptr(), pairs.data_ptr(), bvh.stack_depth,
+                     rows.data_ptr(), int(rows.shape[1] == 9), p.x.shape[0],
+                     occ.data_ptr()])
     OCCLUDED.launches += 1
     return occ

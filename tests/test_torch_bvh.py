@@ -191,10 +191,151 @@ def test_cached_node_table_equals_pack_nodes(request, kind):
         np.testing.assert_array_equal(bits(arrays.nodes.numpy()), want)
 
 
+def _inner_depth(first, count):
+    """The most inner nodes on a path from the root (a walk down the
+    tree; children come after their parent)."""
+    depth = np.zeros(first.shape[0], int)
+    depth[0] = int(count[0] == 0)
+    for node in range(first.shape[0]):
+        if count[node] == 0:
+            for c in (first[node], first[node] + 1):
+                depth[c] = depth[node] + int(count[c] == 0)
+    return int(depth.max())
+
+
+def _small_tree(m):
+    """(BVH, prim order, centers, radii) of `m` seeded spheres at leaf size
+    4 (3: the root is a leaf; 7: its children are)."""
+    c, r = spheres(m, 40 + m)
+    bvh, order = tbuilder.build_bvh(c - r[:, None], c + r[:, None], 4)
+    return bvh, order, c, r
+
+
+def _small_bvh(m):
+    return _small_tree(m)[0]
+
+
+DEEP_LEVELS = 100  # stacks of 99 entries: 50,688 B a 128-thread block
+
+
+def _deep_tree(levels=DEEP_LEVELS):
+    """(BVH, centers, radii) of a tree built by hand with `levels` inner
+    nodes on its spine: spine node k's children are spine node k + 1 and
+    an inner node over two spheres, the last spine node's two spheres.
+    The 2 x levels spheres (radius 1) lie along x at (4i, 0.95, 0.95), so a
+    ray near the line y = z = 0 enters every box and meets no sphere: a
+    walk over the pair table then keeps levels - 1 rows pending, past the
+    48 KB of shared memory a 128-thread block takes by default."""
+    first, count = [0], [0]
+
+    def add(f, k):
+        first.append(f)
+        count.append(k)
+        return len(first) - 1
+
+    spine, prims = 0, 0
+    for k in range(levels):
+        if k < levels - 1:
+            nxt = add(0, 0)  # the next spine node
+            pair = add(0, 0)  # its sibling, over two spheres
+            first[spine], first[pair] = nxt, add(prims, 1)
+        else:
+            nxt, first[spine] = None, add(prims, 1)
+        add(prims + 1, 1)
+        prims += 2
+        spine = nxt
+    n = prims
+    c = np.stack([4.0 * np.arange(n), np.full(n, 0.95), np.full(n, 0.95)],
+                 1).astype(np.float32)
+    r = np.ones(n, np.float32)
+    first, count = np.array(first), np.array(count)
+    lo = np.zeros((first.shape[0], 3), np.float32)
+    hi = np.zeros_like(lo)
+    for node in range(first.shape[0] - 1, -1, -1):  # children come after
+        f = first[node]
+        if count[node]:
+            lo[node], hi[node] = c[f] - r[f], c[f] + r[f]
+        else:
+            lo[node] = np.minimum(lo[f], lo[f + 1])
+            hi[node] = np.maximum(hi[f], hi[f + 1])
+    miss = tbuilder.compute_miss_links(first, count)
+    bvh = tbuilder.BVHArrays(
+        node_min=tv(lo), node_max=tv(hi),
+        first=torch.from_numpy(first.astype(np.int32)),
+        count=torch.from_numpy(count.astype(np.int32)),
+        miss=torch.from_numpy(miss), max_leaf=1)
+    return bvh, c, r
+
+
+def _deep_rays(n, seed):
+    """(p, d, tfar) for _deep_tree: the first half start before the chain
+    near y = z = 0.01 and run along it at slopes below 1e-4 (every box
+    entered, no sphere met), the rest from random points of the chain's
+    bounds toward random spheres' centers, jittered; tfar finite, +inf, 0
+    or NaN."""
+    g = np.random.default_rng(seed)
+    h = n // 2
+    far = 4.0 * 2 * DEEP_LEVELS
+    start = g.uniform((-5, -2, -2), (far, 3, 3), (n - h, 3))
+    toward = np.stack([4.0 * g.integers(0, 2 * DEEP_LEVELS, n - h),
+                       np.full(n - h, 0.95), np.full(n - h, 0.95)], 1)
+    p = np.concatenate([
+        np.stack([np.full(h, -10.0), g.uniform(0.0, 0.02, h),
+                  g.uniform(0.0, 0.02, h)], 1), start])
+    d = np.concatenate([
+        np.stack([np.ones(h), g.uniform(0, 1e-4, h), g.uniform(0, 1e-4, h)],
+                 1), toward + g.normal(0.0, 0.5, (n - h, 3)) - start])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tf = g.uniform(0.0, 2 * far, n)
+    tf[::5] = np.inf
+    tf[1::7] = 0.0
+    tf[2::11] = np.nan
+    return (p.astype(np.float32), d.astype(np.float32),
+            torch.from_numpy(tf.astype(np.float32)))
+
+
+def _bvh_of(request, kind):
+    if kind.startswith("small"):
+        return _small_bvh(int(kind[len("small"):]))
+    if kind == "deep":
+        return _deep_tree()[0]
+    return _case(request, kind)["bvh"][1]
+
+
+@pytest.mark.parametrize("kind",
+                         ["sphere", "triangle", "small3", "small7", "deep"])
+def test_pair_table_equals_node_table(request, kind):
+    """BVHArrays.pairs, the child-pair table bvh_occluded reads
+    (traverse.pack_pairs): row j belongs to the j-th inner node and holds
+    its children first and first + 1, each field bit for bit the child's
+    row of the threaded table, but for slot 7: the row of the child's own
+    children (-1 for a leaf). stack_depth is the most inner nodes on a
+    root path, less one. Both also after .to() and from_numpy."""
+    tb = _bvh_of(request, kind)
+    nodes = bits(tb.nodes.numpy())
+    first, count = tb.first.numpy(), tb.count.numpy()
+    inner = np.nonzero(count == 0)[0]
+    row_of = np.full(first.shape[0], -1)
+    row_of[inner] = np.arange(inner.shape[0])
+    for arrays in (tb, tb.to("cpu"),
+                   tbuilder.BVHArrays.from_numpy(tb.to_numpy())):
+        pairs = bits(arrays.pairs.numpy())
+        assert pairs.shape == (inner.shape[0], 16)
+        assert arrays.pairs.is_contiguous()
+        for side in (0, 1):
+            child = first[inner] + side
+            half = pairs[:, 8 * side:8 * side + 8]
+            np.testing.assert_array_equal(half[:, :7], nodes[child, :7])
+            np.testing.assert_array_equal(
+                half[:, 7], np.where(count[child] == 0, row_of[child], -1))
+        assert arrays.stack_depth == max(_inner_depth(first, count) - 1, 0)
+    assert (inner.shape[0] == 0) == (kind == "small3")
+
+
 def test_edit_rebuilds_the_node_table():
     """A geometry edit of a with_bvh scene (scene/edit.py's
     apply_invalidation, through with_bvh) makes a new BVH, and its node
-    table is the new tree's, not the old one's."""
+    table and child-pair table are the new tree's, not the old one's."""
     from cpu_raytracing_experiments_tpu_torch.scene import edit
 
     scene = taccel.with_bvh(tbuilders.default_scene(16, 16))
@@ -206,6 +347,13 @@ def test_edit_rebuilds_the_node_table():
                                   bits(ttraverse.pack_nodes(bvh).numpy()))
     assert not np.array_equal(bits(bvh.nodes.numpy()),
                               bits(scene.sphere_bvh.nodes.numpy()))
+    pairs, depth = ttraverse.pack_pairs(bvh, ttraverse.pack_nodes(bvh))
+    np.testing.assert_array_equal(bits(bvh.pairs.numpy()),
+                                  bits(pairs.numpy()))
+    assert bvh.stack_depth == depth
+    old = scene.sphere_bvh.pairs
+    assert old.shape != bvh.pairs.shape or not np.array_equal(
+        bits(old.numpy()), bits(bvh.pairs.numpy()))
 
 
 def _jax_walk(form, shadow, jb, case, p, d, tf):
@@ -265,6 +413,165 @@ def test_walks_bit_equal_jax(request, kind, form, shadow):
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(bits(got[0].numpy()), bits(want[0]))
     assert 0.02 < (got[1] >= 0).float().mean() < 0.5
+
+
+def pair_walk_model(bvh, p: TVec3, d: TVec3, tfar, rows, row_test):
+    """The visit order of the any-hit kernel (csrc/bvh_walk.cu,
+    bvh_occluded) over BVHArrays.pairs, lane by lane in lock-step: a lane
+    with tfar > 0 tests the root's own box (the threaded table's row 0),
+    then at each pair row both children's boxes, a hit leaf's prims at
+    once (the first child's leaf first, stopping at the first occluder),
+    and takes the first hit inner child, keeping the second on a stack
+    (popped when neither is taken). The slab and leaf arithmetic are the
+    plain version's (bvh/traverse.py). Returns (occluded [R] bool, the
+    most stack entries a lane held, each lane's pair rows visited)."""
+    nodes, pairs = bvh.nodes.numpy(), bvh.pairs.numpy()
+    m, n = ttraverse._ray_coeffs(p, d)
+
+    def sub(v, idx):
+        return TVec3(*(c[idx] for c in v))
+
+    def slab(box, idx):
+        t = torch.from_numpy(np.ascontiguousarray(box))
+        return ttraverse._slab_from_row(*(t[:, k] for k in range(6)),
+                                        sub(m, idx), sub(n, idx),
+                                        tfar[idx]).numpy()
+
+    def leaf(fc, idx):
+        first, count = fc & ttraverse.FIRST_MASK, fc >> ttraverse.COUNT_SHIFT
+        found = np.zeros(idx.shape[0], bool)
+        for s in range(int(count.max(initial=0))):
+            valid = (s < count) & ~found
+            prim = torch.from_numpy(np.where(valid, first + s, 0))
+            t, ok = row_test(rows[prim], sub(p, idx), sub(d, idx))
+            found |= valid & (ok & (t < tfar[idx]) & (t >= 0.0)).numpy()
+        return found
+
+    def fc_of(half):
+        return np.ascontiguousarray(half[:, 6]).view(np.uint32).astype(
+            np.int64)
+
+    r = tfar.shape[0]
+    occ = np.zeros(r, bool)
+    visits = np.zeros(r, int)
+    live = np.nonzero((tfar > 0.0).numpy())[0]
+    root = np.repeat(nodes[:1], live.shape[0], axis=0)
+    live = live[slab(root, torch.from_numpy(live))]
+    rfc = fc_of(nodes[:1])
+    if rfc[0] >> ttraverse.COUNT_SHIFT:
+        occ[live] = leaf(np.repeat(rfc, live.shape[0]),
+                         torch.from_numpy(live))
+        return occ, 0, visits
+    cur = np.zeros(r, np.int64)
+    stack = np.full((r, max(bvh.stack_depth, 1)), -1, np.int64)
+    sp = np.zeros(r, int)
+    most = 0
+    active = np.zeros(r, bool)
+    active[live] = True
+    while active.any():
+        idx = np.nonzero(active)[0]
+        tidx = torch.from_numpy(idx)
+        visits[idx] += 1
+        row = pairs[cur[idx]]
+        a, b = row[:, :8], row[:, 8:]
+        hit_a, hit_b = slab(a, tidx), slab(b, tidx)
+        fa, fb = fc_of(a), fc_of(b)
+        leaf_a = (fa >> ttraverse.COUNT_SHIFT) > 0
+        leaf_b = (fb >> ttraverse.COUNT_SHIFT) > 0
+        found = np.zeros(idx.shape[0], bool)
+        for hit, is_leaf, fc in ((hit_a, leaf_a, fa), (hit_b, leaf_b, fb)):
+            k = np.nonzero(hit & is_leaf & ~found)[0]
+            found[k] = leaf(fc[k], tidx[k])
+        below_a = np.ascontiguousarray(a[:, 7]).view(np.int32)
+        below_b = np.ascontiguousarray(b[:, 7]).view(np.int32)
+        go_a, go_b = hit_a & ~leaf_a, hit_b & ~leaf_b
+        push = go_a & go_b & ~found
+        stack[idx[push], sp[idx[push]]] = below_b[push]
+        sp[idx[push]] += 1
+        most = max(most, int(sp.max()))
+        pop = ~go_a & ~go_b & ~found
+        done = found | (pop & (sp[idx] == 0))
+        popping = pop & ~done
+        sp[idx[popping]] -= 1
+        nxt = np.where(go_a, below_a, below_b).astype(np.int64)
+        nxt[popping] = stack[idx[popping], sp[idx[popping]]]
+        cur[idx] = nxt
+        occ[idx[found]] = True
+        active[idx[done]] = False
+    return occ, most, visits
+
+
+def _shadow_tfar(case, mode, n):
+    """The any-hit distances of a test case: 'finite' uniform in (0,
+    1.5 x the case's tfar); 'zero', 'inf' and 'nan' put 0, +inf or NaN in
+    every third lane of those."""
+    g = np.random.default_rng(31)
+    tf = g.uniform(0.0, 1.5 * case["tfar"], n).astype(np.float32)
+    if mode != "finite":
+        tf[::3] = {"zero": 0.0, "inf": np.inf, "nan": np.nan}[mode]
+    return tf
+
+
+@pytest.mark.parametrize("tfar", ["finite", "zero", "inf", "nan"])
+@pytest.mark.parametrize("kind", ["sphere", "triangle"])
+def test_pair_walk_order_equals_jax(request, kind, tfar):
+    """The order argument of bvh_occluded's source note, on the CPU: the
+    kernel's visit order over the child-pair table (pair_walk_model, a
+    model in this file) gives jitted JAX traverse_shadow_packed's
+    occlusion bit in every lane, though it visits the tree in another order
+    than the threaded walk and stops elsewhere; among the rays a quarter
+    are axis-aligned or have a zero direction component, with zero origin
+    components (NaN slabs). The model's stack stays within stack_depth and
+    no lane visits more pair rows than the tree has."""
+    case = _case(request, kind)
+    jb, tb = case["bvh"]
+    p, d = case["rays"]
+    tf = _shadow_tfar(case, tfar, p.shape[0])
+    want = np.asarray(_jax_walk("packed", True, jb, case, jv(p), jv(d),
+                                jnp.asarray(tf)))
+    got, most, visits = pair_walk_model(tb, tv(p), tv(d),
+                                        torch.from_numpy(tf),
+                                        case["rows"][1], case["row_test"][1])
+    np.testing.assert_array_equal(got, want)
+    assert 0.02 < got.mean() < 0.6
+    assert 0 < most <= tb.stack_depth
+    assert visits.max() <= tb.pairs.shape[0]
+
+
+@pytest.mark.parametrize("m", [3, 7])
+def test_pair_walk_order_on_small_trees(m):
+    """pair_walk_model on a tree that is one leaf (3 spheres) and on one
+    whose root's children are leaves (7): equal to the plain any-hit walk
+    (traverse_shadow_packed), which the test above holds to jitted JAX."""
+    tb, order, c, r = _small_tree(m)
+    rows = ttraverse.pack_spheres(tv(c[order]),
+                                  torch.from_numpy((r * r)[order]))
+    p, d = rays(2000, 50 + m, -80, 80)
+    tf = torch.from_numpy(_shadow_tfar({"tfar": 60.0}, "nan", 2000))
+    got, most, _ = pair_walk_model(tb, tv(p), tv(d), tf, rows,
+                                   ttraverse.sphere_row_test)
+    want = ttraverse.traverse_shadow_packed(tb, tv(p), tv(d), tf, rows,
+                                            ttraverse.sphere_row_test)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert got.any() and most == 0 == tb.stack_depth
+
+
+def test_pair_walk_order_on_deep_tree():
+    """pair_walk_model on _deep_tree, whose walks keep 99 rows pending (a
+    block's stacks past 48 KB, where bvh_occluded raises the card's
+    shared-memory limit): equal to the plain any-hit walk, the stack as
+    deep as stack_depth says and no deeper."""
+    tb, c, r = _deep_tree()
+    rows = ttraverse.pack_spheres(tv(c), torch.from_numpy(r * r))
+    p, d, tf = _deep_rays(1000, 61)
+    got, most, _ = pair_walk_model(tb, tv(p), tv(d), tf, rows,
+                                   ttraverse.sphere_row_test)
+    want = ttraverse.traverse_shadow_packed(tb, tv(p), tv(d), tf, rows,
+                                            ttraverse.sphere_row_test)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert 0.05 < got.mean() < 0.95
+    assert most == tb.stack_depth == DEEP_LEVELS - 1
+    assert tb.stack_depth * 128 * 4 > 48 * 1024
 
 
 def test_slab_test_and_ray_coeffs_bit_equal_jax(sphere_case):
@@ -338,21 +645,49 @@ def test_wrappers_take_the_plain_version_on_the_cpu(sphere_case):
 @pytest.mark.parametrize("kind", ["sphere", "triangle"])
 def test_kernels_match_plain_on_card(request, kind):
     """csrc/bvh_walk.cu on a CUDA card: bvh_closest and bvh_occluded equal
-    their plain versions bit for bit (tfar bits, ids, occlusion)."""
+    their plain versions bit for bit (tfar bits, ids, occlusion); the
+    any-hit walk at every distance mix of test_pair_walk_order_equals_jax
+    (finite, with 0, +inf or NaN lanes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     case = _case(request, kind)
     tb = case["bvh"][1].to("cuda")
     rows = case["rows"][1].to("cuda")
     p, d = (tv(a).to("cuda") for a in case["rays"])
-    tf = torch.full((p.x.shape[0],), case["tfar"], device="cuda")
     kt, kid = bvh_walk.closest(tb, p, d, rows)
     pt, pid = ttraverse.traverse_closest_packed(tb, p, d, rows,
                                                 bvh_walk.ROW_TESTS[
                                                     rows.shape[1]])
     assert torch.equal(kid, pid)
     assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
-    assert torch.equal(
-        bvh_walk.occluded(tb, p, d, tf, rows),
-        ttraverse.traverse_shadow_packed(tb, p, d, tf, rows,
-                                         bvh_walk.ROW_TESTS[rows.shape[1]]))
+    for mode in ("finite", "zero", "inf", "nan"):
+        tf = torch.from_numpy(_shadow_tfar(case, mode, p.x.shape[0])).to(
+            "cuda")
+        want = ttraverse.traverse_shadow_packed(
+            tb, p, d, tf, rows, bvh_walk.ROW_TESTS[rows.shape[1]])
+        assert torch.equal(bvh_walk.occluded(tb, p, d, tf, rows), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["small3", "small7", "deep"])
+def test_occluded_on_small_and_deep_trees_on_card(kind):
+    """bvh_occluded on a card equals the plain any-hit walk on a tree that
+    is one leaf (the pair table empty), on one whose root's children are
+    leaves, and on _deep_tree, whose stacks pass 48 KB a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    if kind == "deep":
+        tb, c, r = _deep_tree()
+        p, d, tf = _deep_rays(4096, 62)
+    else:
+        m = int(kind[len("small"):])
+        tb, order, c, r = _small_tree(m)
+        c, r = c[order], r[order]
+        p, d = rays(4096, 50 + m, -80, 80)
+        tf = torch.from_numpy(_shadow_tfar({"tfar": 60.0}, "nan", 4096))
+    rows = ttraverse.pack_spheres(tv(c), torch.from_numpy(r * r))
+    want = ttraverse.traverse_shadow_packed(tb, tv(p), tv(d), tf, rows,
+                                            ttraverse.sphere_row_test)
+    got = bvh_walk.occluded(tb.to("cuda"), tv(p).to("cuda"),
+                            tv(d).to("cuda"), tf.to("cuda"), rows.to("cuda"))
+    assert want.any() and torch.equal(got.cpu(), want)
