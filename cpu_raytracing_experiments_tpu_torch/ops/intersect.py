@@ -21,6 +21,7 @@ import torch
 
 from ..bvh import traverse as _bvh
 from ..core.vec import Vec3
+from ..utils import profiling
 from . import clustered
 from .kernels import bvh_walk as _bw
 from .kernels import cluster_traverse as _tk
@@ -87,9 +88,10 @@ def stream_resolves_on(policy, cp) -> bool:
 def prepare_stream(policy, scene) -> None:
     """Make the packed table of every cluster pack of `scene` that `policy`
     walks streamed, so that the first traced ray does not pay for it."""
-    for cp in (scene.sphere_clusters, scene.tri_clusters):
-        if cp is not None and stream_resolves_on(policy, cp):
-            _tk._tables_packed(cp)
+    with profiling.span("port.accel_build", step="prepare_stream"):
+        for cp in (scene.sphere_clusters, scene.tri_clusters):
+            if cp is not None and stream_resolves_on(policy, cp):
+                _tk._tables_packed(cp)
 
 
 # ---------------------------------------------------------------------------

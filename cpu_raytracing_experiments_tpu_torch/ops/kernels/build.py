@@ -16,6 +16,8 @@ import subprocess
 from pathlib import Path
 from typing import Callable, Optional, Sequence
 
+from ...utils import profiling
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -99,12 +101,19 @@ COUNTERS = []  # every kernel's LaunchCounter, in order of definition
 
 
 class LaunchCounter:
-    """Launches of one kernel, counted by its wrapper where it launches."""
+    """Launches of one kernel, counted by its wrapper where it launches
+    (``add``): an always-on total, and ``launches.<name>`` of the innermost
+    span that ``utils.profiling`` records."""
 
     def __init__(self, name: str):
         self.name = name
+        self.counter = f"launches.{name}"
         self.launches = 0
         COUNTERS.append(self)
+
+    def add(self, n: int = 1):
+        self.launches += n
+        profiling.count(self.counter, n)
 
 
 def reset_counts():

@@ -116,7 +116,7 @@ def closest(bvh: BVHArrays, p: Vec3, d: Vec3, rows, tfar0=None):
                      nodes.data_ptr(), bvh.num_nodes, rows.data_ptr(),
                      int(rows.shape[1] == 9), n, next_ray.data_ptr(),
                      tfar.data_ptr(), prim.data_ptr()])
-    CLOSEST.launches += 1
+    CLOSEST.add()
     return tfar, prim
 
 
@@ -139,5 +139,5 @@ def occluded(bvh: BVHArrays, p: Vec3, d: Vec3, tfar, rows):
                      nodes.data_ptr(), pairs.data_ptr(), bvh.stack_depth,
                      rows.data_ptr(), int(rows.shape[1] == 9), p.x.shape[0],
                      occ.data_ptr()])
-    OCCLUDED.launches += 1
+    OCCLUDED.add()
     return occ

@@ -97,6 +97,7 @@ import torch
 from ...core import fp
 from ...core.fp import fma
 from ...core.vec import Vec3
+from ...utils import profiling
 from ..clustered import SUPER, ClusteredPrims
 from . import build
 from .build import LaunchCounter
@@ -827,7 +828,7 @@ def plan_rows(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid, tile_r: int,
     entry = torch.empty((t_tiles, c), dtype=torch.float32, device=tf.device)
     build.launch(counter.name, LIBRARY.load().cluster_plan_rows, tf.device,
                  args + [chunk, entry.data_ptr()])
-    counter.launches += 1
+    counter.add()
     return entry
 
 
@@ -860,7 +861,7 @@ def _plan_visits(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
     nvis = torch.empty((t_tiles,), dtype=torch.int32, device=device)
     build.launch(counter.name, LIBRARY.load().cluster_plan, device,
                  args + [a.data_ptr() for a in (entry, visit, nvis)])
-    counter.launches += 1
+    counter.add()
     return visit, entry, nvis
 
 
@@ -950,7 +951,7 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
                                          tf0, valid, table)]
                  + [battery, split, n, tile_r, cp.num_clusters,
                     cp.cluster_size, tfar.data_ptr(), prim.data_ptr()])
-    counter.launches += 1
+    counter.add()
     return tfar, prim
 
 
@@ -982,7 +983,7 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
                                          tfar, table)]
                  + [battery, split, n, tile_r, cp.num_clusters,
                     cp.cluster_size, occ.data_ptr()])
-    counter.launches += 1
+    counter.add()
     return occ
 
 
@@ -1092,7 +1093,7 @@ def replay_launch(cp: ClusteredPrims, visit, nvis, tile: int, n_out: int,
                  [nvis.data_ptr(), visit.data_ptr(), packed.data_ptr(),
                   int(cp.kind == "triangle"), tile, c, k, n_out, blocks,
                   out.data_ptr()])
-    REPLAY.launches += 1
+    REPLAY.add()
     return out
 
 
@@ -1106,6 +1107,17 @@ def _check_forms(cp: ClusteredPrims, mxu: bool, stream: bool):
         raise ValueError(
             f"cluster_size {cp.cluster_size} < 128 excludes stream and mxu "
             "(ops.intersect._tile_for switches both off for such a pack)")
+
+
+def _planned(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid, tile_r: int,
+             plan: str, sort: bool, sort_impl: str):
+    """``_plan_visits`` in a ``port.plan`` span that counts the rays it is
+    given (``plan_rays``)."""
+    with profiling.span("port.plan", plan_clusters=cp.num_clusters,
+                        plan_tile=tile_r, plan_mode=_plan_mode(cp, plan)):
+        profiling.count("plan_rays", tf.shape[0])
+        return _plan_visits(cp, p, d, tf, valid, tile_r, plan, sort,
+                            sort_impl)
 
 
 def intersect_clustered_pallas(
@@ -1131,10 +1143,11 @@ def intersect_clustered_pallas(
     else:
         valid = alive
         plan_tf = torch.where(alive, tfar0, 0.0)
-    visit, entry, nvis = _plan_visits(cp, p, d, plan_tf, valid, tile_r, plan,
-                                      sort, sort_impl)
-    tfar, packed = walk_closest(cp, visit, entry, nvis, p, d, tfar0, valid,
-                                tile_r, mxu=mxu, stream=stream)
+    visit, entry, nvis = _planned(cp, p, d, plan_tf, valid, tile_r, plan,
+                                  sort, sort_impl)
+    with profiling.span("port.walk"):
+        tfar, packed = walk_closest(cp, visit, entry, nvis, p, d, tfar0,
+                                    valid, tile_r, mxu=mxu, stream=stream)
     orig = torch.where(packed >= 0,
                        cp.order[torch.clamp_min(packed, 0).to(torch.int64)],
                        -1)
@@ -1150,10 +1163,11 @@ def occluded_clustered_pallas(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar,
     tfar <= 0 plan no visits (the renderer masks invalid shadow rays by
     tfar = 0). The keywords as in ``intersect_clustered_pallas``."""
     _check_forms(cp, mxu, stream)
-    visit, entry, nvis = _plan_visits(cp, p, d, tfar, tfar > 0.0, tile_r,
-                                      plan, sort, sort_impl)
-    return walk_occluded(cp, visit, entry, nvis, p, d, tfar, tile_r, mxu=mxu,
-                         stream=stream)
+    visit, entry, nvis = _planned(cp, p, d, tfar, tfar > 0.0, tile_r, plan,
+                                  sort, sort_impl)
+    with profiling.span("port.walk"):
+        return walk_occluded(cp, visit, entry, nvis, p, d, tfar, tile_r,
+                             mxu=mxu, stream=stream)
 
 
 # ---------------------------------------------------------------------------

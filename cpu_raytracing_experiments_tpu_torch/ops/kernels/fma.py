@@ -148,7 +148,7 @@ def _launch_flat(op, operands, shape, first):
     build.launch(COUNTERS[op].name, _lib().fma_flat, first.device,
                  [op, _PTRS(*ptrs, *out_ptrs), values, stride_one, n,
                   groups, build.sm_count(first.get_device())])
-    COUNTERS[op].launches += 1
+    COUNTERS[op].add()
     return outs
 
 
@@ -239,7 +239,7 @@ def _fma_strided(operands, first):
                                                     for v in s))
     build.launch(FMA_STRIDED.name, _lib().fma_f32, first.device,
                  args + [c_sizes, c_strides, ndim, n, out.data_ptr()])
-    FMA_STRIDED.launches += 1
+    FMA_STRIDED.add()
     return out
 
 

@@ -134,7 +134,7 @@ def closest(grid: UniformGrid, p: Vec3, d: Vec3, rows, tfar0=None):
                  + [part_t.data_ptr() if part else None,
                     part_arg.data_ptr() if part else None, n,
                     tfar.data_ptr(), prim.data_ptr()])
-    CLOSEST.launches += 1
+    CLOSEST.add()
     return tfar, prim
 
 
@@ -158,5 +158,5 @@ def occluded(grid: UniformGrid, p: Vec3, d: Vec3, tfar, rows):
                        split)
                  + [part_occ.data_ptr() if part_occ.numel() else None, n,
                     occ.data_ptr()])
-    OCCLUDED.launches += 1
+    OCCLUDED.add()
     return occ

@@ -83,5 +83,5 @@ def light_rows(w: torch.Tensor, f: torch.Tensor = None, fused=False):
                   int(bool(fused)), total.data_ptr(),
                   None if sel is None else sel.data_ptr(),
                   None if p_sel is None else p_sel.data_ptr()])
-    LIGHT_ROWS.launches += 1
+    LIGHT_ROWS.add()
     return total, sel, p_sel

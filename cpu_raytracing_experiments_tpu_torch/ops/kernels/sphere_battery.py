@@ -201,7 +201,7 @@ def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq, xla_chunks=True):
                      else radius_sq.shape[0]),
                     build.sm_count(device.index), tfar.data_ptr(),
                     prim.data_ptr()])
-    CLOSEST.launches += 1
+    CLOSEST.add()
     return tfar, prim
 
 
@@ -221,5 +221,5 @@ def any_hit(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
                  [a.data_ptr() for a in (*p, *d, tfar, *prims)]
                  + [n, radius_sq.shape[0], build.sm_count(device.index),
                     occ.data_ptr()])
-    OCCLUDED.launches += 1
+    OCCLUDED.add()
     return occ

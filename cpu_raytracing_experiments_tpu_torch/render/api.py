@@ -14,8 +14,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.rng import MASK
 from ..ops import intersect
 from ..scene.scene import Scene
+from ..utils import profiling
 from ..utils.config import RendererPolicy
 from ..utils.metrics import pixel_variance_map
 from . import estimator
@@ -155,9 +157,15 @@ class Renderer:
         self.state = self.state.reset()
 
     def accumulate(self, n: int = 1):
-        """n progressive samples per pixel (Renderer::Accumulate)."""
-        self.state = estimator.accumulate_n(
-            self.scene, self.policy, self.state, self.width, self.height, n)
+        """n progressive samples per pixel (Renderer::Accumulate), in a
+        ``port.update`` span whose update_id is the first pass's
+        accumulation index."""
+        with profiling.span("port.update",
+                            update_id=(self.state.accumulations + 1) & MASK,
+                            passes=n):
+            self.state = estimator.accumulate_n(
+                self.scene, self.policy, self.state, self.width, self.height,
+                n)
 
     def render(self, tonemap: bool = True) -> np.ndarray:
         """Median-of-means resolve (+ACES): [H, W, 3] float32, row 0 = TOP

@@ -18,6 +18,7 @@ import torch
 from ..core import color, fp, sampling
 from ..core.rng import MASK
 from ..scene.scene import Scene
+from ..utils import profiling
 from ..utils.config import RendererPolicy
 from . import renderer as _renderer
 
@@ -69,8 +70,9 @@ class RenderState:
 
 
 def _add_pass(buckets, policy, acc: int, rad_x, rad_y, rad_z):
-    buckets[acc % policy.accumulation_buckets] += torch.stack(
-        [rad_x, rad_y, rad_z])
+    with profiling.span("port.buckets"):
+        buckets[acc % policy.accumulation_buckets] += torch.stack(
+            [rad_x, rad_y, rad_z])
 
 
 def _counts_plus(state: RenderState, k: int):

@@ -43,6 +43,7 @@ from ..ops import gather as fast_gather
 from ..ops.kernels import light_rows
 from ..ops.kernels.cluster_traverse import PLANS, compact_order
 from ..scene.scene import Scene
+from ..utils import profiling
 from ..utils.config import RendererPolicy
 
 FLT_EPSILON = 1.1920928955078125e-07  # float32(1.1920929e-7)
@@ -159,7 +160,11 @@ def _stratified_jitter(accumulation, seeds, device):
     uses, Renderer.hpp:80) and a golden-ratio second dimension, rotated per
     pixel (Cranley-Patterson) by hashed-pixel offsets. All sums are >= 0,
     where ``torch.remainder`` and the JAX package's ``jnp.mod`` are exact."""
-    acc = rng.u32(accumulation, device)
+    if isinstance(accumulation, torch.Tensor) or device.type != "cuda":
+        acc = rng.u32(accumulation, device)
+    else:  # a host value copied to the card: the copy waits for the stream
+        with profiling.sync("stratify_accumulation"):
+            acc = rng.u32(accumulation, device)
     vdc = rng.make_unit_float(rng.bitreverse32(acc))
     gr = torch.remainder(acc.to(torch.float32) * GOLDEN_RATIO_CONJUGATE, 1.0)
     ox = rng.make_unit_float(rng.hash_u32(seeds))
@@ -177,10 +182,11 @@ def generate_camera_rays(camera, x, y, accumulation, seeds, enable_dof: bool,
     state. Returns contiguous [R] components, the layout the batteries
     take."""
     policy = policy or RendererPolicy()
-    state = _site_state(accumulation, seeds, policy)
-    state, ds = rng.draws(state, 4 if enable_dof else 2)
-    if policy.stratify_camera:
-        ds[:2] = _stratified_jitter(accumulation, seeds, ds[0].device)
+    with profiling.span("port.rng"):
+        state = _site_state(accumulation, seeds, policy)
+        state, ds = rng.draws(state, 4 if enable_dof else 2)
+        if policy.stratify_camera:
+            ds[:2] = _stratified_jitter(accumulation, seeds, ds[0].device)
     vx = x.to(torch.float32) + ds[0] - camera.half_width
     vy = y.to(torch.float32) + ds[1] - camera.half_height
     origin = Vec3(*(c.expand(vx.shape).contiguous() for c in camera.pos))
@@ -445,7 +451,8 @@ def _candidates(w_table, site, light_count: int):
                      device=w_table.device)
     first = None
     for k in range(RIS_CANDIDATES):
-        site, u_cand = rng.rand_unit_float(site)
+        with profiling.span("port.rng"):
+            site, u_cand = rng.rand_unit_float(site)
         cand = _uniform_pick(u_cand, light_count)
         p_hat = w_table.gather(1, cand[:, None])[:, 0]
         w = p_hat * float(light_count)
@@ -455,7 +462,8 @@ def _candidates(w_table, site, light_count: int):
             wsum = fma(first, float(light_count), w)
         else:
             wsum = fma(p_hat, float(light_count), wsum)
-        site, u_res = rng.rand_unit_float(site)
+        with profiling.span("port.rng"):
+            site, u_res = rng.rand_unit_float(site)
         take = u_res < torch.div(w, torch.clamp_min(wsum, 1e-30))
         sel = torch.where(take, cand, sel)
     return site, sel, wsum
@@ -537,13 +545,15 @@ def _select_light_restir(scene, policy, point: Vec3, site, light_count: int,
         nb_tbl = fast_gather.pack_table(*cols)
     for _ in range(policy.restir_spatial):
         if not use_2d:
-            site, u_off = rng.rand_unit_float(site)
+            with profiling.span("port.rng"):
+                site, u_off = rng.rand_unit_float(site)
             off = (u_off * span).to(torch.int64) - radius
             idx = torch.clamp(lane + off, 0, num - 1)
             cands.append((s_in[idx], w_in[idx], c_in[idx], None))
             continue
-        site, u_dx = rng.rand_unit_float(site)
-        site, u_dy = rng.rand_unit_float(site)
+        with profiling.span("port.rng"):
+            site, u_dx = rng.rand_unit_float(site)
+            site, u_dy = rng.rand_unit_float(site)
         nx = torch.clamp(x_i + (u_dx * span).to(torch.int64) - radius, 0,
                          width - 1)
         # the top is clamped; the bottom is caught by the coordinate check
@@ -568,7 +578,8 @@ def _select_light_restir(scene, policy, point: Vec3, site, light_count: int,
             ok_q = ok_q & extra_ok
         w = torch.where(ok_q, p_hat(s_q) * w_q * c_q, 0.0)
         wsum = wsum + w
-        site, u_res = rng.rand_unit_float(site)
+        with profiling.span("port.rng"):
+            site, u_res = rng.rand_unit_float(site)
         take = (u_res < torch.div(w, torch.clamp_min(wsum, 1e-30))) & ok_q
         sel = torch.where(take, s_q, sel)
         cnt = cnt + torch.where(ok_q, c_q, 0.0)
@@ -676,8 +687,10 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     zero3 = Vec3(zeros, zeros, zeros)
     if light_count == 0:
         return zero3, torch.zeros_like(hit), None
-    site = _site_state(accumulation, add32(seeds, 2 * state.bounce), policy)
-    site, (t_draw, s_draw) = rng.draws(site, 2)
+    with profiling.span("port.rng"):
+        site = _site_state(accumulation, add32(seeds, 2 * state.bounce),
+                           policy)
+        site, (t_draw, s_draw) = rng.draws(site, 2)
     restir_out = ris_w = light_selection_pdf = None
     if (policy.light_sampling == "restir" and restir_in is not None
             and light_count > 1):
@@ -688,7 +701,8 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
         site, selected, ris_w = _select_light_ris(scene, policy, p_offset,
                                                   site, light_count)
     else:
-        site, sel_draw = rng.rand_unit_float(site)
+        with profiling.span("port.rng"):
+            site, sel_draw = rng.rand_unit_float(site)
         selected, light_selection_pdf = _select_light(
             scene, policy, p_offset, sel_draw, light_count)
 
@@ -730,9 +744,11 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
 
     # Shadow trace (Renderer.hpp:302-314). Masked-out lanes get tfar = 0,
     # which never occludes.
-    occluded = intersect.occluded_scene(
-        scene, p_offset, l_dir, torch.where(valid, l_dist, 0.0),
-        accel=policy.effective_accel, policy=policy)
+    with profiling.span("port.occluded"):
+        profiling.count("lanes_traced", valid.shape[0])
+        occluded = intersect.occluded_scene(
+            scene, p_offset, l_dir, torch.where(valid, l_dist, 0.0),
+            accel=policy.effective_accel, policy=policy)
     contribution = shadow_radiance.where(valid & ~occluded, zero3)
     return contribution, valid, restir_out
 
@@ -797,16 +813,19 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     takes a scalar or a vector: with a tensor the RNG sites, the primary
     bounce's emission weight and the bounce cap are taken per lane."""
     # ---- INTERSECTION (Renderer.hpp:165): the closest-hit battery ----
-    tfar, prim_id, is_tri = intersect.intersect_scene(
-        scene, state.p, state.d, accel=policy.effective_accel,
-        alive=state.alive, policy=policy)
+    with profiling.span("port.intersect"):
+        profiling.count("lanes_traced", state.alive.shape[0])
+        tfar, prim_id, is_tri = intersect.intersect_scene(
+            scene, state.p, state.d, accel=policy.effective_accel,
+            alive=state.alive, policy=policy)
     hit = state.alive & (prim_id >= 0)
     miss = state.alive & (prim_id < 0)
 
     # ---- CLOSEST HIT (:169-214) ----
-    p_offset, n, t_quat, v_local, mat_id, backface, hit_pt, prim_extra = (
-        _closest_hit_frame(scene, state, tfar, prim_id, is_tri))
-    mat = _gather_material(scene, policy, mat_id)
+    with profiling.span("port.closest_hit"):
+        p_offset, n, t_quat, v_local, mat_id, backface, hit_pt, prim_extra = (
+            _closest_hit_frame(scene, state, tfar, prim_id, is_tri))
+        mat = _gather_material(scene, policy, mat_id)
 
     radiance = state.radiance
 
@@ -814,92 +833,105 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     shadow_traced = torch.zeros_like(hit)
     restir_out = None
     if policy.mis:
-        nee, shadow_traced, restir_out = _next_event_estimation(
-            scene, policy, state, accumulation, seeds, hit, prim_id, is_tri,
-            p_offset, t_quat, v_local, mat, restir_in=restir_in,
-            restir_xy=restir_xy, restir_geom=restir_geom,
-            restir_guides=None if restir_in is None else (n, tfar))
+        with profiling.span("port.nee"):
+            nee, shadow_traced, restir_out = _next_event_estimation(
+                scene, policy, state, accumulation, seeds, hit, prim_id,
+                is_tri, p_offset, t_quat, v_local, mat, restir_in=restir_in,
+                restir_xy=restir_xy, restir_geom=restir_geom,
+                restir_guides=None if restir_in is None else (n, tfar))
         radiance = radiance + nee
 
     # ---- EMISSIVE HIT (:319-353) ----
-    radiance = radiance + _emissive_hit(
-        scene, policy, state, hit, prim_id, is_tri, mat_id, tfar, v_local,
-        em=mat["emission"], prim_extra=prim_extra)
+    with profiling.span("port.emissive"):
+        radiance = radiance + _emissive_hit(
+            scene, policy, state, hit, prim_id, is_tri, mat_id, tfar,
+            v_local, em=mat["emission"], prim_extra=prim_extra)
 
     # ---- BRDF SAMPLE + RUSSIAN ROULETTE (:357-404) ----
-    site = _site_state(accumulation, add32(seeds, 2 * state.bounce + 1),
-                       policy)
-    if policy.brdf == "principled":
-        # draw order: lobe, u, v, fresnel, rr
-        site, (lobe_draw, u_draw, v_draw, fres_draw, rr_draw) = rng.draws(
-            site, 5)
-        bs = closures.principled_sample(
-            mat["albedo"], mat["f0"], mat["transmission"], mat["alpha"],
-            mat["ior"], ~backface, v_local, lobe_draw, u_draw, v_draw,
-            fres_draw, mat.get("f80"))
-        bsdf_delta = bs.is_delta
-    else:
-        site, (u_draw, v_draw, rr_draw) = rng.draws(site, 3)
-        if policy.brdf == "lambertian":
-            bs = closures.lambert_sample(mat["albedo"], v_local, u_draw,
-                                         v_draw)
+    with profiling.span("port.bsdf"):
+        with profiling.span("port.rng"):
+            site = _site_state(accumulation,
+                               add32(seeds, 2 * state.bounce + 1), policy)
+            if policy.brdf == "principled":
+                # draw order: lobe, u, v, fresnel, rr
+                site, (lobe_draw, u_draw, v_draw, fres_draw,
+                       rr_draw) = rng.draws(site, 5)
+            else:
+                site, (u_draw, v_draw, rr_draw) = rng.draws(site, 3)
+        if policy.brdf == "principled":
+            bs = closures.principled_sample(
+                mat["albedo"], mat["f0"], mat["transmission"], mat["alpha"],
+                mat["ior"], ~backface, v_local, lobe_draw, u_draw, v_draw,
+                fres_draw, mat.get("f80"))
+            bsdf_delta = bs.is_delta
         else:
-            bs = closures.ggx_sample(mat["f0"], mat["alpha"], v_local, u_draw,
-                                     v_draw, mat.get("f80"))
-        bsdf_delta = torch.zeros_like(hit)
-    bsdf_dir, bsdf_est = bs.direction, bs.estimator
-    new_throughput = state.throughput * bsdf_est
-    if policy.russian_roulette:
-        q = 1.0 - new_throughput.max_component()
-        rr_kill = rr_draw < q
-        new_throughput = new_throughput * (
-            1.0 / torch.clamp_min(1.0 - q, FLT_EPSILON))
-    else:
-        rr_kill = torch.zeros_like(hit)
-    world_dir = sampling.to_world(t_quat, bsdf_dir)
-    if policy.brdf == "principled":
-        # XLA recomputes the sample in the fusion of each world lane, and
-        # the x lane's rounds the specular lobe otherwise
-        world_dir = Vec3(sampling.to_world(t_quat, bs.direction_x).x,
-                         world_dir.y, world_dir.z)
-    # pdf of the sampled direction in the local frame, for next-bounce MIS
-    next_pdf = _closure_pdf(policy, mat, bsdf_dir, v_local)
-    p_next = p_offset
-    if policy.brdf == "principled":
-        # transmitted rays leave from below the surface: the scale-aware
-        # offset mirrored to the other side
-        p_below = hit_pt - (p_offset - hit_pt)
-        p_next = p_below.where(bsdf_dir.z < 0.0, p_offset)
+            if policy.brdf == "lambertian":
+                bs = closures.lambert_sample(mat["albedo"], v_local, u_draw,
+                                             v_draw)
+            else:
+                bs = closures.ggx_sample(mat["f0"], mat["alpha"], v_local,
+                                         u_draw, v_draw, mat.get("f80"))
+            bsdf_delta = torch.zeros_like(hit)
+        bsdf_dir, bsdf_est = bs.direction, bs.estimator
+        new_throughput = state.throughput * bsdf_est
+        if policy.russian_roulette:
+            q = 1.0 - new_throughput.max_component()
+            rr_kill = rr_draw < q
+            new_throughput = new_throughput * (
+                1.0 / torch.clamp_min(1.0 - q, FLT_EPSILON))
+        else:
+            rr_kill = torch.zeros_like(hit)
+        world_dir = sampling.to_world(t_quat, bsdf_dir)
+        if policy.brdf == "principled":
+            # XLA recomputes the sample in the fusion of each world lane,
+            # and the x lane's rounds the specular lobe otherwise
+            world_dir = Vec3(sampling.to_world(t_quat, bs.direction_x).x,
+                             world_dir.y, world_dir.z)
+        # pdf of the sampled direction in the local frame, for next-bounce
+        # MIS
+        next_pdf = _closure_pdf(policy, mat, bsdf_dir, v_local)
+        p_next = p_offset
+        if policy.brdf == "principled":
+            # transmitted rays leave from below the surface: the
+            # scale-aware offset mirrored to the other side
+            p_below = hit_pt - (p_offset - hit_pt)
+            p_next = p_below.where(bsdf_dir.z < 0.0, p_offset)
 
     # ---- MISS / SKY (:408-420) ----
-    sky = scene.sky.sample(state.d)
-    thr = state.throughput
-    if policy.sky_bug_compat:
-        # reference bug: all channels scaled by throughput.r (:416-418)
-        sky_contrib = Vec3(thr.x * sky.x, thr.x * sky.y, thr.x * sky.z)
-    else:
-        sky_contrib = thr * sky
-    sky_on = miss & scene.sky.has_ambient()
-    zeros = torch.zeros_like(radiance.x)
-    radiance = radiance + sky_contrib.where(sky_on, Vec3(zeros, zeros, zeros))
+    with profiling.span("port.writeback"):
+        sky = scene.sky.sample(state.d)
+        thr = state.throughput
+        if policy.sky_bug_compat:
+            # reference bug: all channels scaled by throughput.r (:416-418)
+            sky_contrib = Vec3(thr.x * sky.x, thr.x * sky.y, thr.x * sky.z)
+        else:
+            sky_contrib = thr * sky
+        sky_on = miss & scene.sky.has_ambient()
+        zeros = torch.zeros_like(radiance.x)
+        radiance = radiance + sky_contrib.where(sky_on,
+                                                Vec3(zeros, zeros, zeros))
 
-    alive_next = hit & ~rr_kill
-    if isinstance(state.bounce, torch.Tensor):  # the per-lane bounce cap
-        alive_next = alive_next & (state.bounce + 1 < policy.max_bounces)
-    elif state.bounce + 1 >= policy.max_bounces:
-        alive_next = torch.zeros_like(alive_next)
-    rays_this_bounce = state.alive.sum() + shadow_traced.sum()
-    out = PathState(
-        bounce=state.bounce + 1,
-        p=p_next.where(alive_next, state.p),
-        d=world_dir.where(alive_next, state.d),
-        throughput=new_throughput.where(alive_next, state.throughput),
-        radiance=radiance,
-        prev_pdf=torch.where(alive_next, next_pdf, state.prev_pdf),
-        prev_delta=torch.where(alive_next, bsdf_delta, state.prev_delta),
-        alive=alive_next,
-        ray_count=add32(state.ray_count, rays_this_bounce),
-    )
+        alive_next = hit & ~rr_kill
+        if isinstance(state.bounce, torch.Tensor):  # the per-lane bounce cap
+            alive_next = alive_next & (state.bounce + 1 < policy.max_bounces)
+        elif state.bounce + 1 >= policy.max_bounces:
+            alive_next = torch.zeros_like(alive_next)
+        # the rays traced: closest-hit lanes alive and shadow rays
+        n_alive, n_shadow = state.alive.sum(), shadow_traced.sum()
+        profiling.count("rays_traced", n_alive)
+        profiling.count("rays_traced", n_shadow)
+        rays_this_bounce = n_alive + n_shadow
+        out = PathState(
+            bounce=state.bounce + 1,
+            p=p_next.where(alive_next, state.p),
+            d=world_dir.where(alive_next, state.d),
+            throughput=new_throughput.where(alive_next, state.throughput),
+            radiance=radiance,
+            prev_pdf=torch.where(alive_next, next_pdf, state.prev_pdf),
+            prev_delta=torch.where(alive_next, bsdf_delta, state.prev_delta),
+            alive=alive_next,
+            ray_count=add32(state.ray_count, rays_this_bounce),
+        )
     if restir_in is not None:
         return out, restir_in if restir_out is None else restir_out
     return out
@@ -952,6 +984,27 @@ def narrow_state(state: PathState, cap: int):
     return narrow, keep, inv.to(torch.int64)
 
 
+def _bounce(scene: Scene, policy: RendererPolicy, accumulation, seeds,
+            state: PathState, **restir):
+    """``bounce_step`` in a ``port.bounce`` span."""
+    with profiling.span("port.bounce", bounce=state.bounce,
+                        lanes=state.alive.shape[0]):
+        return bounce_step(scene, policy, accumulation, seeds, state,
+                           **restir)
+
+
+def _live_lanes(state: PathState) -> int:
+    """The wavefront's live lanes, read back to the host."""
+    with profiling.sync("live_lanes"):
+        return int(state.alive.sum())
+
+
+def _any_alive(state: PathState) -> bool:
+    """Whether a lane of the wavefront is alive, read back to the host."""
+    with profiling.sync("any_alive"):
+        return bool(state.alive.any())
+
+
 def trace_rays(scene: Scene, policy: RendererPolicy, accumulation, seeds,
                p0: Vec3, d0: Vec3, alive0=None, res_in=None, restir_xy=None,
                restir_geom=None):
@@ -979,35 +1032,38 @@ def trace_rays(scene: Scene, policy: RendererPolicy, accumulation, seeds,
                                    use_bvh=False)
     res_out = None
     if res_in is not None and policy.light_sampling == "restir":
-        state, res_out = bounce_step(scene, pol0, accumulation, seeds, state,
-                                     restir_in=res_in, restir_xy=restir_xy,
-                                     restir_geom=restir_geom)
+        state, res_out = _bounce(scene, pol0, accumulation, seeds, state,
+                                 restir_in=res_in, restir_xy=restir_xy,
+                                 restir_geom=restir_geom)
     elif pol0 is not policy:
-        state = bounce_step(scene, pol0, accumulation, seeds, state)
+        state = _bounce(scene, pol0, accumulation, seeds, state)
 
     restores = []
     for cap in _narrow_caps(policy, scene, p0.x.shape[0]):
         while (state.bounce < policy.max_bounces
-               and int(state.alive.sum()) > cap):
-            state = bounce_step(scene, policy, accumulation, seeds, state)
-        full_radiance = state.radiance
-        state, keep, inv = narrow_state(state, cap)
-        restores.append((inv, cap, full_radiance))
-        seeds = seeds[keep]
-        if isinstance(accumulation, torch.Tensor) and accumulation.dim() >= 1:
-            # per-lane accumulation indices (render_pass k_passes > 1)
-            accumulation = accumulation[keep]
+               and _live_lanes(state) > cap):
+            state = _bounce(scene, policy, accumulation, seeds, state)
+        with profiling.span("port.narrow", lanes=cap):
+            full_radiance = state.radiance
+            state, keep, inv = narrow_state(state, cap)
+            restores.append((inv, cap, full_radiance))
+            seeds = seeds[keep]
+            if (isinstance(accumulation, torch.Tensor)
+                    and accumulation.dim() >= 1):
+                # per-lane accumulation indices (render_pass k_passes > 1)
+                accumulation = accumulation[keep]
 
-    while state.bounce < policy.max_bounces and bool(state.alive.any()):
-        state = bounce_step(scene, policy, accumulation, seeds, state)
+    while state.bounce < policy.max_bounces and _any_alive(state):
+        state = _bounce(scene, policy, accumulation, seeds, state)
     radiance = state.radiance
     for inv, cap, prev_rad in reversed(restores):
         # lane i went to narrow row inv[i] where inv[i] < cap; the lanes
         # left behind were dead and keep their full-width value
-        live = inv < cap
-        back = torch.clamp_max(inv, cap - 1)
-        radiance = Vec3(*(torch.where(live, c[back], pc)
-                          for c, pc in zip(radiance, prev_rad)))
+        with profiling.span("port.narrow", lanes=cap):
+            live = inv < cap
+            back = torch.clamp_max(inv, cap - 1)
+            radiance = Vec3(*(torch.where(live, c[back], pc)
+                              for c, pc in zip(radiance, prev_rad)))
     if res_in is not None:
         return radiance, state.ray_count, res_out
     return radiance, state.ray_count
@@ -1075,6 +1131,16 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     ``light_sampling='restir'``; the return is then (radiance, ray_count,
     reservoirs out [3, npix]), each pixel's from its first sample's lane.
     The reservoirs chain pass to pass, so k_passes must be 1."""
+    lanes = ((width * height if npix is None else npix)
+             * policy.samples_per_pixel * k_passes)
+    with profiling.span("port.wavefront", lanes=lanes, passes=k_passes):
+        return _render_pass(scene, policy, accumulation, width, height,
+                            pixel_start, npix, k_passes, restir_in)
+
+
+def _render_pass(scene: Scene, policy: RendererPolicy, accumulation,
+                 width: int, height: int, pixel_start: int, npix,
+                 k_passes: int, restir_in):
     check_policy(policy)
     device = scene.device
     if npix is None:
@@ -1105,7 +1171,8 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     i = (pixel_start + pos) & MASK
     x = i % width
     y = i // width
-    seeds = pixel_seeds_from_index(i, width, policy, r_in_pass % spp)
+    with profiling.span("port.rng"):
+        seeds = pixel_seeds_from_index(i, width, policy, r_in_pass % spp)
     accumulation = accumulation & MASK
     acc_lane = (add32(accumulation, ray // per_pass) if k_passes > 1
                 else None)
@@ -1137,8 +1204,9 @@ def render_pass(scene: Scene, policy: RendererPolicy, accumulation,
     for start in range(0, padded, chunk):
         sl = slice(start, start + chunk)
         acc = accs[sl] if accs is not None else accumulation
-        p0, d0 = generate_camera_rays(scene.camera, xs[sl], ys[sl], acc,
-                                      ss[sl], policy.enable_dof, policy)
+        with profiling.span("port.camera"):
+            p0, d0 = generate_camera_rays(scene.camera, xs[sl], ys[sl], acc,
+                                          ss[sl], policy.enable_dof, policy)
         if use_restir:
             rad, cnt, res = trace_rays(
                 scene, policy, acc, ss[sl], p0, d0, alive0=lane_ok[sl],

@@ -22,6 +22,7 @@ import torch
 from ..bvh import builder, grid as grid_mod
 from ..core.vec import Vec3
 from ..ops import clustered
+from ..utils import profiling
 from .scene import Scene, SphereGeometry, TriangleGeometry
 
 
@@ -121,19 +122,21 @@ def with_pallas_clusters(scene: Scene, cluster_size="auto",
     builder). Any cluster count plans: above what the sorting planner
     kernel holds in one block (``cluster_traverse.max_plan_clusters``),
     ``_plan_visits`` sorts the entry matrix in PyTorch."""
-    if cluster_size == "auto":
-        p = scene.spheres.count
-        if scene.triangles is not None:
-            p = max(p, scene.triangles.count)
-        cluster_size = 64 if p < 50_000 else (128 if p < 200_000 else 256)
-    if method == "sah":
-        return _with_sah_clusters(scene, cluster_size, fill_window,
-                                  group_boxes)
-    # each kind at its own cluster count
-    return _attach(scene, lambda mins, maxs, rows, kind:
-                   clustered.build_clusters(
-                       mins, maxs, rows, kind=kind,
-                       num_clusters=-(-rows.shape[0] // cluster_size)))
+    with profiling.span("port.accel_build", step="with_pallas_clusters"):
+        if cluster_size == "auto":
+            p = scene.spheres.count
+            if scene.triangles is not None:
+                p = max(p, scene.triangles.count)
+            cluster_size = 64 if p < 50_000 else (128 if p < 200_000
+                                                  else 256)
+        if method == "sah":
+            return _with_sah_clusters(scene, cluster_size, fill_window,
+                                      group_boxes)
+        # each kind at its own cluster count
+        return _attach(scene, lambda mins, maxs, rows, kind:
+                       clustered.build_clusters(
+                           mins, maxs, rows, kind=kind,
+                           num_clusters=-(-rows.shape[0] // cluster_size)))
 
 
 def _attach(scene: Scene, build) -> Scene:

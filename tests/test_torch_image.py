@@ -248,16 +248,29 @@ def test_metrics_logger_records_match_jax(tmp_path, capsys):
 
 
 def test_stage_shares_and_trace(tmp_path):
-    """stage_shares returns JAX ``stage_shares``' keys (profiling.py:58-63)
-    with non-negative times, full_s > 0; trace() writes a Chrome trace."""
+    """trace() writes a Chrome trace and, beside it, the spans recorded in
+    its block (``spans.json``): an update's port.* stages, each span's id
+    and parent counted from the block's first span, and the port.update
+    spans in the Chrome trace too."""
+    from cpu_raytracing_experiments_tpu_torch.render.api import Renderer
+
     scene = builders.default_scene(16, 16)
     pol = RendererPolicy(max_bounces=3, rays_per_chunk=256)
-    shares = profiling.stage_shares(scene, pol, 16, 16, repeats=1)
-    assert set(shares) == {"full_s", "nee_shadow_s", "russian_roulette_s",
-                           "first_bounce_s", "later_bounces_s"}
-    assert shares["full_s"] > 0 and min(shares.values()) >= 0
+    r = Renderer(scene, pol, 16, 16, device="cpu")
+    with profiling.trace(str(tmp_path / "first")):
+        r.accumulate(1)
     with profiling.trace(str(tmp_path / "trace")) as logdir:
         image.encode_png(np.zeros((2, 2, 3), np.uint8))
+        r.accumulate(1)
     assert logdir == str(tmp_path / "trace")
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert "traceEvents" in events
+    assert any(e.get("name") == "port.update"
+               for e in events["traceEvents"])
+    recs = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert recs[0]["name"] == "port.update" and recs[0]["id"] == 0
+    assert recs[0]["parent"] is None and recs[0]["update_id"] == 2
+    assert {x["name"] for x in recs} >= {"port.wavefront", "port.bounce",
+                                         "port.sync", "port.buckets"}
+    assert all(x["parent"] < x["id"] for x in recs[1:])
+    assert sum(x["counts"].get("host_syncs", 0) for x in recs) > 0
