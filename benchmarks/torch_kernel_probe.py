@@ -72,6 +72,17 @@ it prints JSON lines:
   light_rows light_rows at 2^19 rows of PROBE_LIGHTS lights with draws
             (phase 17's weights: equal to plain, ms); the SASS of
             csrc/light_rows.cu into DIR;
+  rng       the counter RNG's site kernel (csrc/rng.cu, where the
+            checkout has it) at the sites of the benchmark's cells: the
+            hero's NEE site (8,355,840 lanes, one accumulation a lane, 3
+            draws), the 4K cell's NEE site on its narrowed wavefront
+            (2,073,600 lanes, one accumulation, 3 draws) and the preview's
+            camera site with the stratified jitter (8,355,840 lanes, 2
+            rows): equal to plain (core.rng.site_draws_plain on the card),
+            ms, clean_ms, the byte bound at 3.35 TB/s, and the plain
+            version's ms and kernel launches; then, three turns each, the
+            kernel's ms beside those of its one-lane-a-thread body alone
+            (the seeds 8 bytes off a 16-byte boundary), equal too;
   hero      the hero scene at 256x256, 8 bounces, 2 passes through
             Renderer.accumulate: the buckets' SHA-256 and their equality
             with every other checkout's buckets saved in DIR, the kernel
@@ -98,7 +109,7 @@ import time
 from pathlib import Path
 
 KERNELS = ("plan", "rows", "closest", "occluded", "fma", "sphere",
-           "replay", "grid", "bvh", "light_rows", "hero")
+           "replay", "grid", "bvh", "light_rows", "rng", "hero")
 PROBE_LIGHTS = (32, 64, 326, 1000, 4096, 10817)  # light_rows' L
 CLUSTER = ("plan", "rows", "closest", "occluded")
 
@@ -567,6 +578,78 @@ def probe_light_rows(m, timer, label, out):
     save_sass(m, lr.LIBRARY, label, out)
 
 
+RNG_SITES = (  # (name, lanes, one accumulation a lane, draws, jitter)
+    ("hero nee", 8_355_840, True, 3, False),
+    ("4k narrowed nee", 2_073_600, False, 3, False),
+    ("preview camera", 8_355_840, False, 2, True),
+)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def kernel_launches(torch, fn):
+    """The CUDA kernels that one call of `fn` launches, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0)
+
+
+def probe_rng(m, timer, label, out):
+    """The counter RNG's site kernel at the cells' sites (the docstring's
+    `rng`): one JSON line a site."""
+    torch, np, rng = m["torch"], m["np"], m["rng"]
+    g = np.random.default_rng(23)
+    for name, r, lane_acc, n, jitter in RNG_SITES:
+        seeds = torch.from_numpy(g.integers(0, 2 ** 32, r, dtype=np.uint64)
+                                 .astype(np.int64)).cuda()
+        acc = (torch.arange(r, device="cuda") // (r // 4) + 4000000123
+               if lane_acc else 4000000123)
+        offset = 0 if jitter else 6  # the camera's, or bounce 3's NEE
+
+        def kern():
+            return rng.site_draws(acc, seeds, offset, n, False, jitter=jitter)
+
+        def plain():
+            return rng.site_draws_plain(acc, seeds, offset, n, False,
+                                        jitter=jitter)
+
+        got = kern()
+        bytes_ = r * (8 + (8 if lane_acc else 0) + 4 * n)
+        res = {"lanes": r, "draws": n,
+               "equal": torch.equal(got.view(torch.int32),
+                                    plain().view(torch.int32)),
+               "launches": kernel_launches(torch, kern),
+               "ms": timer(kern, 20), "clean_ms": m["clean"](kern, 20),
+               "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+               "bound_bytes": bytes_,
+               "plain_ms": timer(plain, 5),
+               "plain_launches": kernel_launches(torch, plain)}
+        res["ms_over_bound"] = res["ms"] / res["bound_ms"]
+        # the one-lane-a-thread body alone: seeds 8 bytes off a 16-byte
+        # boundary take no 16-byte groups; timed in turns with the default
+        shifted = torch.empty(r + 1, dtype=torch.int64, device="cuda")[1:]
+        shifted.copy_(seeds)
+
+        def one_lane():
+            return rng.site_draws(acc, shifted, offset, n, False,
+                                  jitter=jitter)
+
+        res["one_lane_equal"] = torch.equal(one_lane().view(torch.int32),
+                                            got.view(torch.int32))
+        turns = [(timer(kern, 20), timer(one_lane, 20)) for _ in range(3)]
+        res["turns_ms"] = [a for a, _ in turns]
+        res["one_lane_turns_ms"] = [b for _, b in turns]
+        print(f"[{label}] rng {name}: {json.dumps(res)}", flush=True)
+        del seeds, acc, got, shifted
+        torch.cuda.empty_cache()
+    save_sass(m, m["rk"].LIBRARY, label, out)
+
+
 def probe_hero(m, label, out):
     """The hero at 256x256, 2 passes: buckets against the other
     checkouts' saved in `out`, launches a pass; then at 1920x1088: ms/pass
@@ -651,6 +734,9 @@ def main():
         ("lr", pkg + ".ops.kernels.light_rows"),
         ("traverse", pkg + ".bvh.traverse"), ("grid", pkg + ".bvh.grid"),
         ("ct", pkg + ".ops.kernels.cluster_traverse"))}
+    if "rng" in kernels:  # a checkout without the kernel fails here
+        m["rk"] = importlib.import_module(pkg + ".ops.kernels.rng")
+        m["rng"] = importlib.import_module(pkg + ".core.rng")
     m["Vec3"], m["Quat"] = m["vec"].Vec3, m["vec"].Quat
     torch, cs, crt, ct = m["torch"], m["cs"], m["crt"], m["ct"]
     label = opt.label
@@ -660,7 +746,8 @@ def main():
         (ct.LIBRARY,) if kernels & set(CLUSTER + ("replay",)) else ()) + (
         (m["gw"].LIBRARY,) if "grid" in kernels else ()) + (
         (m["bw"].LIBRARY,) if "bvh" in kernels else ()) + (
-        (m["lr"].LIBRARY,) if "light_rows" in kernels else ())
+        (m["lr"].LIBRARY,) if "light_rows" in kernels else ()) + (
+        (m["rk"].LIBRARY,) if "rng" in kernels else ())
     m["build"].load_all(libraries)
     print(f"[{label}] built in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libraries:
@@ -670,7 +757,8 @@ def main():
                                 "stream_kernel",
                                 "fma_kernel", "flat_kernel",
                                 "strided_kernel", "replay_kernel",
-                                "merge_kernel", "light_rows_kernel")):
+                                "merge_kernel", "light_rows_kernel",
+                                "site_kernel")):
             print(f"    ptxas {cs.kernel_name(fn)}: {regs} registers, spill "
                   f"{st} / {ld} B, {smem} B static shared", flush=True)
         fn = None
@@ -695,6 +783,8 @@ def main():
         probe_bvh(m, timer, label, out)
     if "light_rows" in kernels:
         probe_light_rows(m, timer, label, out)
+    if "rng" in kernels:
+        probe_rng(m, timer, label, out)
     if "hero" in kernels:
         probe_hero(m, label, out)
     if not kernels & set(CLUSTER):

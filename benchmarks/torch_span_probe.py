@@ -16,8 +16,10 @@ JSON lines:
             ``portbench.trace.profile``): the six span metrics, the idle
             seconds by the innermost port.* span (and the share of idle
             time inside a port.* span other than port.update), and device
-            and self ms a pass by span name; the self ms of each update's
-            spans against its port.update device ms;
+            and self ms a pass by span name, every counter summed over
+            the spans a pass (``launches.<kernel>``, ``host_syncs``,
+            ``rng_eager_lanes``, ...); the self ms of each update's spans
+            against its port.update device ms;
   overhead  `--rounds` times (on, off, off, on) the same traced window with
             the spans recording and with ``profiling.span`` replaced by the
             no-op in this script: the median update's wall ms of each.
@@ -154,9 +156,12 @@ def traced(r, k: int, updates: int, cell: str) -> dict:
                  if n.startswith("port.") and n != "port.update")
     dev = collections.Counter()
     own = collections.Counter()
+    counts = collections.Counter()
     for x in recs:
         dev[x["name"]] += x["device_ms"] / tr.passes
         own[x["name"]] += x["self_ms"] / tr.passes
+        for name, n in x["counts"].items():
+            counts[name] += n / tr.passes
     roots = [x for x in recs if x["name"] == "port.update"]
     by_root = collections.defaultdict(float)
     parent = {x["id"]: x["parent"] for x in recs}
@@ -173,6 +178,7 @@ def traced(r, k: int, updates: int, cell: str) -> dict:
             else None,
             "device_ms_per_pass": dict(dev.most_common()),
             "self_ms_per_pass": dict(own.most_common()),
+            "counts_per_pass": dict(sorted(counts.items())),
             "update_device_ms": [x["device_ms"] for x in roots],
             "update_self_sum_ms": [by_root[x["id"]] for x in roots],
             "spans_per_update": len(recs) / max(1, len(roots))}

@@ -5,13 +5,14 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py    # every phase, always; needs one CUDA card
 
 Phases:
-  1. device info and the build of csrc/ (the six CUDA sources with nvcc
-     for sm_90a and the host tree builder with g++, the seven compilers
+  1. device info and the build of csrc/ (the seven CUDA sources with nvcc
+     for sm_90a and the host tree builder with g++, the eight compilers
      started together); -Xptxas -v of both planners, every walk (the BVH
      and grid walks too), both sphere batteries and the fma kernels
      (registers, spills, shared memory), the float64 instructions in the
-     SASS of every kernel of the six CUDA sources (cuobjdump): a planner,
-     a walk, a battery or an fma kernel with any fails the run; the SASS
+     SASS of every kernel of the seven CUDA sources (cuobjdump): a planner,
+     a walk, a battery, an fma kernel or the RNG site kernel with any fails
+     the run; the SASS
      opcodes of the flat planner, sphere_closest and sphere_occluded, and
      the card's clock, for their issue floors;
   2. every form of the fma kernels against its plain version (fp.fma_plain
@@ -192,7 +193,16 @@ Phases:
      tensors) against Renderer, and tests/torch_sharded_worker.py on two
      processes over gloo at dp 2 on the card (bit for bit) and sp 2 on the
      card (within tests/test_sharding.py's tolerance, and equal to the same
-     run on the CPU); it prints a ``shell_paths`` JSON line.
+     run on the CPU); it prints a ``shell_paths`` JSON line;
+ 21. the counter RNG's site kernel (check_rng_sites): rng.site_draws on the
+     card against core/rng.py's site_draws_plain on the same inputs, bit
+     for bit, at the benchmark cells' sites, on their own pixel seeds: the
+     hero's NEE site (1920x1088, 4 passes packed, 8,355,840 lanes, one
+     accumulation a lane, 3 draws), the 4K cell's NEE site on its narrowed
+     wavefront (2,073,600 of 3840x2160's lanes, 3 draws) and the preview's
+     camera site (1920x1088 at 4 samples a pixel, the stratified jitter, 2
+     rows); the kernel's and the plain version's times; its launches are
+     those of phase 5's hero path (phase 13's mesh paths launch it too).
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
@@ -200,7 +210,7 @@ keyed "kernels" lists every kernel: the five of the sphere paths, the seven
 forms of the fma kernels, every walk with its S, the walks with the
 product-form battery, the seven planner modes of phase 14, and phase 15's
 stream_replay and prefix launch, phase 17's light_rows, phase 19's four
-walks), the
+walks, phase 21's rng_site at the hero's NEE site), the
 clusters planned and walked per tile under each planner, phase 16's numbers
 (keyed "shading_paths"), phase 17's (keyed "light_paths"), phase 18's (keyed
 "host_paths"), phase 19's walks at their other shapes and its paths (keyed
@@ -233,6 +243,7 @@ CLUSTER_SOURCE = \
     "cpu_raytracing_experiments_tpu_torch/csrc/cluster_traverse.cu"
 FMA_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/fma.cu"
 LIGHT_ROWS_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/light_rows.cu"
+RNG_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/rng.cu"
 _TK = "cpu_raytracing_experiments_tpu/ops/pallas/traverse_kernel.py"
 REPLACES = {
     **{name: "none: the single-rounding a*b + c that XLA contracts in the "
@@ -269,6 +280,12 @@ REPLACES = {
     "grid_occluded": "none: an XLA lax.while_loop and dense battery, "
                      "cpu_raytracing_experiments_tpu/bvh/grid.py:246 "
                      "(traverse_grid_shadow) and :215 (_battery_closest)",
+    "rng_site": "none: XLA's fusion of "
+                "cpu_raytracing_experiments_tpu/core/rng.py (hash_2d :78, "
+                "draws :98) at each site of "
+                "cpu_raytracing_experiments_tpu/render/renderer.py "
+                "(_site_state :102, the draws after it, the stratified "
+                "camera jitter)",
     # the planner modes last: phase 14 takes them as tuple(REPLACES)[-7:]
     "cluster_plan[super]": _TK + ":420",
     "cluster_plan[group]": _TK + ":420",
@@ -489,7 +506,7 @@ SPLIT_WALKS = ("closest_kernel", "occluded_kernel",
 FMA_KERNELS = ("flat_kernel", "strided_kernel")  # csrc/fma.cu
 CHECKED = SPLIT_WALKS + ("closest_split_kernel", "plan_kernel",
                          "replay_kernel", "light_rows_kernel",
-                         "merge_kernel") + FMA_KERNELS
+                         "merge_kernel", "site_kernel") + FMA_KERNELS
 # (the kernels that must hold no float64)
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
@@ -537,9 +554,10 @@ def report_kernels(libraries):
         bvh_walk as bw
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         grid_walk as gw
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import rng as rk
 
     for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY, lr.LIBRARY, bw.LIBRARY,
-                gw.LIBRARY):
+                gw.LIBRARY, rk.LIBRARY):
         for fn, c in sass_report(lib).items():
             log(f"    SASS {lib.source.name} {kernel_name(fn)}: "
                 f"{c['instructions']} instructions, {c['f64 arithmetic']} "
@@ -3808,6 +3826,86 @@ def check_shell_paths(torch, np, crt):
     return numbers
 
 
+# phase 21: the counter RNG's site kernel at the benchmark cells' sites:
+# (label, frame, samples a pixel, passes packed into the wavefront, lanes
+# kept of it (the narrowed wavefront) or None, bounces, draws, jitter)
+RNG_SITES = (
+    ("hero nee", (1920, 1088), 1, 4, None, 8, 3, False),
+    ("4k narrowed nee", (3840, 2160), 1, 1, 2_073_600, 8, 3, False),
+    ("preview camera", (1920, 1088), 4, 1, None, 4, 2, True),
+)
+RNG_BOUNCE = 3  # the NEE sites' bounce: offset 2 * bounce
+RNG_ACCUMULATION = 4_000_000_123  # the first pass index, past 2^31
+
+
+def check_rng_sites(torch, timer):
+    """Phase 21: rng.site_draws (the rng_site kernel) against
+    site_draws_plain on the same inputs, bit for bit, at each RNG_SITES
+    site: the pixel seeds of the cell's wavefront (renderer's
+    pixel_seeds_from_index), its lanes narrowed to a seeded subset where
+    the site runs on the narrowed wavefront, one accumulation a lane where
+    passes are packed. Both timed; returns the kernels-line row at the
+    hero's NEE site, the other sites' numbers beside it."""
+    from cpu_raytracing_experiments_tpu_torch.core import rng
+    from cpu_raytracing_experiments_tpu_torch.render import renderer
+    from cpu_raytracing_experiments_tpu_torch.utils.config import \
+        RendererPolicy
+
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    rows = {}
+    for (label, (width, height), spp, packed, kept, bounces, n,
+         jitter) in RNG_SITES:
+        policy = RendererPolicy(max_bounces=bounces, samples_per_pixel=spp)
+        per_pass = width * height * spp
+        ray = torch.arange(per_pass * packed, dtype=torch.int64,
+                           device=DEVICE)
+        if kept is not None:
+            ray = torch.randperm(ray.numel(), generator=gen,
+                                 device=DEVICE)[:kept].sort().values
+        r_in_pass = ray % per_pass
+        seeds = renderer.pixel_seeds_from_index(
+            r_in_pass // spp, width, policy, r_in_pass % spp)
+        acc = (rng.add32(RNG_ACCUMULATION, ray // per_pass) if packed > 1
+               else RNG_ACCUMULATION)
+        offset = 0 if jitter else 2 * RNG_BOUNCE
+        lanes = seeds.numel()
+        del ray, r_in_pass
+
+        def kern():
+            return rng.site_draws(acc, seeds, offset, n, False, jitter=jitter)
+
+        def plain():
+            return rng.site_draws_plain(acc, seeds, offset, n, False,
+                                        jitter=jitter)
+
+        got, want = kern(), plain()
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        log(f"[21 rng_site] {label}: {lanes} lanes, {n} draws"
+            f"{', the jitter' if jitter else ''}, accumulation "
+            f"{'one a lane' if packed > 1 else 'one value'}: {differ} of "
+            f"{got.numel()} draws differ from the plain version")
+        if differ or got.shape != want.shape:
+            raise AssertionError(f"rng_site differs at the {label} site")
+        del got, want
+        ms = timer(kern, 20)
+        plain_ms = timer(plain, 5, warmup=1)
+        nbytes = lanes * (8 + (8 if packed > 1 else 0) + 4 * n)
+        rows[label] = kernel_row(
+            "rng_site", RNG_SOURCE,
+            f"{lanes} lanes x {n} draws ({label})", 0, 0.0, ms, plain_ms,
+            nbytes, 0)
+        log(f"[21 rng_site] {label}: {ms:.4f} ms (bound "
+            f"{rows[label]['bound_ms']:.4f} ms by bytes); plain "
+            f"{plain_ms:.3f} ms")
+        del seeds, acc
+        torch.cuda.empty_cache()
+    main = rows.pop(RNG_SITES[0][0])
+    main["at_other_sites"] = {
+        label: {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+        for label, row in rows.items()}
+    return main
+
+
 def main() -> int:
     import torch
 
@@ -3830,6 +3928,7 @@ def main() -> int:
         grid_walk as gw
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         light_rows as lr
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import rng as rk
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
     from cpu_raytracing_experiments_tpu_torch.utils import native
@@ -3846,7 +3945,7 @@ def main() -> int:
             check=True, timeout=60).stdout.strip())
     t0 = time.perf_counter()
     libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, lr.LIBRARY,
-                 bw.LIBRARY, gw.LIBRARY, native.LIBRARY)
+                 bw.LIBRARY, gw.LIBRARY, rk.LIBRARY, native.LIBRARY)
     build.load_all(libraries)
     log(f"[1] csrc/ built side by side and loaded in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(lib.source.name for lib in libraries)})")
@@ -3892,7 +3991,8 @@ def main() -> int:
     _, hero_path = render(torch, crt, hero,
                           pol(max_bounces=8, rays_per_chunk=1 << 19),
                           1920, 1088, PASSES, "5 hero",
-                          sphere_kernels + FMA_FORMS + ("fma[strided]",))
+                          sphere_kernels + FMA_FORMS
+                          + ("fma[strided]", "rng_site"))
     _, field_path = render(torch, crt, field, pol(max_bounces=8), 512, 512,
                            PASSES, "6 random_spheres 1k brute",
                            sphere_kernels)
@@ -4052,7 +4152,8 @@ def main() -> int:
         _, mesh_paths[name] = render(
             torch, crt, meshes[uv_res], pol(max_bounces=8, accel="pallas",
                                             **kw),
-            *FRAME, 2, f"13 {name}", expect + sphere_kernels,
+            *FRAME, 2, f"13 {name}",
+            expect + sphere_kernels + ("rng_site",),
             idle if uv_res == 224 else idle + resident[1:],
             planned_per_tile if name == "mesh 100k pallas" else None)
     log(f"[13 mesh 100k pallas] clusters planned a tile over one pass: "
@@ -4139,6 +4240,9 @@ def main() -> int:
     shell_paths["phase_s"] = time.perf_counter() - t0
     log(f"[20] the pool, the shell and multi-device checked in "
         f"{shell_paths['phase_s']:.1f} s")
+    log(f"[21] phases 1-20 done at {time.perf_counter() - t_start:.1f} s")
+    rng_row = check_rng_sites(torch, timer)
+    rng_row["launches"] = hero_path["launches"]["rng_site"]
     # each walk's row at the field's camera batch (bvh_occluded's at the
     # field render's own shadow rays), its launches from the field's render
     # under that backend
@@ -4211,7 +4315,7 @@ def main() -> int:
                     + list(fma_rows.values())
                     + list(main_rows.values()) + list(new_rows.values())
                     + list(stream2_rows.values()) + [light_rows_row]
-                    + [walk_main[name] for name in WALKS]}))
+                    + [walk_main[name] for name in WALKS] + [rng_row]}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

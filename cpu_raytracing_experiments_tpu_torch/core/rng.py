@@ -8,12 +8,24 @@ so that no intermediate leaves the int64 range: the low 32 bits of ``a * c``
 are those of ``a * c_lo + ((a * c_hi) mod 2^16) << 16``.
 
 All functions work elementwise on such tensors (or on Python ints).
+
+A site of the renderer (the site state and the draws after it, the
+stratified camera jitter) is one call of ``site_draws``: on the CPU the
+composition of these functions (``site_draws_plain``), on the card one
+launch of ``csrc/rng.cu`` (``ops/kernels/rng.py``), bit for bit the same.
+Draws made eagerly on the card, and the renderer's pixel seeds
+(``render/renderer.py::pixel_seeds_from_index``), count their lanes as
+``rng_eager_lanes`` on the innermost span (``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.kernels import rng as rng_kernel
+from ..utils import profiling
+
 MASK = 0xFFFFFFFF
+GOLDEN_RATIO_CONJUGATE = 0.6180339887498949
 
 
 def u32(x, device=None) -> torch.Tensor:
@@ -57,6 +69,8 @@ def make_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def rand_unit_float(state):
+    if state.is_cuda:
+        profiling.count("rng_eager_lanes", state.numel())
     state, bits = pcg_generate(state)
     return state, make_unit_float(bits)
 
@@ -105,3 +119,56 @@ def draws(state, n: int):
         state, f = rand_unit_float(state)
         outs.append(f)
     return state, outs
+
+
+def site_state(accumulation, counter, scramble: bool):
+    """RNG site state (Renderer.hpp:117/255/362), avalanche-scrambled under
+    `scramble` (``policy.rng_scramble``) to break hash_2d's lattice
+    structure."""
+    state = hash_2d(accumulation, counter)
+    if scramble:
+        state = hash_u32(state)
+    return state
+
+
+def stratified_jitter(accumulation, seeds):
+    """The pixel jitter of ``stratify_camera``: van der Corput in base 2 over
+    the accumulation index (the bitreverse the reference computes but never
+    uses, Renderer.hpp:80) and a golden-ratio second dimension, rotated per
+    pixel (Cranley-Patterson) by hashed-pixel offsets. All sums are >= 0,
+    where ``torch.remainder`` and the JAX package's ``jnp.mod`` are exact."""
+    acc = u32(accumulation, seeds.device)
+    vdc = make_unit_float(bitreverse32(acc))
+    gr = torch.remainder(acc.to(torch.float32) * GOLDEN_RATIO_CONJUGATE, 1.0)
+    ox = make_unit_float(hash_u32(seeds))
+    oy = make_unit_float(hash_u32(seeds ^ 0x9E3779B9))
+    return torch.remainder(vdc + ox, 1.0), torch.remainder(gr + oy, 1.0)
+
+
+def site_draws_plain(accumulation, seeds, offset, n: int, scramble: bool,
+                     want_state: bool = False, jitter: bool = False):
+    """``site_draws`` composed of the functions above."""
+    state = site_state(accumulation, add32(seeds, offset), scramble)
+    state, ds = draws(state, n)
+    if jitter:
+        ds[:2] = stratified_jitter(accumulation, seeds)
+    rows = torch.stack(ds)
+    return (rows, state) if want_state else rows
+
+
+def site_draws(accumulation, seeds, offset, n: int, scramble: bool,
+               want_state: bool = False, jitter: bool = False):
+    """One RNG site: the lane counter add32(seeds, offset), its state
+    ``site_state(accumulation, counter, scramble)`` and `n` sequential
+    draws from it, as an [n, R] float32 tensor (row k the k-th draw), and
+    the state after them where `want_state`. With `jitter` rows 0 and 1 are
+    ``stratified_jitter(accumulation, seeds)`` instead (the draws still
+    advance the state). `seeds` are u32 in an int64 [R] tensor;
+    `accumulation` is an int or one a lane (int64 [R]); `offset` an int or
+    one a lane (int32 [R]). CPU tensors take ``site_draws_plain``; CUDA
+    tensors launch ``csrc/rng.cu`` (n from 1 to 5) or raise."""
+    if seeds.device.type == "cpu":
+        return site_draws_plain(accumulation, seeds, offset, n, scramble,
+                                want_state, jitter)
+    return rng_kernel.site_draws(accumulation, seeds, offset, n, scramble,
+                                 want_state, jitter)

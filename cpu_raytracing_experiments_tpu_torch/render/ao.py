@@ -38,8 +38,7 @@ def _ao_pass(scene: Scene, policy: RendererPolicy, width: int, height: int,
         tfar = torch.where(hit, float(np.float32(radius)), 0.0)
         occluded = torch.zeros_like(tfar)
         for k in range(samples):
-            site = rng.hash_2d(2, rng.add32(seeds, k))
-            _, (u, v) = rng.draws(site, 2)
+            u, v = rng.site_draws(2, seeds, k, 2, False)
             d = sampling.to_world(t_quat, sampling.cosine_hemisphere(u, v))
             occ = intersect.occluded_scene(scene, p_off, d, tfar,
                                            accel=policy.effective_accel)

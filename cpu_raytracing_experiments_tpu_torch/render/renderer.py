@@ -129,7 +129,10 @@ def path_index_from_pixel(i, width: int, policy: RendererPolicy):
 
 def pixel_seeds_from_index(i, width: int, policy: RendererPolicy, sample=None):
     """Per-path base seed (Renderer.hpp:107): path * (2*max_bounces + 1); with
-    samples_per_pixel > 1 the stream index is path * spp + sample."""
+    samples_per_pixel > 1 the stream index is path * spp + sample. Eager
+    u32 arithmetic: its lanes count as ``rng_eager_lanes`` on the card."""
+    if isinstance(i, torch.Tensor) and i.is_cuda:
+        profiling.count("rng_eager_lanes", i.numel())
     path = path_index_from_pixel(i, width, policy)
     spp = policy.samples_per_pixel
     if spp > 1:
@@ -142,51 +145,20 @@ def pixel_seeds(width: int, height: int, policy: RendererPolicy, device=None):
     return pixel_seeds_from_index(i, width, policy)
 
 
-def _site_state(accumulation, counter, policy: RendererPolicy):
-    """RNG site state (Renderer.hpp:117/255/362), avalanche-scrambled under
-    ``policy.rng_scramble`` to break hash_2d's lattice structure."""
-    state = rng.hash_2d(accumulation, counter)
-    if policy.rng_scramble:
-        state = rng.hash_u32(state)
-    return state
-
-
-GOLDEN_RATIO_CONJUGATE = 0.6180339887498949
-
-
-def _stratified_jitter(accumulation, seeds, device):
-    """The pixel jitter of ``stratify_camera``: van der Corput in base 2 over
-    the accumulation index (the bitreverse the reference computes but never
-    uses, Renderer.hpp:80) and a golden-ratio second dimension, rotated per
-    pixel (Cranley-Patterson) by hashed-pixel offsets. All sums are >= 0,
-    where ``torch.remainder`` and the JAX package's ``jnp.mod`` are exact."""
-    if isinstance(accumulation, torch.Tensor) or device.type != "cuda":
-        acc = rng.u32(accumulation, device)
-    else:  # a host value copied to the card: the copy waits for the stream
-        with profiling.sync("stratify_accumulation"):
-            acc = rng.u32(accumulation, device)
-    vdc = rng.make_unit_float(rng.bitreverse32(acc))
-    gr = torch.remainder(acc.to(torch.float32) * GOLDEN_RATIO_CONJUGATE, 1.0)
-    ox = rng.make_unit_float(rng.hash_u32(seeds))
-    oy = rng.make_unit_float(rng.hash_u32(seeds ^ 0x9E3779B9))
-    return torch.remainder(vdc + ox, 1.0), torch.remainder(gr + oy, 1.0)
-
-
 def generate_camera_rays(camera, x, y, accumulation, seeds, enable_dof: bool,
                          policy: RendererPolicy = None) -> Tuple[Vec3, Vec3]:
     """Primary rays (Camera.hpp:80-88 + Renderer.hpp:113-127): pinhole, or
     with `enable_dof` the thin lens the reference declares but never wires
     (Camera.hpp:17-26): a point of the aperture disk, retargeted through the
     focus plane. ``policy.stratify_camera`` replaces the pixel jitter by
-    ``_stratified_jitter``; ``policy.rng_scramble`` scrambles the site
+    ``rng.stratified_jitter``; ``policy.rng_scramble`` scrambles the site
     state. Returns contiguous [R] components, the layout the batteries
     take."""
     policy = policy or RendererPolicy()
     with profiling.span("port.rng"):
-        state = _site_state(accumulation, seeds, policy)
-        state, ds = rng.draws(state, 4 if enable_dof else 2)
-        if policy.stratify_camera:
-            ds[:2] = _stratified_jitter(accumulation, seeds, ds[0].device)
+        ds = rng.site_draws(accumulation, seeds, 0, 4 if enable_dof else 2,
+                            policy.rng_scramble,
+                            jitter=policy.stratify_camera)
     vx = x.to(torch.float32) + ds[0] - camera.half_width
     vy = y.to(torch.float32) + ds[1] - camera.half_height
     origin = Vec3(*(c.expand(vx.shape).contiguous() for c in camera.pos))
@@ -687,24 +659,27 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     zero3 = Vec3(zeros, zeros, zeros)
     if light_count == 0:
         return zero3, torch.zeros_like(hit), None
+    # the site's draws: the light sample's two, then the selection draw,
+    # or under RIS / ReSTIR the state their candidates draw from
+    ris = policy.light_sampling in ("ris", "restir") and light_count > 1
     with profiling.span("port.rng"):
-        site = _site_state(accumulation, add32(seeds, 2 * state.bounce),
-                           policy)
-        site, (t_draw, s_draw) = rng.draws(site, 2)
+        drawn = rng.site_draws(accumulation, seeds, 2 * state.bounce,
+                               2 if ris else 3, policy.rng_scramble,
+                               want_state=ris)
     restir_out = ris_w = light_selection_pdf = None
-    if (policy.light_sampling == "restir" and restir_in is not None
-            and light_count > 1):
-        site, selected, ris_w, restir_out = _select_light_restir(
-            scene, policy, p_offset, site, light_count, restir_in,
-            guides=restir_guides, xy=restir_xy, geom=restir_geom)
-    elif policy.light_sampling in ("ris", "restir") and light_count > 1:
-        site, selected, ris_w = _select_light_ris(scene, policy, p_offset,
-                                                  site, light_count)
-    else:
-        with profiling.span("port.rng"):
-            site, sel_draw = rng.rand_unit_float(site)
+    if not ris:
+        t_draw, s_draw, sel_draw = drawn
         selected, light_selection_pdf = _select_light(
             scene, policy, p_offset, sel_draw, light_count)
+    else:
+        (t_draw, s_draw), site = drawn
+        if policy.light_sampling == "restir" and restir_in is not None:
+            _, selected, ris_w, restir_out = _select_light_restir(
+                scene, policy, p_offset, site, light_count, restir_in,
+                guides=restir_guides, xy=restir_xy, geom=restir_geom)
+        else:
+            _, selected, ris_w = _select_light_ris(scene, policy, p_offset,
+                                                   site, light_count)
 
     l_dir, l_dist, l_pdf, l_emission = zero3, zeros, zeros, zero3
     valid = torch.zeros_like(hit)
@@ -849,22 +824,21 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
 
     # ---- BRDF SAMPLE + RUSSIAN ROULETTE (:357-404) ----
     with profiling.span("port.bsdf"):
+        principled = policy.brdf == "principled"
         with profiling.span("port.rng"):
-            site = _site_state(accumulation,
-                               add32(seeds, 2 * state.bounce + 1), policy)
-            if policy.brdf == "principled":
-                # draw order: lobe, u, v, fresnel, rr
-                site, (lobe_draw, u_draw, v_draw, fres_draw,
-                       rr_draw) = rng.draws(site, 5)
-            else:
-                site, (u_draw, v_draw, rr_draw) = rng.draws(site, 3)
-        if policy.brdf == "principled":
+            drawn = rng.site_draws(accumulation, seeds, 2 * state.bounce + 1,
+                                   5 if principled else 3,
+                                   policy.rng_scramble)
+        if principled:
+            # draw order: lobe, u, v, fresnel, rr
+            lobe_draw, u_draw, v_draw, fres_draw, rr_draw = drawn
             bs = closures.principled_sample(
                 mat["albedo"], mat["f0"], mat["transmission"], mat["alpha"],
                 mat["ior"], ~backface, v_local, lobe_draw, u_draw, v_draw,
                 fres_draw, mat.get("f80"))
             bsdf_delta = bs.is_delta
         else:
+            u_draw, v_draw, rr_draw = drawn
             if policy.brdf == "lambertian":
                 bs = closures.lambert_sample(mat["albedo"], v_local, u_draw,
                                              v_draw)

@@ -1,6 +1,6 @@
 """The camera knobs of the port (``render/renderer.py``:
 ``generate_camera_rays`` with ``enable_dof``, ``stratify_camera`` and
-``rng_scramble``, and ``_site_state``) against the JAX package's jitted
+``rng_scramble``, and ``core/rng.py::site_state``) against the JAX package's jitted
 renderer on the CPU.
 
 Tolerances:
@@ -28,6 +28,7 @@ import torch
 from cpu_raytracing_experiments_tpu.render import renderer as jr
 from cpu_raytracing_experiments_tpu.scene import builders as jbuilders
 from cpu_raytracing_experiments_tpu_torch import Renderer
+from cpu_raytracing_experiments_tpu_torch.core import rng as trng
 from cpu_raytracing_experiments_tpu_torch.render import renderer as tr
 from cpu_raytracing_experiments_tpu_torch.scene import builders as tbuilders
 from cpu_raytracing_experiments_tpu_torch.scene.scene import Scene
@@ -98,16 +99,17 @@ def test_camera_rays_match_jax(knobs, jax_exact_math):
 
 @pytest.mark.parametrize("scramble", [False, True])
 def test_site_state_matches_jax(scramble):
-    """_site_state (Renderer.hpp:117/255/362), plain and avalanche-scrambled
-    by hash_u32 under rng_scramble: equal u32 states."""
+    """The port's site_state against the JAX renderer's _site_state
+    (Renderer.hpp:117/255/362), plain and avalanche-scrambled by hash_u32
+    under rng_scramble: equal u32 states."""
     jpol, tpol = policies(rng_scramble=scramble)
     g = np.random.default_rng(5)
     counter = g.integers(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.uint32)
     for acc in (0, 3, 0xFFFFFFFF):
         want = np.asarray(jax.jit(lambda c: jr._site_state(
             jnp.uint32(acc), c, jpol))(counter)).astype(np.int64)
-        got = tr._site_state(acc, torch.from_numpy(counter.astype(np.int64)),
-                             tpol).numpy()
+        got = trng.site_state(acc, torch.from_numpy(
+            counter.astype(np.int64)), tpol.rng_scramble).numpy()
         np.testing.assert_array_equal(got, want)
 
 

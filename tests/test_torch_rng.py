@@ -6,6 +6,7 @@ minimum); every function must return the JAX package's bits exactly, on the
 same seeded inputs."""
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -109,3 +110,86 @@ def test_rand_bounded_int_parity(range_):
     _same(js, ts)
     _same(jv, tv)
     assert int(tv.max()) < range_
+
+
+# ---------------------------------------------------------------------------
+# core/rng.py::site_draws (its plain version, which the CPU takes)
+# ---------------------------------------------------------------------------
+def _jax_site(acc, seeds, offset, n, scramble):
+    """A site composed of the JAX package's functions: the state of
+    hash_2d(acc, seeds + offset), hash_u32 under `scramble`, then `n`
+    draws: (final state, [n] draws)."""
+    state = jrng.hash_2d(acc, seeds + offset)
+    if scramble:
+        state = jrng.hash_u32(state)
+    return jrng.draws(state, n)
+
+
+def _site_operands(acc_kind, offset_kind):
+    """(seeds, accumulation, offset) as JAX and as port operands: the
+    EDGES and random u32 seeds; an accumulation of one value or one a lane;
+    an offset of one value or an int32 one a lane (the pool's bounces)."""
+    seeds = _u32(11)
+    g = np.random.default_rng(12)
+    acc = _u32(13) if acc_kind == "lane" else np.uint32(0xFFFFFFFE)
+    if offset_kind == "lane":
+        offset = g.integers(0, 2 ** 31, seeds.shape[0]).astype(np.int32)
+        offset[:4] = [0, 1, 15, 2 ** 31 - 1]
+        t_off = torch.from_numpy(offset)
+        j_off = jnp.asarray(offset.astype(np.uint32))
+    else:
+        offset = t_off = 13
+        j_off = jnp.uint32(offset)
+    t_acc = (torch.from_numpy(acc.astype(np.int64)) if acc_kind == "lane"
+             else int(acc))
+    return ((jnp.asarray(seeds), jnp.asarray(acc), j_off),
+            (torch.from_numpy(seeds.astype(np.int64)), t_acc, t_off))
+
+
+@pytest.mark.parametrize("scramble", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("offset_kind", ["int", "lane"])
+@pytest.mark.parametrize("acc_kind", ["scalar", "lane"])
+def test_site_draws_parity(acc_kind, offset_kind, n, scramble):
+    """site_draws on the CPU: every row, and the state under want_state,
+    bit for bit the JAX package's hash_2d / hash_u32 / draws."""
+    (js, ja, jo), (ts, ta, to) = _site_operands(acc_kind, offset_kind)
+    want_state, want = jax.jit(_jax_site, static_argnums=(3, 4))(
+        ja, js, jo, n, scramble)
+    rows = trng.site_draws(ta, ts, to, n, scramble)
+    assert rows.shape == (n, ts.shape[0]) and rows.dtype == torch.float32
+    rows2, state = trng.site_draws(ta, ts, to, n, scramble, want_state=True)
+    _same(want_state, state)
+    for k in range(n):
+        _same(want[k], rows[k])
+        _same(want[k], rows2[k])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("acc_kind", ["scalar", "lane"])
+def test_site_draws_jitter_parity(acc_kind, n):
+    """site_draws(jitter=True) on the CPU: rows 0 and 1 the stratified
+    camera jitter of the JAX renderer's generate_camera_rays (van der
+    Corput, golden ratio, rotated by the hashed seed), the later rows the
+    site's draws 2 and 3, bit for bit."""
+    (js, ja, _), (ts, ta, _) = _site_operands(acc_kind, "int")
+
+    def jax_jitter(acc, seeds):
+        vdc = jrng.make_unit_float(jrng.bitreverse32(acc))
+        gr = jnp.mod(acc.astype(jnp.float32)
+                     * jnp.float32(0.6180339887498949), 1.0)
+        ox = jrng.make_unit_float(jrng.hash_u32(seeds))
+        oy = jrng.make_unit_float(
+            jrng.hash_u32(seeds ^ jnp.uint32(0x9E3779B9)))
+        return jnp.mod(vdc + ox, 1.0), jnp.mod(gr + oy, 1.0)
+
+    jx, jy = jax.jit(jax_jitter)(ja * jnp.ones_like(js), js)
+    _, jd = jax.jit(_jax_site, static_argnums=(3, 4))(ja, js, jnp.uint32(0),
+                                                      n, False)
+    rows = trng.site_draws(ta, ts, 0, n, False, jitter=True)
+    _same(jx, rows[0])
+    _same(jy, rows[1])
+    for k in range(2, n):
+        _same(jd[k], rows[k])
+    tx, ty = trng.stratified_jitter(ta, ts)
+    assert torch.equal(tx, rows[0]) and torch.equal(ty, rows[1])
