@@ -90,7 +90,9 @@ Phases:
  13. the triangle-mesh path at full width, 1920x1088, 8 bounces, default
      knobs, accel='pallas': mesh_scene(uv_res=224) (resident walks),
      mesh_scene(uv_res=810) (the default policy resolves to the streamed
-     walks) and mesh_scene(uv_res=224) with pallas_mxu=True;
+     walks; the walks' counters of one traced pass printed, as the
+     benchmark's cell mesh1p3m.final-1080p reads them) and
+     mesh_scene(uv_res=224) with pallas_mxu=True;
  14. the planners (pallas_plan 'super', 'group', 'tilebox', 'hybrid', the
      sort outside the kernel and the unsorted plan): on the 100,352-triangle
      and the 100,000-sphere tables, each with a group-box pack beside the
@@ -1866,6 +1868,51 @@ def planned_per_tile(r):
          ct.occluded_clustered_pallas) = real
     return {what: planned / max(1, tiles)
             for what, (planned, tiles) in counts.items()}
+
+
+def walk_counts(torch, r):
+    """One more pass of renderer `r` under a profiler session: the cluster
+    walks' counters on its ``port.walk`` spans (``walk_pairs``,
+    ``walk_visits``, ``walk_rays``), summed by walk form and kind, each
+    with its spans' device ms and the least time of its pairs and rays at
+    the card's peaks: what the benchmark's ``stream_walk_roofline_pct``
+    reads (``portbench/walks.py``), and the profiler's device ms of the
+    streamed walk kernels beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpu_raytracing_experiments_tpu_torch.utils import profiling
+    from portbench import peaks, walks
+    from portbench.metrics.stream_walk_ms_per_pass import STREAM
+
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.accumulate(1)
+        torch.cuda.synchronize()
+    recs = profiling.spans()
+    profiling.clear()
+    rows = {}
+    for rec in recs:
+        a = rec["attrs"]
+        if rec["name"] != "port.walk" or "walk_pairs" not in rec["counts"]:
+            continue
+        row = rows.setdefault(f"{a['walk_form']} {a['walk_kind']}", {
+            "calls": 0, "walk_pairs": 0, "walk_visits": 0, "walk_rays": 0,
+            "span_ms": 0.0, "least_ms": 0.0})
+        row["calls"] += 1
+        for name in ("walk_pairs", "walk_visits", "walk_rays"):
+            row[name] += rec["counts"][name]
+        row["span_ms"] += rec["device_ms"] or 0.0
+        row["least_ms"] += 1e3 * peaks.least_seconds(*walks.walk_call(
+            a["walk_prims"], a["walk_kind"], rec["counts"]["walk_pairs"],
+            rec["counts"]["walk_rays"]))
+    kernel_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if STREAM.match(ev.key)) / 1e3
+    log(f"walk counters, one traced pass: {json.dumps(rows)}; streamed "
+        f"walk kernels {kernel_ms:.3f} device ms")
+    if not rows:
+        raise AssertionError("no port.walk span carried the walk counters")
+    return {"walks": rows, "stream_kernel_ms": kernel_ms}
 
 
 def check_against_brute(torch, scene, rays, label):
@@ -4155,7 +4202,8 @@ def main() -> int:
             *FRAME, 2, f"13 {name}",
             expect + sphere_kernels + ("rng_site",),
             idle if uv_res == 224 else idle + resident[1:],
-            planned_per_tile if name == "mesh 100k pallas" else None)
+            {"mesh 100k pallas": planned_per_tile,
+             "mesh 1.3M pallas": lambda r: walk_counts(torch, r)}.get(name))
     log(f"[13 mesh 100k pallas] clusters planned a tile over one pass: "
         f"{mesh_paths['mesh 100k pallas']['probe']}")
 

@@ -1047,14 +1047,15 @@ constexpr int kMaxBlock = 1024;  // threads a block: tile_r * S at most
 // into a slot; `visit_fn(c, rows)` runs the battery on the staged rows
 // (prim k at rows[k * n4 / K]) and returns the tile's new exit bound.
 // Without kExit (stream_replay) the loop takes every visit j < n in order
-// and reads neither `entry_row` nor the bound.
+// and reads neither `entry_row` nor the bound. Returns the visits walked.
 template <bool kExit = true, typename Fetch, typename Visit>
-__device__ __forceinline__ void stream_walk(
+__device__ __forceinline__ int stream_walk(
     const int32_t* __restrict__ visit_row, const float* __restrict__ entry_row,
     int n, float mx, int n4, float4* slots, Fetch fetch, Visit visit_fn) {
   if (n > 0) fetch(slots, visit_row[0]);
   cp_async_commit();
-  for (int j = 0; j < n; ++j) {
+  int j = 0;
+  for (; j < n; ++j) {
     if (kExit && !(entry_row[j] < mx)) break;  // uniform: mx is the block's
     if (j + 1 < n) fetch(slots + ((j + 1) & 1) * n4, visit_row[j + 1]);
     cp_async_commit();
@@ -1063,6 +1064,7 @@ __device__ __forceinline__ void stream_walk(
     mx = visit_fn(visit_row[j], slots + (j & 1) * n4);
   }
   cp_async_wait<0>();  // a copy started for a visit the exit skipped
+  return j;
 }
 
 // Start the copy of cluster c's rows into a slot: 16-byte copies of the
@@ -1162,18 +1164,64 @@ __device__ __forceinline__ Lane lane_of(
   return l;
 }
 
+// The walks' work counters, in the kCount forms of the walk bodies: the
+// overload of each walk kernel that takes a WalkCounts, which the entry
+// points launch where `counts` is not null (the wrapper passes null unless
+// a profiler session records). The kernels without it are the walks' code
+// alone, so the timed path pays nothing for counting; both overloads keep
+// the kernel's name, which the trace's readers match.
+// A kCount walk adds to counts[0] the (valid ray, real prim) pairs it
+// needs, the plain walks' count (ops/kernels/cluster_traverse.py:
+// walk_closest_plain, walk_occluded_plain): the closest walk every ray
+// against every real prim of each visit, the any-hit walk a ray not yet
+// occluded against the real prims up to and including its first occluder
+// in slot order (a thread of the split may test past it: those tests are
+// not counted), and to counts[1] the visits it walks. A cluster's real
+// prims fill its first `filled[c]` slots (every builder of
+// ops/clustered.py packs them so). Each thread sums its ray's pairs, and
+// each warp adds its sum with one atomicAdd when the block is done.
+struct WalkCounts {
+  const int32_t* filled;      // [C] real prims a cluster
+  unsigned long long* counts;  // [2]: pairs, visits
+};
+
+// The block's counts, added once it is done: a warp's pairs summed by
+// shuffles (every thread of the block reaches this), then one atomicAdd a
+// warp, and the visits by thread 0.
+template <bool kCount>
+__device__ __forceinline__ void add_counts(const WalkCounts& wc,
+                                           unsigned long long pairs,
+                                           int visits) {
+  if (!kCount) return;
+  for (int o = 16; o > 0; o >>= 1) {
+    pairs += __shfl_xor_sync(0xffffffffu, pairs, o);
+  }
+  if ((threadIdx.x & 31) == 0 && pairs) atomicAdd(&wc.counts[0], pairs);
+  if (threadIdx.x == 0 && visits) {
+    atomicAdd(&wc.counts[1], static_cast<unsigned long long>(visits));
+  }
+}
+
+// The closest walk's kernel parameters, and their names.
+#define CLOSEST_PARAMS                                                      \
+  const int32_t *__restrict__ nvis, const int32_t *__restrict__ visit,      \
+      const float *__restrict__ entry, const float *__restrict__ root,      \
+      const float *__restrict__ px, const float *__restrict__ py,           \
+      const float *__restrict__ pz, const float *__restrict__ dx,           \
+      const float *__restrict__ dy, const float *__restrict__ dz,           \
+      const float *__restrict__ tf0, const uint8_t *__restrict__ valid,     \
+      const float *__restrict__ table, int n_rays, int tile_r,              \
+      int n_clusters, int k_prims, float *__restrict__ tfar_out,            \
+      int32_t *__restrict__ prim_out
+#define CLOSEST_NAMES                                                       \
+  nvis, visit, entry, root, px, py, pz, dx, dy, dz, tf0, valid, table,      \
+      n_rays, tile_r, n_clusters, k_prims, tfar_out, prim_out
+
 // cluster_closest (kPacked false: the resident [C * K, F] table) and
 // cluster_closest_stream (kPacked: the packed table) in one body.
-template <int kBattery, bool kPacked, int kS>
-__global__ void __launch_bounds__(kMaxBlock) closest_kernel(
-    const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
-    const float* __restrict__ entry, const float* __restrict__ root,
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tf0, const uint8_t* __restrict__ valid,
-    const float* __restrict__ table, int n_rays, int tile_r, int n_clusters,
-    int k_prims, float* __restrict__ tfar_out, int32_t* __restrict__ prim_out) {
+template <int kBattery, bool kPacked, int kS, bool kCount>
+__device__ __forceinline__ void closest_walk(CLOSEST_PARAMS,
+                                             const WalkCounts& wc) {
   extern __shared__ float4 slots[];  // two slots of n4 float4
   __shared__ float s_red[32];
   __shared__ int s_rays[kMaxBlock];
@@ -1195,14 +1243,18 @@ __global__ void __launch_bounds__(kMaxBlock) closest_kernel(
   const Split& sp = l.sp;
   float best = l.tf;
   int32_t best_id = -1;
+  unsigned long long pairs = 0;  // counted only under kCount
   const size_t row = static_cast<size_t>(tile) * n_clusters;
-  stream_walk(
+  const int visits = stream_walk(
       visit + row, entry + row, nvis[tile], block_max(l.bound, s_red),
       (kBattery == kSphere ? 1 : 3) * k_prims, slots,
       [&](float4* slot, int c) {
         fetch_visit<kBattery, kPacked>(slot, table, c, k_prims);
       },
       [&](int c, const float4* rows) {
+        if (kCount && sp.has_ray && sp.s == 0) {
+          pairs += __ldg(&wc.filled[c]);
+        }
         if (sp.warp_live) {
           float tl = INFINITY;  // this thread's slots: least t, first slot
           int kl = k_prims;
@@ -1235,6 +1287,18 @@ __global__ void __launch_bounds__(kMaxBlock) closest_kernel(
     tfar_out[l.i] = best;
     prim_out[l.i] = best_id;
   }
+  add_counts<kCount>(wc, pairs, visits);
+}
+
+template <int kBattery, bool kPacked, int kS>
+__global__ void __launch_bounds__(kMaxBlock) closest_kernel(CLOSEST_PARAMS) {
+  closest_walk<kBattery, kPacked, kS, false>(CLOSEST_NAMES, WalkCounts{});
+}
+
+template <int kBattery, bool kPacked, int kS>
+__global__ void __launch_bounds__(kMaxBlock)
+    closest_kernel(CLOSEST_PARAMS, const WalkCounts wc) {
+  closest_walk<kBattery, kPacked, kS, true>(CLOSEST_NAMES, wc);
 }
 
 // The any-hit test of one staged prim: the sqrt-free sphere predicate, or
@@ -1248,17 +1312,20 @@ __device__ __forceinline__ bool occludes(const Ray& r, float tf,
 
 // Whether one of the staged cluster's prims occludes this thread's ray,
 // over its S threads (an OR: any schedule of the slots gives the same
-// bits). Each thread leaves its slots at its first hit. (A vote of the
-// ray's S threads every 4 slots, so that they leave together, was slower
-// on every table and batch at the wrapper's S, by 0.3-23%: PERF.md.)
+// bits). Each thread leaves its slots at its first hit, whose slot it puts
+// in *first (k_prims where it has none). (A vote of the ray's S threads
+// every 4 slots, so that they leave together, was slower on every table and
+// batch at the wrapper's S, by 0.3-23%: PERF.md.)
 template <int kBattery, int kS>
 __device__ __forceinline__ bool any_hit(const Lane& l, const float4* rows,
-                                        int k_prims, bool need) {
+                                        int k_prims, bool need, int* first) {
   bool hit = false;
-  for (int k = l.sp.s; need && k < k_prims; k += kS) {
+  int k = l.sp.s;
+  for (; need && k < k_prims; k += kS) {
     hit = occludes<kBattery>(l.r, l.tf, rows, k);
     if (hit) break;
   }
+  *first = hit ? k : k_prims;
   for (int o = 1; o < kS; o <<= 1) {
     hit = __shfl_xor_sync(0xffffffffu, static_cast<int>(hit), o) || hit;
   }
@@ -1272,16 +1339,22 @@ __device__ __forceinline__ bool any_hit(const Lane& l, const float4* rows,
 // (Re-packing the unoccluded rays to the front once their count halved won
 // up to 8% on 100,000 spheres' bounce batches and lost up to 3% on the
 // triangle tables, which carry the any-hit time: PERF.md.)
-template <int kBattery, bool kPacked, int kS>
-__global__ void __launch_bounds__(kMaxBlock) occluded_kernel(
-    const int32_t* __restrict__ nvis, const int32_t* __restrict__ visit,
-    const float* __restrict__ entry, const float* __restrict__ root,
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tfar, const float* __restrict__ table,
-    int n_rays, int tile_r, int n_clusters, int k_prims,
-    uint8_t* __restrict__ occ_out) {
+#define OCCLUDED_PARAMS                                                     \
+  const int32_t *__restrict__ nvis, const int32_t *__restrict__ visit,      \
+      const float *__restrict__ entry, const float *__restrict__ root,      \
+      const float *__restrict__ px, const float *__restrict__ py,           \
+      const float *__restrict__ pz, const float *__restrict__ dx,           \
+      const float *__restrict__ dy, const float *__restrict__ dz,           \
+      const float *__restrict__ tfar, const float *__restrict__ table,      \
+      int n_rays, int tile_r, int n_clusters, int k_prims,                  \
+      uint8_t *__restrict__ occ_out
+#define OCCLUDED_NAMES                                                      \
+  nvis, visit, entry, root, px, py, pz, dx, dy, dz, tfar, table, n_rays,    \
+      tile_r, n_clusters, k_prims, occ_out
+
+template <int kBattery, bool kPacked, int kS, bool kCount>
+__device__ __forceinline__ void occluded_walk(OCCLUDED_PARAMS,
+                                              const WalkCounts& wc) {
   extern __shared__ float4 slots[];  // two slots of n4 float4
   __shared__ float s_red[32];
   __shared__ int s_rays[kMaxBlock];
@@ -1297,23 +1370,46 @@ __global__ void __launch_bounds__(kMaxBlock) occluded_kernel(
   const Lane l = lane_of<kS>(pack_live(own_live, t, s_rays, s_scan), base,
                              s_rays, root, px, py, pz, dx, dy, dz, tfar);
   bool occ = false;
+  unsigned long long pairs = 0;  // counted only under kCount
   const size_t row = static_cast<size_t>(tile) * n_clusters;
-  stream_walk(
+  const int visits = stream_walk(
       visit + row, entry + row, nvis[tile], block_max(l.bound, s_red),
       (kBattery == kSphere ? 1 : 3) * k_prims, slots,
       [&](float4* slot, int c) {
         fetch_visit<kBattery, kPacked>(slot, table, c, k_prims);
       },
-      [&](int /*c*/, const float4* rows) {
+      [&](int c, const float4* rows) {
         if (l.sp.warp_live) {
           // every lane of the warp joins any_hit's shuffles
           const bool need = l.sp.has_ray && !occ;
-          const bool hit = any_hit<kBattery, kS>(l, rows, k_prims, need);
+          int first;
+          const bool hit =
+              any_hit<kBattery, kS>(l, rows, k_prims, need, &first);
           occ = occ || (need && hit);
+          if (kCount) {
+            // the ray's first occluder: the least first slot of its S
+            for (int o = 1; o < kS; o <<= 1) {
+              first = min(first, __shfl_xor_sync(0xffffffffu, first, o));
+            }
+            const int real = __ldg(&wc.filled[c]);
+            if (need && l.sp.s == 0) pairs += min(first + 1, real);
+          }
         }
         return block_max((l.sp.has_ray && !occ) ? l.bound : -FLT_MAX, s_red);
       });
   if (l.sp.has_ray && l.sp.s == 0) occ_out[l.i] = occ ? 1 : 0;
+  add_counts<kCount>(wc, pairs, visits);
+}
+
+template <int kBattery, bool kPacked, int kS>
+__global__ void __launch_bounds__(kMaxBlock) occluded_kernel(OCCLUDED_PARAMS) {
+  occluded_walk<kBattery, kPacked, kS, false>(OCCLUDED_NAMES, WalkCounts{});
+}
+
+template <int kBattery, bool kPacked, int kS>
+__global__ void __launch_bounds__(kMaxBlock)
+    occluded_kernel(OCCLUDED_PARAMS, const WalkCounts wc) {
+  occluded_walk<kBattery, kPacked, kS, true>(OCCLUDED_NAMES, wc);
 }
 
 // stream_replay: the streamed walks' staging of one tile's visit list,
@@ -1530,20 +1626,48 @@ extern "C" int cluster_plan_rows(PLAN_ARGS, int chunk, float* entry_out,
 // tile_r * S threads a block, at most 1024). Two slots of one cluster's
 // rows. cluster_closest and cluster_occluded read the resident [C * K, F]
 // table (16-byte aligned), the _stream forms the packed [C * F8, K] one.
-// A walk's kernel template, for walk_for.
+// `filled` [C] and `counts` [2] are WalkCounts': with counts null the walk
+// without counters runs and neither is read.
+// A walk's kernel, for walk_for: the overload without counters (Walk) or
+// with them (CountWalk), resolved by the pointer type.
 struct ClosestWalk {
   template <int kBattery, bool kPacked, int kS>
   static auto kernel() {
-    return &closest_kernel<kBattery, kPacked, kS>;
+    void (*fn)(CLOSEST_PARAMS) = &closest_kernel<kBattery, kPacked, kS>;
+    return fn;
+  }
+};
+
+struct ClosestCountWalk {
+  template <int kBattery, bool kPacked, int kS>
+  static auto kernel() {
+    void (*fn)(CLOSEST_PARAMS, const WalkCounts) =
+        &closest_kernel<kBattery, kPacked, kS>;
+    return fn;
   }
 };
 
 struct OccludedWalk {
   template <int kBattery, bool kPacked, int kS>
   static auto kernel() {
-    return &occluded_kernel<kBattery, kPacked, kS>;
+    void (*fn)(OCCLUDED_PARAMS) = &occluded_kernel<kBattery, kPacked, kS>;
+    return fn;
   }
 };
+
+struct OccludedCountWalk {
+  template <int kBattery, bool kPacked, int kS>
+  static auto kernel() {
+    void (*fn)(OCCLUDED_PARAMS, const WalkCounts) =
+        &occluded_kernel<kBattery, kPacked, kS>;
+    return fn;
+  }
+};
+
+#undef CLOSEST_PARAMS
+#undef CLOSEST_NAMES
+#undef OCCLUDED_PARAMS
+#undef OCCLUDED_NAMES
 
 template <typename Walk>
 using WalkFn = decltype(Walk::template kernel<kSphere, false, 1>());
@@ -1573,9 +1697,8 @@ static WalkFn<Walk> walk_for(int battery, bool packed, int split) {
 
 // Launch walk `Walk` on every tile, `args` the kernel's arguments.
 template <typename Walk, typename... Args>
-static int launch_walk(bool packed, int battery, int split, int n_rays,
-                       int tile_r, int k_prims, void* stream, Args... args) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+static int launch_on(bool packed, int battery, int split, int n_rays,
+                     int tile_r, int k_prims, void* stream, Args... args) {
   const WalkFn<Walk> kernel = walk_for<Walk>(battery, packed, split);
   if (kernel == nullptr || tile_r * split > kMaxBlock) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1589,18 +1712,35 @@ static int launch_walk(bool packed, int battery, int split, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch walk `Walk`, or `CountWalk` with `wc` as its last argument where
+// wc.counts is set.
+template <typename Walk, typename CountWalk, typename... Args>
+static int launch_walk(bool packed, int battery, int split, int n_rays,
+                       int tile_r, int k_prims, void* stream,
+                       const WalkCounts wc, Args... args) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (wc.counts == nullptr) {
+    return launch_on<Walk>(packed, battery, split, n_rays, tile_r, k_prims,
+                           stream, args...);
+  }
+  return launch_on<CountWalk>(packed, battery, split, n_rays, tile_r,
+                              k_prims, stream, args..., wc);
+}
+
 #define CLOSEST_ARGS                                                        \
   const int32_t *nvis, const int32_t *visit, const float *entry,            \
       const float *root, const float *px, const float *py, const float *pz, \
       const float *dx, const float *dy, const float *dz, const float *tf0,  \
       const uint8_t *valid, const float *table, int battery, int split,     \
       int n_rays, int tile_r, int n_clusters, int k_prims, float *tfar_out, \
-      int32_t *prim_out, void *stream
-#define CLOSEST_LAUNCH(packed)                                               \
-  launch_walk<ClosestWalk>(packed, battery, split, n_rays, tile_r, k_prims, \
-                           stream, nvis, visit, entry, root, px, py, pz, dx, \
-                           dy, dz, tf0, valid, table, n_rays, tile_r,        \
-                           n_clusters, k_prims, tfar_out, prim_out)
+      int32_t *prim_out, const int32_t *filled, unsigned long long *counts, \
+      void *stream
+#define CLOSEST_LAUNCH(packed)                                              \
+  launch_walk<ClosestWalk, ClosestCountWalk>(                               \
+      packed, battery, split, n_rays, tile_r, k_prims, stream,              \
+      WalkCounts{filled, counts}, nvis, visit, entry, root, px, py, pz, dx, \
+      dy, dz, tf0, valid, table, n_rays, tile_r, n_clusters, k_prims,       \
+      tfar_out, prim_out)
 
 extern "C" int cluster_closest(CLOSEST_ARGS) { return CLOSEST_LAUNCH(false); }
 
@@ -1616,12 +1756,13 @@ extern "C" int cluster_closest_stream(CLOSEST_ARGS) {
       const float *root, const float *px, const float *py, const float *pz, \
       const float *dx, const float *dy, const float *dz, const float *tfar, \
       const float *table, int battery, int split, int n_rays, int tile_r,   \
-      int n_clusters, int k_prims, uint8_t *occ_out, void *stream
-#define OCCLUDED_LAUNCH(packed)                                               \
-  launch_walk<OccludedWalk>(packed, battery, split, n_rays, tile_r, k_prims, \
-                            stream, nvis, visit, entry, root, px, py, pz,    \
-                            dx, dy, dz, tfar, table, n_rays, tile_r,         \
-                            n_clusters, k_prims, occ_out)
+      int n_clusters, int k_prims, uint8_t *occ_out, const int32_t *filled, \
+      unsigned long long *counts, void *stream
+#define OCCLUDED_LAUNCH(packed)                                             \
+  launch_walk<OccludedWalk, OccludedCountWalk>(                             \
+      packed, battery, split, n_rays, tile_r, k_prims, stream,              \
+      WalkCounts{filled, counts}, nvis, visit, entry, root, px, py, pz, dx, \
+      dy, dz, tfar, table, n_rays, tile_r, n_clusters, k_prims, occ_out)
 
 extern "C" int cluster_occluded(OCCLUDED_ARGS) {
   return OCCLUDED_LAUNCH(false);

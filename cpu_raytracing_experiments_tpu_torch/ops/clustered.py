@@ -64,6 +64,9 @@ class ClusteredPrims:
     # supercluster boxes, each the union of SUPER consecutive clusters
     # (derived; pallas_plan='super' culls against them first)
     supers: Optional[torch.Tensor] = None
+    # [C] int32 real prims a cluster (derived; every builder here puts them
+    # in a cluster's first slots): what the walk kernels' counters read
+    filled: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.root is None:
@@ -83,6 +86,10 @@ class ClusteredPrims:
             self.supers = torch.stack(
                 [union(a, 1e30, torch.amin) for a in self.lo]
                 + [union(a, -1e30, torch.amax) for a in self.hi])
+        if self.filled is None:
+            self.filled = (self.order.view(self.num_clusters,
+                                           self.cluster_size) >= 0).sum(
+                dim=1, dtype=torch.int32)
 
     def to(self, device) -> "ClusteredPrims":
         return dataclasses.replace(
@@ -92,6 +99,7 @@ class ClusteredPrims:
             glo=None if self.glo is None else self.glo.to(device),
             ghi=None if self.ghi is None else self.ghi.to(device),
             root=self.root.to(device), supers=self.supers.to(device),
+            filled=self.filled.to(device),
             packed=None if self.packed is None else self.packed.to(device))
 
     @staticmethod

@@ -21,7 +21,11 @@ Each of the three steps has two forms in this module:
   launched for CUDA tensors by ``_plan_visits`` / ``plan_rows``,
   ``walk_closest`` and ``walk_occluded``, or they raise; nothing falls
   back. Each counts its launches (``PLAN``, ``PLAN_SUPER``, ``PLAN_GROUP``,
-  ``PLAN_ROWS``, ``CLOSEST``, ``OCCLUDED``).
+  ``PLAN_ROWS``, ``CLOSEST``, ``OCCLUDED``). While a profiler session
+  records, the walks also count their work, in the kernel on the card and
+  in the plain version on the CPU, on the ``port.walk`` span
+  (``_count_walk``: ``walk_pairs``, ``walk_visits``, ``walk_rays``); that
+  span says which walk ran (``walk_form``, ``walk_kind``, ``walk_prims``).
 
 The planner has the JAX module's modes (``plan``), each the same function
 there and here:
@@ -164,7 +168,7 @@ def device_bytes(cp: ClusteredPrims) -> int:
     """Bytes of every tensor the pack holds now, the packed table of the
     streamed walks included once it is made."""
     tensors = (cp.rows, cp.order, *cp.lo, *cp.hi, cp.planes, cp.root,
-               cp.packed)
+               cp.packed, cp.filled)
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
@@ -645,11 +649,12 @@ def _bind(lib: ctypes.CDLL):
                                       + [i32] * 4 + [ptr] * 2)
     for fn in (lib.cluster_plan, lib.cluster_plan_rows):
         fn.restype = i32
-    # the walks take the split S after the battery code
-    lib.cluster_closest.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 3
-    lib.cluster_occluded.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 2
-    lib.cluster_closest_stream.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 3
-    lib.cluster_occluded_stream.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 2
+    # the walks take the split S after the battery code, and the counters'
+    # `filled` and `counts` before the stream
+    lib.cluster_closest.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 5
+    lib.cluster_occluded.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 4
+    lib.cluster_closest_stream.argtypes = [ptr] * 13 + [i32] * 6 + [ptr] * 5
+    lib.cluster_occluded_stream.argtypes = [ptr] * 12 + [i32] * 6 + [ptr] * 4
     for fn in (lib.cluster_closest, lib.cluster_occluded,
                lib.cluster_closest_stream, lib.cluster_occluded_stream):
         fn.restype = i32
@@ -907,16 +912,91 @@ def _walk_split(counter: LaunchCounter, t_tiles: int, tile_r: int,
 
 def _walk_kernel(cp: ClusteredPrims, mxu: bool, stream: bool, resident,
                  streamed, product):
-    """(counter, battery code) of the kernel form the keywords select, out
-    of a walk's three LaunchCounters."""
+    """(counter, battery code) of the kernel form the keywords select
+    (``walk_form``), out of a walk's three LaunchCounters."""
     if stream and mxu:
         raise ValueError("the streamed walks exclude the product-form "
                          "battery (stream=True with mxu=True)")
-    if stream:
-        return streamed, int(cp.kind == "triangle")
-    if _uses_mxu(cp, mxu):
+    form = walk_form(cp, mxu, stream)
+    if form == "product":
         return product, _TRIANGLE_PRODUCT
-    return resident, _TRIANGLE if cp.kind == "triangle" else _SPHERE
+    battery = _TRIANGLE if cp.kind == "triangle" else _SPHERE
+    return (streamed if form == "streamed" else resident), battery
+
+
+# ---------------------------------------------------------------------------
+# The walks' counters
+# ---------------------------------------------------------------------------
+WALK_COUNT_ROWS = 1 << 16  # counted launches one counter buffer serves
+
+
+class _CountRows:
+    """A card's counter buffer: [WALK_COUNT_ROWS, 2] int64 zeros, one row
+    (pairs, visits) a counted walk launch, handed out in turn. A full
+    buffer is replaced by a new one and never written again, so the rows
+    that recorded spans still hold keep their counts until they are read."""
+
+    def __init__(self, device):
+        self.rows = torch.zeros((WALK_COUNT_ROWS, 2), dtype=torch.int64,
+                                device=device)
+        self.used = 0
+
+
+_COUNT_ROWS = {}  # card index -> _CountRows
+
+
+def _count_row(name: str, cp: ClusteredPrims, device):
+    """The counter row of one walk launch while a profiler session records
+    spans (``profiling.recording``, the test ``profiling.span`` makes),
+    else None: then the launch passes null and the kernel counts nothing.
+    Allocates only when a card's buffer is first needed or full."""
+    if not profiling.recording():
+        return None
+    _check(name, device, (cp.filled,), torch.int32, cp.num_clusters)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    buf = _COUNT_ROWS.get(index)
+    if buf is None or buf.used == WALK_COUNT_ROWS:
+        buf = _COUNT_ROWS[index] = _CountRows(torch.device("cuda", index))
+    row = buf.rows[buf.used]
+    buf.used += 1
+    return row
+
+
+def _count_args(cp: ClusteredPrims, row) -> list:
+    """The walks' `filled` and `counts` arguments: null without a row."""
+    if row is None:
+        return [None, None]
+    return [cp.filled.data_ptr(), row.data_ptr()]
+
+
+def _count_walk(pairs, visits, rays: int):
+    """The counters of one walk call, on the innermost open span
+    (``port.walk``): ``walk_pairs``, the (valid ray, real prim) pairs the
+    walk needs; ``walk_visits``, the (tile, cluster) visits it walks; both 0-d
+    device tensors on the card (summed when the spans are read), ints on the
+    CPU; and ``walk_rays``, the rays it was given."""
+    profiling.count("walk_pairs", pairs)
+    profiling.count("walk_visits", visits)
+    profiling.count("walk_rays", rays)
+
+
+def _plain_counted(plain, n: int, *args, **kw):
+    """``plain(*args, **kw)``, a plain walk of `n` rays, counted on the
+    innermost span while a profiler session records."""
+    stats = {} if profiling.recording() else None
+    out = plain(*args, stats=stats, **kw)
+    if stats is not None:
+        _count_walk(stats.get("pairs", 0), stats.get("visits", 0), n)
+    return out
+
+
+def walk_form(cp: ClusteredPrims, mxu: bool, stream: bool) -> str:
+    """The walk kernel's form the keywords select: 'streamed', 'product'
+    (the product-form triangle battery) or 'resident'."""
+    if stream:
+        return "streamed"
+    return "product" if _uses_mxu(cp, mxu) else "resident"
 
 
 def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
@@ -931,11 +1011,11 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     device = tf0.device
     counter, battery = _walk_kernel(cp, mxu, stream, CLOSEST, CLOSEST_STREAM,
                                     CLOSEST_MXU)
-    if device.type == "cpu":
-        return walk_closest_plain(
-            cp, visit, entry, nvis, p, d, tf0, valid, tile_r, mxu=mxu,
-            packed=_tables_packed(cp) if stream else None)
     n = tf0.shape[0]
+    if device.type == "cpu":
+        return _plain_counted(
+            walk_closest_plain, n, cp, visit, entry, nvis, p, d, tf0, valid,
+            tile_r, mxu=mxu, packed=_tables_packed(cp) if stream else None)
     table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tf0),
                         visit, entry, nvis, stream)
     _check(counter.name, device, (valid,), torch.bool, n)
@@ -944,14 +1024,18 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     tfar = torch.empty(n, dtype=torch.float32, device=device)
     prim = torch.empty(n, dtype=torch.int32, device=device)
     split = _walk_split(counter, visit.shape[0], tile_r, device)
+    row = _count_row(counter.name, cp, device)
     build.launch(counter.name,
                  lib.cluster_closest_stream if stream else lib.cluster_closest,
                  device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tf0, valid, table)]
                  + [battery, split, n, tile_r, cp.num_clusters,
-                    cp.cluster_size, tfar.data_ptr(), prim.data_ptr()])
+                    cp.cluster_size, tfar.data_ptr(), prim.data_ptr()]
+                 + _count_args(cp, row))
     counter.add()
+    if row is not None:
+        _count_walk(row[0], row[1], n)
     return tfar, prim
 
 
@@ -965,25 +1049,28 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     device = tfar.device
     counter, battery = _walk_kernel(cp, mxu, stream, OCCLUDED,
                                     OCCLUDED_STREAM, OCCLUDED_MXU)
-    if device.type == "cpu":
-        return walk_occluded_plain(
-            cp, visit, entry, nvis, p, d, tfar, tile_r, mxu=mxu,
-            packed=_tables_packed(cp) if stream else None)
     n = tfar.shape[0]
+    if device.type == "cpu":
+        return _plain_counted(
+            walk_occluded_plain, n, cp, visit, entry, nvis, p, d, tfar,
+            tile_r, mxu=mxu, packed=_tables_packed(cp) if stream else None)
     table = _check_walk(counter.name, cp, device, n, tile_r, (*p, *d, tfar),
                         visit, entry, nvis, stream)
     root = _root_row(cp)
     lib = LIBRARY.load()
     occ = torch.empty(n, dtype=torch.bool, device=device)
     split = _walk_split(counter, visit.shape[0], tile_r, device)
+    row = _count_row(counter.name, cp, device)
     build.launch(counter.name,
                  lib.cluster_occluded_stream if stream
                  else lib.cluster_occluded, device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tfar, table)]
                  + [battery, split, n, tile_r, cp.num_clusters,
-                    cp.cluster_size, occ.data_ptr()])
+                    cp.cluster_size, occ.data_ptr()] + _count_args(cp, row))
     counter.add()
+    if row is not None:
+        _count_walk(row[0], row[1], n)
     return occ
 
 
@@ -1145,7 +1232,8 @@ def intersect_clustered_pallas(
         plan_tf = torch.where(alive, tfar0, 0.0)
     visit, entry, nvis = _planned(cp, p, d, plan_tf, valid, tile_r, plan,
                                   sort, sort_impl)
-    with profiling.span("port.walk"):
+    with profiling.span("port.walk", walk_form=walk_form(cp, mxu, stream),
+                        walk_kind="closest", walk_prims=cp.kind):
         tfar, packed = walk_closest(cp, visit, entry, nvis, p, d, tfar0,
                                     valid, tile_r, mxu=mxu, stream=stream)
     orig = torch.where(packed >= 0,
@@ -1165,7 +1253,8 @@ def occluded_clustered_pallas(cp: ClusteredPrims, p: Vec3, d: Vec3, tfar,
     _check_forms(cp, mxu, stream)
     visit, entry, nvis = _planned(cp, p, d, tfar, tfar > 0.0, tile_r, plan,
                                   sort, sort_impl)
-    with profiling.span("port.walk"):
+    with profiling.span("port.walk", walk_form=walk_form(cp, mxu, stream),
+                        walk_kind="anyhit", walk_prims=cp.kind):
         return walk_occluded(cp, visit, entry, nvis, p, d, tfar, tile_r,
                              mxu=mxu, stream=stream)
 

@@ -104,6 +104,13 @@ def with_grid(scene: Scene, res: int = 32, max_per_cell: int = 16) -> Scene:
                                tri_grid=tri_grid)
 
 
+def auto_cluster_size(prims: int) -> int:
+    """cluster_size='auto' for a scene whose larger pack holds `prims`
+    prims: 64 below 50,000, 128 below 200,000, else 256 (the JAX package's
+    pick)."""
+    return 64 if prims < 50_000 else (128 if prims < 200_000 else 256)
+
+
 def with_pallas_clusters(scene: Scene, cluster_size="auto",
                          method: str = "sah", fill_window: int = 1,
                          group_boxes: bool = False) -> Scene:
@@ -127,8 +134,7 @@ def with_pallas_clusters(scene: Scene, cluster_size="auto",
             p = scene.spheres.count
             if scene.triangles is not None:
                 p = max(p, scene.triangles.count)
-            cluster_size = 64 if p < 50_000 else (128 if p < 200_000
-                                                  else 256)
+            cluster_size = auto_cluster_size(p)
         if method == "sah":
             return _with_sah_clusters(scene, cluster_size, fill_window,
                                       group_boxes)

@@ -95,11 +95,16 @@ class _Span:
         return False
 
 
+def recording() -> bool:
+    """Whether a profiler session records, so that spans and counters do."""
+    return _profiler_enabled()
+
+
 def span(name: str, **attrs):
     """A context manager that records stage `name` with `attrs` while a
     profiler session records (an ``update_id`` attr is inherited by the
     spans inside), else the shared no-op ``NO_SPAN``."""
-    if not _profiler_enabled():
+    if not recording():
         return NO_SPAN
     return _Span(name, attrs)
 
