@@ -18,7 +18,9 @@ JSON lines:
             time inside a port.* span other than port.update), and device
             and self ms a pass by span name, every counter summed over
             the spans a pass (``launches.<kernel>``, ``host_syncs``,
-            ``rng_eager_lanes``, ...); the self ms of each update's spans
+            ``rng_eager_lanes``, ``nee_kernel_lanes``,
+            ``nee_eager_lanes``, ...; the four of REPORTED always, 0 where
+            nothing counted them); the self ms of each update's spans
             against its port.update device ms;
   overhead  `--rounds` times (on, off, off, on) the same traced window with
             the spans recording and with ``profiling.span`` replaced by the
@@ -46,6 +48,10 @@ sys.path.insert(0, ROOT)
 PKG = "cpu_raytracing_experiments_tpu_torch"
 # what torch.cuda.set_sync_debug_mode('warn') says at each synchronising op
 SYNC_WARNING = "called a synchronizing CUDA operation"
+# counters reported a pass even where no span counted them (0 then): which
+# path shaded NEE, and the NEE kernels' launches
+REPORTED = ("nee_kernel_lanes", "nee_eager_lanes", "launches.nee_sphere",
+            "launches.nee_combine")
 READERS = ("host_syncs_per_pass", "sync_idle_pct", "live_lane_pct",
            "rng_ms_per_pass", "shade_ms_per_pass", "intersect_ms_per_pass",
            "launches_per_pass", "device_idle_pct", "aten_ms_per_pass")
@@ -156,7 +162,7 @@ def traced(r, k: int, updates: int, cell: str) -> dict:
                  if n.startswith("port.") and n != "port.update")
     dev = collections.Counter()
     own = collections.Counter()
-    counts = collections.Counter()
+    counts = collections.Counter(dict.fromkeys(REPORTED, 0))
     for x in recs:
         dev[x["name"]] += x["device_ms"] / tr.passes
         own[x["name"]] += x["self_ms"] / tr.passes

@@ -5,14 +5,15 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py    # every phase, always; needs one CUDA card
 
 Phases:
-  1. device info and the build of csrc/ (the seven CUDA sources with nvcc
-     for sm_90a and the host tree builder with g++, the eight compilers
+  1. device info and the build of csrc/ (the eight CUDA sources with nvcc
+     for sm_90a and the host tree builder with g++, the nine compilers
      started together); -Xptxas -v of both planners, every walk (the BVH
-     and grid walks too), both sphere batteries and the fma kernels
-     (registers, spills, shared memory), the float64 instructions in the
-     SASS of every kernel of the seven CUDA sources (cuobjdump): a planner,
-     a walk, a battery, an fma kernel or the RNG site kernel with any fails
-     the run; the SASS
+     and grid walks too), both sphere batteries, the fma kernels and the
+     NEE kernels (registers, spills, shared memory), the float64
+     instructions in the SASS of every kernel of the eight CUDA sources
+     (cuobjdump): a planner, a walk, a battery, an fma kernel, the RNG site
+     kernel or nee_combine with any fails the run (nee_sphere's sin and cos
+     are float64, as fp.sin / fp.cos); the SASS
      opcodes of the flat planner, sphere_closest and sphere_occluded, and
      the card's clock, for their issue floors;
   2. every form of the fma kernels against its plain version (fp.fma_plain
@@ -45,7 +46,8 @@ Phases:
      at the bar of tests/test_goldens.py::_check;
   5. the hero path: the hero scene at 1920x1088, 8 bounces, 2^19 rays per
      chunk, through Renderer.accumulate, with the kernels' launch counts
-     (every fma form among them) and, over one profiled pass, the kernel
+     (every fma form among them but to_local and the strided form, which
+     only the plain NEE launches: the NEE kernels shade it here) and, over one profiled pass, the kernel
      launches of the pass and those of the fma kernels;
   6. the 1000-sphere random_spheres_scene at 512x512, 8 bounces, brute;
   7. the three cluster kernels (planner, closest walk, any-hit walk)
@@ -204,7 +206,17 @@ Phases:
      wavefront (2,073,600 of 3840x2160's lanes, 3 draws) and the preview's
      camera site (1920x1088 at 4 samples a pixel, the stratified jitter, 2
      rows); the kernel's and the plain version's times; its launches are
-     those of phase 5's hero path (phase 13's mesh paths launch it too).
+     those of phase 5's hero path (phase 13's mesh paths launch it too);
+ 22. NEE toward sphere lights (check_nee_sites): at every bounce of one
+     wavefront of the hero cell (1920x1088, 4 passes packed, 8,355,840
+     lanes, 3 lights) and of the 4K cell (mesh100k at 3840x2160, narrowed),
+     nee_sphere and nee_combine against the plain path
+     (renderer._next_event_estimation and its add, the shadow query
+     answered alike): l_dir, tfar, valid and the radiance bit for bit; their
+     time a pass beside their byte bound, with the site's draws, and the
+     plain composite's; over one profiled hero pass on each path, the
+     int64 light-row gather (vectorized_gather_kernel) launched by the
+     plain path only and nee_sphere once a bounce.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
@@ -212,7 +224,8 @@ keyed "kernels" lists every kernel: the five of the sphere paths, the seven
 forms of the fma kernels, every walk with its S, the walks with the
 product-form battery, the seven planner modes of phase 14, and phase 15's
 stream_replay and prefix launch, phase 17's light_rows, phase 19's four
-walks, phase 21's rng_site at the hero's NEE site), the
+walks, phase 21's rng_site at the hero's NEE site, phase 22's nee_sphere
+with nee_combine a pass of the hero cell), the
 clusters planned and walked per tile under each planner, phase 16's numbers
 (keyed "shading_paths"), phase 17's (keyed "light_paths"), phase 18's (keyed
 "host_paths"), phase 19's walks at their other shapes and its paths (keyed
@@ -223,6 +236,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -246,6 +260,7 @@ CLUSTER_SOURCE = \
 FMA_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/fma.cu"
 LIGHT_ROWS_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/light_rows.cu"
 RNG_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/rng.cu"
+NEE_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/nee.cu"
 _TK = "cpu_raytracing_experiments_tpu/ops/pallas/traverse_kernel.py"
 REPLACES = {
     **{name: "none: the single-rounding a*b + c that XLA contracts in the "
@@ -288,6 +303,10 @@ REPLACES = {
                 "cpu_raytracing_experiments_tpu/render/renderer.py "
                 "(_site_state :102, the draws after it, the stratified "
                 "camera jitter)",
+    "nee_sphere": "none: XLA's fusion of "
+                  "cpu_raytracing_experiments_tpu/render/renderer.py "
+                  "(_next_event_estimation :543, under the lambertian "
+                  "closure, uniform selection and sphere lights)",
     # the planner modes last: phase 14 takes them as tuple(REPLACES)[-7:]
     "cluster_plan[super]": _TK + ":420",
     "cluster_plan[group]": _TK + ":420",
@@ -508,8 +527,10 @@ SPLIT_WALKS = ("closest_kernel", "occluded_kernel",
 FMA_KERNELS = ("flat_kernel", "strided_kernel")  # csrc/fma.cu
 CHECKED = SPLIT_WALKS + ("closest_split_kernel", "plan_kernel",
                          "replay_kernel", "light_rows_kernel",
-                         "merge_kernel", "site_kernel") + FMA_KERNELS
-# (the kernels that must hold no float64)
+                         "merge_kernel", "site_kernel",
+                         "nee_combine_kernel") + FMA_KERNELS
+# (the kernels that must hold no float64; nee_sphere_kernel's sin and cos
+# are float64 by design, as fp.sin / fp.cos)
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
 # templates)
@@ -542,7 +563,7 @@ def report_kernels(libraries):
     for lib in libraries:
         frames = stack_frames(lib.build_log)
         for fn, regs, (st, ld), smem in ptxas_report(
-                lib.build_log, CHECKED):
+                lib.build_log, CHECKED + ("nee_sphere_kernel",)):
             log(f"    ptxas {lib.source.name} {kernel_name(fn)}: {regs} "
                 f"registers, spill "
                 f"stores {st} B, spill loads {ld} B, {smem} B static shared, "
@@ -556,10 +577,11 @@ def report_kernels(libraries):
         bvh_walk as bw
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         grid_walk as gw
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import nee as nk
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import rng as rk
 
     for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY, lr.LIBRARY, bw.LIBRARY,
-                gw.LIBRARY, rk.LIBRARY):
+                gw.LIBRARY, rk.LIBRARY, nk.LIBRARY):
         for fn, c in sass_report(lib).items():
             log(f"    SASS {lib.source.name} {kernel_name(fn)}: "
                 f"{c['instructions']} instructions, {c['f64 arithmetic']} "
@@ -3953,6 +3975,201 @@ def check_rng_sites(torch, timer):
     return main
 
 
+# phase 22: NEE toward sphere lights (csrc/nee.cu) at the benchmark cells'
+# shapes: (label, scene, frame, passes packed into the wavefront); every
+# bounce of one wavefront is captured
+NEE_SITES = (
+    ("hero", "hero", (1920, 1088), 4),
+    ("4k", "mesh", (3840, 2160), 1),
+)
+NEE_ACCUMULATION = 4_000_000_123  # the first pass index, past 2^31
+
+
+def nee_bounces(torch, crt, scene, width, height, packed):
+    """The operands of renderer._nee_sphere_kernels at every bounce of one
+    wavefront of `packed` passes (REFERENCE_FIXED at 8 bounces, 2^23 lanes
+    a chunk, as the cells run), each bounce's shadow-query answer with
+    them."""
+    from cpu_raytracing_experiments_tpu_torch.ops import intersect
+    from cpu_raytracing_experiments_tpu_torch.render import renderer
+
+    got = []
+    real = renderer._nee_sphere_kernels
+
+    def capture(scene_, policy, state, accumulation, seeds, hit, prim_id,
+                is_tri, p_offset, t_quat, mat, radiance):
+        out = real(scene_, policy, state, accumulation, seeds, hit, prim_id,
+                   is_tri, p_offset, t_quat, mat, radiance)
+        l_dir, tfar, valid, _ = renderer.nee_kernel.nee_sphere(
+            hit, prim_id, is_tri, p_offset, t_quat, mat["albedo"],
+            state.throughput,
+            renderer.rng.site_draws(accumulation, seeds, 2 * state.bounce, 3,
+                                    policy.rng_scramble),
+            renderer._sphere_light_table(scene_))
+        occluded = intersect.occluded_scene(
+            scene_, p_offset, l_dir, tfar, accel=policy.effective_accel,
+            policy=policy)
+        got.append(dict(scene=scene_, policy=policy, state=state,
+                        accumulation=accumulation, seeds=seeds, hit=hit,
+                        prim_id=prim_id, is_tri=is_tri, p_offset=p_offset,
+                        t_quat=t_quat, mat={"albedo": mat["albedo"]},
+                        radiance=radiance, occluded=occluded))
+        return out
+
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 23,
+                                **({"accel": "pallas"} if scene.triangles
+                                   is not None else {}))
+    r = crt.Renderer(scene, policy, width, height)
+    # the window's first pass past 2^31, as the harness's seeds put it
+    r.state = dataclasses.replace(r.state, accumulations=NEE_ACCUMULATION)
+    renderer._nee_sphere_kernels = capture
+    try:
+        r.accumulate(packed)
+    finally:
+        renderer._nee_sphere_kernels = real
+    return got
+
+
+def check_nee_sites(torch, crt, timer, mesh_scene):
+    """Phase 22: at every bounce of the hero cell's wavefront (1920x1088,
+    4 passes packed, 8,355,840 lanes, 3 lights) and of the 4K cell's
+    (3840x2160 on mesh100k, 8,294,400 lanes, narrowed), nee_sphere and
+    nee_combine against the plain path (_next_event_estimation and its add,
+    the shadow query answered alike), l_dir, tfar, valid and the radiance
+    bit for bit; the kernels' time a pass beside their byte bound, with the
+    site's draws and against the plain composite's; and over one profiled
+    hero pass, no int64 row gather (vectorized_gather_kernel) left, with the
+    plain path's for comparison. Returns the kernels-line row at the hero's
+    shape, the 4K cell's numbers beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpu_raytracing_experiments_tpu_torch.ops import intersect
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import nee as nk
+    from cpu_raytracing_experiments_tpu_torch.render import renderer
+
+    rows = {}
+    for label, kind, (width, height), packed in NEE_SITES:
+        scene = (crt.builders.default_scene(width, height).to(DEVICE)
+                 if kind == "hero" else mesh_scene)
+        bounces = nee_bounces(torch, crt, scene, width, height, packed)
+        ms = {"kernels": 0.0, "with draws": 0.0, "plain": 0.0}
+        nbytes = 0
+        shapes = []
+        for k, b in enumerate(bounces):
+            hit, n = b["hit"], b["hit"].shape[0]
+            table = renderer._sphere_light_table(b["scene"])
+            draws = renderer.rng.site_draws(
+                b["accumulation"], b["seeds"], 2 * b["state"].bounce, 3,
+                b["policy"].rng_scramble)
+
+            def kernels(draws=draws, b=b, table=table):
+                l_dir, tfar, valid, sh = nk.nee_sphere(
+                    b["hit"], b["prim_id"], b["is_tri"], b["p_offset"],
+                    b["t_quat"], b["mat"]["albedo"], b["state"].throughput,
+                    draws, table)
+                return (l_dir, tfar, valid, nk.nee_combine(
+                    b["radiance"], valid, b["occluded"], sh))
+
+            def with_draws(b=b, table=table):
+                d = renderer.rng.site_draws(
+                    b["accumulation"], b["seeds"], 2 * b["state"].bounce, 3,
+                    b["policy"].rng_scramble)
+                return kernels(d, b, table)
+
+            seen = {}
+
+            def answer(scene_, p, d, tfar, b=b, **kw):
+                seen["d"], seen["tfar"] = d, tfar
+                return b["occluded"]
+
+            def plain(b=b):
+                nee, valid, _ = renderer._next_event_estimation(
+                    b["scene"], b["policy"], b["state"], b["accumulation"],
+                    b["seeds"], b["hit"], b["prim_id"], b["is_tri"],
+                    b["p_offset"], b["t_quat"], None, b["mat"])
+                return valid, b["radiance"] + nee
+
+            real = intersect.occluded_scene
+            intersect.occluded_scene = answer
+            try:
+                valid_p, rad_p = plain()
+                l_dir, tfar, valid, rad = kernels()
+                differ = sum(
+                    int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                    for x, y in zip((*l_dir, tfar, *rad),
+                                    (*seen["d"], seen["tfar"], *rad_p)))
+                differ += int((valid != valid_p).sum())
+                if differ:
+                    raise AssertionError(
+                        f"[22 nee] {label} bounce {k}: {differ} values of "
+                        "the kernels differ from the plain path")
+                live = int(hit.sum())
+                lit = int((valid & ~b["occluded"]).sum())
+                shapes.append((n, live, int(valid.sum())))
+                # nee_sphere: a live lane reads 78 B, every lane its mask
+                # and 29 B of outputs; nee_combine: the radiance, the masks
+                # and the new radiance, the shadow radiance where it adds
+                nbytes += live * 78 + n * 30 + n * 26 + lit * 12
+                ms["kernels"] += timer(kernels, 10)
+                ms["with draws"] += timer(with_draws, 10)
+                ms["plain"] += timer(plain, 3, warmup=1)
+            finally:
+                intersect.occluded_scene = real
+        per_pass = {k: v / packed for k, v in ms.items()}
+        rows[label] = kernel_row(
+            "nee_sphere", NEE_SOURCE,
+            f"{label}: {len(bounces)} bounces of {shapes[0][0]} lanes "
+            f"(the last {shapes[-1][0]}), a pass of {packed}", 0, 0.0,
+            per_pass["kernels"], per_pass["plain"], nbytes / packed, 0)
+        rows[label]["with_draws_ms"] = per_pass["with draws"]
+        rows[label]["lanes_live_valid"] = shapes
+        log(f"[22 nee] {label}: bit for bit at {len(bounces)} bounces "
+            f"(lanes, live, valid: {shapes}); a pass: nee_sphere + "
+            f"nee_combine {per_pass['kernels']:.4f} ms (bound "
+            f"{rows[label]['bound_ms']:.4f} ms by bytes), with the site's "
+            f"draws {per_pass['with draws']:.4f} ms; the plain composite "
+            f"{per_pass['plain']:.3f} ms")
+        del bounces
+        torch.cuda.empty_cache()
+
+    # one profiled hero pass on each path: the light-row gather is gone
+    hero = crt.builders.default_scene(1920, 1088).to(DEVICE)
+    gathers = {}
+    for path in ("kernels", "plain"):
+        r = crt.Renderer(hero, crt.RendererPolicy(
+            max_bounces=8, rays_per_chunk=1 << 23), 1920, 1088)
+        real = renderer.nee_kernel_path
+        if path == "plain":
+            renderer.nee_kernel_path = lambda *a: False
+        try:
+            r.accumulate(1)
+            torch.cuda.synchronize()
+            before = nk.SPHERE.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                r.accumulate(1)
+                torch.cuda.synchronize()
+        finally:
+            renderer.nee_kernel_path = real
+        found = [(ev.key, ev.count, ev.self_device_time_total / 1e3)
+                 for ev in prof.key_averages()
+                 if "vectorized_gather_kernel" in ev.key]
+        gathers[path] = {"launches": sum(c for _, c, _ in found),
+                         "device_ms": sum(t for _, _, t in found),
+                         "nee_sphere": nk.SPHERE.launches - before}
+    log(f"[22 nee] one profiled 1920x1088 hero pass: vectorized_gather_"
+        f"kernel {gathers}")
+    if gathers["kernels"]["launches"] or gathers["kernels"][
+            "nee_sphere"] != 8 or not gathers["plain"]["launches"]:
+        raise AssertionError(f"[22 nee] the hero pass's gathers {gathers}")
+    main = rows.pop(NEE_SITES[0][0])
+    main["hero_pass_row_gathers"] = gathers
+    main["at_other_sites"] = {
+        label: {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                    "with_draws_ms")}
+        for label, row in rows.items()}
+    return main
+
+
 def main() -> int:
     import torch
 
@@ -3975,6 +4192,7 @@ def main() -> int:
         grid_walk as gw
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         light_rows as lr
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import nee as nk
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import rng as rk
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
@@ -3992,7 +4210,8 @@ def main() -> int:
             check=True, timeout=60).stdout.strip())
     t0 = time.perf_counter()
     libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, lr.LIBRARY,
-                 bw.LIBRARY, gw.LIBRARY, rk.LIBRARY, native.LIBRARY)
+                 bw.LIBRARY, gw.LIBRARY, rk.LIBRARY, nk.LIBRARY,
+                 native.LIBRARY)
     build.load_all(libraries)
     log(f"[1] csrc/ built side by side and loaded in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(lib.source.name for lib in libraries)})")
@@ -4035,11 +4254,16 @@ def main() -> int:
                      pol(max_bounces=6, rays_per_chunk=4096), 64, 64)
     r.accumulate(10)
     golden_check(np, r.render(tonemap=False), "hero")
+    # NEE is the nee_sphere / nee_combine kernels here: the light
+    # sampler's to_local and strided fma ran in the plain path only
+    nee_forms = ("fma[to_local]", "fma[strided]")
     _, hero_path = render(torch, crt, hero,
                           pol(max_bounces=8, rays_per_chunk=1 << 19),
                           1920, 1088, PASSES, "5 hero",
-                          sphere_kernels + FMA_FORMS
-                          + ("fma[strided]", "rng_site"))
+                          sphere_kernels + tuple(
+                              f for f in FMA_FORMS if f not in nee_forms)
+                          + ("rng_site", "nee_sphere", "nee_combine"),
+                          idle=nee_forms)
     _, field_path = render(torch, crt, field, pol(max_bounces=8), 512, 512,
                            PASSES, "6 random_spheres 1k brute",
                            sphere_kernels)
@@ -4291,6 +4515,9 @@ def main() -> int:
     log(f"[21] phases 1-20 done at {time.perf_counter() - t_start:.1f} s")
     rng_row = check_rng_sites(torch, timer)
     rng_row["launches"] = hero_path["launches"]["rng_site"]
+    log(f"[22] phases 1-21 done at {time.perf_counter() - t_start:.1f} s")
+    nee_row = check_nee_sites(torch, crt, timer, meshes[224])
+    nee_row["launches"] = hero_path["launches"]["nee_sphere"]
     # each walk's row at the field's camera batch (bvh_occluded's at the
     # field render's own shadow rays), its launches from the field's render
     # under that backend
@@ -4363,7 +4590,8 @@ def main() -> int:
                     + list(fma_rows.values())
                     + list(main_rows.values()) + list(new_rows.values())
                     + list(stream2_rows.values()) + [light_rows_row]
-                    + [walk_main[name] for name in WALKS] + [rng_row]}))
+                    + [walk_main[name] for name in WALKS] + [rng_row]
+                    + [nee_row]}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -41,6 +41,7 @@ from ..core.vec import Quat, Vec3
 from ..ops import closures, intersect
 from ..ops import gather as fast_gather
 from ..ops.kernels import light_rows
+from ..ops.kernels import nee as nee_kernel
 from ..ops.kernels.cluster_traverse import PLANS, compact_order
 from ..scene.scene import Scene
 from ..utils import profiling
@@ -728,6 +729,70 @@ def _next_event_estimation(scene: Scene, policy: RendererPolicy,
     return contribution, valid, restir_out
 
 
+def nee_kernel_path(scene: Scene, policy: RendererPolicy, device) -> bool:
+    """Whether ``bounce_step`` shades NEE on `device` with the sphere-light
+    kernels (``ops/kernels/nee.py``) rather than ``_next_event_estimation``:
+    on the card, under the lambertian closure with MIS, where every light is
+    a sphere and the light is picked uniformly (uniform selection, or one
+    light). GGX and principled, 'power' / 'alias' / RIS / ReSTIR over more
+    than one light, triangle lights and the CPU take the plain path."""
+    n = scene.num_lights
+    return (torch.device(device).type == "cuda" and policy.mis
+            and policy.brdf == "lambertian" and n > 0
+            and scene.num_tri_lights == 0
+            and (policy.light_sampling == "uniform" or n == 1))
+
+
+_LIGHT_TABLES = {}  # packed sphere-light tables, by the arrays they pack
+_LIGHT_TABLES_KEPT = 4
+
+
+def _sphere_light_table(scene: Scene) -> torch.Tensor:
+    """The [L, 8] float32 table of the scene's sphere lights (prim id,
+    center, r^2, emission), the rows ``_sphere_light_sample`` gathers,
+    packed once for the arrays it is made from (by identity and version:
+    an array changed in place is packed anew)."""
+    sp, em = scene.spheres, scene.materials.emission
+    src = (scene.lights, *sp.center, sp.radius_sq, sp.material_id, *em)
+    key = tuple((id(a), a._version) for a in src)
+    kept = _LIGHT_TABLES.get(key)
+    if kept is None:
+        sl = scene.lights.to(torch.int64)
+        s_mid = sp.material_id[sl].to(torch.int64)
+        table = fast_gather.pack_table(
+            sl, sp.center.x[sl], sp.center.y[sl], sp.center.z[sl],
+            sp.radius_sq[sl], em.x[s_mid], em.y[s_mid], em.z[s_mid])
+        if len(_LIGHT_TABLES) >= _LIGHT_TABLES_KEPT:
+            _LIGHT_TABLES.pop(next(iter(_LIGHT_TABLES)))
+        # the arrays are kept with the table, so their ids stay theirs
+        kept = _LIGHT_TABLES[key] = (src, table)
+    return kept[1]
+
+
+def _nee_sphere_kernels(scene: Scene, policy: RendererPolicy,
+                        state: PathState, accumulation, seeds, hit, prim_id,
+                        is_tri, p_offset: Vec3, t_quat: Quat, mat: dict,
+                        radiance: Vec3):
+    """``_next_event_estimation`` and the add of its contribution to
+    `radiance` where ``nee_kernel_path`` holds: the site's three draws,
+    ``nee_sphere``, the shadow query, ``nee_combine``; bit for bit the plain
+    path's. Returns (radiance, shadow rays traced [R] bool)."""
+    profiling.count("nee_kernel_lanes", hit.shape[0])
+    with profiling.span("port.rng"):
+        drawn = rng.site_draws(accumulation, seeds, 2 * state.bounce, 3,
+                               policy.rng_scramble)
+    l_dir, tfar, valid, shadow_radiance = nee_kernel.nee_sphere(
+        hit, prim_id, is_tri, p_offset, t_quat, mat["albedo"],
+        state.throughput, drawn, _sphere_light_table(scene))
+    with profiling.span("port.occluded"):
+        profiling.count("lanes_traced", valid.shape[0])
+        occluded = intersect.occluded_scene(
+            scene, p_offset, l_dir, tfar, accel=policy.effective_accel,
+            policy=policy)
+    return (nee_kernel.nee_combine(radiance, valid, occluded,
+                                   shadow_radiance), valid)
+
+
 def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
                   hit, prim_id, is_tri, mat_id, tfar, v_local: Vec3, em: Vec3,
                   prim_extra: dict):
@@ -807,8 +872,15 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
     # ---- NEE + SHADOW (:247-314): the any-hit battery ----
     shadow_traced = torch.zeros_like(hit)
     restir_out = None
-    if policy.mis:
+    if nee_kernel_path(scene, policy, hit.device):
         with profiling.span("port.nee"):
+            radiance, shadow_traced = _nee_sphere_kernels(
+                scene, policy, state, accumulation, seeds, hit, prim_id,
+                is_tri, p_offset, t_quat, mat, radiance)
+    elif policy.mis:
+        with profiling.span("port.nee"):
+            if hit.is_cuda:
+                profiling.count("nee_eager_lanes", hit.shape[0])
             nee, shadow_traced, restir_out = _next_event_estimation(
                 scene, policy, state, accumulation, seeds, hit, prim_id,
                 is_tri, p_offset, t_quat, v_local, mat, restir_in=restir_in,
