@@ -38,21 +38,21 @@
 // is_tri (6 B), p_offset, the tangent quat's x, y, w, albedo and throughput
 // (60 B) and its three draws (12 B), and writes 29 B; about a hundred float
 // operations and two float64 sin / cos. A dead lane (no hit) reads its mask
-// and writes zeros, 30 B. The design meets the bound: a thread takes four
-// consecutive lanes with 16-byte loads (4-byte for the masks) and stores
-// where every column it steps through is aligned (the wrapper's choice,
-// passed as n_vec; the rest one lane a thread), skips the loads of a group
-// whose four lanes are all dead, keeps every intermediate in registers, and
-// a grid of one wave of 256-thread blocks strides over the wavefront.
+// and writes zeros, 30 B. The design meets the bound: the lanes go in
+// lanes.cuh's form (four a thread by 16-byte loads, 4-byte for the masks,
+// and stores where aligned; one wave of blocks), a group whose four lanes
+// are all dead skips its loads, and every intermediate stays in registers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 2048 / kThreads;  // one wave
-constexpr int kVector = 4;  // lanes of a thread's 16-byte groups
+using lanes::load;
+using lanes::store;
+
 constexpr int kRow = 8;     // a light: prim id, center x y z, r^2, emission
 constexpr int kMaxStaged = 1536;  // lights staged in 48 KiB of shared memory
 
@@ -225,60 +225,7 @@ __device__ __forceinline__ Lane shade(const SphereArgs& a, const float* table,
   return o;
 }
 
-template <int kW>
-__device__ __forceinline__ void load(const float* p, long long i0,
-                                     float (&v)[kW]) {
-  if constexpr (kW == kVector) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p + i0));
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
-    v[0] = __ldg(p + i0);
-  }
-}
-
-template <int kW>
-__device__ __forceinline__ void load(const int* p, long long i0,
-                                     int (&v)[kW]) {
-  if constexpr (kW == kVector) {
-    const int4 x = __ldg(reinterpret_cast<const int4*>(p + i0));
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
-    v[0] = __ldg(p + i0);
-  }
-}
-
-template <int kW>
-__device__ __forceinline__ void load(const uint8_t* p, long long i0,
-                                     uint8_t (&v)[kW]) {
-  if constexpr (kW == kVector) {
-    const uchar4 x = __ldg(reinterpret_cast<const uchar4*>(p + i0));
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
-    v[0] = __ldg(p + i0);
-  }
-}
-
-template <int kW>
-__device__ __forceinline__ void store(float* p, long long i0,
-                                      const float (&v)[kW]) {
-  if constexpr (kW == kVector) {
-    *reinterpret_cast<float4*>(p + i0) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    p[i0] = v[0];
-  }
-}
-
-template <int kW>
-__device__ __forceinline__ void store(uint8_t* p, long long i0,
-                                      const uint8_t (&v)[kW]) {
-  if constexpr (kW == kVector) {
-    *reinterpret_cast<uchar4*>(p + i0) = make_uchar4(v[0], v[1], v[2], v[3]);
-  } else {
-    p[i0] = v[0];
-  }
-}
-
-// lanes [i0, i0 + kW): kW = kVector by 16-byte groups, or 1
+// lanes [i0, i0 + kW): kW = lanes::kVector by 16-byte groups, or 1
 template <int kW, bool kStaged>
 __device__ __forceinline__ void sphere_lanes(const SphereArgs& a,
                                              const float* table,
@@ -326,10 +273,8 @@ __device__ __forceinline__ void sphere_lanes(const SphereArgs& a,
   store<kW>(a.valid, i0, valid);
 }
 
-// items [0, n_vec) are 16-byte groups of lanes, the rest single lanes from
-// lane kVector * n_vec on
 template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(lanes::kThreads)
     nee_sphere_kernel(SphereArgs a, long long r, long long n_vec) {
   extern __shared__ float4 staged[];
   const float* table = a.lights;
@@ -341,17 +286,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     table = reinterpret_cast<const float*>(staged);
   }
-  const long long items = n_vec + (r - kVector * n_vec);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < items; t += step) {
-    if (t < n_vec) {
-      sphere_lanes<kVector, kStaged>(a, table, kVector * t);
-    } else {
-      sphere_lanes<1, kStaged>(a, table, kVector * n_vec + (t - n_vec));
-    }
-  }
+  lanes::each(r, n_vec, [&](auto w, long long i0) {
+    sphere_lanes<decltype(w)::value, kStaged>(a, table, i0);
+  });
 }
 
 template <int kW>
@@ -378,36 +315,18 @@ __device__ __forceinline__ void combine_lanes(const CombineArgs& a,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(lanes::kThreads)
     nee_combine_kernel(CombineArgs a, long long r, long long n_vec) {
-  const long long items = n_vec + (r - kVector * n_vec);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < items; t += step) {
-    if (t < n_vec) {
-      combine_lanes<kVector>(a, kVector * t);
-    } else {
-      combine_lanes<1>(a, kVector * n_vec + (t - n_vec));
-    }
-  }
-}
-
-int grid(long long r, long long n_vec, int sms) {
-  const long long items = n_vec + (r - kVector * n_vec);
-  const long long needed = (items + kThreads - 1) / kThreads;
-  const long long wave = static_cast<long long>(sms) * kBlocksPerSm;
-  return static_cast<int>(needed < wave ? needed : wave);
+  lanes::each(r, n_vec, [&](auto w, long long i0) {
+    combine_lanes<decltype(w)::value>(a, i0);
+  });
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes; each returns cudaGetLastError() (0 =
-// launched) and takes r lanes on `stream`. Lanes [0, 4 n_vec) go by 16-byte
-// groups: every float and int32 column and row then starts 16-byte aligned
-// and every uint8 column 4-byte aligned, and the row strides are multiples
-// of 4 (the wrapper's check). `sms`, the card's SM count, sizes the grid to
-// one wave.
+// launched) and takes r lanes on `stream` in lanes.cuh's form: n_vec
+// 16-byte groups (the wrapper's choice), `sms` the card's SM count.
 //
 // nee_sphere: `cols` holds the kSphereCols column addresses in SphereCol
 // order; `draws` the site's rows t, s and the selection draw, draw_stride
@@ -419,10 +338,8 @@ extern "C" int nee_sphere(const unsigned long long* cols, const float* draws,
                           int n_lights, float* out, long long out_stride,
                           unsigned char* valid, long long r, long long n_vec,
                           int sms, void* stream) {
-  if (n_lights < 1 || r < 0 || draw_stride < r || out_stride < r ||
-      n_vec < 0 || kVector * n_vec > r ||
-      (n_vec > 0 && (draw_stride % kVector || out_stride % kVector)) ||
-      sms < 1) {
+  if (n_lights < 1 ||
+      !lanes::form_ok(r, n_vec, {draw_stride, out_stride}, sms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (r == 0) return static_cast<int>(cudaGetLastError());
@@ -442,13 +359,15 @@ extern "C" int nee_sphere(const unsigned long long* cols, const float* draws,
   args.out = out;
   args.out_stride = out_stride;
   args.valid = valid;
-  const int blocks = grid(r, n_vec, sms);
+  const int blocks = lanes::blocks(r, n_vec, sms);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_lights <= kMaxStaged) {
     const size_t smem = static_cast<size_t>(n_lights) * kRow * sizeof(float);
-    nee_sphere_kernel<true><<<blocks, kThreads, smem, st>>>(args, r, n_vec);
+    nee_sphere_kernel<true>
+        <<<blocks, lanes::kThreads, smem, st>>>(args, r, n_vec);
   } else {
-    nee_sphere_kernel<false><<<blocks, kThreads, 0, st>>>(args, r, n_vec);
+    nee_sphere_kernel<false>
+        <<<blocks, lanes::kThreads, 0, st>>>(args, r, n_vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -459,8 +378,7 @@ extern "C" int nee_sphere(const unsigned long long* cols, const float* draws,
 extern "C" int nee_combine(const unsigned long long* cols, float* out,
                            long long out_stride, long long r,
                            long long n_vec, int sms, void* stream) {
-  if (r < 0 || out_stride < r || n_vec < 0 || kVector * n_vec > r ||
-      (n_vec > 0 && out_stride % kVector) || sms < 1) {
+  if (!lanes::form_ok(r, n_vec, {out_stride}, sms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (r == 0) return static_cast<int>(cudaGetLastError());
@@ -472,7 +390,7 @@ extern "C" int nee_combine(const unsigned long long* cols, float* out,
   args.occluded = reinterpret_cast<const uint8_t*>(cols[kOccluded]);
   args.out = out;
   args.out_stride = out_stride;
-  nee_combine_kernel<<<grid(r, n_vec, sms), kThreads, 0,
+  nee_combine_kernel<<<lanes::blocks(r, n_vec, sms), lanes::kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(args, r, n_vec);
   return static_cast<int>(cudaGetLastError());
 }

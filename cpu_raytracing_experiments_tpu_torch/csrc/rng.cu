@@ -33,11 +33,9 @@
 // 8,355,840 lanes in 0.070 ms at 3.35 TB/s, against 20-90 u32 operations
 // a lane (a three-draw site some 45: 0.38 G, about 0.03 ms at the integer
 // pipes' rate of some 15 T a second). The design meets the byte bound: one
-// lane's arithmetic stays in registers, a thread takes four consecutive lanes
-// with 16-byte loads of the seeds (and of the lane operands) and a 16-byte
-// store of each row where every array it steps through is 16-byte aligned
-// (the wrapper's choice, passed as n_vec; the rest one lane a thread), and
-// a grid of one wave of 256-thread blocks strides over the wavefront. The
+// lane's arithmetic stays in registers, and the lanes go in lanes.cuh's form
+// (four a thread by 16-byte loads of the seeds and lane operands and
+// 16-byte row stores where aligned, one wave of blocks). The
 // four independent lanes of a thread are what keeps the jittered camera
 // site near its bound: on an H100 the one-lane body alone takes 0.082 ms
 // there against 0.058 ms (the jitter's fmodf and hashes), and 2-7% more at
@@ -46,12 +44,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 2048 / kThreads;  // one wave
 constexpr int kMaxDraws = 5;
-constexpr int kVector = 4;  // lanes of a thread's 16-byte groups
 // float32(0.6180339887498949), the golden ratio's conjugate
 constexpr float kGoldenRatioConjugate = 0x1.3c6ef4p-1f;
 
@@ -110,41 +107,33 @@ __device__ __forceinline__ float2 jitter(uint32_t acc, uint32_t seed) {
                      fmodf(__fadd_rn(gr, oy), 1.0f));
 }
 
-// lanes [i0, i0 + kW): kW = kVector by 16-byte groups, or 1
+// lanes [i0, i0 + kW): kW = lanes::kVector by 16-byte groups, or 1
 template <int kW>
 __device__ __forceinline__ void site_lanes(const SiteArgs& a, long long i0) {
-  uint32_t seed[kW], acc[kW], off[kW];
-  if constexpr (kW == kVector) {
-    const longlong2* s = reinterpret_cast<const longlong2*>(a.seeds + i0);
-    const longlong2 s01 = __ldg(s), s23 = __ldg(s + 1);
-    seed[0] = s01.x, seed[1] = s01.y, seed[2] = s23.x, seed[3] = s23.y;
-    if (a.acc != nullptr) {
-      const longlong2* p = reinterpret_cast<const longlong2*>(a.acc + i0);
-      const longlong2 a01 = __ldg(p), a23 = __ldg(p + 1);
-      acc[0] = a01.x, acc[1] = a01.y, acc[2] = a23.x, acc[3] = a23.y;
-    } else {
-      acc[0] = acc[1] = acc[2] = acc[3] = a.acc_value;
-    }
-    if (a.offset != nullptr) {
-      const int4 o = __ldg(reinterpret_cast<const int4*>(a.offset + i0));
-      off[0] = o.x, off[1] = o.y, off[2] = o.z, off[3] = o.w;
-    } else {
-      off[0] = off[1] = off[2] = off[3] = a.offset_value;
-    }
+  long long seed[kW], acc[kW];
+  int off[kW];
+  lanes::load<kW>(a.seeds, i0, seed);
+  if (a.acc != nullptr) {
+    lanes::load<kW>(a.acc, i0, acc);
   } else {
-    seed[0] = static_cast<uint32_t>(a.seeds[i0]);
-    acc[0] = a.acc != nullptr ? static_cast<uint32_t>(a.acc[i0])
-                              : a.acc_value;
-    off[0] = a.offset != nullptr ? static_cast<uint32_t>(a.offset[i0])
-                                 : a.offset_value;
+#pragma unroll
+    for (int j = 0; j < kW; ++j) acc[j] = a.acc_value;
+  }
+  if (a.offset != nullptr) {
+    lanes::load<kW>(a.offset, i0, off);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kW; ++j) off[j] = a.offset_value;
   }
   uint32_t state[kW];
   float2 jit[kW];
 #pragma unroll
   for (int j = 0; j < kW; ++j) {
-    state[j] = hash_2d(acc[j], seed[j] + off[j]);
+    const uint32_t s = static_cast<uint32_t>(seed[j]);
+    const uint32_t c = static_cast<uint32_t>(acc[j]);
+    state[j] = hash_2d(c, s + static_cast<uint32_t>(off[j]));
     if (a.scramble) state[j] = hash_u32(state[j]);
-    jit[j] = a.jitter ? jitter(acc[j], seed[j]) : make_float2(0.0f, 0.0f);
+    jit[j] = a.jitter ? jitter(c, s) : make_float2(0.0f, 0.0f);
   }
   for (int k = 0; k < a.n; ++k) {
     float f[kW];
@@ -153,69 +142,44 @@ __device__ __forceinline__ void site_lanes(const SiteArgs& a, long long i0) {
       f[j] = draw(state[j]);
       if (a.jitter && k < 2) f[j] = k == 0 ? jit[j].x : jit[j].y;
     }
-    float* row = a.rows + k * a.row_stride + i0;
-    if constexpr (kW == kVector) {
-      *reinterpret_cast<float4*>(row) = make_float4(f[0], f[1], f[2], f[3]);
-    } else {
-      row[0] = f[0];
-    }
+    lanes::store<kW>(a.rows + k * a.row_stride, i0, f);
   }
   if (a.state != nullptr) {
-    if constexpr (kW == kVector) {
-      longlong2* s = reinterpret_cast<longlong2*>(a.state + i0);
-      s[0] = make_longlong2(state[0], state[1]);
-      s[1] = make_longlong2(state[2], state[3]);
-    } else {
-      a.state[i0] = state[0];
-    }
+    long long st[kW];
+#pragma unroll
+    for (int j = 0; j < kW; ++j) st[j] = state[j];
+    lanes::store<kW>(a.state, i0, st);
   }
 }
 
-// items [0, n_vec) are 16-byte groups of lanes, the rest single lanes from
-// lane kVector * n_vec on
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(lanes::kThreads)
     site_kernel(SiteArgs a, long long r, long long n_vec) {
-  const long long items = n_vec + (r - kVector * n_vec);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < items; t += step) {
-    if (t < n_vec) {
-      site_lanes<kVector>(a, kVector * t);
-    } else {
-      site_lanes<1>(a, kVector * n_vec + (t - n_vec));
-    }
-  }
+  lanes::each(r, n_vec, [&](auto w, long long i0) {
+    site_lanes<decltype(w)::value>(a, i0);
+  });
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes: one RNG site over r lanes on `stream`;
-// returns cudaGetLastError() (0 = launched). `acc` / `offset` null take
-// `acc_value` / `offset_value` for every lane; `state` null writes no
-// state. Lanes [0, 4 n_vec) go by 16-byte groups: `seeds`, `rows` (every
-// row: row_stride a multiple of 4), and `acc`, `offset` and `state` where
-// not null, must then be 16-byte aligned (the wrapper's check). `sms`, the
-// card's SM count, sizes the grid to one wave.
+// C entry point, bound with ctypes: one RNG site over r lanes on `stream`
+// in lanes.cuh's form (n_vec 16-byte groups, the wrapper's choice; `sms` the
+// card's SM count); returns cudaGetLastError() (0 = launched). `acc` /
+// `offset` null take `acc_value` / `offset_value` for every lane; `state`
+// null writes no state; `rows` holds the n rows, row_stride floats apart.
 extern "C" int rng_site(const long long* seeds, const long long* acc,
                         unsigned acc_value, const int* offset,
                         unsigned offset_value, int n, int scramble,
                         int jitter, float* rows, long long row_stride,
                         long long* state, long long r, long long n_vec,
                         int sms, void* stream) {
-  if (n < 1 || n > kMaxDraws || (jitter && n < 2) || r < 0 ||
-      row_stride < r || n_vec < 0 || kVector * n_vec > r ||
-      (n_vec > 0 && row_stride % kVector) || sms < 1) {
+  if (n < 1 || n > kMaxDraws || (jitter && n < 2) ||
+      !lanes::form_ok(r, n_vec, {row_stride}, sms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (r == 0) return static_cast<int>(cudaGetLastError());
   SiteArgs args{seeds, acc, offset, acc_value, offset_value, n,
                 scramble != 0, jitter != 0, rows, row_stride, state};
-  const long long items = n_vec + (r - kVector * n_vec);
-  const long long needed = (items + kThreads - 1) / kThreads;
-  const long long wave = static_cast<long long>(sms) * kBlocksPerSm;
-  const int blocks = static_cast<int>(needed < wave ? needed : wave);
-  site_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      args, r, n_vec);
+  site_kernel<<<lanes::blocks(r, n_vec, sms), lanes::kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(args, r, n_vec);
   return static_cast<int>(cudaGetLastError());
 }

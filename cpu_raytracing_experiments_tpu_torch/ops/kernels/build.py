@@ -101,9 +101,9 @@ COUNTERS = []  # every kernel's LaunchCounter, in order of definition
 
 
 class LaunchCounter:
-    """Launches of one kernel, counted by its wrapper where it launches
-    (``add``): an always-on total, and ``launches.<name>`` of the innermost
-    span that ``utils.profiling`` records."""
+    """Launches of one kernel, counted by ``launch`` (``add``): an
+    always-on total, and ``launches.<name>`` of the innermost span that
+    ``utils.profiling`` records."""
 
     def __init__(self, name: str):
         self.name = name
@@ -111,9 +111,9 @@ class LaunchCounter:
         self.launches = 0
         COUNTERS.append(self)
 
-    def add(self, n: int = 1):
-        self.launches += n
-        profiling.count(self.counter, n)
+    def add(self):
+        self.launches += 1
+        profiling.count(self.counter, 1)
 
 
 def reset_counts():
@@ -135,11 +135,11 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def launch(name: str, fn, device, args):
-    """Call the C entry point `fn` on `device`'s current stream; raise on a
-    refused launch (the entry point returns cudaGetLastError()). The device
-    is made current for the call only where it is not already; the stream is
-    passed as its raw handle."""
+def launch(counter: LaunchCounter, fn, device, args):
+    """Call the C entry point `fn` on `device`'s current stream and count
+    the launch in `counter`; raise on a refused launch (the entry point
+    returns cudaGetLastError()). The device is made current for the call
+    only where it is not already; the stream is passed as its raw handle."""
     import torch
 
     index = device.index
@@ -150,4 +150,6 @@ def launch(name: str, fn, device, args):
         with torch.cuda.device(index):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+        raise RuntimeError(f"{counter.name}: launch failed with cudaError "
+                           f"{err}")
+    counter.add()

@@ -111,12 +111,11 @@ def closest(bvh: BVHArrays, p: Vec3, d: Vec3, rows, tfar0=None):
     tfar = torch.empty(n, dtype=torch.float32, device=p.x.device)
     prim = torch.empty(n, dtype=torch.int32, device=p.x.device)
     next_ray = torch.empty(1, dtype=torch.int32, device=p.x.device)
-    build.launch(CLOSEST.name, lib.bvh_closest, p.x.device,
+    build.launch(CLOSEST, lib.bvh_closest, p.x.device,
                  _rays(p, d, tfar0) + [
                      nodes.data_ptr(), bvh.num_nodes, rows.data_ptr(),
                      int(rows.shape[1] == 9), n, next_ray.data_ptr(),
                      tfar.data_ptr(), prim.data_ptr()])
-    CLOSEST.add()
     return tfar, prim
 
 
@@ -134,10 +133,9 @@ def occluded(bvh: BVHArrays, p: Vec3, d: Vec3, tfar, rows):
                    p.x.device)
     lib = LIBRARY.load()
     occ = torch.empty(p.x.shape[0], dtype=torch.bool, device=p.x.device)
-    build.launch(OCCLUDED.name, lib.bvh_occluded, p.x.device,
+    build.launch(OCCLUDED, lib.bvh_occluded, p.x.device,
                  _rays(p, d, tfar) + [
                      nodes.data_ptr(), pairs.data_ptr(), bvh.stack_depth,
                      rows.data_ptr(), int(rows.shape[1] == 9), p.x.shape[0],
                      occ.data_ptr()])
-    OCCLUDED.add()
     return occ

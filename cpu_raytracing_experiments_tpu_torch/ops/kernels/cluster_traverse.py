@@ -831,9 +831,8 @@ def plan_rows(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid, tile_r: int,
     chunk = plan_rows_chunk(tile_r, c, -(-c // SUPER) if mode == "super"
                             else 0)
     entry = torch.empty((t_tiles, c), dtype=torch.float32, device=tf.device)
-    build.launch(counter.name, LIBRARY.load().cluster_plan_rows, tf.device,
+    build.launch(counter, LIBRARY.load().cluster_plan_rows, tf.device,
                  args + [chunk, entry.data_ptr()])
-    counter.add()
     return entry
 
 
@@ -864,9 +863,8 @@ def _plan_visits(cp: ClusteredPrims, p: Vec3, d: Vec3, tf, valid,
     entry = torch.empty(shape, dtype=torch.float32, device=device)
     visit = torch.empty(shape, dtype=torch.int32, device=device)
     nvis = torch.empty((t_tiles,), dtype=torch.int32, device=device)
-    build.launch(counter.name, LIBRARY.load().cluster_plan, device,
+    build.launch(counter, LIBRARY.load().cluster_plan, device,
                  args + [a.data_ptr() for a in (entry, visit, nvis)])
-    counter.add()
     return visit, entry, nvis
 
 
@@ -1025,7 +1023,7 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     prim = torch.empty(n, dtype=torch.int32, device=device)
     split = _walk_split(counter, visit.shape[0], tile_r, device)
     row = _count_row(counter.name, cp, device)
-    build.launch(counter.name,
+    build.launch(counter,
                  lib.cluster_closest_stream if stream else lib.cluster_closest,
                  device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
@@ -1033,7 +1031,6 @@ def walk_closest(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
                  + [battery, split, n, tile_r, cp.num_clusters,
                     cp.cluster_size, tfar.data_ptr(), prim.data_ptr()]
                  + _count_args(cp, row))
-    counter.add()
     if row is not None:
         _count_walk(row[0], row[1], n)
     return tfar, prim
@@ -1061,14 +1058,13 @@ def walk_occluded(cp: ClusteredPrims, visit, entry, nvis, p: Vec3, d: Vec3,
     occ = torch.empty(n, dtype=torch.bool, device=device)
     split = _walk_split(counter, visit.shape[0], tile_r, device)
     row = _count_row(counter.name, cp, device)
-    build.launch(counter.name,
+    build.launch(counter,
                  lib.cluster_occluded_stream if stream
                  else lib.cluster_occluded, device,
                  [a.data_ptr() for a in (nvis, visit, entry, root, *p, *d,
                                          tfar, table)]
                  + [battery, split, n, tile_r, cp.num_clusters,
                     cp.cluster_size, occ.data_ptr()] + _count_args(cp, row))
-    counter.add()
     if row is not None:
         _count_walk(row[0], row[1], n)
     return occ
@@ -1176,11 +1172,10 @@ def replay_launch(cp: ClusteredPrims, visit, nvis, tile: int, n_out: int,
         return out
     blocks = replay_blocks(
         n_out, build.sm_count(device.index) if sms is None else sms)
-    build.launch(REPLAY.name, LIBRARY.load().stream_replay, device,
+    build.launch(REPLAY, LIBRARY.load().stream_replay, device,
                  [nvis.data_ptr(), visit.data_ptr(), packed.data_ptr(),
                   int(cp.kind == "triangle"), tile, c, k, n_out, blocks,
                   out.data_ptr()])
-    REPLAY.add()
     return out
 
 

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, lanes
 from .build import LaunchCounter
 
 MAX_DIMS = 4  # dimensions the strided kernel indexes, after merging
@@ -37,7 +37,6 @@ MAX_IN, MAX_OUT = 7, 3  # operands and outputs of the flat kernel
 OP_FMA, DOT3, FMA3, TO_LOCAL, TO_WORLD, TO_LOCAL_XY = range(6)
 ARITY = {OP_FMA: (3, 1), DOT3: (6, 1), FMA3: (7, 3), TO_LOCAL: (6, 3),
          TO_WORLD: (6, 3), TO_LOCAL_XY: (6, 3)}  # (operands, outputs)
-VECTOR = 4  # elements of one 16-byte group
 
 FMA = LaunchCounter("fma")  # flat_kernel<kFma>
 FMA_STRIDED = LaunchCounter("fma[strided]")
@@ -78,23 +77,6 @@ def flat_shape(operands):
         if not x.is_contiguous():
             return None
     return torch.Size(()) if shape is None else shape
-
-
-def vector_groups(n: int, pointers) -> int:
-    """16-byte groups of the flat kernel's vector loop over n elements:
-    n // 4 where every array it steps through (operands and outputs) starts
-    on a 16-byte boundary, else 0; the remaining n - 4 * groups elements go
-    one a thread."""
-    if any(p % 16 for p in pointers):
-        return 0
-    return n // VECTOR
-
-
-def padded(n: int) -> int:
-    """Elements a row of a multi-output launch takes in its (rows, padded)
-    buffer: n rounded up to a 16-byte group, so that every row starts
-    16-byte aligned."""
-    return -(-n // VECTOR) * VECTOR
 
 
 def _device_of(operands):
@@ -140,15 +122,14 @@ def _launch_flat(op, operands, shape, first):
     if n_out == 1:
         outs = (first.new_empty(shape),)
     else:
-        outs = first.new_empty((n_out, padded(n)))[:, :n].unbind(0)
+        outs = lanes.rows(n_out, n, first.device).unbind(0)
         if len(shape) != 1:
             outs = tuple(o.view(shape) for o in outs)
     out_ptrs = [o.data_ptr() for o in outs]
-    groups = vector_groups(n, stepped + out_ptrs)
-    build.launch(COUNTERS[op].name, _lib().fma_flat, first.device,
+    groups = lanes.groups(n, stepped + out_ptrs)
+    build.launch(COUNTERS[op], _lib().fma_flat, first.device,
                  [op, _PTRS(*ptrs, *out_ptrs), values, stride_one, n,
                   groups, build.sm_count(first.get_device())])
-    COUNTERS[op].add()
     return outs
 
 
@@ -237,9 +218,8 @@ def _fma_strided(operands, first):
     c_sizes = (ctypes.c_longlong * ndim)(*sizes)
     c_strides = (ctypes.c_longlong * (3 * ndim))(*(v for s in strides
                                                     for v in s))
-    build.launch(FMA_STRIDED.name, _lib().fma_f32, first.device,
+    build.launch(FMA_STRIDED, _lib().fma_f32, first.device,
                  args + [c_sizes, c_strides, ndim, n, out.data_ptr()])
-    FMA_STRIDED.add()
     return out
 
 

@@ -128,13 +128,12 @@ def closest(grid: UniformGrid, p: Vec3, d: Vec3, rows, tfar0=None):
     part_t = torch.empty((split[0], n) if part else 0, dtype=torch.float32,
                          device=dev)
     part_arg = torch.empty_like(part_t, dtype=torch.int32)
-    build.launch(CLOSEST.name, lib.grid_closest, dev,
+    build.launch(CLOSEST, lib.grid_closest, dev,
                  _args(grid, p, d, tfar0, rows, residual_table(grid, rows),
                        split)
                  + [part_t.data_ptr() if part else None,
                     part_arg.data_ptr() if part else None, n,
                     tfar.data_ptr(), prim.data_ptr()])
-    CLOSEST.add()
     return tfar, prim
 
 
@@ -153,10 +152,9 @@ def occluded(grid: UniformGrid, p: Vec3, d: Vec3, tfar, rows):
     split = _split(grid, p)
     part_occ = torch.empty((split[0], n) if grid.residual.shape[0] else 0,
                            dtype=torch.uint8, device=dev)
-    build.launch(OCCLUDED.name, lib.grid_occluded, dev,
+    build.launch(OCCLUDED, lib.grid_occluded, dev,
                  _args(grid, p, d, tfar, rows, residual_table(grid, rows),
                        split)
                  + [part_occ.data_ptr() if part_occ.numel() else None, n,
                     occ.data_ptr()])
-    OCCLUDED.add()
     return occ

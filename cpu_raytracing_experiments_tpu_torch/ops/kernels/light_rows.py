@@ -78,10 +78,9 @@ def light_rows(w: torch.Tensor, f: torch.Tensor = None, fused=False):
     if f is not None:
         sel = torch.empty(r, dtype=torch.int32, device=w.device)
         p_sel = torch.empty(r, dtype=torch.float32, device=w.device)
-    build.launch(LIGHT_ROWS.name, lib.light_rows, w.device,
+    build.launch(LIGHT_ROWS, lib.light_rows, w.device,
                  [w.data_ptr(), None if f is None else f.data_ptr(), r, n,
                   int(bool(fused)), total.data_ptr(),
                   None if sel is None else sel.data_ptr(),
                   None if p_sel is None else p_sel.data_ptr()])
-    LIGHT_ROWS.add()
     return total, sel, p_sel

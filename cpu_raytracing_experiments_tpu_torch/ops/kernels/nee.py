@@ -24,14 +24,13 @@ import ctypes
 import torch
 
 from ...core.vec import Vec3
-from . import build
+from . import build, lanes
 from .build import LaunchCounter
 
 SPHERE = LaunchCounter("nee_sphere")
 COMBINE = LaunchCounter("nee_combine")
 ROW = 8  # a light's row: prim id, center x y z, r^2, emission x y z
 OUT_ROWS = 7  # l_dir x y z, tfar, shadow radiance x y z
-VECTOR = 4  # lanes of one 16-byte group
 
 
 def _bind(lib: ctypes.CDLL):
@@ -43,57 +42,8 @@ def _bind(lib: ctypes.CDLL):
     lib.nee_combine.restype = i32
 
 
-LIBRARY = build.Library("nee.cu", build.nvcc, build.NVCC_FLAGS, _bind)
-
-
-def _why_not(x, dtype, r) -> str:
-    """Why `x` is no column of `dtype` and length `r` (None: any), or ''."""
-    if not isinstance(x, torch.Tensor):
-        return f"not a tensor but {type(x).__name__}"
-    if x.dim() != 1:
-        return f"{x.dim()}-d, not 1-D"
-    if x.dtype != dtype:
-        return f"{x.dtype}, not {dtype}"
-    if not x.is_contiguous():
-        return "not contiguous"
-    if r is not None and x.shape[0] != r:
-        return f"{x.shape[0]} lanes, not {r}"
-    return ""
-
-
-def _columns(name, cols, dtypes):
-    """The data pointers of the [R] `cols`, each a contiguous 1-D tensor of
-    its dtype in `dtypes`, all of one length and on one CUDA device; raises
-    ValueError naming the first column that is not. Returns (pointers, R,
-    device)."""
-    r = None
-    for k, (x, dtype) in enumerate(zip(cols, dtypes)):
-        why = _why_not(x, dtype, r)
-        if why:
-            raise ValueError(f"{name}: column {k} is {why}")
-        r = x.shape[0]
-    device = cols[0].device
-    for k, x in enumerate(cols):
-        if not x.is_cuda or x.device != device:
-            raise ValueError(
-                f"{name}: column {k} is on {x.device}, not on "
-                f"{device if device.type == 'cuda' else 'a CUDA card'} (the "
-                "renderer shades NEE on the plain path off the card)")
-    return [x.data_ptr() for x in cols], r, device
-
-
-def _groups(r: int, floats, bytes_) -> int:
-    """16-byte groups of lanes where every float or int32 pointer is
-    16-byte aligned and every uint8 pointer 4-byte aligned, else 0."""
-    if any(p % 16 for p in floats) or any(p % 4 for p in bytes_):
-        return 0
-    return r // VECTOR
-
-
-def _rows(n: int, r: int, device) -> torch.Tensor:
-    """An [n, R] float32 view of rows 16-byte aligned."""
-    stride = -(-r // VECTOR) * VECTOR
-    return torch.empty((n, stride), dtype=torch.float32, device=device)[:, :r]
+LIBRARY = build.Library("nee.cu", build.nvcc, build.NVCC_FLAGS, _bind,
+                        headers=("lanes.cuh",))
 
 
 def nee_sphere(hit, prim_id, is_tri, p_offset: Vec3, t_quat, albedo: Vec3,
@@ -110,7 +60,7 @@ def nee_sphere(hit, prim_id, is_tri, p_offset: Vec3, t_quat, albedo: Vec3,
     cols = (hit, prim_id, is_tri, *floats)
     dtypes = ((torch.bool, torch.int32, torch.bool)
               + (torch.float32,) * len(floats))
-    ptrs, r, device = _columns("nee_sphere", cols, dtypes)
+    ptrs, r, device = lanes.columns("nee_sphere", cols, dtypes)
     if (not isinstance(draws, torch.Tensor) or not draws.is_cuda
             or draws.device != device or draws.dtype != torch.float32
             or draws.dim() != 2 or draws.shape[0] < 3
@@ -129,19 +79,18 @@ def nee_sphere(hit, prim_id, is_tri, p_offset: Vec3, t_quat, albedo: Vec3,
             "table of at least one light on the lanes' card; got "
             f"{getattr(lights, 'dtype', type(lights))} "
             f"{tuple(getattr(lights, 'shape', ()))}")
-    out = _rows(OUT_ROWS, r, device)
+    out = lanes.rows(OUT_ROWS, r, device)
     valid = torch.empty(r, dtype=torch.bool, device=device)
-    draw_stride = draws.stride(0)
-    n_vec = (0 if draw_stride % VECTOR else _groups(
-        r, [*ptrs[3:], ptrs[1], draws.data_ptr(), out.data_ptr()],
-        [ptrs[0], ptrs[2], valid.data_ptr()]))
+    draw_ptr, draw_stride = draws.data_ptr(), draws.stride(0)
+    draw_rows = [draw_ptr + 4 * k * draw_stride for k in range(3)]
+    n_vec = lanes.groups(r, [*ptrs[3:], ptrs[1], *draw_rows, out.data_ptr()],
+                         [ptrs[0], ptrs[2], valid.data_ptr()])
     addrs = (ctypes.c_ulonglong * len(ptrs))(*ptrs)
-    build.launch(SPHERE.name, LIBRARY.load().nee_sphere, device,
-                 [addrs, draws.data_ptr(), draw_stride, lights.data_ptr(),
+    build.launch(SPHERE, LIBRARY.load().nee_sphere, device,
+                 [addrs, draw_ptr, draw_stride, lights.data_ptr(),
                   lights.shape[0], out.data_ptr(), out.stride(0),
                   valid.data_ptr(), r, n_vec,
                   build.sm_count(device.index)])
-    SPHERE.add()
     return Vec3(*out[:3]), out[3], valid, Vec3(*out[4:])
 
 
@@ -153,12 +102,11 @@ def nee_combine(radiance: Vec3, valid, occluded, shadow_radiance: Vec3):
     new radiance (Vec3)."""
     cols = (*radiance, *shadow_radiance, valid, occluded)
     dtypes = (torch.float32,) * 6 + (torch.bool,) * 2
-    ptrs, r, device = _columns("nee_combine", cols, dtypes)
-    out = _rows(3, r, device)
-    n_vec = _groups(r, [*ptrs[:6], out.data_ptr()], ptrs[6:])
+    ptrs, r, device = lanes.columns("nee_combine", cols, dtypes)
+    out = lanes.rows(3, r, device)
+    n_vec = lanes.groups(r, [*ptrs[:6], out.data_ptr()], ptrs[6:])
     addrs = (ctypes.c_ulonglong * len(ptrs))(*ptrs)
-    build.launch(COMBINE.name, LIBRARY.load().nee_combine, device,
+    build.launch(COMBINE, LIBRARY.load().nee_combine, device,
                  [addrs, out.data_ptr(), out.stride(0), r, n_vec,
                   build.sm_count(device.index)])
-    COMBINE.add()
     return Vec3(*out)

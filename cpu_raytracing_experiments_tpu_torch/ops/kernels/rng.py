@@ -21,12 +21,11 @@ import operator
 
 import torch
 
-from . import build
+from . import build, lanes
 from .build import LaunchCounter
 
 SITE = LaunchCounter("rng_site")
 MAX_DRAWS = 5  # csrc/rng.cu's kMaxDraws
-VECTOR = 4  # lanes of one 16-byte group
 MASK = 0xFFFFFFFF
 
 
@@ -38,7 +37,8 @@ def _bind(lib: ctypes.CDLL):
     lib.rng_site.restype = i32
 
 
-LIBRARY = build.Library("rng.cu", build.nvcc, build.NVCC_FLAGS, _bind)
+LIBRARY = build.Library("rng.cu", build.nvcc, build.NVCC_FLAGS, _bind,
+                        headers=("lanes.cuh",))
 
 
 def _operand(x, name, dtype, seeds):
@@ -78,18 +78,15 @@ def site_draws(accumulation, seeds: torch.Tensor, offset, n: int,
                                   seeds)
     off_ptr, off_value = _operand(offset, "offset", torch.int32, seeds)
     r = seeds.shape[0]
-    stride = -(-r // VECTOR) * VECTOR  # every row 16-byte aligned
-    rows = torch.empty((n, stride), dtype=torch.float32,
-                       device=seeds.device)[:, :r]
+    rows = lanes.rows(n, r, seeds.device)
     state = (torch.empty(r, dtype=torch.int64, device=seeds.device)
              if want_state else None)
-    stepped = [seeds.data_ptr(), rows.data_ptr(), acc_ptr, off_ptr,
-               0 if state is None else state.data_ptr()]
-    n_vec = 0 if any(p % 16 for p in stepped) else r // VECTOR
-    build.launch(SITE.name, LIBRARY.load().rng_site, seeds.device,
+    state_ptr = 0 if state is None else state.data_ptr()
+    n_vec = lanes.groups(r, [seeds.data_ptr(), rows.data_ptr(), acc_ptr,
+                             off_ptr, state_ptr])
+    build.launch(SITE, LIBRARY.load().rng_site, seeds.device,
                  [seeds.data_ptr(), acc_ptr, acc_value, off_ptr, off_value,
-                  n, int(scramble), int(jitter), rows.data_ptr(), stride,
-                  stepped[4], r, n_vec,
+                  n, int(scramble), int(jitter), rows.data_ptr(),
+                  rows.stride(0), state_ptr, r, n_vec,
                   build.sm_count(seeds.get_device())])
-    SITE.add()
     return (rows, state) if want_state else rows

@@ -194,14 +194,13 @@ def closest_hit(p: Vec3, d: Vec3, center: Vec3, radius_sq, xla_chunks=True):
     lib = LIBRARY.load()
     tfar = torch.empty(n, dtype=torch.float32, device=device)
     prim = torch.empty(n, dtype=torch.int32, device=device)
-    build.launch(CLOSEST.name, lib.sphere_closest, device,
+    build.launch(CLOSEST, lib.sphere_closest, device,
                  [a.data_ptr() for a in (*p, *d, *prims)]
                  + [n, radius_sq.shape[0],
                     (unfused_from(radius_sq.shape[0]) if xla_chunks
                      else radius_sq.shape[0]),
                     build.sm_count(device.index), tfar.data_ptr(),
                     prim.data_ptr()])
-    CLOSEST.add()
     return tfar, prim
 
 
@@ -217,9 +216,8 @@ def any_hit(p: Vec3, d: Vec3, tfar, center: Vec3, radius_sq):
     _check_inputs(OCCLUDED.name, device, n, (*p, *d, tfar), prims)
     lib = LIBRARY.load()
     occ = torch.empty(n, dtype=torch.bool, device=device)
-    build.launch(OCCLUDED.name, lib.sphere_occluded, device,
+    build.launch(OCCLUDED, lib.sphere_occluded, device,
                  [a.data_ptr() for a in (*p, *d, tfar, *prims)]
                  + [n, radius_sq.shape[0], build.sm_count(device.index),
                     occ.data_ptr()])
-    OCCLUDED.add()
     return occ

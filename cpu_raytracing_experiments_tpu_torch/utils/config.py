@@ -117,24 +117,3 @@ class RendererPolicy:
                        or self.pallas_unroll != 1
                        or self.pallas_trav_block != 1),
                   "pallas_stream=True excludes mxu/fuse/unroll/trav_block")
-
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardingConfig:
-    """How to lay the render over a device mesh (JAX ``ShardingConfig``; no
-    reference equivalent, the reference is single-process, SURVEY.md
-    section 2.3)."""
-
-    data_axis: str = "dp"  # pixels sharded over this axis
-    sample_axis: Optional[str] = None  # optional spp-sharding axis ('sp')
-
-
-def tuned_policy(width: int, height: int, **overrides) -> RendererPolicy:
-    """The JAX package's measured-defaults helper: it returns the defaults
-    with `overrides` applied, and nothing is tuned to the frame size."""
-    del width, height  # kept for call-site stability with the JAX package
-    return RendererPolicy(**overrides)
-
-
-DEFAULT_POLICY = RendererPolicy()

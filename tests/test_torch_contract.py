@@ -29,6 +29,7 @@ from cpu_raytracing_experiments_tpu.core.vec import Vec3 as JVec3
 from cpu_raytracing_experiments_tpu_torch.core import fp, sampling
 from cpu_raytracing_experiments_tpu_torch.core.vec import Quat, Vec3
 from cpu_raytracing_experiments_tpu_torch.ops.kernels import fma as kfma
+from cpu_raytracing_experiments_tpu_torch.ops.kernels import lanes
 from cpu_raytracing_experiments_tpu_torch.ops.kernels import sphere_battery as sb
 
 torch.set_num_threads(1)
@@ -271,29 +272,68 @@ def test_flat_form_rule(case, flat):
         assert shape == torch.broadcast_shapes(*(t.shape for t in tensors))
 
 
-@pytest.mark.parametrize("pointers,n,groups", [
-    ((0, 16, 4096), 1 << 19, 1 << 17),  # aligned, n % 4 == 0
-    ((0, 16, 4096), 13, 3),  # aligned, a tail of 1
-    ((0, 16, 4096), 14, 3),  # a tail of 2
-    ((0, 16, 4096), 15, 3),  # a tail of 3
-    ((0, 4, 4096), 1 << 19, 0),  # one operand 1 element off
-    ((8, 24, 40), 64, 0),  # all 2 elements off: scalar loads
-    ((0, 16, 12), 64, 0),  # an output 3 elements off
+@pytest.mark.parametrize("words,bytes_,n,groups", [
+    ((0, 16, 4096), (), 1 << 19, 1 << 17),  # aligned, n % 4 == 0
+    ((0, 16, 4096), (), 13, 3),  # aligned, a tail of 1
+    ((0, 16, 4096), (), 14, 3),  # a tail of 2
+    ((0, 16, 4096), (), 15, 3),  # a tail of 3
+    ((0, 4, 4096), (), 1 << 19, 0),  # one operand 1 element off
+    ((8, 24, 40), (), 64, 0),  # all 2 elements off: scalar loads
+    ((0, 16, 12), (), 64, 0),  # an output 3 elements off
+    ((0, 16), (4, 36), 64, 16),  # uint8 columns 4-byte aligned
+    ((0, 16), (0, 2), 64, 0),  # a uint8 column 2 bytes off
+    ((32, 48, 64), (), 64, 16),  # int64 columns 16-byte aligned
+    ((32, 40), (), 64, 0),  # an int64 column 1 element off
 ])
-def test_vector_or_scalar_path(pointers, n, groups):
-    """The flat kernel's 16-byte groups: n // 4 where every array it steps
-    through starts on a 16-byte boundary, else none; the tail n % 4 and
-    everything of a misaligned call go one element a thread."""
-    assert kfma.vector_groups(n, pointers) == groups
-    assert 0 <= n - kfma.VECTOR * groups
+def test_vector_or_scalar_path(words, bytes_, n, groups):
+    """The lane kernels' 16-byte groups (``lanes.groups``, which the flat
+    fma kernel takes too): n // 4 where every 4- or 8-byte column starts on
+    a 16-byte boundary and every uint8 column on a 4-byte one, else none;
+    the tail n % 4 and everything of a misaligned call go one lane a
+    thread."""
+    assert lanes.groups(n, words, bytes_) == groups
+    assert 0 <= n - lanes.VECTOR * groups
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 1 << 19, (1 << 19) + 3])
 def test_padded_rows_start_aligned(n):
-    """A multi-output launch's rows take n rounded up to a 16-byte group,
-    so each row of a 16-byte-aligned buffer starts 16-byte aligned."""
-    width = kfma.padded(n)
-    assert width % kfma.VECTOR == 0 and n <= width < n + kfma.VECTOR
+    """A multi-output launch's rows (``lanes.rows``) are n rounded up to a
+    16-byte group apart, so each row of a 16-byte-aligned buffer starts
+    16-byte aligned."""
+    rows = lanes.rows(3, n, "cpu")
+    width = rows.stride(0)
+    assert rows.shape == (3, n) and rows.dtype == torch.float32
+    assert width % lanes.VECTOR == 0 and n <= width < n + lanes.VECTOR
+    assert all(row.data_ptr() % 16 == 0 for row in rows)
+
+
+@pytest.mark.parametrize("case, reason", [
+    ("no tensor", "column 1 is not a tensor but float"),
+    ("2-d column", "column 0 is 2-d, not 1-D"),
+    ("wrong dtype", "column 1 is torch.int64, not torch.int32"),
+    ("strided column", "column 2 is not contiguous"),
+    ("short column", "column 2 is 63 lanes, not 64"),
+    ("cpu columns", "column 0 is on cpu, not on a CUDA card")])
+def test_columns_refuses(case, reason):
+    """``lanes.columns`` raises ValueError naming the first lane column that
+    is not a contiguous 1-D tensor of its dtype and the first column's
+    length on one CUDA card (every column here is on the CPU)."""
+    n = 64
+    cols = [torch.ones(n, dtype=torch.bool),
+            torch.zeros(n, dtype=torch.int32), torch.ones(n)]
+    if case == "no tensor":
+        cols[1] = 1.0
+    elif case == "2-d column":
+        cols[0] = cols[0].view(8, 8)
+    elif case == "wrong dtype":
+        cols[1] = cols[1].long()
+    elif case == "strided column":
+        cols[2] = torch.ones(2 * n)[::2]
+    elif case == "short column":
+        cols[2] = cols[2][1:]
+    with pytest.raises(ValueError, match=f"^lanes: {reason}"):
+        lanes.columns("lanes", cols,
+                      (torch.bool, torch.int32, torch.float32))
 
 
 @pytest.mark.parametrize("case", ["contiguous", "broadcast", "transposed_4d",

@@ -222,11 +222,11 @@ def test_make_server_needs_a_card_by_default():
     without one, make_server raises before it starts a thread."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
-    before = threading.active_count()
+    before = set(threading.enumerate())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         viewer.make_server(builders.white_furnace_scene(8, 8),
                            RendererPolicy(max_bounces=2), 8, 8, port=0)
-    assert threading.active_count() == before
+    assert not set(threading.enumerate()) - before
 
 
 # --- against the JAX package's viewer, on the same inputs -----------------
