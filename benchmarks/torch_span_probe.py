@@ -19,9 +19,9 @@ JSON lines:
             and self ms a pass by span name, every counter summed over
             the spans a pass (``launches.<kernel>``, ``host_syncs``,
             ``rng_eager_lanes``, ``nee_kernel_lanes``,
-            ``nee_eager_lanes``, ...; the four of REPORTED always, 0 where
-            nothing counted them); the self ms of each update's spans
-            against its port.update device ms;
+            ``nee_eager_lanes``, ``shade_kernel_lanes``, ...; the eight
+            of REPORTED always, 0 where nothing counted them); the self
+            ms of each update's spans against its port.update device ms;
   overhead  `--rounds` times (on, off, off, on) the same traced window with
             the spans recording and with ``profiling.span`` replaced by the
             no-op in this script: the median update's wall ms of each.
@@ -49,9 +49,10 @@ PKG = "cpu_raytracing_experiments_tpu_torch"
 # what torch.cuda.set_sync_debug_mode('warn') says at each synchronising op
 SYNC_WARNING = "called a synchronizing CUDA operation"
 # counters reported a pass even where no span counted them (0 then): which
-# path shaded NEE, and the NEE kernels' launches
+# path shaded NEE and the rest of the hit shading, and the kernels' launches
 REPORTED = ("nee_kernel_lanes", "nee_eager_lanes", "launches.nee_sphere",
-            "launches.nee_combine")
+            "launches.nee_combine", "shade_kernel_lanes", "shade_eager_lanes",
+            "launches.shade_frame", "launches.shade_tail")
 READERS = ("host_syncs_per_pass", "sync_idle_pct", "live_lane_pct",
            "rng_ms_per_pass", "shade_ms_per_pass", "intersect_ms_per_pass",
            "launches_per_pass", "device_idle_pct", "aten_ms_per_pass")

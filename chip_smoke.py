@@ -217,6 +217,14 @@ Phases:
      plain composite's; over one profiled hero pass on each path, the
      int64 light-row gather (vectorized_gather_kernel) launched by the
      plain path only and nee_sphere once a bounce.
+ 23. the lambertian hit shading (check_shade_sites): at every bounce of
+     the same two wavefronts, shade_frame against _closest_hit_frame and
+     _gather_material at the hit lanes and the bounce the kernels shaded
+     against bounce_step on the plain path (the intersection answered
+     alike), every PathState field bit for bit; shade_frame + shade_tail a
+     pass beside their byte bound; the bounce after the intersection on
+     both paths less NEE and the draws (the eager spans the kernels
+     replace); the launches of one bounce on each path.
 
 Any failure raises and exits non-zero. On success the last lines are the
 card's name and power limit, JSON objects with the kernels' numbers (the one
@@ -225,7 +233,8 @@ forms of the fma kernels, every walk with its S, the walks with the
 product-form battery, the seven planner modes of phase 14, and phase 15's
 stream_replay and prefix launch, phase 17's light_rows, phase 19's four
 walks, phase 21's rng_site at the hero's NEE site, phase 22's nee_sphere
-with nee_combine a pass of the hero cell), the
+with nee_combine a pass of the hero cell, phase 23's shade_frame with
+shade_tail a pass of the hero cell), the
 clusters planned and walked per tile under each planner, phase 16's numbers
 (keyed "shading_paths"), phase 17's (keyed "light_paths"), phase 18's (keyed
 "host_paths"), phase 19's walks at their other shapes and its paths (keyed
@@ -261,6 +270,7 @@ FMA_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/fma.cu"
 LIGHT_ROWS_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/light_rows.cu"
 RNG_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/rng.cu"
 NEE_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/nee.cu"
+SHADE_SOURCE = "cpu_raytracing_experiments_tpu_torch/csrc/shade.cu"
 _TK = "cpu_raytracing_experiments_tpu/ops/pallas/traverse_kernel.py"
 REPLACES = {
     **{name: "none: the single-rounding a*b + c that XLA contracts in the "
@@ -307,6 +317,11 @@ REPLACES = {
                   "cpu_raytracing_experiments_tpu/render/renderer.py "
                   "(_next_event_estimation :543, under the lambertian "
                   "closure, uniform selection and sphere lights)",
+    "shade_frame": "none: XLA's fusion of "
+                   "cpu_raytracing_experiments_tpu/render/renderer.py "
+                   "(bounce_step's closest-hit frame, emissive hit, BSDF "
+                   "sample, Russian roulette and writeback under the "
+                   "lambertian closure)",
     # the planner modes last: phase 14 takes them as tuple(REPLACES)[-7:]
     "cluster_plan[super]": _TK + ":420",
     "cluster_plan[group]": _TK + ":420",
@@ -529,8 +544,10 @@ CHECKED = SPLIT_WALKS + ("closest_split_kernel", "plan_kernel",
                          "replay_kernel", "light_rows_kernel",
                          "merge_kernel", "site_kernel",
                          "nee_combine_kernel") + FMA_KERNELS
-# (the kernels that must hold no float64; nee_sphere_kernel's sin and cos
-# are float64 by design, as fp.sin / fp.cos)
+# (the kernels that must hold no float64)
+FLOAT64_BY_DESIGN = ("nee_sphere_kernel", "shade_frame_kernel",
+                     "shade_tail_kernel")  # sin, cos and rsqrt in float64,
+# as fp.sin / fp.cos / fp.rsqrt
 FLAT_PLANNER = "plan_kernelILi0ELb1ELb0E"  # cluster_plan['ray', wide]
 SPHERE_CLOSEST = "closest_kernelE"  # sphere_closest (the walks' are
 # templates)
@@ -563,7 +580,7 @@ def report_kernels(libraries):
     for lib in libraries:
         frames = stack_frames(lib.build_log)
         for fn, regs, (st, ld), smem in ptxas_report(
-                lib.build_log, CHECKED + ("nee_sphere_kernel",)):
+                lib.build_log, CHECKED + FLOAT64_BY_DESIGN):
             log(f"    ptxas {lib.source.name} {kernel_name(fn)}: {regs} "
                 f"registers, spill "
                 f"stores {st} B, spill loads {ld} B, {smem} B static shared, "
@@ -579,9 +596,11 @@ def report_kernels(libraries):
         grid_walk as gw
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import nee as nk
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import rng as rk
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        shade as sk
 
     for lib in (ct.LIBRARY, sb.LIBRARY, kf.LIBRARY, lr.LIBRARY, bw.LIBRARY,
-                gw.LIBRARY, rk.LIBRARY, nk.LIBRARY):
+                gw.LIBRARY, rk.LIBRARY, nk.LIBRARY, sk.LIBRARY):
         for fn, c in sass_report(lib).items():
             log(f"    SASS {lib.source.name} {kernel_name(fn)}: "
                 f"{c['instructions']} instructions, {c['f64 arithmetic']} "
@@ -4170,6 +4189,217 @@ def check_nee_sites(torch, crt, timer, mesh_scene):
     return main
 
 
+# phase 23: the lambertian hit shading (csrc/shade.cu) at the benchmark
+# cells' shapes (NEE_SITES'): every bounce of one wavefront is captured
+SHADE_BOUNCE_BYTES = 112  # both kernels, a lane: its masks, the state it
+# carries (read and written anew) and shade_frame's hit byte
+SHADE_ALIVE_BYTES = 4  # an alive lane's prim id
+SHADE_HIT_BYTES = 109  # a hit lane's is_tri, tfar, p, d and the frame's 40 B
+# written, then read again by shade_tail with the BSDF site's draws
+
+
+def shade_bounces(torch, crt, scene, width, height, packed):
+    """The operands of renderer._bounce_kernels at every bounce of one
+    wavefront of `packed` passes (REFERENCE_FIXED at 8 bounces, 2^23 lanes
+    a chunk, as the cells run), each with the state it returned."""
+    from cpu_raytracing_experiments_tpu_torch.render import renderer
+
+    got = []
+    real = renderer._bounce_kernels
+
+    def capture(scene_, policy, accumulation, seeds, state, tfar, prim_id,
+                is_tri):
+        out = real(scene_, policy, accumulation, seeds, state, tfar, prim_id,
+                   is_tri)
+        got.append(dict(scene=scene_, policy=policy,
+                        accumulation=accumulation, seeds=seeds, state=state,
+                        answer=(tfar, prim_id, is_tri), out=out))
+        return out
+
+    policy = crt.RendererPolicy(max_bounces=8, rays_per_chunk=1 << 23,
+                                **({"accel": "pallas"} if scene.triangles
+                                   is not None else {}))
+    r = crt.Renderer(scene, policy, width, height)
+    r.state = dataclasses.replace(r.state, accumulations=NEE_ACCUMULATION)
+    renderer._bounce_kernels = capture
+    try:
+        r.accumulate(packed)
+    finally:
+        renderer._bounce_kernels = real
+    return got
+
+
+def csrc_launches(fn):
+    """The hand-written kernels `fn()` launches, by name (the counters that
+    ``build.launch`` keeps)."""
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import build
+
+    before = build.launch_counts()
+    fn()
+    return {k: v - before[k] for k, v in build.launch_counts().items()
+            if v != before[k]}
+
+
+def check_shade_sites(torch, crt, timer, mesh_scene):
+    """Phase 23: at every bounce of the hero cell's wavefront (1920x1088,
+    4 passes packed, 8,355,840 lanes) and of the 4K cell's (3840x2160 on
+    mesh100k, 8,294,400 lanes, narrowed): shade_frame against
+    _closest_hit_frame and _gather_material at the hit lanes, and the
+    bounce the kernels shaded against bounce_step on the plain path with
+    the intersection answered alike, every PathState field bit for bit;
+    shade_frame + shade_tail timed against their byte bound; the bounce
+    after the intersection on both paths with NEE's and the BSDF draws'
+    time taken off (the eager spans the kernels replace against the
+    kernels), and the hand-written launches of one kernel bounce. Returns the
+    kernels-line row at the hero's shape, the 4K cell's numbers beside
+    it."""
+    from cpu_raytracing_experiments_tpu_torch.ops import intersect
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import shade as sk
+    from cpu_raytracing_experiments_tpu_torch.render import renderer
+
+    rows = {}
+    for label, kind, (width, height), packed in NEE_SITES:
+        scene = (crt.builders.default_scene(width, height).to(DEVICE)
+                 if kind == "hero" else mesh_scene)
+        bounces = shade_bounces(torch, crt, scene, width, height, packed)
+        ms = {"kernels": 0.0, "kernel bounce": 0.0, "plain bounce": 0.0,
+              "nee and draws": 0.0}
+        nbytes = 0
+        shapes, launches = [], {}
+        for k, b in enumerate(bounces):
+            st, pol, (tfar, prim, is_tri) = b["state"], b["policy"], \
+                b["answer"]
+            cols = sk.scene_columns(b["scene"].spheres, b["scene"].triangles,
+                                    b["scene"].materials, b["scene"].sky)
+            hit, p_off, quat, albedo, mat = sk.shade_frame(
+                st.alive, prim, is_tri, tfar, st.p, st.d, cols)
+            rad, valid = renderer._nee_sphere_kernels(
+                b["scene"], pol, st, b["accumulation"], b["seeds"], hit,
+                prim, is_tri, p_off, quat, {"albedo": albedo}, st.radiance)
+            draws = renderer.rng.site_draws(
+                b["accumulation"], b["seeds"], 2 * st.bounce + 1, 3,
+                pol.rng_scramble)
+            n_lights = b["scene"].num_lights
+            flags = dict(use_mis=pol.mis and n_lights > 0 and st.bounce > 0,
+                         inv_l=1.0 / max(n_lights, 1),
+                         roulette=pol.russian_roulette,
+                         sky_compat=pol.sky_bug_compat,
+                         last=st.bounce + 1 >= pol.max_bounces)
+
+            def kernels(b=b, st=st, cols=cols, rad=rad, valid=valid,
+                        draws=draws, flags=flags, tfar=tfar, prim=prim,
+                        is_tri=is_tri):
+                hit, p_off, quat, albedo, mat = sk.shade_frame(
+                    st.alive, prim, is_tri, tfar, st.p, st.d, cols)
+                return sk.shade_tail(
+                    st.alive, hit, prim, is_tri, tfar, mat, quat, p_off,
+                    st.p, st.d, st.throughput, rad, st.prev_pdf,
+                    st.prev_delta, valid, st.ray_count, draws, cols,
+                    **flags)
+
+            def nee_and_draws(b=b, st=st, hit=hit, prim=prim, is_tri=is_tri,
+                              p_off=p_off, quat=quat, albedo=albedo):
+                renderer._nee_sphere_kernels(
+                    b["scene"], b["policy"], st, b["accumulation"],
+                    b["seeds"], hit, prim, is_tri, p_off, quat,
+                    {"albedo": albedo}, st.radiance)
+                renderer.rng.site_draws(
+                    b["accumulation"], b["seeds"], 2 * st.bounce + 1, 3,
+                    b["policy"].rng_scramble)
+
+            def step(b=b):
+                return renderer.bounce_step(b["scene"], b["policy"],
+                                            b["accumulation"], b["seeds"],
+                                            b["state"])
+
+            real_intersect = intersect.intersect_scene
+            real_path = renderer.shade_kernel_path
+            intersect.intersect_scene = \
+                lambda *a, b=b, **kw: b["answer"]
+            try:
+                renderer.shade_kernel_path = lambda *a: False
+                want = step()
+                ms["plain bounce"] += timer(step, 3, warmup=1)
+                renderer.shade_kernel_path = real_path
+                bounce_launches = csrc_launches(step)
+                ms["kernel bounce"] += timer(step, 10)
+            finally:
+                intersect.intersect_scene = real_intersect
+                renderer.shade_kernel_path = real_path
+            got = b["out"]
+            differ = []
+            for field in ("p", "d", "throughput", "radiance"):
+                for a, w in zip(getattr(got, field), getattr(want, field)):
+                    differ.append(int((a.view(torch.int32)
+                                       != w.view(torch.int32)).sum()))
+            for field in ("prev_pdf",):
+                differ.append(int((getattr(got, field).view(torch.int32)
+                                   != getattr(want, field).view(
+                                       torch.int32)).sum()))
+            for field in ("prev_delta", "alive"):
+                differ.append(int((getattr(got, field)
+                                   != getattr(want, field)).sum()))
+            differ.append(int(got.ray_count != want.ray_count))
+            w_off, _, w_quat, _, w_mat, _, _, _ = \
+                renderer._closest_hit_frame(b["scene"], st, tfar, prim,
+                                            is_tri)
+            w_alb = renderer._gather_material(b["scene"], pol,
+                                              w_mat)["albedo"]
+            want_hit = st.alive & (prim >= 0)
+            differ.append(int((hit != want_hit).sum()))
+            for a, w in zip((*p_off, quat.x, quat.y, quat.w, *albedo),
+                            (*w_off, w_quat.x, w_quat.y, w_quat.w, *w_alb)):
+                differ.append(int((a.view(torch.int32)[hit]
+                                   != w.view(torch.int32)[hit]).sum()))
+            differ.append(int((mat[hit] != w_mat[hit]).sum()))
+            if any(differ):
+                raise AssertionError(
+                    f"[23 shade] {label} bounce {k}: {sum(differ)} values of "
+                    f"the kernels differ from the plain path ({differ})")
+            n = int(hit.shape[0])
+            alive, live = int(st.alive.sum()), int(hit.sum())
+            shapes.append((n, alive, live))
+            nbytes += (n * SHADE_BOUNCE_BYTES + alive * SHADE_ALIVE_BYTES
+                       + live * SHADE_HIT_BYTES)
+            ms["kernels"] += timer(kernels, 10)
+            ms["nee and draws"] += timer(nee_and_draws, 10)
+            if k == 1:
+                launches = bounce_launches
+        per_pass = {k: v / packed for k, v in ms.items()}
+        eager_spans = per_pass["plain bounce"] - per_pass["nee and draws"]
+        kernel_spans = per_pass["kernel bounce"] - per_pass["nee and draws"]
+        rows[label] = kernel_row(
+            "shade_frame", SHADE_SOURCE,
+            f"{label}: {len(bounces)} bounces of {shapes[0][0]} lanes "
+            f"(the last {shapes[-1][0]}), a pass of {packed}", 0, 0.0,
+            per_pass["kernels"], eager_spans, nbytes / packed, 0)
+        rows[label].update({
+            "kernel_spans_ms": kernel_spans,
+            "bounce_ms": {k: per_pass[k] for k in ("kernel bounce",
+                                                   "plain bounce",
+                                                   "nee and draws")},
+            "lanes_alive_hit": shapes,
+            "csrc_launches_a_bounce": launches,
+            "kernel_launches_a_pass": 2 * len(bounces) / packed})
+        log(f"[23 shade] {label}: bit for bit at {len(bounces)} bounces "
+            f"(lanes, alive, hit: {shapes}); a pass: shade_frame + "
+            f"shade_tail {per_pass['kernels']:.4f} ms (bound "
+            f"{rows[label]['bound_ms']:.4f} ms by bytes); after the "
+            f"intersection, less NEE and the draws "
+            f"({per_pass['nee and draws']:.4f} ms): kernels "
+            f"{kernel_spans:.4f} ms, plain {eager_spans:.4f} ms; hand-written "
+            f"launches of kernel bounce 1 {launches}")
+        del bounces
+        torch.cuda.empty_cache()
+    main = rows.pop(NEE_SITES[0][0])
+    main["at_other_sites"] = {
+        label: {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                    "kernel_spans_ms",
+                                    "csrc_launches_a_bounce")}
+        for label, row in rows.items()}
+    return main
+
+
 def main() -> int:
     import torch
 
@@ -4195,6 +4425,8 @@ def main() -> int:
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import nee as nk
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import rng as rk
     from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
+        shade as sk
+    from cpu_raytracing_experiments_tpu_torch.ops.kernels import \
         sphere_battery as sb
     from cpu_raytracing_experiments_tpu_torch.utils import native
 
@@ -4211,7 +4443,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = (sb.LIBRARY, ct.LIBRARY, kf.LIBRARY, lr.LIBRARY,
                  bw.LIBRARY, gw.LIBRARY, rk.LIBRARY, nk.LIBRARY,
-                 native.LIBRARY)
+                 sk.LIBRARY, native.LIBRARY)
     build.load_all(libraries)
     log(f"[1] csrc/ built side by side and loaded in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(lib.source.name for lib in libraries)})")
@@ -4254,16 +4486,19 @@ def main() -> int:
                      pol(max_bounces=6, rays_per_chunk=4096), 64, 64)
     r.accumulate(10)
     golden_check(np, r.render(tonemap=False), "hero")
-    # NEE is the nee_sphere / nee_combine kernels here: the light
-    # sampler's to_local and strided fma ran in the plain path only
-    nee_forms = ("fma[to_local]", "fma[strided]")
+    # NEE and the hit shading are csrc/nee.cu's and csrc/shade.cu's
+    # kernels here: the fma kernels run for the camera rays only (fma and
+    # fma3 of the view direction's rotation)
+    camera_forms = ("fma", "fma[fma3]")
     _, hero_path = render(torch, crt, hero,
                           pol(max_bounces=8, rays_per_chunk=1 << 19),
                           1920, 1088, PASSES, "5 hero",
-                          sphere_kernels + tuple(
-                              f for f in FMA_FORMS if f not in nee_forms)
-                          + ("rng_site", "nee_sphere", "nee_combine"),
-                          idle=nee_forms)
+                          sphere_kernels + camera_forms
+                          + ("rng_site", "nee_sphere", "nee_combine",
+                             "shade_frame", "shade_tail"),
+                          idle=tuple(f for f in FMA_FORMS
+                                     if f not in camera_forms)
+                          + ("fma[strided]",))
     _, field_path = render(torch, crt, field, pol(max_bounces=8), 512, 512,
                            PASSES, "6 random_spheres 1k brute",
                            sphere_kernels)
@@ -4518,6 +4753,9 @@ def main() -> int:
     log(f"[22] phases 1-21 done at {time.perf_counter() - t_start:.1f} s")
     nee_row = check_nee_sites(torch, crt, timer, meshes[224])
     nee_row["launches"] = hero_path["launches"]["nee_sphere"]
+    log(f"[23] phases 1-22 done at {time.perf_counter() - t_start:.1f} s")
+    shade_row = check_shade_sites(torch, crt, timer, meshes[224])
+    shade_row["launches"] = hero_path["launches"]["shade_frame"]
     # each walk's row at the field's camera batch (bvh_occluded's at the
     # field render's own shadow rays), its launches from the field's render
     # under that backend
@@ -4591,7 +4829,7 @@ def main() -> int:
                     + list(main_rows.values()) + list(new_rows.values())
                     + list(stream2_rows.values()) + [light_rows_row]
                     + [walk_main[name] for name in WALKS] + [rng_row]
-                    + [nee_row]}))
+                    + [nee_row, shade_row]}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ it steps through is aligned, one lane otherwise.
 output rows that keep the groups aligned, and ``columns`` checks the lane
 columns a wrapper passes to its kernel. The fma kernels' flat form
 (``csrc/fma.cu``) keeps its own schedule but takes the same groups and rows.
+``Derived`` keeps what a kernel reads of a scene (a packed table, checked
+column addresses) for the tensors it was made from.
 """
 from __future__ import annotations
 
@@ -65,5 +67,27 @@ def columns(name: str, cols, dtypes):
             raise ValueError(
                 f"{name}: column {k} is on {x.device}, not on "
                 f"{device if device.type == 'cuda' else 'a CUDA card'} (the "
-                "renderer shades NEE on the plain path off the card)")
+                "renderer takes the plain path off the card)")
     return [x.data_ptr() for x in cols], r, device
+
+
+class Derived:
+    """Values made from a scene's tensors, each made once for the tensors
+    it is made from (by identity and version: a tensor changed in place
+    gives a new value), the newest `kept` kept, first in first out. The
+    tensors are kept with their value, so their ids stay theirs."""
+
+    def __init__(self, kept: int = 4):
+        self.kept = kept
+        self._values = {}
+
+    def get(self, src, make):
+        """The value made by `make()` from the tensors `src`."""
+        key = tuple((id(a), a._version) for a in src)
+        entry = self._values.get(key)
+        if entry is None:
+            value = make()
+            if len(self._values) >= self.kept:
+                self._values.pop(next(iter(self._values)))
+            entry = self._values[key] = (tuple(src), value)
+        return entry[1]

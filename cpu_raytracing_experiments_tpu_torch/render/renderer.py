@@ -40,8 +40,9 @@ from ..core.rng import MASK, add32, mul32
 from ..core.vec import Quat, Vec3
 from ..ops import closures, intersect
 from ..ops import gather as fast_gather
-from ..ops.kernels import light_rows
+from ..ops.kernels import lanes, light_rows
 from ..ops.kernels import nee as nee_kernel
+from ..ops.kernels import shade as shade_kernel
 from ..ops.kernels.cluster_traverse import PLANS, compact_order
 from ..scene.scene import Scene
 from ..utils import profiling
@@ -743,30 +744,25 @@ def nee_kernel_path(scene: Scene, policy: RendererPolicy, device) -> bool:
             and (policy.light_sampling == "uniform" or n == 1))
 
 
-_LIGHT_TABLES = {}  # packed sphere-light tables, by the arrays they pack
-_LIGHT_TABLES_KEPT = 4
+_LIGHT_TABLES = lanes.Derived()  # packed sphere-light tables
 
 
 def _sphere_light_table(scene: Scene) -> torch.Tensor:
     """The [L, 8] float32 table of the scene's sphere lights (prim id,
     center, r^2, emission), the rows ``_sphere_light_sample`` gathers,
-    packed once for the arrays it is made from (by identity and version:
-    an array changed in place is packed anew)."""
+    packed once for the arrays it is made from (``lanes.Derived``: an array
+    changed in place is packed anew)."""
     sp, em = scene.spheres, scene.materials.emission
-    src = (scene.lights, *sp.center, sp.radius_sq, sp.material_id, *em)
-    key = tuple((id(a), a._version) for a in src)
-    kept = _LIGHT_TABLES.get(key)
-    if kept is None:
+
+    def pack():
         sl = scene.lights.to(torch.int64)
         s_mid = sp.material_id[sl].to(torch.int64)
-        table = fast_gather.pack_table(
+        return fast_gather.pack_table(
             sl, sp.center.x[sl], sp.center.y[sl], sp.center.z[sl],
             sp.radius_sq[sl], em.x[s_mid], em.y[s_mid], em.z[s_mid])
-        if len(_LIGHT_TABLES) >= _LIGHT_TABLES_KEPT:
-            _LIGHT_TABLES.pop(next(iter(_LIGHT_TABLES)))
-        # the arrays are kept with the table, so their ids stay theirs
-        kept = _LIGHT_TABLES[key] = (src, table)
-    return kept[1]
+
+    return _LIGHT_TABLES.get(
+        (scene.lights, *sp.center, sp.radius_sq, sp.material_id, *em), pack)
 
 
 def _nee_sphere_kernels(scene: Scene, policy: RendererPolicy,
@@ -840,6 +836,73 @@ def _emissive_hit(scene: Scene, policy: RendererPolicy, state: PathState,
     return contribution.where(is_emissive, Vec3(zeros, zeros, zeros))
 
 
+def shade_kernel_path(scene: Scene, policy: RendererPolicy,
+                      state: PathState, device) -> bool:
+    """Whether ``bounce_step`` shades a bounce on `device` with the
+    lambertian kernels (``ops/kernels/shade.py``) rather than the plain
+    path: on the card, under the lambertian closure, where the light is
+    picked uniformly or the scene has at most one light (the emitter's pdf
+    is then 1/L), no light is a triangle, the sky is a 1x1 map and
+    ``state.bounce`` is one int (the masked loop), and NEE is the sphere
+    kernels' (``nee_kernel_path``) or adds nothing (no light, or
+    ``mis=False``). GGX and principled, 'power' / 'alias' / RIS / ReSTIR
+    over more than one light, triangle lights, an HDRI sky, the pool's
+    per-lane bounce and the CPU take the plain path."""
+    return (torch.device(device).type == "cuda"
+            and policy.brdf == "lambertian" and scene.num_tri_lights == 0
+            and (policy.light_sampling == "uniform"
+                 or scene.num_lights <= 1)
+            and (nee_kernel_path(scene, policy, device) or not policy.mis
+                 or scene.num_lights == 0)
+            and scene.sky.width == 1 and scene.sky.height == 1
+            and not isinstance(state.bounce, torch.Tensor))
+
+
+def _bounce_kernels(scene: Scene, policy: RendererPolicy, accumulation,
+                    seeds, state: PathState, tfar, prim_id, is_tri):
+    """``bounce_step`` after the intersection where ``shade_kernel_path``
+    holds: ``shade_frame``, NEE (the sphere-light kernels; where
+    ``nee_kernel_path`` does not hold, NEE adds nothing), the BSDF site's
+    draws and ``shade_tail``; bit for bit the plain path's."""
+    cols = shade_kernel.scene_columns(scene.spheres, scene.triangles,
+                                      scene.materials, scene.sky)
+    with profiling.span("port.closest_hit"):
+        profiling.count("shade_kernel_lanes", tfar.shape[0])
+        hit, p_offset, t_quat, albedo, mat_id = shade_kernel.shade_frame(
+            state.alive, prim_id, is_tri, tfar, state.p, state.d, cols)
+    radiance, shadow_traced = state.radiance, None
+    if nee_kernel_path(scene, policy, hit.device):
+        with profiling.span("port.nee"):
+            radiance, shadow_traced = _nee_sphere_kernels(
+                scene, policy, state, accumulation, seeds, hit, prim_id,
+                is_tri, p_offset, t_quat, {"albedo": albedo}, radiance)
+    with profiling.span("port.bsdf"):
+        with profiling.span("port.rng"):
+            drawn = rng.site_draws(accumulation, seeds, 2 * state.bounce + 1,
+                                   3, policy.rng_scramble)
+    light_count = scene.num_lights
+    with profiling.span("port.writeback"):
+        nxt = shade_kernel.shade_tail(
+            state.alive, hit, prim_id, is_tri, tfar, mat_id, t_quat,
+            p_offset, state.p, state.d, state.throughput, radiance,
+            state.prev_pdf, state.prev_delta, shadow_traced, state.ray_count,
+            drawn, cols,
+            use_mis=policy.mis and light_count > 0 and state.bounce > 0,
+            inv_l=1.0 / max(light_count, 1),
+            roulette=policy.russian_roulette,
+            sky_compat=policy.sky_bug_compat,
+            last=state.bounce + 1 >= policy.max_bounces)
+        if profiling.recording():
+            # the rays traced: closest-hit lanes alive and shadow rays
+            profiling.count("rays_traced", nxt.counts[1])
+            profiling.count("rays_traced", nxt.counts[2])
+    return PathState(
+        bounce=state.bounce + 1, p=nxt.p, d=nxt.d,
+        throughput=nxt.throughput, radiance=nxt.radiance,
+        prev_pdf=nxt.prev_pdf, prev_delta=nxt.prev_delta, alive=nxt.alive,
+        ray_count=nxt.counts[0])
+
+
 def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
                 state: PathState, restir_in=None, restir_xy=None,
                 restir_geom=None):
@@ -858,6 +921,13 @@ def bounce_step(scene: Scene, policy: RendererPolicy, accumulation, seeds,
         tfar, prim_id, is_tri = intersect.intersect_scene(
             scene, state.p, state.d, accel=policy.effective_accel,
             alive=state.alive, policy=policy)
+    if shade_kernel_path(scene, policy, state, tfar.device):
+        out = _bounce_kernels(scene, policy, accumulation, seeds, state,
+                              tfar, prim_id, is_tri)
+        # NEE forms no reservoirs here (at most one light, or none)
+        return out if restir_in is None else (out, restir_in)
+    if tfar.is_cuda:
+        profiling.count("shade_eager_lanes", tfar.shape[0])
     hit = state.alive & (prim_id >= 0)
     miss = state.alive & (prim_id < 0)
 
