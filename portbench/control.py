@@ -1,6 +1,7 @@
-"""The control of the check: the reference computed in bfloat16, the
-precision below the float32 that the configurations state, put in the
-program's place and judged as a run judges the program.
+"""The control of the check: the reference that the cell's configuration
+names computed in bfloat16, the precision below the float32 that the
+configurations state, put in the program's place and judged as a run
+judges the program.
 
     python3 -m portbench.control --workload <cell> --seeds 11,12 --passes 200
 
@@ -18,7 +19,7 @@ import json
 import sys
 
 from . import check, manifest, scenes
-from .run import MASK, port_policy, reference_policy
+from .run import MASK, port_policy, reference
 
 
 def readings(cell: str, seed: int, passes: int, device: str = "cuda",
@@ -27,13 +28,12 @@ def readings(cell: str, seed: int, passes: int, device: str = "cuda",
     one for `cell` over `passes` passes from `seed`."""
     import torch
 
-    from .reference import pathtrace
-
     mf = mf or manifest.Manifest()
     wl = mf.workload(cell)
     config, traffic = mf.config(wl["config"]), mf.traffic(wl["traffic"])
     width, height = frame or (traffic["width"], traffic["height"])
-    pol = reference_policy(port_policy(config, traffic))
+    ref = reference(config)
+    pol = ref.policy(port_policy(config, traffic))
     inputs = scenes.build(config, width, height)
     count = pixels or int(mf.check(cell)["pixels"])
     pix = torch.from_numpy(check.sample_pixels(seed, width * height,
@@ -42,9 +42,9 @@ def readings(cell: str, seed: int, passes: int, device: str = "cuda",
     out = {}
     for name, dtype in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
-        sc = pathtrace.make_scene(inputs, device, dtype)
-        b = pathtrace.buckets(sc, pol, pix, seed & MASK, passes, width)
-        out[name] = (b, pathtrace.resolve(b, passes, pol.spp, exposure))
+        sc = ref.make_scene(inputs, device, dtype)
+        b = ref.buckets(sc, pol, pix, seed & MASK, passes, width)
+        out[name] = (b, ref.resolve(b, passes, pol.spp, exposure))
     (bb, bi), (fb, fi) = out["bfloat16"], out["float32"]
     return check.compare(bb, fb, bi, fi)
 

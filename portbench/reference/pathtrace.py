@@ -11,6 +11,14 @@ It imports nothing of the system under test. It takes the scene as the
 arrays that the benchmark builds from a configuration file
 (``portbench/scenes.py``) and derives everything else itself: triangle
 planes, the bounding groups that cull triangle tests, the light lists.
+
+It is the reference of every configuration that names none (a
+configuration's ``"reference"`` names a module of this folder, found as
+``run.reference`` finds it). Such a module exposes ``policy(port_policy)``,
+``make_scene(inputs, device, dtype)``, ``buckets(scene, policy, pixels,
+first_pass, n_passes, width)`` and ``resolve(buckets, accumulations, spp,
+exposure)``, as this one does; it may import this one's helpers (the RNG,
+intersection, the estimator) and never the system under test.
 Every float is computed in one dtype (`dtype`): float32 for the check,
 bfloat16 for its control. Integer work (the counter RNG) is exact in
 int64. Products and sums are rounded one by one, as PyTorch rounds them,
@@ -279,7 +287,7 @@ def _planes(v0, e1, e2):
 
 def make_scene(inputs: dict, device, dtype=torch.float32) -> Scene:
     """The reference's scene from the benchmark's scene inputs
-    (``portbench.scenes.reference_inputs``)."""
+    (``portbench.scenes.build``)."""
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dt)
 
@@ -454,6 +462,22 @@ class Policy:
     spp: int
     stratify: bool
     tile_root: int = 16
+
+
+def policy(port_policy) -> Policy:
+    """The reference's policy for the port's, refusing knobs it does not
+    render."""
+    plain = {"brdf": "lambertian", "light_sampling": "uniform", "mis": True,
+             "russian_roulette": True, "median": True,
+             "accumulation_buckets": 5, "clamp_radiance": False,
+             "sky_bug_compat": False, "enable_dof": False,
+             "rng_scramble": False, "log_tile": 4}
+    off = {k: getattr(port_policy, k) for k, v in plain.items()
+           if getattr(port_policy, k) != v}
+    if off:
+        raise ValueError(f"the reference does not render {off}")
+    return Policy(port_policy.max_bounces, port_policy.samples_per_pixel,
+                  port_policy.stratify_camera)
 
 
 def lane_seeds(pixel, sample, width: int, pol: Policy):

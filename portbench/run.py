@@ -8,19 +8,22 @@ traffic mix (``traffic/<traffic>.json``: frame, render policy, passes per
 update), named ``<config>.<traffic>`` in ``BENCHMARK.json``. A run
 
 1. sets up: builds the scene's arrays from the configuration, hands them to
-   the port (``Scene.from_numpy``, the cluster build where the
-   configuration asks for it, ``Renderer`` on the card) and warms up with
-   one update of the cell's shapes;
-2. measures: ``Renderer.accumulate(k)`` back to back, each call ending in
-   ``torch.cuda.synchronize()`` (one update, what a viewer could show),
-   for ``--seconds``, ending with the update in flight; the window's
-   first pass has the accumulation index ``--seed``, which keys the
-   counter RNG;
+   the port (``Scene.from_numpy``, the acceleration builds the
+   configuration names, ``Renderer`` on the card) and warms up with one
+   update of the cell's shapes;
+2. measures: ``Renderer.accumulate(k)`` back to back, each call followed
+   by ``torch.cuda.synchronize()`` (one update), for ``--seconds``, ending
+   with the update in flight; where the traffic mix sets
+   ``"resolve_every_s"``, the first update that ends that long after the
+   last pull also pulls the image, as the viewer's page does; the window's
+   first pass has the accumulation index ``--seed``, which keys the counter
+   RNG;
 3. with ``--trace 1``, traces 3 more updates with ``torch.profiler`` and
    counts the planner's work over one more;
 4. reads the peak of device memory, frees the port's state, and checks the
    port's buckets and resolved image at pixels drawn from the seed against
-   the plain reference (``check.py``).
+   the plain reference that the configuration names (``reference/``,
+   ``check.py``).
 
 It prints the cell's end-to-end metrics (``--trace 0``) or per-layer
 metrics (``--trace 1``) as the last line of standard output, one JSON
@@ -33,6 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
 import os
 import subprocess
@@ -45,6 +49,19 @@ from . import check, counters, manifest, scenes, trace, window
 MASK = 0xFFFFFFFF
 TRACED_UPDATES = 3
 FORBIDDEN = ("jax", "jaxlib", "flax", "cpu_raytracing_experiments_tpu")
+# a configuration's acceleration builds, by key, in the order they run
+# (``scene/accel.py``): the BVH reorders the prims, and a cluster pack
+# names the prim ids it is built on
+BUILDS = {"bvh": "with_bvh", "grid": "with_grid",
+          "clusters": "with_pallas_clusters",
+          "morton_clusters": "with_clusters"}
+# the build whose tables each backend walks
+WALKS = {"bvh": "bvh", "grid": "grid", "pallas": "clusters",
+         "clustered": "morton_clusters"}
+# the keys of a configuration that this module reads; ``scenes.KEYS`` are
+# the scene's, ``BUILDS`` the acceleration builds'
+RUN_KEYS = {"name", "source", "about", "reduced", "assumed", "reference",
+            "policy"}
 
 
 def process_start() -> float:
@@ -107,22 +124,62 @@ def port_policy(config: dict, traffic: dict):
     return RendererPolicy(**traffic["policy"], **config["policy"])
 
 
-def reference_policy(policy):
-    """The reference's policy for the port's, refusing knobs it does not
-    render."""
-    from .reference import pathtrace
+def reference(config: Optional[dict] = None):
+    """The reference module that `config` names (``"reference"``;
+    ``pathtrace`` where it names none): ``reference/<name>.py``."""
+    name = (config or {}).get("reference", "pathtrace")
+    if not name.isidentifier():
+        raise ValueError(f"no reference module {name!r}")
+    return importlib.import_module(f"{__package__}.reference.{name}")
 
-    plain = {"brdf": "lambertian", "light_sampling": "uniform", "mis": True,
-             "russian_roulette": True, "median": True,
-             "accumulation_buckets": 5, "clamp_radiance": False,
-             "sky_bug_compat": False, "enable_dof": False,
-             "rng_scramble": False, "log_tile": 4}
-    off = {k: getattr(policy, k) for k, v in plain.items()
-           if getattr(policy, k) != v}
-    if off:
-        raise ValueError(f"the reference does not render {off}")
-    return pathtrace.Policy(policy.max_bounces, policy.samples_per_pixel,
-                            policy.stratify_camera)
+
+def reference_policy(policy, config: Optional[dict] = None):
+    """The policy of the reference that `config` names for the port's
+    `policy`; it refuses the knobs that the reference does not render."""
+    return reference(config).policy(policy)
+
+
+def accel_builds(config: dict, policy) -> list:
+    """The acceleration builds of `config`, (function name in
+    ``scene/accel.py``, its arguments), in the order they run. Refuses a
+    key that the configuration format does not have, and a policy whose
+    backend (``effective_accel``, ``primary_accel``) walks tables that no
+    build of the configuration makes: the port would render such a scene
+    with the dense batteries. Refuses two builds that fill the same
+    tables."""
+    unknown = sorted(set(config) - RUN_KEYS - scenes.KEYS - set(BUILDS))
+    if unknown:
+        raise ValueError(f"configuration {config.get('name')!r}: unknown "
+                         f"keys {unknown}; the acceleration builds are "
+                         f"{sorted(BUILDS)}")
+    if {"clusters", "morton_clusters"} <= set(config):
+        raise ValueError(f"configuration {config.get('name')!r} names both "
+                         f"'clusters' and 'morton_clusters', which fill the "
+                         f"scene's cluster packs; name one")
+    for backend in {policy.effective_accel, policy.primary_accel}:
+        if backend in (None, "brute"):
+            continue
+        if backend not in WALKS:
+            raise ValueError(f"accel {backend!r} walks tables that no "
+                             f"build makes; the builds are {sorted(BUILDS)}")
+        if WALKS[backend] not in config:
+            raise ValueError(
+                f"accel {backend!r} walks the tables of the "
+                f"{WALKS[backend]!r} build, which configuration "
+                f"{config.get('name')!r} lacks")
+    return [(fn, config[key]) for key, fn in BUILDS.items() if key in config]
+
+
+def port_scene(inputs: dict, builds: list):
+    """The port's scene from the scene inputs, on the host, with the
+    acceleration builds (``accel_builds``) made."""
+    from cpu_raytracing_experiments_tpu_torch.scene import accel
+    from cpu_raytracing_experiments_tpu_torch.scene.scene import Scene
+
+    scene = Scene.from_numpy(scenes.port_arrays(inputs))
+    for fn, args in builds:
+        scene = getattr(accel, fn)(scene, **args)
+    return scene
 
 
 def power_limit_w() -> Optional[float]:
@@ -148,10 +205,6 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
     import cpu_raytracing_experiments_tpu_torch as port
     from cpu_raytracing_experiments_tpu_torch.render import estimator
     from cpu_raytracing_experiments_tpu_torch.render.api import Renderer
-    from cpu_raytracing_experiments_tpu_torch.scene import accel
-    from cpu_raytracing_experiments_tpu_torch.scene.scene import Scene
-
-    from .reference import pathtrace
 
     t_start = time.time() if t_start is None else t_start
     mf = mf or manifest.Manifest()
@@ -161,7 +214,12 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
     width, height = frame or (traffic["width"], traffic["height"])
     k = int(traffic["passes_per_update"])
     policy = port_policy(config, traffic)
-    ref_policy = reference_policy(policy)
+    ref = reference(config)
+    ref_policy = ref.policy(policy)
+    builds = accel_builds(config, policy)
+    # the viewer's page pulls the image every second (viewer.py's
+    # ``setInterval(tick, 1000)``) while its render thread accumulates
+    pull_every_s = traffic.get("resolve_every_s")
     dev = torch.device(device)
     cuda = dev.type == "cuda"
 
@@ -179,27 +237,34 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
     inputs = scenes.build(config, width, height)
     spans["scene_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    scene = Scene.from_numpy(scenes.port_arrays(inputs))
-    if "clusters" in config:
-        scene = accel.with_pallas_clusters(scene, **config["clusters"])
+    scene = port_scene(inputs, builds)
     r = Renderer(scene, policy, width, height, device=dev)
     sync()
-    # with clusters, this step is the scene's acceleration build
-    spans["accel_build_s" if "clusters" in config else "renderer_s"] = (
+    # with a build, this step is the scene's acceleration build
+    spans["accel_build_s" if builds else "renderer_s"] = (
         time.perf_counter() - t0)
     del scene
+
+    last_pull = [-float("inf")]
 
     def update():
         r.accumulate(k)
         sync()
+        if (pull_every_s is not None
+                and time.perf_counter() - last_pull[0] >= pull_every_s):
+            # the image as the viewer's /delta serves it: the resolve, the
+            # tonemap and the copy to the host
+            r.render(tonemap=True)
+            last_pull[0] = time.perf_counter()
 
     t0 = time.perf_counter()
-    update()  # warm-up: every shape of the window
+    update()  # warm-up: every shape of the window, and a pull
     spans["warmup_s"] = time.perf_counter() - t0
     r.reset_accumulator()
     first = seed & MASK
     r.state = dataclasses.replace(r.state, accumulations=(first - 1) & MASK)
     setup_s = time.time() - t_start
+    last_pull[0] = time.perf_counter()
 
     # ---- the window ----
     update_s, window_s = window.run(update, seconds, max_updates)
@@ -231,11 +296,9 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
         torch.cuda.empty_cache()
 
     # ---- the reference ----
-    rsc = pathtrace.make_scene(inputs, dev)
-    ref_buckets = pathtrace.buckets(rsc, ref_policy, pixels, first, passes,
-                                    width)
-    ref_image = pathtrace.resolve(ref_buckets, passes,
-                                  ref_policy.spp, exposure)
+    rsc = ref.make_scene(inputs, dev)
+    ref_buckets = ref.buckets(rsc, ref_policy, pixels, first, passes, width)
+    ref_image = ref.resolve(ref_buckets, passes, ref_policy.spp, exposure)
     numbers = check.compare(port_buckets, ref_buckets, port_image, ref_image)
     limits = chk["limits"]
     correct = check.judge(numbers, limits)

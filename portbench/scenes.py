@@ -6,12 +6,22 @@ reads them through ``Scene.from_numpy`` (its flat layout, returned by
 Geometry generators are copies of the ones the configurations' sources
 use, so the arrays equal those sources' (a test holds them to the port's
 own builders).
+
+A configuration's ``"meshes"`` entries are triangles, each found by its
+``kind`` in ``MESHES``: a generated mesh (``displaced_uv_sphere``,
+``displaced_icosphere``: the generator's arguments and one ``material``),
+or explicit ``rows``, each with its own ``material`` (``triangles``: ``v0``,
+``v1``, ``v2``; ``quads``: ``v0`` to ``v3``, split into (v0, v1, v2) and
+(v0, v2, v3) as the port's scene builder splits a quad). A triangle whose
+material emits is a triangle light.
 """
 from __future__ import annotations
 
 import numpy as np
 
 SENSOR_SIZE_MM = 24.0
+# the keys of a configuration that ``build`` reads
+KEYS = frozenset({"materials", "spheres", "meshes", "camera", "sky"})
 
 
 def quat_look_at(forward, up=(0.0, 1.0, 0.0)):
@@ -57,6 +67,53 @@ def _fbm(p: np.ndarray, octaves: int = 5, seed: int = 7) -> np.ndarray:
     return out / 3.0
 
 
+def icosahedron():
+    """The unit icosahedron: (vertices [12, 3] float64, faces [20, 3])."""
+    phi = (1 + np.sqrt(5)) / 2
+    v = np.array([[-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+                  [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+                  [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1]],
+                 np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                  [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                  [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                  [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]],
+                 np.int64)
+    return v, f
+
+
+def subdivide(v, f):
+    """Midpoint subdivision on the unit sphere (4x triangles)."""
+    cache = {}
+    v = list(map(tuple, v))
+
+    def midpoint(a, b):
+        key = (min(a, b), max(a, b))
+        if key not in cache:
+            m = (np.asarray(v[a]) + np.asarray(v[b])) / 2
+            m /= np.linalg.norm(m)
+            cache[key] = len(v)
+            v.append(tuple(m))
+        return cache[key]
+
+    nf = []
+    for a, b, c in f:
+        ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+        nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+    return np.asarray(v, np.float64), np.asarray(nf, np.int64)
+
+
+def displaced_icosphere(subdivisions: int, displacement: float, seed: int):
+    """An icosphere of 20 * 4^subdivisions triangles under the fBm
+    displacement: (vertices [V, 3] float32, faces [F, 3] int64)."""
+    v, f = icosahedron()
+    for _ in range(subdivisions):
+        v, f = subdivide(v, f)
+    v = v * (1.0 + displacement * _fbm(v, seed=seed)[:, None])
+    return v.astype(np.float32), f
+
+
 def displaced_uv_sphere(n_u: int, n_v: int, displacement: float, seed: int):
     """A UV sphere of 2 * n_u * n_v triangles under an fBm displacement:
     (vertices [V, 3] float32, faces [F, 3] int64)."""
@@ -75,8 +132,6 @@ def displaced_uv_sphere(n_u: int, n_v: int, displacement: float, seed: int):
     v = v * (1.0 + displacement * _fbm(v, seed=seed)[:, None])
     return v.astype(np.float32), f
 
-
-MESHES = {"displaced_uv_sphere": displaced_uv_sphere}
 
 _MATERIAL_DEFAULTS = {"albedo": (0, 0, 0), "f0": (0, 0, 0), "f80": (1, 1, 1),
                       "emission": (0, 0, 0), "transmission": (0, 0, 0),
@@ -99,16 +154,46 @@ def _camera(cam: dict, width: int, height: int) -> dict:
     }
 
 
+def _generated(generator):
+    """A mesh kind made by `generator` (the entry's other keys are its
+    arguments) in the entry's one material."""
+    def triangles(mesh: dict):
+        args = {k: v for k, v in mesh.items() if k not in ("kind",
+                                                           "material")}
+        verts, faces = generator(**args)
+        return (verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]],
+                np.full(faces.shape[0], mesh["material"], np.int32))
+    return triangles
+
+
+def _rows(*corners):
+    """A mesh kind of explicit rows of `corners` vertices and a material,
+    each row split into the fan (0, i, i + 1)."""
+    def triangles(mesh: dict):
+        fan = [(0, i, i + 1) for i in range(1, len(corners) - 1)]
+        rows = mesh["rows"]
+        tris = [[row[corners[i]] for i in tri] for row in rows for tri in fan]
+        v = np.asarray(tris, np.float32).reshape(-1, 3, 3)
+        mats = np.asarray([row["material"] for row in rows for _ in fan],
+                          np.int32)
+        return v[:, 0], v[:, 1], v[:, 2], mats
+    return triangles
+
+
+MESHES = {"displaced_uv_sphere": _generated(displaced_uv_sphere),
+          "displaced_icosphere": _generated(displaced_icosphere),
+          "triangles": _rows("v0", "v1", "v2"),
+          "quads": _rows("v0", "v1", "v2", "v3")}
+
+
 def _triangles(config: dict):
     """(v0, v1, v2 [T, 3] float32, material id [T] int32) of the meshes."""
     parts = []
     for mesh in config.get("meshes", []):
-        args = {k: v for k, v in mesh.items() if k not in ("kind",
-                                                           "material")}
-        verts, faces = MESHES[mesh["kind"]](**args)
-        parts.append((verts[faces[:, 0]], verts[faces[:, 1]],
-                      verts[faces[:, 2]],
-                      np.full(faces.shape[0], mesh["material"], np.int32)))
+        if mesh["kind"] not in MESHES:
+            raise ValueError(f"no mesh kind {mesh['kind']!r}; the kinds are "
+                             f"{sorted(MESHES)}")
+        parts.append(MESHES[mesh["kind"]](mesh))
     if not parts:
         return None
     return tuple(np.concatenate([p[k] for p in parts]) for k in range(4))
